@@ -4,21 +4,27 @@
 
 Phases, each printed on its own lines; any failure exits non-zero:
   0. the card (nvidia-smi name and power limit), torch and CUDA versions;
-  1. build the CUDA kernels from tooncrafter_tpu_torch/csrc;
+  1. build the CUDA kernels from tooncrafter_tpu_torch/csrc (flash
+     attention, fused FF, temporal conv, GN+SiLU+3x3 conv: one nvcc each,
+     all at once) and print each one's registers and spills;
   2. hold each kernel against its plain PyTorch version on the card at the
-     shapes the 320x512 interpolation path gives it, with times;
-  3. build the full-width 320x512 model (configs/inference_512_v1.0.yaml)
-     with random weights from a fixed seed in bf16, check a reduced model
-     on the card against the same model on the CPU, then answer two
-     interpolation requests (16 frames, DDIM, CFG 7.5 + rescale 0.7, the
-     middle-frame splice) through the port's Pipeline, counting kernel
-     launches.
+     shapes the 320x512 interpolation path gives it, with its time, the
+     plain version's, the one PyTorch call that computes the same function
+     where there is one (library_ms; the port never calls it) and the least
+     time the card could take (bound_ms);
+  3. check a reduced model on the card against the same model on the CPU
+     (every kernel reached, the convs at a ragged pixel tile), then build
+     the full-width 320x512 model (configs/inference_512_v1.0.yaml) with
+     random weights from a fixed seed in bf16 and answer two interpolation
+     requests (16 frames, DDIM, CFG 7.5 + rescale 0.7, the middle-frame
+     splice) through the port's Pipeline, counting kernel launches.
 The last two lines are the kernels' JSON summary and the device JSON.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import subprocess
@@ -40,38 +46,32 @@ REDUCED_MIN_PSNR = 30.0
 # decoder's last conv sees unit-variance features: outputs of a few units)
 OUTPUT_MAX_ABS = 100.0
 
-KERNELS = {
-    "_flash_mh_packed": "tooncrafter_tpu/ops/flash_attention.py:605",
-    "_flash_mh": "tooncrafter_tpu/ops/flash_attention.py:414",
-    "_flash_bh_with_lse": "tooncrafter_tpu/ops/flash_attention.py:695",
-    "_flash_bh_single": "tooncrafter_tpu/ops/flash_attention.py:313",
-}
-SOURCE = "tooncrafter_tpu_torch/csrc/flash_attention.cu"
-
-
 def phase(name: str) -> None:
     print(f"== {name}", flush=True)
 
 
-def cuda_ms(fn, reps: int) -> float:
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+def sdpa(q, k, v, scale, heads=None):
+    """The one PyTorch call for the same attention (library_ms only):
+    token-major (B, S, H*D) operands with ``heads``, else (BH, S, D)."""
+    import torch.nn.functional as F
+
+    def split(t):
+        if heads is None:
+            return t.unsqueeze(0)
+        b, s, c = t.shape
+        return t.unflatten(-1, (heads, c // heads)).transpose(1, 2)
+    return F.scaled_dot_product_attention(split(q), split(k), split(v),
+                                          scale=scale)
 
 
 def check_kernels(dev) -> dict:
     """Each kernel against its plain version at the path's shapes, timed
-    both ways; a kernel's JSON row takes the time of its first (main) shape
-    and the largest error over its shapes. Every shape is checked and
-    printed before a disagreement exits."""
+    with its plain version and its library call; a kernel's JSON row takes
+    the times and bound of its first (main) shape and the largest error over
+    its shapes. Every shape is checked and printed before a disagreement
+    exits."""
     from tooncrafter_tpu_torch.ops import flash_attention as fa
+    from tooncrafter_tpu_torch.utils import kernel_check as kc
 
     gen = torch.Generator(device=dev).manual_seed(0)
     rnd = lambda *s: torch.randn(*s, device=dev, generator=gen,
@@ -86,20 +86,29 @@ def check_kernels(dev) -> dict:
         return fa._plain_mh(qkv[..., :c], qkv[..., c:2 * c], qkv[..., 2 * c:],
                             heads, 0.125)
 
-    # (kernel, label, bf16 operands, kernel fn, plain fn, query rows
-    #  compared or None, timing reps of kernel and plain)
+    def packed_sdpa(qkv, heads):
+        c = qkv.shape[-1] // 3
+        return sdpa(qkv[..., :c], qkv[..., c:2 * c], qkv[..., 2 * c:], 0.125,
+                    heads)
+
+    # (kernel, label, bf16 operands, kernel fn, plain fn, library fn, query
+    #  rows compared or None, timing reps of kernel and plain, (BH, Sq, Sk,
+    #  D) for the bound)
     cases = []
     for label, s, c, heads in (("ds1", 2560, 320, 5), ("ds2", 640, 640, 10)):
         cases.append((
             "_flash_mh_packed", f"{label} B=32 S={s} C={c}", (rnd(32, s, 3 * c),),
             lambda qkv, h=heads: fa._flash_mh_packed(qkv, h, 0.125),
-            lambda qkv, h=heads: packed_plain(qkv, h), None, (20, 3)))
+            lambda qkv, h=heads: packed_plain(qkv, h),
+            lambda qkv, h=heads: packed_sdpa(qkv, h), None, (20, 3),
+            (32 * heads, s, s, 64)))
     qkv = rnd(32, 160, 3 * 1280)  # ds4: slices of the packed projection
     cases.append(("_flash_mh", "ds4 B=32 S=160 C=1280",
                   (qkv[..., :1280], qkv[..., 1280:2560], qkv[..., 2560:]),
                   lambda q, k, v: fa._flash_mh(q, k, v, 20, 0.125),
                   lambda q, k, v: fa._plain_mh(q, k, v, 20, 0.125),
-                  None, (50, 10)))
+                  lambda q, k, v: sdpa(q, k, v, 0.125, 20),
+                  None, (50, 10), (32 * 20, 160, 160, 64)))
     # dual-ref fusion, 8 heads x 64; level 2's plain version is compared on
     # a subset of query rows (all 20480 keys) and timed whole
     for label, sq, sk, reps in (("level2", 163840, 20480, (3, 1)),
@@ -110,18 +119,22 @@ def check_kernels(dev) -> dict:
              fold(rnd(1, sk, 512))),
             lambda q, k, v: fa._flash_bh_with_lse(q, k, v, 0.125),
             lambda q, k, v: fa._plain_bh(q, k, v, 0.125),
+            lambda q, k, v: sdpa(q, k, v, 0.125),
             (torch.arange(0, sq, 41, device=dev)[:4096]
-             if label == "level2" else None), reps))
+             if label == "level2" else None), reps, (8, sq, sk, 64)))
     # VAE mid attention, one head of 512: decoder (16 frames), encoder (1)
     for label, bh, reps in (("decoder", 16, (10, 3)), ("encoder", 1, (20, 5))):
         cases.append((
             "_flash_bh_single", f"{label} BH={bh} S=2560 D=512",
             tuple(rnd(bh, 2560, 512) for _ in range(3)),
             lambda q, k, v: fa._flash_bh_with_lse(q, k, v, 512 ** -0.5),
-            lambda q, k, v: fa._plain_bh(q, k, v, 512 ** -0.5), None, reps))
+            lambda q, k, v: fa._plain_bh(q, k, v, 512 ** -0.5),
+            lambda q, k, v: sdpa(q, k, v, 512 ** -0.5), None, reps,
+            (bh, 2560, 2560, 512)))
 
     rows, failed = {}, []
-    for name, label, args, kernel, plain, idx, (reps, plain_reps) in cases:
+    for (name, label, args, kernel, plain, library, idx,
+         (reps, plain_reps), (bh, sq, sk, d)) in cases:
         before = dict(fa.LAUNCHES)
         got = kernel(*args)
         if fa.LAUNCHES[name] != before[name] + 1:
@@ -151,33 +164,80 @@ def check_kernels(dev) -> dict:
                      f" lse_mean_abs_err={lerr.mean().item():.3e}")
             ok = ok and lerr.max().item() <= fa.LSE_MAX_ABS
             mx = max(mx, lerr.max().item())
-        ms = cuda_ms(lambda: kernel(*args), reps)
-        plain_ms = cuda_ms(lambda: plain(*args), plain_reps)
-        print(f"{line} ms={ms:.4f} plain_ms={plain_ms:.4f}"
+        ms = kc.cuda_ms(lambda: kernel(*args), reps)
+        plain_ms = kc.cuda_ms(lambda: plain(*args), plain_reps)
+        library_ms = kc.cuda_ms(lambda: library(*args), reps)
+        # QK^T and PV products; q, k, v read and the output written once
+        bound_ms, bound_by = kc.bound(4.0 * bh * sq * sk * d,
+                                      2.0 * bh * d * (2 * sq + 2 * sk))
+        print(f"{line} ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms="
+              f"{library_ms:.4f} bound_ms={bound_ms:.4f} ({bound_by})"
               + (" ok" if ok else " FAIL"), flush=True)
         if not ok:
             failed.append(f"{name} {label}")
-        row = rows.setdefault(name, {"name": name, "route": "cuda",
-                                     "source": SOURCE,
-                                     "replaces": KERNELS[name],
-                                     "max_abs_err": 0.0,
-                                     "ms": ms, "plain_ms": plain_ms})
+        row = rows.setdefault(name, new_row(name, ms, plain_ms, library_ms,
+                                            bound_ms, bound_by))
         row["max_abs_err"] = max(row["max_abs_err"], mx)
+    for case, axes in kc.fused_cases(dev):
+        r = kc.run_case(case, axes)
+        print(kc.line(case, r), flush=True)
+        if not r["ok"]:
+            failed.append(f"{case.name} {case.label}")
+        row = rows.setdefault(case.name, new_row(
+            case.name, r["ms"], r["plain_ms"], r["library_ms"],
+            r["bound_ms"], r["bound_by"]))
+        row["max_abs_err"] = max(row["max_abs_err"], r["max_abs_err"])
     if failed:
         raise SystemExit("kernels disagree with their plain versions: "
                          + "; ".join(failed))
     return rows
 
 
+def new_row(name, ms, plain_ms, library_ms, bound_ms, bound_by) -> dict:
+    from tooncrafter_tpu_torch.utils import kernel_check as kc
+
+    return {"name": name, "route": "cuda", "source": kc.SOURCES[name],
+            "replaces": kc.REPLACES[name], "max_abs_err": 0.0, "ms": ms,
+            "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by}
+
+
 def reduced_config(base):
-    """A small configuration whose shapes still reach all four kernels:
-    UNet ds1 c=320 with S=1024 (packed), ds2 c=640 with S=256 (mh), the
-    decoder's fusion at 64x64 (Sk=8192, two-pass) and 32x32 (single pass),
-    and a 512-channel VAE mid attention (d=512)."""
+    """A small configuration whose shapes still reach every kernel: UNet ds1
+    c=320 with S=1536 (packed) and its FF, ds2 c=640 with S=384 (mh) and
+    its FF, the init attention's FF at c=512 (streamed), a ds4 level at
+    c=1280 whose 8x12 frames are a ragged 96-pixel tile for the convs and
+    the temporal convs (its mid-block FF streamed), the decoder's fusion at
+    64x96 (Sk=12288, two-pass) and 32x48, its TimeStacks (temporal conv at
+    32-512 channels) and a 512-channel VAE mid attention (d=512)."""
     return base.tiny(
-        latent_h=32, latent_w=32, model_channels=320, num_res_blocks=1,
-        channel_mult=(1, 2), attention_resolutions=(1, 2),
+        latent_h=32, latent_w=48, model_channels=320, num_res_blocks=1,
+        channel_mult=(1, 2, 4), attention_resolutions=(1, 2),
         num_head_channels=64, vae_ch=32, vae_ch_mult=(1, 2, 4, 16))
+
+
+@contextlib.contextmanager
+def record_pixels():
+    """The pixel count per image of every conv and temporal-conv launch."""
+    from tooncrafter_tpu_torch.ops import spatial_conv as sc
+    from tooncrafter_tpu_torch.ops import temporal_conv as tc
+
+    seen = {"winograd_gn_silu_conv3x3": [], "_pallas_tconv": []}
+    conv, tconv = sc._launch_conv, tc._launch_tconv
+
+    def conv_rec(x, *args, **kw):
+        seen["winograd_gn_silu_conv3x3"].append(x.shape[1] * x.shape[2])
+        return conv(x, *args, **kw)
+
+    def tconv_rec(x, *args, **kw):
+        seen["_pallas_tconv"].append(x.shape[2])
+        return tconv(x, *args, **kw)
+
+    sc._launch_conv, tc._launch_tconv = conv_rec, tconv_rec
+    try:
+        yield seen
+    finally:
+        sc._launch_conv, tc._launch_tconv = conv, tconv
 
 
 def small_inputs(cfg, seed, device):
@@ -202,7 +262,8 @@ def check_reduced_model(dev) -> None:
 
     from tooncrafter_tpu_torch.config import ModelConfig
     from tooncrafter_tpu_torch.models.diffusion import Pipeline, ToonCrafter
-    from tooncrafter_tpu_torch.ops import flash_attention as fa
+    from tooncrafter_tpu_torch.ops import _launch
+    from tooncrafter_tpu_torch.utils import kernel_check as kc
     from tooncrafter_tpu_torch.utils.weights import init_random_
 
     cfg = reduced_config(ModelConfig())
@@ -216,10 +277,11 @@ def check_reduced_model(dev) -> None:
                                 ("gpu", gpu_model.eval(), dev)):
         pipe = Pipeline(model, ddim_steps=3, eta=0.0, perframe_ae=True)
         video, tokens, null, fs, x_T = small_inputs(cfg, 2, device)
-        fa.reset_launch_counts()
-        outs[name] = pipe(video, tokens, null, fs, x_T=x_T).float().cpu()
+        kc.reset_launch_counts()
+        with record_pixels() as pixels:
+            outs[name] = pipe(video, tokens, null, fs, x_T=x_T).float().cpu()
         if name == "gpu":
-            hit = dict(fa.LAUNCHES)
+            hit = kc.launch_counts()
     err = (outs["gpu"] - outs["cpu"]).abs()
     mse = err.square().mean(dim=(2, 3, 4))
     psnr = (10 * torch.log10(4.0 / mse.clamp_min(1e-12))).min().item()
@@ -228,9 +290,14 @@ def check_reduced_model(dev) -> None:
           f", max_abs_err {err.max().item():.4e}, output range "
           f"[{outs['cpu'].min().item():.3f}, {outs['cpu'].max().item():.3f}]"
           f", kernel launches {hit}", flush=True)
-    if not (psnr >= REDUCED_MIN_PSNR and all(hit.values())):
-        raise SystemExit("reduced model: the card disagrees with the CPU "
-                         "or a kernel was not reached")
+    ragged = {k: sorted({p for p in v if p % _launch.pixel_tile(p)})
+              for k, v in pixels.items()}
+    print(f"reduced model: pixel counts with a ragged last tile {ragged}",
+          flush=True)
+    if not (psnr >= REDUCED_MIN_PSNR and all(hit.values())
+            and all(ragged.values())):
+        raise SystemExit("reduced model: the card disagrees with the CPU, a "
+                         "kernel was not reached or no ragged tile was")
 
 
 def answer_requests(dev, ddim_steps: int) -> dict:
@@ -239,8 +306,8 @@ def answer_requests(dev, ddim_steps: int) -> dict:
 
     from tooncrafter_tpu_torch.config import model_config_from_yaml
     from tooncrafter_tpu_torch.models.diffusion import Pipeline, ToonCrafter
-    from tooncrafter_tpu_torch.ops import flash_attention as fa
     from tooncrafter_tpu_torch.sampling.ddim import GuidanceConfig
+    from tooncrafter_tpu_torch.utils import kernel_check as kc
     from tooncrafter_tpu_torch.utils.weights import init_random_
 
     cfg = dataclasses.replace(
@@ -264,7 +331,7 @@ def answer_requests(dev, ddim_steps: int) -> dict:
     gen = torch.Generator(dev).manual_seed(SEED)
     requests = [small_inputs(cfg, 10 + r, dev)[:4] for r in range(2)]
     torch.cuda.reset_peak_memory_stats(dev)
-    fa.reset_launch_counts()
+    kc.reset_launch_counts()
     outs = []
     for r, (video, tokens, null, fs) in enumerate(requests):
         t0 = time.perf_counter()
@@ -274,7 +341,7 @@ def answer_requests(dev, ddim_steps: int) -> dict:
               "seconds " + ", ".join(f"{k} {v:.2f}"
                                      for k, v in pipe.timings.items()),
               flush=True)
-    counts = dict(fa.LAUNCHES)
+    counts = kc.launch_counts()
     peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
     print(f"peak memory allocated {peak:.2f} GiB; kernel launches {counts}",
           flush=True)
@@ -313,19 +380,21 @@ def main(argv=None) -> int:
 
     sys.path.insert(0, REPO)
     from tooncrafter_tpu_torch.ops import _build
-    from tooncrafter_tpu_torch.ops import flash_attention as fa
+    from tooncrafter_tpu_torch.utils import kernel_check as kc
 
     phase("1 build")
     t0 = time.perf_counter()
-    fa._library()
-    print(f"built flash_attention in {time.perf_counter() - t0:.1f} s "
-          f"(nvcc {_build.BUILD_SECONDS['flash_attention']:.1f} s)",
-          flush=True)
-    logs = sorted(_build.BUILD_DIR.glob("libflash_attention_*.log"),
-                  key=lambda p: p.stat().st_mtime)
-    for line in (logs[-1].read_text().splitlines() if logs else []):
-        if "registers" in line or "spill" in line:
-            print("ptxas: " + line.strip().removeprefix("ptxas info    : "))
+    nvcc = kc.build_all()
+    print(f"built {len(nvcc)} libraries in {time.perf_counter() - t0:.1f} s"
+          " (nvcc " + ", ".join(f"{k} {v:.1f} s" for k, v in nvcc.items())
+          + ")", flush=True)
+    for name in nvcc:
+        logs = sorted(_build.BUILD_DIR.glob(f"lib{name}_*.log"),
+                      key=lambda p: p.stat().st_mtime)
+        for line in (logs[-1].read_text().splitlines() if logs else []):
+            if "registers" in line or "spill" in line or "Compiling" in line:
+                print(f"ptxas {name}: "
+                      + line.strip().removeprefix("ptxas info    : "))
 
     phase("2 kernels against their plain versions")
     rows = check_kernels(dev)
@@ -334,9 +403,9 @@ def main(argv=None) -> int:
     phase(f"3b two full-width requests, DDIM-{args.ddim_steps}")
     counts = answer_requests(dev, args.ddim_steps)
     summary = []
-    for name in KERNELS:
-        rows[name]["launches"] = counts[name]
-        summary.append(rows[name])
+    for name, row in rows.items():
+        row["launches"] = counts[name]
+        summary.append(row)
     print(json.dumps({"kernels": summary}))
     if not all(counts.values()):
         print(f"a kernel of the path was never launched: {counts}",

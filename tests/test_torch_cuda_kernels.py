@@ -1,24 +1,36 @@
-"""The port's CUDA flash-attention kernel against its plain versions, on
-the card: small shapes with ragged edges (lengths that are not multiples
-of the kernel's 64-row tiles) and the strided packed/token-major views.
-The CUDA kernel has no CPU mode, so without a card these tests skip.
+"""The port's CUDA kernels against their plain versions, on the card:
+small shapes with ragged edges (lengths and pixel counts that are not
+multiples of the kernels' tiles, odd token counts, Cin != Cout), the strided
+packed/token-major attention views, and a mutation check of the fused
+kernels' bounds: broken builds of each source (output x1.01, a skipped K
+chunk, wrong sums) must fail at every path shape of ``kernel_check``. The
+CUDA kernels have no CPU mode, so without a card these tests skip.
 
-    python -m pytest tests/test_torch_cuda_kernels.py -m cuda
+    python -m pytest tests/test_torch_cuda_kernels.py --noconftest -q -s
 """
+
+import shutil
 
 import pytest
 import torch
 
+from tooncrafter_tpu_torch.ops import _build
 from tooncrafter_tpu_torch.ops import flash_attention as fa
+from tooncrafter_tpu_torch.ops import fused_ff as ff
+from tooncrafter_tpu_torch.ops import spatial_conv as sc
+from tooncrafter_tpu_torch.ops import temporal_conv as tc
+from tooncrafter_tpu_torch.utils import kernel_check as kc
 
 pytestmark = pytest.mark.cuda
+
 
 @pytest.fixture
 def dev():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
-    fa.reset_launch_counts()
-    return torch.device("cuda", 0)
+    kc.reset_launch_counts()
+    with kc.fp32_reference():
+        yield torch.device("cuda", 0)
 
 
 def _rand(dev, seed, *shape):
@@ -78,3 +90,116 @@ def test_flash_attention_entry_counts_one_launch(dev):
     q3 = q[:, :, 0].float()
     _close(out[:, :, 0], fa._plain_bh(q3, q3, q3, 512 ** -0.5)[0])
     assert fa.LAUNCHES["_flash_bh_single"] == 1
+
+
+def _fused_close(out, ref):
+    torch.cuda.synchronize()
+    err = (out.float() - ref).abs()
+    max_bound, mean_bound = fa.error_bounds(ref)
+    assert err.max().item() <= max_bound, (err.max().item(), max_bound)
+    assert err.mean().item() <= mean_bound, (err.mean().item(), mean_bound)
+
+
+def _sums_close(y, s1, s2, axes):
+    err, ok = kc._stats_error(y, s1, s2, axes)
+    assert ok, err
+
+
+@pytest.mark.parametrize("n,c", [(77, 320), (333, 512), (45, 1280)])
+def test_ff_kernel_odd_token_counts(dev, n, c):
+    d = 4 * c
+    x = _rand(dev, 10, n, c)
+    w1, b1 = _rand(dev, 11, 2 * d, c) * c ** -0.5, _rand(dev, 12, 2 * d)
+    w2, b2 = _rand(dev, 13, c, d) * d ** -0.5, _rand(dev, 14, c)
+    lw = 1 + 0.1 * _rand(dev, 15, c).float()
+    lb = 0.1 * _rand(dev, 16, c).float()
+    out = ff.fused_geglu_ff(x, w1, b1, w2, b2, lw, lb, 1e-5, True)
+    ref = ff._plain_ff(*_f(x, w1, b1, w2, b2), lw, lb, 1e-5, True,
+                       cdt=torch.bfloat16)
+    _fused_close(out, ref)
+    assert sum(ff.LAUNCHES.values()) == 1
+
+
+@pytest.mark.parametrize("p,c", [(100, 64), (37, 320)])
+def test_tconv_kernel_ragged_pixels(dev, p, c):
+    x = _rand(dev, 20, 2, 3, p, c)
+    w3 = _rand(dev, 21, c, 3, c) * (3 * c) ** -0.5
+    bias, res = _rand(dev, 22, c), _rand(dev, 23, 2, 3, p, c)
+    a = 1 + 0.2 * _rand(dev, 24, 2, c).float()
+    b = 0.1 * _rand(dev, 25, 2, c).float()
+    scale = torch.tensor(0.3, device=dev)
+    y, s1, s2 = tc._pallas_tconv(x, w3, bias, a, b, res, scale, True, True)
+    ref = tc._plain_tconv(*_f(x, w3, bias), a, b, res.float(), scale, True,
+                          False, cdt=torch.bfloat16)
+    _fused_close(y, ref)
+    _sums_close(y, s1, s2, (2,))
+    assert tc.LAUNCHES["_pallas_tconv"] == 1
+
+
+@pytest.mark.parametrize("h,w,cin,cout", [(7, 9, 96, 40), (5, 8, 64, 136)])
+def test_conv_kernel_ragged_tile_and_cin_ne_cout(dev, h, w, cin, cout):
+    x = _rand(dev, 30, 3, h, w, cin)
+    a = 1 + 0.2 * _rand(dev, 31, 3, cin).float()
+    b = 0.1 * _rand(dev, 32, 3, cin).float()
+    weight = _rand(dev, 33, cout, cin, 3, 3) * (9 * cin) ** -0.5
+    bias, res = _rand(dev, 34, cout), _rand(dev, 35, 3, h, w, cout)
+    y, s1, s2 = sc.winograd_gn_silu_conv3x3(x, a, b, weight, bias, res,
+                                            stats=True)
+    ref = sc._plain_conv3x3(x.float(), a, b, *_f(weight, bias, res), True,
+                            False, cdt=torch.bfloat16)
+    _fused_close(y, ref)
+    _sums_close(y, s1, s2, (1, 2))
+    assert sc.LAUNCHES["winograd_gn_silu_conv3x3"] == 1
+
+
+# (what is broken, the library's source, the file edited, text replaced,
+#  replacement); the two convolutions share csrc/implicit_gemm.cuh, and the
+#  edited copy is built into the one library under test
+_IGEMM = "implicit_gemm.cuh"
+MUTATIONS = [
+    ("output x1.01", "fused_ff.cu", "fused_ff.cu", "pack_bf16(y0, y1)",
+     "pack_bf16(1.01f * y0, 1.01f * y1)"),
+    ("skipped K chunk", "fused_ff.cu", "fused_ff.cu",
+     "for (int j0 = 0; j0 < p.d; j0 += DK) {",
+     "for (int j0 = 0; j0 < p.d; j0 += DK) {\n    if (j0 == DK) continue;"),
+] + [
+    m for src in ("temporal_conv.cu", "gn_silu_conv3x3.cu") for m in (
+        ("output x1.01", src, _IGEMM, "pack_bf16(y0, y1)",
+         "pack_bf16(1.01f * y0, 1.01f * y1)"),
+        ("skipped K chunk", src, _IGEMM, "const bool ok = n < p.cout;",
+         "const bool ok = n < p.cout && !(tap == 1 && k0 == kBK);"),
+        ("wrong stats", src, _IGEMM, "p.s2[o] = sStat[2 * BN + c]",
+         "p.s2[o] = sStat[0 * BN + c]"))
+]
+MODULE_OF = {"fused_ff.cu": ff, "temporal_conv.cu": tc,
+             "gn_silu_conv3x3.cu": sc}
+
+
+@pytest.mark.parametrize("what,src,edited,old,new", MUTATIONS,
+                         ids=[f"{m[0]}-{m[1]}" for m in MUTATIONS])
+def test_mutated_kernel_fails_at_every_path_shape(dev, tmp_path, monkeypatch,
+                                                  what, src, edited, old, new):
+    """A broken copy of the source, built outside the package, must fail
+    the check of chip_smoke.py phase 2 at every path shape of its kernel
+    (for wrong sums: every shape that has sums)."""
+    for f in _build.CSRC.iterdir():
+        if f.suffix in (".cu", ".cuh"):
+            shutil.copy(f, tmp_path / f.name)
+    text = (tmp_path / edited).read_text()
+    assert text.count(old) == 1, (edited, old)
+    (tmp_path / edited).write_text(text.replace(old, new))
+    mod = MODULE_OF[src]
+    name, sources = mod.LIBRARY
+    monkeypatch.setattr(mod, "_LIB", mod.bind(
+        _build.load_library(name, sources, csrc=tmp_path)))
+    checked = 0
+    for case, axes in kc.fused_cases(dev):
+        if case.name not in mod.LAUNCHES:
+            continue
+        if what == "wrong stats" and axes is None:
+            continue
+        row = kc.run_case(case, axes, timed=False)
+        print(f"{what} in {src}: {kc.line(case, row)}")
+        assert not row["ok"], f"{what} passed at {case.label}"
+        checked += 1
+    assert checked >= 2

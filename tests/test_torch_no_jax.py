@@ -9,28 +9,53 @@ import pytest
 import torch
 
 from tooncrafter_tpu_torch.ops import _build
+from tooncrafter_tpu_torch.ops import _launch
 from tooncrafter_tpu_torch.ops import flash_attention as fa
+from tooncrafter_tpu_torch.ops import fused_ff as ff
+from tooncrafter_tpu_torch.ops import spatial_conv as sc
+from tooncrafter_tpu_torch.ops import temporal_conv as tc
+from tooncrafter_tpu_torch.utils import kernel_check as kc
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
+# A meta-path finder makes jax, flax and the JAX package unimportable, then
+# every module of the port is imported (the CLI included) and the tiny
+# pipeline runs.
 _NO_JAX = """
+import importlib
+import pkgutil
 import sys
+
+BLOCKED = ("jax", "flax", "tooncrafter_tpu")
+
+
+class Block:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in BLOCKED:
+            raise ImportError(f"blocked import of {name}")
+        return None
+
+
+sys.meta_path.insert(0, Block())
 import torch
-from tooncrafter_tpu_torch.cli import inference
+import tooncrafter_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(
+    tooncrafter_tpu_torch.__path__, "tooncrafter_tpu_torch.")]
+assert "tooncrafter_tpu_torch.cli.inference" in names, names
+for name in names:
+    importlib.import_module(name)
 from tooncrafter_tpu_torch.config import ModelConfig, model_config_from_yaml
 from tooncrafter_tpu_torch.models.diffusion import Pipeline, ToonCrafter
-from tooncrafter_tpu_torch.utils.weights import from_jax_params, init_random_
+from tooncrafter_tpu_torch.utils.weights import init_random_
 model = ToonCrafter(ModelConfig().tiny()).eval()
 init_random_(model, torch.Generator().manual_seed(0))
-c = model.config
 pipe = Pipeline(model, ddim_steps=1)
 out = pipe(torch.zeros(1, 4, 32, 32, 3), torch.zeros(1, 77, dtype=torch.long),
            torch.zeros(1, 77, dtype=torch.long), torch.full((1,), 10.0),
            generator=torch.Generator().manual_seed(0))
 assert out.shape == (1, 4, 32, 32, 3) and torch.isfinite(out).all()
 assert model_config_from_yaml("configs/inference_512_v1.0.yaml").perframe_ae
-bad = sorted(m for m in sys.modules if m == "jax" or m.startswith(
-    ("jax.", "flax", "tooncrafter_tpu.models", "tooncrafter_tpu.ops")))
+bad = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 assert not bad, bad
 print("ok")
 """
@@ -43,15 +68,28 @@ def test_port_imports_and_runs_without_jax():
     assert r.returncode == 0 and r.stdout.strip() == "ok", r.stderr[-3000:]
 
 
-def test_port_sources_import_no_jax():
+_FORBIDDEN = ("import jax", "from jax", "import flax", "from flax",
+              "import tooncrafter_tpu ", "import tooncrafter_tpu.",
+              "import tooncrafter_tpu,", "from tooncrafter_tpu.",
+              "from tooncrafter_tpu import")
+
+
+def _port_sources():
+    yield os.path.join(REPO, "chip_smoke.py")
     pkg = os.path.join(REPO, "tooncrafter_tpu_torch")
     for root, _, files in os.walk(pkg):
         for f in files:
             if f.endswith(".py"):
-                for line in open(os.path.join(root, f)):
-                    s = line.strip()
-                    assert not s.startswith(("import jax", "from jax",
-                                             "import flax", "from flax")), f
+                yield os.path.join(root, f)
+
+
+def test_port_sources_import_no_jax():
+    for path in _port_sources():
+        for line in open(path):
+            # the trailing space lets "import tooncrafter_tpu " match a
+            # bare import while "import tooncrafter_tpu_torch" passes
+            s = line.strip() + " "
+            assert not s.startswith(_FORBIDDEN), (path, line)
 
 
 @pytest.fixture
@@ -60,16 +98,21 @@ def kernel_library_absent(monkeypatch):
     fail as it does where nvcc is missing."""
     def no_nvcc(*a, **k):
         raise FileNotFoundError("nvcc not found")
-    monkeypatch.setattr(fa, "_is_cuda", lambda t: t.device.type != "cpu")
-    monkeypatch.setattr(fa, "_LIB", None)
+    monkeypatch.setattr(_launch, "is_cuda", lambda t: t.device.type != "cpu")
+    for mod in kc.MODULES:
+        monkeypatch.setattr(mod, "_LIB", None)
     monkeypatch.setattr(_build, "load_library", no_nvcc)
-    fa.reset_launch_counts()
+    kc.reset_launch_counts()
     yield
-    assert not any(fa.LAUNCHES.values())
+    assert not any(kc.launch_counts().values())
 
 
 def _meta(*shape):
     return torch.empty(*shape, device="meta", dtype=torch.bfloat16)
+
+
+def _meta_f32(*shape):
+    return torch.empty(*shape, device="meta", dtype=torch.float32)
 
 
 @pytest.mark.parametrize("call", [
@@ -83,6 +126,13 @@ def _meta(*shape):
     lambda: fa.flash_attention_packed(_meta(2, 640, 1920), 10),
     lambda: fa.flash_attention(_meta(1, 4096, 8, 64), _meta(1, 8192, 8, 64),
                                _meta(1, 8192, 8, 64)),
+    lambda: ff.fused_geglu_ff(_meta(64, 320), _meta(2560, 320),
+                              _meta(2560), _meta(320, 1280), _meta(320)),
+    lambda: tc._pallas_tconv(_meta(2, 4, 64, 64), _meta(64, 3, 64),
+                             _meta(64)),
+    lambda: sc.winograd_gn_silu_conv3x3(
+        _meta(2, 8, 8, 64), _meta_f32(2, 64), _meta_f32(2, 64),
+        _meta(64, 64, 3, 3), _meta(64)),
 ])
 def test_cuda_wrappers_raise_without_their_kernel(kernel_library_absent,
                                                   call):

@@ -11,7 +11,10 @@ inference.py parser):
       --frame_stride 10 --seed 123
 
 It runs on one CUDA device and refuses to start without one. Without
---ckpt_path the weights are random, drawn from --seed.
+--ckpt_path the weights are random, drawn from --seed. Optional packages:
+Pillow reads the input images; OpenCV writes mp4 (without it each clip is
+written as PNG frames through Pillow); ``regex`` is needed only with
+--bpe_path (the CLIP tokenizer's pattern).
 """
 
 from __future__ import annotations
@@ -62,7 +65,7 @@ def get_parser():
 def load_data_prompts(data_dir, video_size, video_frames, interp):
     """Image pairs (or single images) + prompts.txt -> (names, clips
     (T, H, W, 3) in [-1, 1], prompts)."""
-    from tooncrafter_tpu.utils.video_io import load_image
+    from tooncrafter_tpu_torch.utils.video_io import load_image
     from tooncrafter_tpu_torch.ops.resize import center_crop_resize
 
     prompt_files = sorted(glob.glob(os.path.join(data_dir, "*.txt")))
@@ -108,10 +111,10 @@ def build_model(args, device):
     with torch.device(device):
         model = ToonCrafter(cfg)
     if args.ckpt_path:
-        from tooncrafter_tpu.utils.checkpoint import load_torch_state_dict
-        sd = {k: torch.from_numpy(v)
-              for k, v in load_torch_state_dict(args.ckpt_path).items()}
-        missing, _ = model.load_state_dict(sd, strict=False)
+        from tooncrafter_tpu_torch.utils.checkpoint import \
+            load_torch_state_dict
+        missing, _ = model.load_state_dict(
+            load_torch_state_dict(args.ckpt_path), strict=False)
         if missing:
             print(f"[warn] {len(missing)} params missing from ckpt")
     else:
@@ -126,10 +129,10 @@ def main(argv=None):
         raise SystemExit("the PyTorch port's inference runs on a CUDA "
                          "device; none is available")
     device = torch.device("cuda", 0)
-    from tooncrafter_tpu.utils.tokenizer import ClipTokenizer
-    from tooncrafter_tpu.utils.video_io import write_video
     from tooncrafter_tpu_torch.models.diffusion import Pipeline
     from tooncrafter_tpu_torch.sampling.ddim import GuidanceConfig
+    from tooncrafter_tpu_torch.utils.tokenizer import ClipTokenizer
+    from tooncrafter_tpu_torch.utils.video_io import write_video
 
     t_start = time.time()
     model = build_model(args, device)

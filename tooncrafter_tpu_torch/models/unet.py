@@ -7,9 +7,17 @@ text tokens + 16 image tokens per frame, routed per frame.
 
 Video tensors are (B, T, H, W, C); spatial modules run on (B*T, H, W, C).
 Module and parameter names follow the upstream ``openaimodel3d`` state dict
-(``input_blocks.1.0.in_layers.0.weight`` ...). Spatial self-attention goes
-through the packed flash kernels; the GEGLU feed-forward, temporal
-attention, (3,1,1) temporal conv and GN+SiLU+3x3 conv are plain PyTorch.
+(``input_blocks.1.0.in_layers.0.weight`` ...).
+
+Inference (eval mode, or dropout 0: where the JAX package's ``fused`` flag
+is true) takes the fused branch: spatial self-attention through the packed
+flash kernels; ``ff(norm3(x)) + x`` as one fused GEGLU feed-forward; each
+GroupNorm + SiLU folded into a per-sample affine (A, B) that the next
+conv (the GN+SiLU+3x3 conv, the (3,1,1) temporal conv) applies as it
+reads its input, each conv emitting the per-channel sums that feed the
+next norm, and the ResBlock's time embedding folded into that affine.
+The unfused branch keeps dropout where upstream has it. Temporal attention
+is plain PyTorch.
 """
 
 from __future__ import annotations
@@ -21,12 +29,15 @@ import torch.nn.functional as F
 from torch import nn
 
 from tooncrafter_tpu_torch.ops import flash_attention as fa
+from tooncrafter_tpu_torch.ops import _launch
+from tooncrafter_tpu_torch.ops.fused_ff import fused_geglu_ff, permute_k
 from tooncrafter_tpu_torch.ops.attention import (attention,
                                                  temporal_attention_inplace)
 from tooncrafter_tpu_torch.ops.norms import GroupNorm, LayerNorm
 from tooncrafter_tpu_torch.ops.schedule import timestep_embedding
 from tooncrafter_tpu_torch.ops.spatial_conv import (Conv1d1, Conv1x1, Conv2d,
-                                                    Downsample, Upsample)
+                                                    Downsample, Upsample,
+                                                    gn_silu_conv3x3)
 from tooncrafter_tpu_torch.ops.temporal_conv import TemporalConv3
 
 
@@ -44,13 +55,28 @@ class TemporalConvBlock(nn.Module):
                 GroupNorm(c, 1e-5, act=True), nn.SiLU(), nn.Dropout(0.1),
                 TemporalConv3(c, c)))
 
-    def forward(self, x):
+    def forward(self, x, stats=None):
+        """x: (B, T, H, W, C); ``stats`` (s1, s2), each (B, C): sums of x
+        over (T, H, W) from the producer, for conv1's norm."""
+        if self.training and self.conv2[2].p > 0:
+            h = x
+            for i in (1, 2, 3, 4):
+                seq = getattr(self, f"conv{i}")
+                h = seq[0](h)
+                if i > 1:
+                    h = seq[2](h)
+                h = seq[-1](h, residual=x if i == 4 else None)
+            return h
+        # each conv's stats epilogue feeds the next norm; the closing
+        # residual rides conv4's epilogue
         h = x
-        for i in (1, 2, 3, 4):
+        for i in (1, 2, 3):
             seq = getattr(self, f"conv{i}")
-            conv = seq[-1]
-            h = conv(seq[0](h), residual=x if i == 4 else None)
-        return h
+            h, s1, s2 = seq[-1].fused(h, seq[0].folded(h, stats=stats),
+                                      return_stats=True)
+            stats = (s1.sum(1), s2.sum(1))  # per-frame -> over (T, H, W)
+        return self.conv4[-1].fused(h, self.conv4[0].folded(h, stats=stats),
+                                    residual=x)
 
 
 class ResBlock(nn.Module):
@@ -71,12 +97,28 @@ class ResBlock(nn.Module):
         self.temopral_conv = TemporalConvBlock(cout)  # upstream spelling
 
     def forward(self, x, emb, num_frames: int):
-        h = self.in_layers[2](self.in_layers[0](x))
         e = self.emb_layers[1](F.silu(emb))
-        h = self.out_layers[3](self.out_layers[0](h, shift=e))
-        h = self.skip_connection(x) + h
-        h5 = h.reshape((-1, num_frames) + h.shape[1:])
-        return self.temopral_conv(h5).reshape(h.shape)
+        skip = self.skip_connection(x)
+        if self.training and self.out_layers[2].p > 0:
+            h = self.in_layers[2](self.in_layers[0](x))
+            h = self.out_layers[2](self.out_layers[0](h, shift=e))
+            h = skip + self.out_layers[3](h)
+            h5 = h.reshape((-1, num_frames) + h.shape[1:])
+            return self.temopral_conv(h5).reshape(h.shape)
+        # in_conv's sums feed out_norm, whose affine folds the time
+        # embedding; out_conv adds the skip and its sums, over (T, H, W),
+        # seed the temporal block's first norm
+        in_norm, out_norm = self.in_layers[0], self.out_layers[0]
+        h, s1, s2 = gn_silu_conv3x3(x, in_norm.folded(x), self.in_layers[2],
+                                    return_stats=True)
+        aff = out_norm.folded(h, shift=e, stats=(s1, s2))
+        h, s1, s2 = gn_silu_conv3x3(h, aff, self.out_layers[3], residual=skip,
+                                    return_stats=True)
+        b = h.shape[0] // num_frames
+        tstats = (s1.reshape(b, num_frames, -1).sum(1),
+                  s2.reshape(b, num_frames, -1).sum(1))
+        h5 = h.reshape((b, num_frames) + h.shape[1:])
+        return self.temopral_conv(h5, stats=tstats).reshape(h.shape)
 
 
 class CrossAttention(nn.Module):
@@ -152,8 +194,7 @@ class GEGLU(nn.Module):
 
 
 class FeedForward(nn.Module):
-    """GEGLU feed-forward, ``net`` = [GEGLU, Dropout, Linear]. Plain
-    version of the TPU kernel ops/fused_ff.py::_pallas_ff."""
+    """GEGLU feed-forward, ``net`` = [GEGLU, Dropout, Linear]."""
 
     def __init__(self, dim: int, mult: int = 4):
         super().__init__()
@@ -161,7 +202,19 @@ class FeedForward(nn.Module):
                                  nn.Linear(dim * mult, dim))
 
     def forward(self, x):
-        return self.net[2](self.net[0](x))
+        return self.net[2](self.net[1](self.net[0](x)))
+
+    def fused(self, x, norm: nn.LayerNorm):
+        """ff(norm(x)) + x in one call of the fused feed-forward (the
+        LayerNorm prologue, the residual in the epilogue)."""
+        proj, out = self.net[0].proj, self.net[2]
+        w1p = w2p = None
+        if _launch.is_cuda(x):  # the weights in the kernel's layout, kept
+            w1p = _launch.kernel_layout(proj, proj.weight, permute_k)
+            w2p = _launch.kernel_layout(out, out.weight, permute_k)
+        return fused_geglu_ff(x, proj.weight, proj.bias, out.weight,
+                              out.bias, norm.weight, norm.bias, norm.eps,
+                              residual=True, w1p=w1p, w2p=w2p)
 
 
 class BasicTransformerBlock(nn.Module):
@@ -183,7 +236,9 @@ class BasicTransformerBlock(nn.Module):
         x = self.attn1(self.norm1(x), None, mask) + x
         x = self.attn2(self.norm2(x), context if self.cross else None,
                        mask) + x
-        return self.ff(self.norm3(x)) + x
+        if self.training and self.ff.net[1].p > 0:
+            return self.ff(self.norm3(x)) + x
+        return self.ff.fused(x, self.norm3)
 
 
 class SpatialTransformer(nn.Module):

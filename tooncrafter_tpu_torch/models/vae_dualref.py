@@ -2,7 +2,8 @@
 (tooncrafter_tpu/models/vae_dualref.py).
 
   * VideoResBlock: a per-frame ResnetBlock, then a (3,1,1) temporal
-    residual stack merged as x + sigmoid(mix_factor) * stack(x).
+    residual stack merged as x + sigmoid(mix_factor) * stack(x), its two
+    convs through the fused temporal conv kernel (ops/temporal_conv.py).
   * mid attention: per-frame single-head self-attention (d = C = 512 at
     full width, the d=512 flash kernel).
   * FusionCrossAttention at levels {2, 3}: per-frame GroupNorm, 8 heads of
@@ -36,7 +37,10 @@ def _fold(x):
 class TimeStack(nn.Module):
     """GN+SiLU+Conv3d(3,1,1) x2; GN statistics span T, H and W (eps 1e-5).
     ``in_layers`` = [GN, SiLU, conv], ``out_layers`` = [GN, SiLU, Dropout,
-    conv] as upstream."""
+    conv] as upstream. Its dropout is 0, so it always runs fused, as the
+    JAX package does: each GN+SiLU is a folded affine applied in the next
+    temporal conv's prologue, in_conv's per-frame sums feed out_norm, and
+    the alpha merge rides out_conv's epilogue as scale + residual."""
 
     def __init__(self, c: int):
         super().__init__()
@@ -48,9 +52,11 @@ class TimeStack(nn.Module):
 
     def forward(self, x, merge_scale):
         """x + merge_scale * stack(x)."""
-        h = self.in_layers[2](self.in_layers[0](x))
-        return self.out_layers[3](self.out_layers[0](h), residual=x,
-                                  out_scale=merge_scale)
+        h, s1, s2 = self.in_layers[2].fused(x, self.in_layers[0].folded(x),
+                                            return_stats=True)
+        aff = self.out_layers[0].folded(h, stats=(s1.sum(1), s2.sum(1)))
+        return self.out_layers[3].fused(h, aff, residual=x,
+                                        out_scale=merge_scale)
 
 
 class VideoResBlock(ResnetBlock):
@@ -63,8 +69,8 @@ class VideoResBlock(ResnetBlock):
         b, t = x.shape[:2]
         x = super().forward(_fold(x))
         x = x.reshape((b, t) + x.shape[1:])
-        # a*(x + stack(x)) + (1-a)*x == x + a*stack(x)
-        return self.time_stack(x, torch.sigmoid(self.mix_factor)[0])
+        # a*(x + stack(x)) + (1-a)*x == x + a*stack(x), a in fp32
+        return self.time_stack(x, torch.sigmoid(self.mix_factor.float())[0])
 
 
 class AE3DConv(Conv2d):

@@ -33,6 +33,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from tooncrafter_tpu_torch.ops import _build
+from tooncrafter_tpu_torch.ops import _launch as _checks
 
 _KERNEL_HEAD_DIMS = (64, 512)
 # rows of q processed at once by the plain version: bounds its fp32 score
@@ -177,36 +178,28 @@ def error_bounds(ref: torch.Tensor) -> Tuple[float, float]:
 # the kernel launch
 # ---------------------------------------------------------------------------
 
+LIBRARY = ("flash_attention", ("flash_attention.cu",))
 _LIB: Optional[ctypes.CDLL] = None
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    ll, vp = ctypes.c_longlong, ctypes.c_void_p
+    lib.tc_flash_fwd.argtypes = (
+        [ctypes.c_int, vp, vp, vp, vp, vp] + [ll] * 12
+        + [ctypes.c_int] * 4 + [ctypes.c_float, vp])
+    lib.tc_flash_fwd.restype = ctypes.c_int
+    return lib
 
 
 def _library() -> ctypes.CDLL:
     global _LIB
     if _LIB is None:
-        lib = _build.load_library("flash_attention", ["flash_attention.cu"])
-        ll, vp = ctypes.c_longlong, ctypes.c_void_p
-        lib.tc_flash_fwd.argtypes = (
-            [ctypes.c_int, vp, vp, vp, vp, vp] + [ll] * 12
-            + [ctypes.c_int] * 4 + [ctypes.c_float, vp])
-        lib.tc_flash_fwd.restype = ctypes.c_int
-        _LIB = lib
+        _LIB = bind(_build.load_library(*LIBRARY))
     return _LIB
 
 
-def _is_cuda(t: torch.Tensor) -> bool:
-    return t.is_cuda
-
-
 def _on_cpu(*ts: torch.Tensor) -> bool:
-    """True when the call takes the plain version; raises for tensors that
-    are neither all CPU nor all CUDA."""
-    if all(not _is_cuda(t) and t.device.type == "cpu" for t in ts):
-        return True
-    if all(_is_cuda(t) for t in ts):
-        return False
-    raise ValueError("flash attention takes CPU tensors (plain version) or "
-                     "CUDA tensors (kernel); got "
-                     + ", ".join(str(t.device) for t in ts))
+    return _checks.on_cpu("flash attention", *ts)
 
 
 def _check_operand(name: str, t: torch.Tensor, device) -> None:

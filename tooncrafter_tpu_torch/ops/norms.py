@@ -32,6 +32,55 @@ def group_norm(x, weight, bias, num_groups: int = 32, eps: float = 1e-6,
     return F.silu(y) if act else y
 
 
+def gn_affine_from_stats(s1, s2, spatial: int, weight, bias,
+                         num_groups: int = 32, eps: float = 1e-6,
+                         shift: Optional[torch.Tensor] = None):
+    """Folded per-sample GroupNorm affine from per-channel fp32 sums.
+
+    s1, s2: (N, C) sums of x and x^2 over ``spatial`` positions, typically
+    from a producing conv's stats epilogue. Returns fp32 (A, B), each
+    (N, C), with group_norm(x + shift) == x * A + B. The variance is
+    E[x^2] - mean^2 clamped at 0, as the JAX package computes it. A
+    ``shift`` (N, C) (the ResBlock's time embedding) is folded in from the
+    sums: s1' = s1 + P e, s2' = s2 + 2 e s1 + P e^2, B += e A.
+    """
+    n, c = s1.shape
+    count = spatial * (c // num_groups)
+    if shift is not None:
+        e = shift.float()
+        s2 = s2 + 2.0 * e * s1 + spatial * e.square()
+        s1 = s1 + spatial * e
+    mean = s1.reshape(n, num_groups, -1).sum(-1) / count
+    var = (s2.reshape(n, num_groups, -1).sum(-1) / count
+           - mean.square()).clamp_min(0.0)
+    inv = torch.rsqrt(var + eps)
+    mean_c = mean.repeat_interleave(c // num_groups, dim=1)
+    a = inv.repeat_interleave(c // num_groups, dim=1) * weight.float()
+    b = bias.float() - mean_c * a
+    if shift is not None:
+        b = b + e * a
+    return a, b
+
+
+def channel_sums(x):
+    """Per-sample per-channel fp32 sums of x and x^2 over every axis but
+    the first and the last: (N, *spatial, C) -> two (N, C)."""
+    axes = tuple(range(1, x.ndim - 1))
+    xf = x.float()
+    return xf.sum(axes), xf.square().sum(axes)
+
+
+def gn_affine(x, weight, bias, num_groups: int = 32, eps: float = 1e-6,
+              shift: Optional[torch.Tensor] = None):
+    """gn_affine_from_stats with the sums taken from x (plain torch: the
+    first norm of a chain, as the JAX package does)."""
+    spatial = 1
+    for d in x.shape[1:-1]:
+        spatial *= d
+    return gn_affine_from_stats(*channel_sums(x), spatial, weight, bias,
+                                num_groups, eps, shift)
+
+
 def layer_norm(x, weight, bias, eps: float = 1e-5):
     return F.layer_norm(x.float(), (x.shape[-1],), weight.float(),
                         bias.float(), eps).to(x.dtype)
@@ -49,6 +98,20 @@ class GroupNorm(nn.GroupNorm):
     def forward(self, x, shift=None):
         return group_norm(x, self.weight, self.bias, self.num_groups,
                           self.eps, self.act, shift)
+
+    def folded(self, x, shift=None, stats=None):
+        """Folded fp32 (A, B) for a fused conv prologue; ``stats`` (s1, s2)
+        are per-(N, C) sums of x from the producer (x then only gives the
+        spatial count)."""
+        if stats is None:
+            return gn_affine(x, self.weight, self.bias, self.num_groups,
+                             self.eps, shift)
+        spatial = 1
+        for d in x.shape[1:-1]:
+            spatial *= d
+        return gn_affine_from_stats(stats[0], stats[1], spatial, self.weight,
+                                    self.bias, self.num_groups, self.eps,
+                                    shift)
 
 
 class LayerNorm(nn.LayerNorm):

@@ -1,16 +1,39 @@
-"""Spatial convolutions on channels-last (N, H, W, C) tensors.
+"""Spatial convolutions on channels-last (N, H, W, C) tensors, and the
+fused GroupNorm-affine + SiLU + 3x3 conv.
 
 The modules keep torch's Conv2d parameters (``weight`` (O, I, kh, kw),
 ``bias``) so their state-dict names follow the upstream checkpoint, and run
-``F.conv2d`` on the channels-last view. These are the plain versions of the
-TPU package's fused GN-affine + SiLU + 3x3 conv kernels
-(ops/winograd.py, ops/spatial_conv.py), which are still to be ported.
+``F.conv2d`` on the channels-last view.
+
+``gn_silu_conv3x3`` is the fused form of the UNet ResBlock's GN+SiLU+conv:
+
+    z = silu(bf16(x * A + B))          (the "ref" cast point: the fp32
+                                        affine rounds to x's dtype, then
+                                        SiLU in fp32, rounded once)
+    y = conv3x3(z) + bias + residual   (fp32, rounded once)
+
+with per-image per-channel fp32 sums of the rounded y when asked (the next
+GroupNorm's statistics). Its CUDA kernel (``csrc/gn_silu_conv3x3.cu``, a
+direct implicit GEMM) replaces the TPU kernel
+ops/winograd.py::winograd_gn_silu_conv3x3, and runs at every shape, where
+the TPU package dispatched its kernels only on a measured allowlist.
 """
 
 from __future__ import annotations
 
+import ctypes
+from typing import Dict, Optional
+
+import torch
 import torch.nn.functional as F
 from torch import nn
+
+from tooncrafter_tpu_torch.ops import _build
+from tooncrafter_tpu_torch.ops import _launch
+
+LAUNCHES: Dict[str, int] = {"winograd_gn_silu_conv3x3": 0}
+_CIN_CHUNK = 32  # csrc/implicit_gemm.cuh kBK
+_MAX_WIDTH = 256  # csrc/implicit_gemm.cuh kMaxWidth (the halo staging)
 
 
 def conv2d_nhwc(x, weight, bias, stride=1, padding=0):
@@ -74,3 +97,118 @@ class Upsample(nn.Module):
     def forward(self, x):
         x = x.repeat_interleave(2, dim=1).repeat_interleave(2, dim=2)
         return self.conv(x)
+
+
+# ---------------------------------------------------------------------------
+# the fused GN-affine + SiLU + 3x3 conv
+# ---------------------------------------------------------------------------
+
+def reset_launch_counts() -> None:
+    LAUNCHES["winograd_gn_silu_conv3x3"] = 0
+
+
+def _prologue(x, a, b, silu: bool, cdt):
+    """silu(round(x * A + B)) at the "ref" cast point, the SiLU in fp32
+    and rounded once, as the kernel does; rounds to ``cdt``."""
+    u = (x.float() * a[:, None, None] + b[:, None, None]).to(cdt).float()
+    return (F.silu(u) if silu else u).to(cdt)
+
+
+def _plain_conv3x3(x, a, b, weight, bias, res, silu: bool, stats: bool,
+                   cdt: Optional[torch.dtype] = None):
+    """x: (N, H, W, Cin); a, b: (N, Cin) fp32; weight (Cout, Cin, 3, 3);
+    res: (N, H, W, Cout) or None. The kernel's rounding points: z rounds
+    to ``cdt`` (x's dtype unless given), y once to x's dtype."""
+    z = _prologue(x, a, b, silu, x.dtype if cdt is None else cdt).float()
+    y = F.conv2d(z.permute(0, 3, 1, 2), weight.float(), bias.float(),
+                 padding=1).permute(0, 2, 3, 1)
+    if res is not None:
+        y = y + res.float()
+    y = y.to(x.dtype)
+    if stats:
+        yf = y.float()
+        return y, yf.sum((1, 2)), yf.square().sum((1, 2))
+    return y
+
+
+LIBRARY = ("gn_silu_conv3x3", ("gn_silu_conv3x3.cu",))
+_LIB: Optional[ctypes.CDLL] = None
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    vp, i = ctypes.c_void_p, ctypes.c_int
+    lib.tc_gn_silu_conv3x3.argtypes = [vp] * 9 + [i] * 7 + [vp]
+    lib.tc_gn_silu_conv3x3.restype = ctypes.c_int
+    return lib
+
+
+def _library() -> ctypes.CDLL:
+    global _LIB
+    if _LIB is None:
+        _LIB = bind(_build.load_library(*LIBRARY))
+    return _LIB
+
+
+def _launch_conv(x, a, b, w9, bias, res, silu: bool, stats: bool):
+    n, h, w, cin = x.shape
+    cout = w9.shape[0]
+    dev, bf, f32 = x.device, torch.bfloat16, torch.float32
+    _launch.check("x", x, (n, h, w, cin), bf, dev)
+    _launch.check("affine A", a, (n, cin), f32, dev)
+    _launch.check("affine B", b, (n, cin), f32, dev)
+    _launch.check("weight", w9, (cout, 3, 3, cin), bf, dev)
+    _launch.check("bias", bias, (cout,), bf, dev)
+    if res is not None:
+        _launch.check("residual", res, (n, h, w, cout), bf, dev)
+    if cin % _CIN_CHUNK or cout % 8 or w > _MAX_WIDTH:
+        raise ValueError(f"GN+SiLU+3x3 conv kernel: needs Cin % {_CIN_CHUNK}"
+                         f" == 0, Cout % 8 == 0 and W <= {_MAX_WIDTH}; got "
+                         f"Cin={cin}, Cout={cout}, W={w}")
+    out = torch.empty((n, h, w, cout), dtype=bf, device=dev)
+    bm = _launch.pixel_tile(h * w)
+    n_tiles = -(-(h * w) // bm)
+    sums = ([torch.empty((n, n_tiles, cout), dtype=f32, device=dev)
+             for _ in range(2)] if stats else [None, None])
+    err = _library().tc_gn_silu_conv3x3(
+        x.data_ptr(), a.data_ptr(), b.data_ptr(), w9.data_ptr(),
+        bias.data_ptr(), _launch.ptr(res), out.data_ptr(),
+        _launch.ptr(sums[0]), _launch.ptr(sums[1]), n, h, w, cin, cout,
+        int(silu), bm, _launch.stream(x))
+    _launch.raise_on_error(err, f"GN+SiLU+3x3 conv (N={n}, {h}x{w}, "
+                                f"C={cin}->{cout})")
+    if stats:
+        return out, sums[0].sum(1), sums[1].sum(1)
+    return out
+
+
+def kernel_weight(weight):
+    """nn.Conv2d weight (Cout, Cin, 3, 3) -> (Cout, 3, 3, Cin), contiguous:
+    K = 9 * Cin, tap-major, as the kernel reads it."""
+    return weight.permute(0, 2, 3, 1).contiguous()
+
+
+def winograd_gn_silu_conv3x3(x, a, b, weight, bias, res=None,
+                             silu: bool = True, stats: bool = False,
+                             w9=None):
+    """The wrapper named after the TPU kernel it replaces (the function,
+    not the Winograd algorithm). weight: nn.Conv2d's (Cout, Cin, 3, 3);
+    ``w9`` its ``kernel_weight`` if the caller keeps one. CPU tensors take
+    the plain version, CUDA tensors the kernel."""
+    if _launch.on_cpu("GN+SiLU+3x3 conv", x, a, b, weight, bias, res):
+        return _plain_conv3x3(x, a, b, weight, bias, res, silu, stats)
+    out = _launch_conv(x, a, b, kernel_weight(weight) if w9 is None else w9,
+                       bias, res, silu, stats)
+    LAUNCHES["winograd_gn_silu_conv3x3"] += 1
+    return out
+
+
+def gn_silu_conv3x3(x, affine, conv: nn.Conv2d, residual=None,
+                    return_stats: bool = False):
+    """conv3x3(silu(x * A + B)) + bias (+ residual) with ``conv``'s
+    parameters; with return_stats also per-channel sums (s1, s2), each
+    (N, Cout), of the output over (H, W)."""
+    w9 = (None if not _launch.is_cuda(x)
+          else _launch.kernel_layout(conv, conv.weight, kernel_weight))
+    return winograd_gn_silu_conv3x3(x, affine[0], affine[1], conv.weight,
+                                    conv.bias, residual, True, return_stats,
+                                    w9=w9)

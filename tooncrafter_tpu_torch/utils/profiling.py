@@ -23,6 +23,9 @@ import torch
 
 KINDS = (
     ("flash attention (port kernel)", ("flash_fwd_kernel",)),
+    ("fused FF (port kernel)", ("fused_ff_kernel",)),
+    ("temporal conv (port kernel)", ("igemm::tconv_kernel",)),
+    ("GN+SiLU+3x3 conv (port kernel)", ("igemm::conv_kernel",)),
     ("convolution", ("conv", "implicit", "winograd", "fprop", "dgrad",
                      "nhwc", "xmma_fprop")),
     ("matmul", ("gemm", "nvjet", "cutlass", "xmma", "matmul", "sm90_")),

@@ -1,10 +1,11 @@
 """Weights for the port: JAX parameter trees to an upstream-named state
 dict, and random initialisation from an explicit generator.
 
-``from_jax_params`` inverts the layout transforms of the JAX package's
-checkpoint mapping (tooncrafter_tpu/utils/checkpoint.py, numpy-only), so the
-port and the JAX package can be given the same weights: the port's module
-names are the upstream ``lvdm`` state-dict keys that mapping targets.
+``from_jax_params`` inverts the layout transforms of the checkpoint mapping
+(``utils/checkpoint.py``, the port's copy of the JAX package's tables), so
+the port and the JAX package can be given the same weights: the port's
+module names are the upstream ``lvdm`` state-dict keys that mapping
+targets.
 """
 
 from __future__ import annotations
@@ -15,7 +16,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from tooncrafter_tpu.utils import checkpoint as ckpt
+from tooncrafter_tpu_torch.utils import checkpoint as ckpt
 
 _INVERSE = {
     ckpt.t_linear: lambda w: w.T,                             # (I,O)->(O,I)
