@@ -5,13 +5,16 @@
 Phases, each printed on its own lines; any failure exits non-zero:
   0. the card (nvidia-smi name and power limit), torch and CUDA versions;
   1. build the CUDA kernels from tooncrafter_tpu_torch/csrc (flash
-     attention, fused FF, temporal conv, GN+SiLU+3x3 conv: one nvcc each,
-     all at once) and print each one's registers and spills;
+     attention, fused FF, temporal conv, GN+SiLU+3x3 conv, temporal
+     attention pair: one nvcc each, all at once) and print each one's
+     registers and spills;
   2. hold each kernel against its plain PyTorch version on the card at the
      shapes the 320x512 interpolation path gives it, with its time, the
-     plain version's, the one PyTorch call that computes the same function
-     where there is one (library_ms; the port never calls it) and the least
-     time the card could take (bound_ms);
+     plain version's (fp32 products: a reference), the unfused module
+     chain's in bf16 (chain_ms: what the port ran before the kernel), the
+     one PyTorch call that computes the same function where there is one
+     (library_ms; the port never calls it) and the least time the card
+     could take (bound_ms);
   3. check a reduced model on the card against the same model on the CPU
      (every kernel reached, the convs at a ragged pixel tile), then build
      the full-width 320x512 model (configs/inference_512_v1.0.yaml) with
@@ -205,7 +208,9 @@ def new_row(name, ms, plain_ms, library_ms, bound_ms, bound_by) -> dict:
 def reduced_config(base):
     """A small configuration whose shapes still reach every kernel: UNet ds1
     c=320 with S=1536 (packed) and its FF, ds2 c=640 with S=384 (mh) and
-    its FF, the init attention's FF at c=512 (streamed), a ds4 level at
+    its FF, the init attention's FF at c=512 (streamed), the temporal
+    attention pair over T=4 frames (whole pixels per m16 tile, masked) at
+    320, 512, 640 and the mid block's 1280 channels, a ds4 level at
     c=1280 whose 8x12 frames are a ragged 96-pixel tile for the convs and
     the temporal convs (its mid-block FF streamed), the decoder's fusion at
     64x96 (Sk=12288, two-pass) and 32x48, its TimeStacks (temporal conv at

@@ -3,8 +3,9 @@ small shapes with ragged edges (lengths and pixel counts that are not
 multiples of the kernels' tiles, odd token counts, Cin != Cout), the strided
 packed/token-major attention views, and a mutation check of the fused
 kernels' bounds: broken builds of each source (output x1.01, a skipped K
-chunk, wrong sums) must fail at every path shape of ``kernel_check``. The
-CUDA kernels have no CPU mode, so without a card these tests skip.
+chunk, wrong sums where the kernel has sums) must fail at every path shape
+of ``kernel_check``. The CUDA kernels have no CPU mode, so without a card
+these tests skip.
 
     python -m pytest tests/test_torch_cuda_kernels.py --noconftest -q -s
 """
@@ -18,6 +19,7 @@ from tooncrafter_tpu_torch.ops import _build
 from tooncrafter_tpu_torch.ops import flash_attention as fa
 from tooncrafter_tpu_torch.ops import fused_ff as ff
 from tooncrafter_tpu_torch.ops import spatial_conv as sc
+from tooncrafter_tpu_torch.ops import temporal_attention as ta
 from tooncrafter_tpu_torch.ops import temporal_conv as tc
 from tooncrafter_tpu_torch.utils import kernel_check as kc
 
@@ -152,6 +154,25 @@ def test_conv_kernel_ragged_tile_and_cin_ne_cout(dev, h, w, cin, cout):
     assert sc.LAUNCHES["winograd_gn_silu_conv3x3"] == 1
 
 
+@pytest.mark.parametrize("t,p,c", [(16, 37, 320), (4, 21, 512),
+                                   (16, 3, 1280), (8, 5, 64)])
+def test_tpair_kernel_ragged_pixels_and_short_clips(dev, t, p, c):
+    """Pixel counts that leave the last token tile part empty, and T < 16
+    (several pixels per m16 tile, attention masked to each pixel)."""
+    x = _rand(dev, 40, 2, t, p, c)
+    stages = tuple(
+        (1 + 0.1 * _rand(dev, 41 + 10 * i, c).float(),
+         0.1 * _rand(dev, 42 + 10 * i, c).float(),
+         *(_rand(dev, 43 + 10 * i + j, c, c) * c ** -0.5 for j in range(4)),
+         0.1 * _rand(dev, 47 + 10 * i, c)) for i in range(2))
+    out = ta._fused_tpair_call(x, *stages, c // 64, 0.125)
+    ref = ta._plain_tpair(x.float(), *(tuple(w.float() for w in s_)
+                                       for s_ in stages),
+                          c // 64, 0.125, 1e-5, cdt=torch.bfloat16)
+    _fused_close(out, ref)
+    assert ta.LAUNCHES["_fused_tpair_call"] == 1
+
+
 # (what is broken, the library's source, the file edited, text replaced,
 #  replacement); the two convolutions share csrc/implicit_gemm.cuh, and the
 #  edited copy is built into the one library under test
@@ -170,9 +191,17 @@ MUTATIONS = [
          "const bool ok = n < p.cout && !(tap == 1 && k0 == kBK);"),
         ("wrong stats", src, _IGEMM, "p.s2[o] = sStat[2 * BN + c]",
          "p.s2[o] = sStat[0 * BN + c]"))
+] + [
+    ("output x1.01", "temporal_attention.cu", "temporal_attention.cu",
+     "pack_bf16(y0 + xv.x, y1 + xv.y)",
+     "pack_bf16(1.01f * (y0 + xv.x), 1.01f * (y1 + xv.y))"),
+    ("skipped K chunk", "temporal_attention.cu", "temporal_attention.cu",
+     "load_a_k32(a, sZ, cp, mt * 16, k, lane);",
+     "load_a_k32(a, sZ, cp, mt * 16, k, lane);\n            "
+     "if (k == 32) continue;"),
 ]
 MODULE_OF = {"fused_ff.cu": ff, "temporal_conv.cu": tc,
-             "gn_silu_conv3x3.cu": sc}
+             "gn_silu_conv3x3.cu": sc, "temporal_attention.cu": ta}
 
 
 @pytest.mark.parametrize("what,src,edited,old,new", MUTATIONS,

@@ -27,11 +27,12 @@
 // Epilogue: acc -> bf16, + b2 (rounded), + x (rounded), as the TPU kernel
 // (fused_ff.py:246-247).
 //
-// The weights' fragments are read from global memory (L2), 16 bytes a
-// thread: the wrapper hands the kernel W1 and W2 with the contraction axis
-// permuted within each 32-wide block (``permute_k`` in ops/fused_ff.py) so
-// that one 16-byte load gives a thread its B fragments for two k16 steps;
-// the next step's loads are issued before the current step's products.
+// The weights' fragments are read from global memory (L2) in torch's Linear
+// layout, 16 bytes a thread: both products visit each 32-deep K block in the
+// k32 order of mma_bf16.cuh, so one 16-byte load of a weight row gives a
+// thread its B fragments for two k16 steps, and the A fragments are two
+// 16-byte shared loads; the next step's loads are issued before the current
+// step's products.
 //
 // The C = 1280 trap: a token tile's fp32 output accumulator (tile x Cout x
 // 4 bytes) does not fit one warp's registers at a tile that feeds the
@@ -56,9 +57,9 @@ namespace {
 
 struct Params {
   const bf16* x;      // (n, c)
-  const bf16* w1;     // (2d, c): h rows, then gate rows; c permuted (permute_k)
+  const bf16* w1;     // (2d, c): h rows, then gate rows
   const bf16* b1;     // (2d)
-  const bf16* w2;     // (cout, d); d permuted (permute_k)
+  const bf16* w2;     // (cout, d)
   const bf16* b2;     // (cout)
   const float* lnw;   // (c) or null: no LayerNorm prologue
   const float* lnb;   // (c)
@@ -77,14 +78,14 @@ __device__ __forceinline__ uint4 ldg128(const bf16* p) {
 }
 
 // NW warps, MT m16 row tiles (BM = 16 MT tokens), up to NTO n8 output tiles
-// a warp. Shared rows are padded by 8 elements so the quad-strided 32-bit
-// fragment loads hit distinct banks.
+// a warp. Shared rows are padded (k32_stride) so the 16-byte fragment loads
+// hit distinct banks.
 template <int NW, int MT, int NTO>
 __global__ void __launch_bounds__(NW * 32, 1) fused_ff_kernel(const Params p) {
   constexpr int BM = 16 * MT;
   constexpr int DK = 8 * NW;   // D columns per chunk
-  constexpr int DKP = DK + 8;
-  const int cp = p.c + 8;
+  constexpr int DKP = k32_stride(DK);
+  const int cp = k32_stride(p.c);
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* sZ = reinterpret_cast<bf16*>(smem_raw);  // [BM][cp]
   bf16* sM = sZ + BM * cp;                       // [BM][DKP]
@@ -162,22 +163,19 @@ __global__ void __launch_bounds__(NW * 32, 1) fused_ff_kernel(const Params p) {
         ng = ldg128(wg + k + 32);
       }
 #pragma unroll
-      for (int s = 0; s < 2; ++s) {
-        const uint32_t h0 = s ? bh.z : bh.x, h1 = s ? bh.w : bh.y;
-        const uint32_t g0 = s ? bg.z : bg.x, g1 = s ? bg.w : bg.y;
-#pragma unroll
-        for (int mt = 0; mt < MT; ++mt) {
-          uint32_t a[4];
-          load_a(a, sZ, cp, mt * 16, k + 16 * s, lane);
-          mma_16816(hacc[mt], a, h0, h1);
-          mma_16816(gacc[mt], a, g0, g1);
-        }
+      for (int mt = 0; mt < MT; ++mt) {
+        uint32_t a[2][4];
+        load_a_k32(a, sZ, cp, mt * 16, k, lane);
+        mma_16816(hacc[mt], a[0], bh.x, bh.y);
+        mma_16816(gacc[mt], a[0], bg.x, bg.y);
+        mma_16816(hacc[mt], a[1], bh.z, bh.w);
+        mma_16816(gacc[mt], a[1], bg.z, bg.w);
       }
       bh = nh;
       bg = ng;
     }
-    // fp32 bias and gate; only m rounds to bf16 (b1 is not permuted: the
-    // h / g columns are D, not the contraction axis)
+    // fp32 bias and gate; only m rounds to bf16 (m's columns are in their
+    // natural order, which the out-GEMM's k32 loads of sM and W2 share)
     const int col = warp * 8 + 2 * t;
     const float bhv[2] = {__bfloat162float(p.b1[j0 + col]),
                           __bfloat162float(p.b1[j0 + col + 1])};
@@ -200,12 +198,10 @@ __global__ void __launch_bounds__(NW * 32, 1) fused_ff_kernel(const Params p) {
     // tiles' 16-byte loads in flight at a time
 #pragma unroll
     for (int kk = 0; kk < DK; kk += 32) {
-      uint32_t a[2][MT][4];
+      uint32_t a[MT][2][4];
 #pragma unroll
-      for (int s = 0; s < 2; ++s)
-#pragma unroll
-        for (int mt = 0; mt < MT; ++mt)
-          load_a(a[s][mt], sM, DKP, mt * 16, kk + 16 * s, lane);
+      for (int mt = 0; mt < MT; ++mt)
+        load_a_k32(a[mt], sM, DKP, mt * 16, kk, lane);
 #pragma unroll
       for (int jg = 0; jg < NTO; jg += 5) {
         uint4 bw[5];
@@ -221,8 +217,8 @@ __global__ void __launch_bounds__(NW * 32, 1) fused_ff_kernel(const Params p) {
           if (jg + j < NTO && jg + j < tpw && tile < ntiles) {
 #pragma unroll
             for (int mt = 0; mt < MT; ++mt) {
-              mma_16816(acc[mt][jg + j], a[0][mt], bw[j].x, bw[j].y);
-              mma_16816(acc[mt][jg + j], a[1][mt], bw[j].z, bw[j].w);
+              mma_16816(acc[mt][jg + j], a[mt][0], bw[j].x, bw[j].y);
+              mma_16816(acc[mt][jg + j], a[mt][1], bw[j].z, bw[j].w);
             }
           }
         }
@@ -261,7 +257,8 @@ __global__ void __launch_bounds__(NW * 32, 1) fused_ff_kernel(const Params p) {
 template <int NW, int MT, int NTO>
 int launch(const Params& p, cudaStream_t stream) {
   constexpr int BM = 16 * MT;
-  const int smem = (BM * (p.c + 8) + BM * (8 * NW + 8)) * (int)sizeof(bf16);
+  const int smem =
+      (BM * k32_stride(p.c) + BM * k32_stride(8 * NW)) * (int)sizeof(bf16);
   cudaError_t err = cudaFuncSetAttribute(
       fused_ff_kernel<NW, MT, NTO>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem);
@@ -274,7 +271,7 @@ int launch(const Params& p, cudaStream_t stream) {
 }  // namespace
 
 // x (n, c), w1 (2d, c), b1 (2d), w2 (cout, d), b2 (cout), out (n, cout):
-// contiguous bf16, w1's c and w2's d permuted (permute_k); lnw/lnb: fp32 (c)
+// contiguous bf16 (torch's Linear layout); lnw/lnb: fp32 (c)
 // or both null. c % 32 == 0, cout % 8 == 0; cout <= 640 needs d % 64 == 0,
 // cout <= 1280 d % 128 == 0. Returns a cudaError_t code (0 on success).
 extern "C" int tc_fused_ff(const void* x, const void* w1, const void* b1,

@@ -1,7 +1,7 @@
-// Small device helpers shared by the fused kernels (fused_ff.cu and
-// implicit_gemm.cuh, the core of temporal_conv.cu and gn_silu_conv3x3.cu):
-// bf16 packing and rounding, 32-bit fragment loads, and the m16n8k16 bf16
-// tensor-core product.
+// Small device helpers shared by the fused kernels (fused_ff.cu,
+// temporal_attention.cu and implicit_gemm.cuh, the core of temporal_conv.cu
+// and gn_silu_conv3x3.cu): bf16 packing and rounding, fragment loads, and
+// the m16n8k16 bf16 tensor-core product.
 //
 // Fragment layouts of mma.sync.m16n8k16 (g = lane / 4, t = lane % 4):
 //   A (16x16, row): a0 (row g, cols 2t..2t+1), a1 (row g+8, same cols),
@@ -52,11 +52,42 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t r[4], const bf16* p) {
       : "r"(a));
 }
 
-// The A fragment of rows [r0, r0 + 16) and columns [k, k + 16) of a
-// row-major shared tile with row stride ld (elements; ld * 2 bytes a
-// multiple of 16): lanes 0-15 address rows r0.., columns k; lanes 16-31
-// the same rows, columns k + 8.
-__device__ __forceinline__ void load_a(uint32_t a[4], const bf16* tile,
-                                       int ld, int r0, int k, int lane) {
-  ldmatrix_x4(a, tile + (r0 + (lane & 15)) * ld + k + (lane >> 4) * 8);
+// The same, transposed: lane i receives elements (2 (i % 4), i / 4) and
+// (2 (i % 4) + 1, i / 4) of each 8x8 matrix, i.e. the B fragment of a
+// (k x n) operand stored k-major (rows = k). Lanes 0-15 give the row
+// addresses of the two matrices.
+__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t r[2],
+                                                  const bf16* p) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+      : "=r"(r[0]), "=r"(r[1])
+      : "r"(a));
+}
+
+// K-contiguous operands without a permuted copy. A product over 32 k values
+// may visit them in any order, so two k16 steps over columns [k, k + 32)
+// give lane t of a quad the columns k + 8t .. k + 8t + 7: step s's slots
+// (2t, 2t + 1) hold columns k + 8t + 4s + (0, 1) and slots (2t + 8, 2t + 9)
+// columns k + 8t + 4s + (2, 3). Then a B operand stored (n, K) row-major
+// (torch's Linear weight) gives a lane both steps' fragments in one 16-byte
+// load of row n = g (words x, y for step 0, z, w for step 1), and the A
+// fragments are two 16-byte loads of rows g and g + 8 of the shared tile
+// (conflict-free where ld * 2 bytes is 64 modulo 128).
+__device__ __forceinline__ uint4 lds128(const bf16* p) {
+  return *reinterpret_cast<const uint4*>(p);
+}
+
+__device__ __forceinline__ void load_a_k32(uint32_t a[2][4], const bf16* tile,
+                                           int ld, int r0, int k, int lane) {
+  const bf16* p = tile + (r0 + (lane >> 2)) * ld + k + 8 * (lane & 3);
+  const uint4 lo = lds128(p), hi = lds128(p + 8 * ld);
+  a[0][0] = lo.x; a[0][1] = hi.x; a[0][2] = lo.y; a[0][3] = hi.y;
+  a[1][0] = lo.z; a[1][1] = hi.z; a[1][2] = lo.w; a[1][3] = hi.w;
+}
+
+// Row stride (elements) of a shared tile of `cols` columns for load_a_k32:
+// padded so that ld * 2 bytes is 64 modulo 128 (cols % 32 == 0).
+__host__ __device__ constexpr int k32_stride(int cols) {
+  return cols % 64 == 0 ? cols + 32 : cols;
 }

@@ -15,9 +15,10 @@ flash kernels; ``ff(norm3(x)) + x`` as one fused GEGLU feed-forward; each
 GroupNorm + SiLU folded into a per-sample affine (A, B) that the next
 conv (the GN+SiLU+3x3 conv, the (3,1,1) temporal conv) applies as it
 reads its input, each conv emitting the per-channel sums that feed the
-next norm, and the ResBlock's time embedding folded into that affine.
-The unfused branch keeps dropout where upstream has it. Temporal attention
-is plain PyTorch.
+next norm, and the ResBlock's time embedding folded into that affine; the
+two temporal self-attention sub-blocks of a temporal transformer block as
+one call of the temporal attention pair. The unfused branch keeps dropout
+where upstream has it.
 """
 
 from __future__ import annotations
@@ -29,8 +30,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from tooncrafter_tpu_torch.ops import flash_attention as fa
-from tooncrafter_tpu_torch.ops import _launch
-from tooncrafter_tpu_torch.ops.fused_ff import fused_geglu_ff, permute_k
+from tooncrafter_tpu_torch.ops import temporal_attention as ta
+from tooncrafter_tpu_torch.ops.fused_ff import fused_geglu_ff
 from tooncrafter_tpu_torch.ops.attention import (attention,
                                                  temporal_attention_inplace)
 from tooncrafter_tpu_torch.ops.norms import GroupNorm, LayerNorm
@@ -208,13 +209,9 @@ class FeedForward(nn.Module):
         """ff(norm(x)) + x in one call of the fused feed-forward (the
         LayerNorm prologue, the residual in the epilogue)."""
         proj, out = self.net[0].proj, self.net[2]
-        w1p = w2p = None
-        if _launch.is_cuda(x):  # the weights in the kernel's layout, kept
-            w1p = _launch.kernel_layout(proj, proj.weight, permute_k)
-            w2p = _launch.kernel_layout(out, out.weight, permute_k)
         return fused_geglu_ff(x, proj.weight, proj.bias, out.weight,
                               out.bias, norm.weight, norm.bias, norm.eps,
-                              residual=True, w1p=w1p, w2p=w2p)
+                              residual=True)
 
 
 class BasicTransformerBlock(nn.Module):
@@ -233,12 +230,30 @@ class BasicTransformerBlock(nn.Module):
         self.ff = FeedForward(dim)
 
     def forward(self, x, context=None, mask=None):
-        x = self.attn1(self.norm1(x), None, mask) + x
-        x = self.attn2(self.norm2(x), context if self.cross else None,
-                       mask) + x
-        if self.training and self.ff.net[1].p > 0:
+        fused = not (self.training and self.ff.net[1].p > 0)
+        if fused and x.ndim == 5 and mask is None:
+            x = self.temporal_pair(x)
+        else:
+            x = self.attn1(self.norm1(x), None, mask) + x
+            x = self.attn2(self.norm2(x), context if self.cross else None,
+                           mask) + x
+        if not fused:
             return self.ff(self.norm3(x)) + x
         return self.ff.fused(x, self.norm3)
+
+    def temporal_pair(self, x):
+        """Both sub-blocks of a temporal block, x + attn1(norm1(x)), then
+        the same with attn2 and norm2, as one call of the temporal attention
+        pair; x: (B, T, H, W, C)."""
+        stages = [(norm.weight, norm.bias, attn.to_q.weight, attn.to_k.weight,
+                   attn.to_v.weight, attn.to_out[0].weight,
+                   attn.to_out[0].bias)
+                  for norm, attn in ((self.norm1, self.attn1),
+                                     (self.norm2, self.attn2))]
+        y = ta._fused_tpair_call(x.reshape(x.shape[:2] + (-1, x.shape[-1])),
+                                 *stages, self.attn1.heads,
+                                 self.attn1.dim_head ** -0.5, self.norm1.eps)
+        return y.reshape(x.shape)
 
 
 class SpatialTransformer(nn.Module):

@@ -5,7 +5,7 @@ CUDA tensors it launches its kernel or raises."""
 
 from __future__ import annotations
 
-from typing import Callable, Optional, Sequence
+from typing import Optional, Sequence
 
 import torch
 
@@ -44,19 +44,6 @@ def check(name: str, t: torch.Tensor, shape: Sequence[int],
                          f"{t.stride()}")
     if t.data_ptr() % 16:
         raise ValueError(f"{name}: data pointer is not 16-byte aligned")
-
-
-def kernel_layout(owner, param: torch.Tensor, fn: Callable):
-    """``fn(param)`` (a weight in the layout a kernel reads), kept on
-    ``owner`` and made again when the parameter moves, changes dtype or is
-    written in place, so a call does not copy the weight each time."""
-    key = (param.data_ptr(), param._version, param.dtype, param.device)
-    cached = getattr(owner, "_kernel_layout", None)
-    if cached is None or cached[0] != key:
-        with torch.no_grad():
-            cached = (key, fn(param.detach()))
-        owner._kernel_layout = cached
-    return cached[1]
 
 
 def pixel_tile(pixels: int) -> int:

@@ -148,23 +148,6 @@ def _plain_ff(x2, w1, b1, w2, b2, ln_w, ln_b, eps: float,
 # the kernel launch
 # ---------------------------------------------------------------------------
 
-# Within each 32-wide block of the contraction axis, position 8 t + j holds
-# index K_ORDER[8 t + j]: the eight values lane t of a quad needs as B
-# fragments for two m16n8k16 steps (k 2t, 2t+1, 2t+8, 2t+9, then +16), so
-# one 16-byte load fetches them (csrc/fused_ff.cu).
-K_ORDER = [16 * (j >> 2) + 8 * ((j >> 1) & 1) + 2 * t + (j & 1)
-           for t in range(4) for j in range(8)]
-
-
-def permute_k(w):
-    """(rows, K) -> the same weight with K permuted per 32-block as the
-    kernel reads it (K % 32 == 0), contiguous."""
-    rows, k = w.shape
-    order = torch.tensor(K_ORDER, device=w.device)
-    return w.reshape(rows, k // 32, 32)[:, :, order].reshape(rows, k) \
-        .contiguous()
-
-
 LIBRARY = ("fused_ff", ("fused_ff.cu",))
 _LIB: Optional[ctypes.CDLL] = None
 
@@ -184,7 +167,6 @@ def _library() -> ctypes.CDLL:
 
 
 def _launch_ff(x2, w1, b1, w2, b2, ln_w, ln_b, eps: float, residual: bool):
-    """w1, w2 in the kernel's layout (``permute_k``)."""
     n, c = x2.shape
     d = w1.shape[0] // 2
     cout = w2.shape[0]
@@ -217,11 +199,9 @@ def _launch_ff(x2, w1, b1, w2, b2, ln_w, ln_b, eps: float, residual: bool):
 
 
 def fused_geglu_ff(x, w1, b1, w2, b2, ln_w=None, ln_b=None,
-                   ln_eps: float = 1e-5, residual: bool = False,
-                   w1p=None, w2p=None):
+                   ln_eps: float = 1e-5, residual: bool = False):
     """x: (..., C) -> (..., Cout). CPU tensors take the plain version; CUDA
-    tensors launch the kernel, counted under the TPU kernel's name, with
-    ``w1p``, ``w2p`` the ``permute_k`` of w1, w2 if the caller keeps them."""
+    tensors launch the kernel, counted under the TPU kernel's name."""
     if residual and ln_w is None:
         raise ValueError("residual=True needs the LayerNorm prologue")
     c = x.shape[-1]
@@ -230,8 +210,6 @@ def fused_geglu_ff(x, w1, b1, w2, b2, ln_w=None, ln_b=None,
     if _launch.on_cpu("fused FF", x2, w1, b1, w2, b2, ln_w, ln_b):
         y = _plain_ff(x2, w1, b1, w2, b2, ln_w, ln_b, ln_eps, residual)
     else:
-        y = _launch_ff(x2, permute_k(w1) if w1p is None else w1p, b1,
-                       permute_k(w2) if w2p is None else w2p, b2, ln_w, ln_b,
-                       ln_eps, residual)
+        y = _launch_ff(x2, w1, b1, w2, b2, ln_w, ln_b, ln_eps, residual)
         LAUNCHES[kernel_name(x2.shape[0], c, w2.shape[1], cout)] += 1
     return y.reshape(x.shape[:-1] + (cout,))

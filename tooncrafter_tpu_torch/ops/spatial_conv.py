@@ -3,7 +3,10 @@ fused GroupNorm-affine + SiLU + 3x3 conv.
 
 The modules keep torch's Conv2d parameters (``weight`` (O, I, kh, kw),
 ``bias``) so their state-dict names follow the upstream checkpoint, and run
-``F.conv2d`` on the channels-last view.
+``F.conv2d`` on the channels-last view. ``Conv2d`` stores its weight
+channels-last, (O, kh, kw, I) in memory, from construction on (``to``,
+``load_state_dict`` and in-place initialisation keep it): the layout the
+fused conv's kernel reads, so it takes the parameter itself, no copy.
 
 ``gn_silu_conv3x3`` is the fused form of the UNet ResBlock's GN+SiLU+conv:
 
@@ -42,7 +45,12 @@ def conv2d_nhwc(x, weight, bias, stride=1, padding=0):
 
 
 class Conv2d(nn.Conv2d):
-    """nn.Conv2d over (N, H, W, C)."""
+    """nn.Conv2d over (N, H, W, C), its weight stored channels-last."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.weight.data = self.weight.data.contiguous(
+            memory_format=torch.channels_last)
 
     def forward(self, x):
         return conv2d_nhwc(x, self.weight, self.bias, self.stride,
@@ -182,22 +190,20 @@ def _launch_conv(x, a, b, w9, bias, res, silu: bool, stats: bool):
 
 
 def kernel_weight(weight):
-    """nn.Conv2d weight (Cout, Cin, 3, 3) -> (Cout, 3, 3, Cin), contiguous:
-    K = 9 * Cin, tap-major, as the kernel reads it."""
+    """nn.Conv2d weight (Cout, Cin, 3, 3) as (Cout, 3, 3, Cin): K = 9 * Cin,
+    tap-major, as the kernel reads it. A view of a channels-last weight (as
+    ``Conv2d`` keeps it); a copy of any other."""
     return weight.permute(0, 2, 3, 1).contiguous()
 
 
 def winograd_gn_silu_conv3x3(x, a, b, weight, bias, res=None,
-                             silu: bool = True, stats: bool = False,
-                             w9=None):
+                             silu: bool = True, stats: bool = False):
     """The wrapper named after the TPU kernel it replaces (the function,
-    not the Winograd algorithm). weight: nn.Conv2d's (Cout, Cin, 3, 3);
-    ``w9`` its ``kernel_weight`` if the caller keeps one. CPU tensors take
-    the plain version, CUDA tensors the kernel."""
+    not the Winograd algorithm). weight: nn.Conv2d's (Cout, Cin, 3, 3).
+    CPU tensors take the plain version, CUDA tensors the kernel."""
     if _launch.on_cpu("GN+SiLU+3x3 conv", x, a, b, weight, bias, res):
         return _plain_conv3x3(x, a, b, weight, bias, res, silu, stats)
-    out = _launch_conv(x, a, b, kernel_weight(weight) if w9 is None else w9,
-                       bias, res, silu, stats)
+    out = _launch_conv(x, a, b, kernel_weight(weight), bias, res, silu, stats)
     LAUNCHES["winograd_gn_silu_conv3x3"] += 1
     return out
 
@@ -207,8 +213,5 @@ def gn_silu_conv3x3(x, affine, conv: nn.Conv2d, residual=None,
     """conv3x3(silu(x * A + B)) + bias (+ residual) with ``conv``'s
     parameters; with return_stats also per-channel sums (s1, s2), each
     (N, Cout), of the output over (H, W)."""
-    w9 = (None if not _launch.is_cuda(x)
-          else _launch.kernel_layout(conv, conv.weight, kernel_weight))
     return winograd_gn_silu_conv3x3(x, affine[0], affine[1], conv.weight,
-                                    conv.bias, residual, True, return_stats,
-                                    w9=w9)
+                                    conv.bias, residual, True, return_stats)

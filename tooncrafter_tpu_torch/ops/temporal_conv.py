@@ -10,7 +10,9 @@ The fused form (``temporal_conv3``) is
 with z zero-padded in T, and optionally per-frame per-channel fp32 sums
 (s1, s2), each (B, T, Cout), of the rounded y over the spatial axes: the
 next GroupNorm's statistics. The module keeps nn.Conv3d's parameters
-(weight (O, I, 3, 1, 1), bias); its ``forward`` is the unfused plain form
+(weight (O, I, 3, 1, 1), bias), the weight stored channels-last from
+construction on, (O, 3, 1, 1, I) in memory: the kernel's layout, so it takes
+the parameter itself, no copy. Its ``forward`` is the unfused plain form
 (three dense products over the channel axis), used by the training branch
 and by the decoder's 3 -> 3 ``time_mix_conv``, which the TPU package also
 leaves outside its kernel.
@@ -138,17 +140,16 @@ def _pallas_tconv(x, w3, bias, a=None, b=None, res=None, scale=None,
 
 
 def taps(weight):
-    """nn.Conv3d weight (Cout, Cin, 3, 1, 1) -> (Cout, 3, Cin), contiguous:
-    K = 3 * Cin, tap-major, as the kernel reads it."""
+    """nn.Conv3d weight (Cout, Cin, 3, 1, 1) as (Cout, 3, Cin): K = 3 * Cin,
+    tap-major, as the kernel reads it. A view of a channels-last weight (as
+    ``TemporalConv3`` keeps it); a copy of any other."""
     return weight[:, :, :, 0, 0].permute(0, 2, 1).contiguous()
 
 
 def temporal_conv3(x, weight, bias, affine=None, silu: bool = False,
-                   residual=None, out_scale=None, return_stats: bool = False,
-                   w3=None):
+                   residual=None, out_scale=None, return_stats: bool = False):
     """The fused form over x (B, T, *spatial, Cin) with nn.Conv3d's
-    ``weight``/``bias`` (``w3``: its ``taps`` if the caller keeps them);
-    ``affine`` is a folded GroupNorm (A, B) from ops/norms.gn_affine,
+    ``weight``/``bias``; ``affine`` is a folded GroupNorm (A, B) from ops/norms.gn_affine,
     ``out_scale`` a 0-d fp32 tensor. Returns y, or (y, s1, s2) with
     per-frame sums (B, T, Cout)."""
     bsz, t = x.shape[:2]
@@ -157,8 +158,8 @@ def temporal_conv3(x, weight, bias, affine=None, silu: bool = False,
     res = None if residual is None else residual.reshape(bsz, t, -1, cout)
     scale = None if out_scale is None else out_scale.float().reshape(())
     out = _pallas_tconv(x.reshape(bsz, t, -1, x.shape[-1]),
-                        taps(weight) if w3 is None else w3, bias, a, b, res,
-                        scale, silu, return_stats)
+                        taps(weight), bias, a, b, res, scale, silu,
+                        return_stats)
     y = out[0] if return_stats else out
     y = y.reshape(x.shape[:-1] + (cout,))
     return (y,) + tuple(out[1:]) if return_stats else y
@@ -167,6 +168,8 @@ def temporal_conv3(x, weight, bias, affine=None, silu: bool = False,
 class TemporalConv3(nn.Conv3d):
     def __init__(self, cin: int, cout: int):
         super().__init__(cin, cout, (3, 1, 1), padding=(1, 0, 0))
+        self.weight.data = self.weight.data.contiguous(
+            memory_format=torch.channels_last_3d)
 
     def forward(self, x, residual=None, out_scale=None):
         """out_scale * conv(x) + residual (each optional), plain."""
@@ -183,8 +186,6 @@ class TemporalConv3(nn.Conv3d):
     def fused(self, x, affine, residual=None, out_scale=None,
               return_stats: bool = False):
         """silu(x * A + B) through this conv, with the fused epilogue."""
-        w3 = (None if not _launch.is_cuda(x)
-              else _launch.kernel_layout(self, self.weight, taps))
         return temporal_conv3(x, self.weight, self.bias, affine, silu=True,
                               residual=residual, out_scale=out_scale,
-                              return_stats=return_stats, w3=w3)
+                              return_stats=return_stats)

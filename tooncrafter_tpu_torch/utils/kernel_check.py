@@ -1,8 +1,16 @@
-"""The fused kernels (GEGLU feed-forward, temporal conv, GN+SiLU+3x3 conv)
-against their plain versions on the card, at the shapes the 320x512 path
-gives them: the cases, the bounds, the times and the least time the card
-could take. ``chip_smoke.py`` phase 2 runs every case; the mutation test in
-``tests/test_torch_cuda_kernels.py`` runs them against broken builds.
+"""The fused kernels (GEGLU feed-forward, temporal conv, GN+SiLU+3x3 conv,
+temporal attention pair) against their plain versions on the card, at the
+shapes the 320x512 path gives them: the cases, the bounds, the times and the
+least time the card could take. ``chip_smoke.py`` phase 2 runs every case;
+the mutation test in ``tests/test_torch_cuda_kernels.py`` runs them against
+broken builds.
+
+Times. ``ms`` is the kernel's; ``plain_ms`` its plain version's on the same
+bf16 operands, which computes in fp32 (TF32 off) to state the kernel's
+rounding, so it is a reference and not what the port ran before the kernel;
+``chain_ms`` is that: the unfused module chain in bf16 (cuBLAS / cuDNN in
+bf16, fp32 statistics), as the model ran it before the kernel existed;
+``library_ms`` one PyTorch call for the same function where there is one.
 
 Bounds. The reference is the plain version run in fp32 on the same
 bf16-valued operands, rounding the kernel's intermediates to bf16 where the
@@ -26,9 +34,12 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
+from tooncrafter_tpu_torch.ops import attention as attn
 from tooncrafter_tpu_torch.ops import flash_attention as fa
 from tooncrafter_tpu_torch.ops import fused_ff as ff
+from tooncrafter_tpu_torch.ops import norms
 from tooncrafter_tpu_torch.ops import spatial_conv as sc
+from tooncrafter_tpu_torch.ops import temporal_attention as ta
 from tooncrafter_tpu_torch.ops import temporal_conv as tc
 
 # the card's published peaks (H100 SXM, dense, at a 700 W power limit)
@@ -36,7 +47,7 @@ PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_PER_S = 3.35e12
 STATS_REL = 1e-5
 
-MODULES = (fa, ff, tc, sc)
+MODULES = (fa, ff, tc, sc, ta)
 SOURCES = {name: "tooncrafter_tpu_torch/csrc/" + mod.LIBRARY[1][0]
            for mod in MODULES for name in mod.LAUNCHES}
 REPLACES = {
@@ -48,6 +59,7 @@ REPLACES = {
     "_pallas_ff_streamed": "tooncrafter_tpu/ops/fused_ff.py:275",
     "_pallas_tconv": "tooncrafter_tpu/ops/temporal_conv.py:68",
     "winograd_gn_silu_conv3x3": "tooncrafter_tpu/ops/winograd.py:129",
+    "_fused_tpair_call": "tooncrafter_tpu/ops/temporal_attention.py:379",
 }
 
 
@@ -120,6 +132,7 @@ class Case:
     kernel: Callable[[], Sequence[torch.Tensor]]    # (y, [s1, s2])
     reference: Callable[[], torch.Tensor]           # fp32 y
     plain: Callable[[], object]      # the plain version on bf16 operands
+    chain: Callable[[], object]      # the unfused module chain in bf16
     library: Optional[Callable[[], object]]
     flops: float
     nbytes: float
@@ -167,6 +180,7 @@ def run_case(case: Case, stats_axes: Optional[Tuple[int, ...]] = None,
         reps, plain_reps = case.reps
         row["ms"] = cuda_ms(case.kernel, reps)
         row["plain_ms"] = cuda_ms(case.plain, plain_reps)
+        row["chain_ms"] = cuda_ms(case.chain, plain_reps)
         with fp32_reference():
             row["library_ms"] = (None if case.library is None
                                  else cuda_ms(case.library, reps))
@@ -184,6 +198,7 @@ def line(case: Case, row: dict) -> str:
     if "ms" in row:
         lib = row["library_ms"]
         s += (f" ms={row['ms']:.4f} plain_ms={row['plain_ms']:.4f} "
+              f"chain_ms={row['chain_ms']:.4f} "
               f"library_ms={'none' if lib is None else f'{lib:.4f}'}")
     s += f" bound_ms={row['bound_ms']:.4f} ({row['bound_by']})"
     return s + (" ok" if row["ok"] else " FAIL")
@@ -196,6 +211,48 @@ def line(case: Case, row: dict) -> str:
 def _rnd(gen, dev, *shape, scale=1.0, offset=0.0, dtype=torch.bfloat16):
     t = torch.randn(*shape, device=dev, generator=gen) * scale + offset
     return t.to(dtype)
+
+
+def _activated(x, a, b, round_first: bool):
+    """silu(x * A + B) in bf16 from (N, ..., C) x and (N, C) A, B, as the
+    unfused chain's GroupNorm + SiLU produced it."""
+    shape = (x.shape[0],) + (1,) * (x.ndim - 2) + (x.shape[-1],)
+    u = x.float() * a.reshape(shape) + b.reshape(shape)
+    if round_first:
+        return F.silu(u.to(x.dtype))
+    return F.silu(u).to(x.dtype)
+
+
+def _chain_ff(x, w1, b1, w2, b2, lw, lb):
+    h, g = F.linear(norms.layer_norm(x, lw, lb, 1e-5), w1, b1).chunk(2, -1)
+    return F.linear(h * F.gelu(g), w2, b2) + x
+
+
+def _chain_tconv(x, w3, bias, a, b, res, scale, stats):
+    z = _activated(x, a, b, False)
+    y = F.linear(z, w3[:, 1], bias)
+    y[:, 1:] += F.linear(z[:, :-1], w3[:, 0])
+    y[:, :-1] += F.linear(z[:, 1:], w3[:, 2])
+    if scale is not None:
+        y = y * scale.to(y.dtype)
+    if res is not None:
+        y = y + res
+    return (y,) + tc._frame_sums(y) if stats else y
+
+
+def _chain_conv(x, a, b, weight, bias, res):
+    y = sc.conv2d_nhwc(_activated(x, a, b, True), weight, bias,
+                       padding=1) + res
+    return (y,) + norms.channel_sums(y)
+
+
+def _chain_tpair(x, stages, heads):
+    for ln_w, ln_b, wq, wk, wv, wo, bo in stages:
+        z = norms.layer_norm(x, ln_w, ln_b, 1e-5).unsqueeze(3)
+        o = attn.temporal_attention_inplace(
+            F.linear(z, wq), F.linear(z, wk), F.linear(z, wv), heads=heads)
+        x = F.linear(o.squeeze(3), wo, bo) + x
+    return x
 
 
 def ff_cases(dev, gen) -> List[Case]:
@@ -213,16 +270,15 @@ def ff_cases(dev, gen) -> List[Case]:
         lw = _rnd(gen, dev, c, scale=0.1, offset=1.0, dtype=torch.float32)
         lb = _rnd(gen, dev, c, scale=0.1, dtype=torch.float32)
         ops = (x, w1, b1, w2, b2, lw, lb)
-        wp = (ff.permute_k(w1), ff.permute_k(w2))
         name = ff.kernel_name(n, c, d, c)
         cases.append(Case(
             name, f"{label} N={n} C={c} D={d} LN+residual",
-            kernel=lambda o=ops, wp=wp: (ff.fused_geglu_ff(
-                *o, 1e-5, True, w1p=wp[0], w2p=wp[1]),),
+            kernel=lambda o=ops: (ff.fused_geglu_ff(*o, 1e-5, True),),
             reference=lambda o=ops: ff._plain_ff(
                 *(t.float() for t in o[:5]), o[5], o[6], 1e-5, True,
                 cdt=torch.bfloat16),
             plain=lambda o=ops: ff._plain_ff(*o, 1e-5, True),
+            chain=lambda o=ops: _chain_ff(*o),
             library=None,
             flops=2.0 * n * c * 2 * d + 2.0 * n * d * c,
             nbytes=2.0 * (2 * n * c + 3 * d * c + 2 * d + c) + 8.0 * c,
@@ -273,6 +329,7 @@ def tconv_cases(dev, gen) -> List[Case]:
                 None if o[5] is None else o[5].float(), o[6], True, False,
                 cdt=torch.bfloat16),
             plain=lambda o=ops, s=stats: tc._plain_tconv(*o, True, s),
+            chain=lambda o=ops, s=stats: _chain_tconv(*o, s),
             library=library,
             flops=2.0 * bsz * p * c * c * (3 * t - 2),
             nbytes=(2.0 * (n_out * (2 + res_on) + 3 * c * c + c)
@@ -295,30 +352,66 @@ def conv_cases(dev, gen) -> List[Case]:
         a = _rnd(gen, dev, n, cin, scale=0.2, offset=1.0,
                  dtype=torch.float32)
         b = _rnd(gen, dev, n, cin, scale=0.1, dtype=torch.float32)
-        weight = _rnd(gen, dev, cout, cin, 3, 3, scale=(9 * cin) ** -0.5)
+        # channels-last, as the model's Conv2d keeps its weight
+        weight = _rnd(gen, dev, cout, cin, 3, 3, scale=(9 * cin) ** -0.5
+                      ).contiguous(memory_format=torch.channels_last)
         bias = _rnd(gen, dev, cout, scale=0.1)
         res = _rnd(gen, dev, n, h, w, cout)
-        w9 = sc.kernel_weight(weight)
         ops = (x, a, b, weight, bias, res)
-        wcl = weight.contiguous(memory_format=torch.channels_last)
 
-        def library(o=ops, wcl=wcl):
+        def library(o=ops):
             # the conv alone on the activated input, channels-last (cuDNN)
-            return F.conv2d(o[0].permute(0, 3, 1, 2), wcl, o[4], padding=1)
+            return F.conv2d(o[0].permute(0, 3, 1, 2), o[3], o[4], padding=1)
 
         cases.append(Case(
             "winograd_gn_silu_conv3x3",
             f"{label} N={n} {h}x{w} C={cin}->{cout} stats+residual",
-            kernel=lambda o=ops, w9=w9: sc.winograd_gn_silu_conv3x3(
-                *o, silu=True, stats=True, w9=w9),
+            kernel=lambda o=ops: sc.winograd_gn_silu_conv3x3(
+                *o, silu=True, stats=True),
             reference=lambda o=ops: sc._plain_conv3x3(
                 o[0].float(), o[1], o[2], o[3].float(), o[4].float(),
                 o[5].float(), True, False, cdt=torch.bfloat16),
             plain=lambda o=ops: sc._plain_conv3x3(*o, True, True),
+            chain=lambda o=ops: _chain_conv(*o),
             library=library,
-            flops=2.0 * n * h * w * 9 * cin * cout,
+            # only in-image taps: (3H - 2)(3W - 2) (pixel, tap) pairs
+            flops=2.0 * n * (3 * h - 2) * (3 * w - 2) * cin * cout,
             nbytes=(2.0 * (n * h * w * (cin + 2 * cout) + 9 * cin * cout
                            + cout) + 8.0 * n * cin + 8.0 * n * cout),
+            reps=(10, 3)))
+    return cases
+
+
+def tpair_cases(dev, gen) -> List[Case]:
+    """(B, T, P, C): the temporal transformer blocks' attention pair at each
+    UNet level, the init attention's 512-wide blocks, and the mid block's
+    5x8 level."""
+    cases = []
+    for label, p, c in (("ds1", 2560, 320), ("init_attn", 2560, 512),
+                        ("ds2", 640, 640), ("ds4", 160, 1280),
+                        ("mid 5x8", 40, 1280)):
+        bsz, t, heads = 2, 16, c // ta.HEAD_DIM
+        x = _rnd(gen, dev, bsz, t, p, c)
+        stages = tuple(
+            (_rnd(gen, dev, c, scale=0.1, offset=1.0, dtype=torch.float32),
+             _rnd(gen, dev, c, scale=0.1, dtype=torch.float32),
+             *(_rnd(gen, dev, c, c, scale=c ** -0.5) for _ in range(4)),
+             _rnd(gen, dev, c, scale=0.1)) for _ in range(2))
+        ref_stages = tuple(tuple(w.float() for w in s) for s in stages)
+        n = bsz * t * p
+        cases.append(Case(
+            "_fused_tpair_call", f"{label} B={bsz} T={t} P={p} C={c}",
+            kernel=lambda x=x, s=stages, h=heads: (ta._fused_tpair_call(
+                x, *s, h, 0.125),),
+            reference=lambda x=x, s=ref_stages, h=heads: ta._plain_tpair(
+                x.float(), *s, h, 0.125, 1e-5, cdt=torch.bfloat16),
+            plain=lambda x=x, s=stages, h=heads: ta._plain_tpair(
+                x, *s, h, 0.125, 1e-5),
+            chain=lambda x=x, s=stages, h=heads: _chain_tpair(x, s, h),
+            library=None,
+            # per stage: q, k, v and out projections, q k^T and p v over T
+            flops=2 * (8.0 * n * c * c + 4.0 * n * t * c),
+            nbytes=2.0 * 2 * n * c + 2 * (8.0 * c * c + 2.0 * c + 8.0 * c),
             reps=(10, 3)))
     return cases
 
@@ -331,4 +424,5 @@ def fused_cases(dev, seed: int = 0) -> List[Tuple[Case, Optional[tuple]]]:
     out += [(c, (2,) if "stats" in c.label else None)
             for c in tconv_cases(dev, gen)]
     out += [(c, (1, 2)) for c in conv_cases(dev, gen)]
+    out += [(c, None) for c in tpair_cases(dev, gen)]
     return out

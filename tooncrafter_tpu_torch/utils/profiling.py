@@ -26,6 +26,7 @@ KINDS = (
     ("fused FF (port kernel)", ("fused_ff_kernel",)),
     ("temporal conv (port kernel)", ("igemm::tconv_kernel",)),
     ("GN+SiLU+3x3 conv (port kernel)", ("igemm::conv_kernel",)),
+    ("temporal attention pair (port kernel)", ("tpair_kernel",)),
     ("convolution", ("conv", "implicit", "winograd", "fprop", "dgrad",
                      "nhwc", "xmma_fprop")),
     ("matmul", ("gemm", "nvjet", "cutlass", "xmma", "matmul", "sm90_")),
