@@ -193,8 +193,9 @@ MUTATIONS = [
          "p.s2[o] = sStat[0 * BN + c]"))
 ] + [
     ("output x1.01", "temporal_attention.cu", "temporal_attention.cu",
-     "pack_bf16(y0 + xv.x, y1 + xv.y)",
-     "pack_bf16(1.01f * (y0 + xv.x), 1.01f * (y1 + xv.y))"),
+     "p.out + row * p.c + col) =\n                  pack_bf16(y0, y1);",
+     "p.out + row * p.c + col) =\n                  "
+     "pack_bf16(1.01f * y0, 1.01f * y1);"),
     ("skipped K chunk", "temporal_attention.cu", "temporal_attention.cu",
      "load_a_k32(a, sZ, cp, mt * 16, k, lane);",
      "load_a_k32(a, sZ, cp, mt * 16, k, lane);\n            "

@@ -131,7 +131,7 @@ def test_kernel_covers_the_path_shapes():
     assert ta.covers(4, 64, 320) and ta.covers(1, 64, 64)
     assert not ta.covers(5, 64, 320)      # T must divide 16
     assert not ta.covers(16, 32, 64)      # 64-wide heads only
-    assert not ta.covers(16, 64, 1344)    # the register accumulator
+    assert not ta.covers(16, 64, 1344)    # shared memory
 
 
 def test_cuda_tensors_never_take_the_plain_version(monkeypatch):

@@ -23,24 +23,26 @@
 //      b. per m16 tile: logits = (q k^T) * scale in fp32, -inf outside the
 //         pixel where T < 16, fp32 softmax (max, exp, sum, divide), the
 //         probabilities rounded to bf16 as the A fragment of p v, whose fp32
-//         result rounds to bf16 (o). A tile's warps split o's eight n8
-//         column tiles; each recomputes the 16 x 16 logits (8 products);
-//      c. acc += o Wout[:, h]^T over the warp's output columns, in fp32
-//         registers.
-//   3. epilogue: bf16(bf16(acc) + bout) + input, rounded to bf16. Stage 1's
-//      result stays in shared memory as stage 2's input and residual; stage
-//      2's goes to device memory.
+//         result rounds to bf16 into o[:, h] in shared memory. A tile's
+//         warps split o's eight n8 column tiles; each recomputes the
+//         16 x 16 logits (8 products);
+//   3. out-projection, y = o Wout^T over K = C, in column chunks of 8 NTW
+//      n8 tiles (NTW a warp, interleaved), fp32 registers per chunk; then
+//      bf16(bf16(y) + bout) + input, rounded to bf16. Stage 1's result goes
+//      to shared memory as stage 2's LayerNorm input (over z, which is dead
+//      by then) and to device memory as stage 2's residual (each thread
+//      reads back only what it wrote); stage 2's is the output.
 // Step b is ~2 % of the products: 2 x 16 x 16 x 64 per pixel and head,
 // against 16 x 4 C x 64 for the projections of its 16 tokens.
 //
 // Weights keep torch's Linear layout (out, in) and are read from L2 by
-// 16-byte loads in the k32 order of mma_bf16.cuh (no permuted copy). As in
-// the fused FF, the output accumulator (BM x C fp32) lives in the registers
-// of the block's 8 warps, 80 floats a thread at every width, which sets BM:
-// 64 tokens at C <= 320, 32 at C <= 640, 16 at C <= 1280. Every token tile
-// reads all of a pair's weights (16 C^2 bytes) from L2 again: at C = 1280
-// that is 26 MB a 16-token tile, ~8.4 GB a call at the UNet's 10x16 level.
-// Splitting C over blocks instead would recompute the projections per slice.
+// 16-byte loads in the k32 order of mma_bf16.cuh (no permuted copy). Every
+// token tile reads all of a pair's weights (16 C^2 bytes) from L2, so the
+// tile should be as large as shared memory allows: z and o (BM x C bf16
+// each) set it, 64 tokens at C <= 640 and 32 at C = 1280 (~180-200 KB).
+// Keeping o in shared memory frees the tile from the output accumulator:
+// accumulating the out-projection head by head in registers (BM x C fp32
+// over the block's 8 warps) would cap it at 16 tokens at C = 1280.
 //
 // A first version: mma.sync m16n8k16, one block of 8 warps per token tile;
 // wgmma, TMA and a persistent schedule are later work.
@@ -55,7 +57,6 @@ namespace {
 constexpr int kD = 64;                     // head width
 constexpr int kNW = 8;                     // warps a block
 constexpr int kQP = k32_stride(3 * kD);    // shared row of q | k | v
-constexpr int kOP = k32_stride(kD);        // shared row of o
 
 struct Stage {
   const float* lnw;  // (c) fp32
@@ -79,17 +80,16 @@ __device__ __forceinline__ uint4 ldg128(const bf16* p) {
   return __ldg(reinterpret_cast<const uint4*>(p));
 }
 
-template <int MT, int NTO>
+template <int MT, int NTW>
 __global__ void __launch_bounds__(kNW * 32, 1) tpair_kernel(const Params p) {
   constexpr int BM = 16 * MT;
   constexpr int WPM = kNW / MT;  // warps per m16 tile in step b
   constexpr int NPV = 8 / WPM;   // n8 tiles of o per warp in step b
   const int cp = k32_stride(p.c);
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* sX = reinterpret_cast<bf16*>(smem_raw);  // [BM][cp] stage 1's output
-  bf16* sZ = sX + BM * cp;                       // [BM][cp]
-  bf16* sQKV = sZ + BM * cp;                     // [BM][kQP]
-  bf16* sO = sQKV + BM * kQP;                    // [BM][kOP]
+  bf16* sZ = reinterpret_cast<bf16*>(smem_raw);  // [BM][cp] z, then stage 1's output
+  bf16* sO = sZ + BM * cp;                       // [BM][cp] o of every head
+  bf16* sQKV = sO + BM * cp;                     // [BM][kQP] one head's q | k | v
 
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
@@ -104,16 +104,14 @@ __global__ void __launch_bounds__(kNW * 32, 1) tpair_kernel(const Params p) {
     const int px = p0 + r / p.t;
     return px < p.p ? ((long long)bi * p.t + r % p.t) * p.p + px : -1;
   };
-
   const int ntiles = p.c / 8;
-  const int tpw = (ntiles + kNW - 1) / kNW;  // output n8 tiles a warp
-  const int tile0 = warp * tpw;
   const int heads = p.c / kD;
 
   for (int s = 0; s < 2; ++s) {
     const Stage st = s == 0 ? p.st[0] : p.st[1];
 
-    // 1. z = LN(input) for the token tile, one warp per row
+    // 1. z = LN(input) for the token tile, one warp per row (stage 2 reads
+    // its input from sZ and overwrites it in place, row by row)
     for (int r = warp; r < BM; r += kNW) {
       bf16* zr = sZ + r * cp;
       const long long row = grow(r);
@@ -122,7 +120,7 @@ __global__ void __launch_bounds__(kNW * 32, 1) tpair_kernel(const Params p) {
           *reinterpret_cast<uint32_t*>(zr + c) = 0u;
         continue;
       }
-      const bf16* xr = s == 0 ? p.x + row * p.c : sX + r * cp;
+      const bf16* xr = s == 0 ? p.x + row * p.c : zr;
       float sum = 0.f, sq = 0.f;
       for (int c = lane * 2; c < p.c; c += 64) {
         const float2 v = ld_bf162(xr + c);
@@ -144,13 +142,6 @@ __global__ void __launch_bounds__(kNW * 32, 1) tpair_kernel(const Params p) {
       }
     }
     __syncthreads();
-
-    float acc[MT][NTO][4];
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-      for (int j = 0; j < NTO; ++j)
-        acc[mt][j][0] = acc[mt][j][1] = acc[mt][j][2] = acc[mt][j][3] = 0.f;
 
     for (int h = 0; h < heads; ++h) {
       // a. columns 8 warp .. 8 warp + 7 of this head's q, k and v, K = C
@@ -196,7 +187,7 @@ __global__ void __launch_bounds__(kNW * 32, 1) tpair_kernel(const Params p) {
       }
       __syncthreads();
 
-      // b. attention over the frames of each pixel of m16 tile mt
+      // b. attention over the frames of each pixel of m16 tile mt -> o[:, h]
       {
         const int r0 = (warp / WPM) * 16;
         float sc[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
@@ -252,34 +243,39 @@ __global__ void __launch_bounds__(kNW * 32, 1) tpair_kernel(const Params p) {
           ldmatrix_x2_trans(vb, sQKV + (r0 + (lane & 15)) * kQP + 2 * kD + nt * 8);
           float o[4] = {0.f, 0.f, 0.f, 0.f};
           mma_16816(o, pa, vb[0], vb[1]);
-          *reinterpret_cast<uint32_t*>(sO + (r0 + g) * kOP + nt * 8 + 2 * t4) =
-              pack_bf16(o[0], o[1]);
-          *reinterpret_cast<uint32_t*>(sO + (r0 + g + 8) * kOP + nt * 8 + 2 * t4) =
-              pack_bf16(o[2], o[3]);
+          bf16* orow = sO + (r0 + g) * cp + h * kD + nt * 8 + 2 * t4;
+          *reinterpret_cast<uint32_t*>(orow) = pack_bf16(o[0], o[1]);
+          *reinterpret_cast<uint32_t*>(orow + 8 * cp) = pack_bf16(o[2], o[3]);
         }
       }
-      __syncthreads();
+      __syncthreads();  // sQKV is free for the next head; o[:, h] is whole
+    }
 
-      // c. acc += o Wout[:, h]^T over this warp's output tiles (the next
-      // head's first barrier orders these reads of sO before its writes)
+    // 3. y = o Wout^T in column chunks: warp w owns n8 tiles base + j kNW
+    for (int base = warp; base < ntiles + warp; base += kNW * NTW) {
+      float acc[MT][NTW][4];
 #pragma unroll
-      for (int kk = 0; kk < kD; kk += 32) {
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int j = 0; j < NTW; ++j)
+          acc[mt][j][0] = acc[mt][j][1] = acc[mt][j][2] = acc[mt][j][3] = 0.f;
+      for (int k = 0; k < p.c; k += 32) {
         uint32_t a[MT][2][4];
 #pragma unroll
-        for (int mt = 0; mt < MT; ++mt) load_a_k32(a[mt], sO, kOP, mt * 16, kk, lane);
+        for (int mt = 0; mt < MT; ++mt) load_a_k32(a[mt], sO, cp, mt * 16, k, lane);
 #pragma unroll
-        for (int jg = 0; jg < NTO; jg += 5) {
+        for (int jg = 0; jg < NTW; jg += 5) {
           uint4 bw[5];
 #pragma unroll
           for (int j = 0; j < 5; ++j) {
-            const int tile = tile0 + jg + j;
-            if (jg + j < NTO && jg + j < tpw && tile < ntiles)
-              bw[j] = ldg128(st.wo + (long long)(tile * 8 + g) * p.c + h * kD + kk + 8 * t4);
+            const int tile = base + (jg + j) * kNW;
+            if (jg + j < NTW && tile < ntiles)
+              bw[j] = ldg128(st.wo + (long long)(tile * 8 + g) * p.c + k + 8 * t4);
           }
 #pragma unroll
           for (int j = 0; j < 5; ++j) {
-            const int tile = tile0 + jg + j;
-            if (jg + j < NTO && jg + j < tpw && tile < ntiles) {
+            const int tile = base + (jg + j) * kNW;
+            if (jg + j < NTW && tile < ntiles) {
 #pragma unroll
               for (int mt = 0; mt < MT; ++mt) {
                 mma_16816(acc[mt][jg + j], a[mt][0], bw[j].x, bw[j].y);
@@ -289,54 +285,49 @@ __global__ void __launch_bounds__(kNW * 32, 1) tpair_kernel(const Params p) {
           }
         }
       }
-    }
-
-    // 3. epilogue: acc -> bf16, + bout, + input, each add rounded to bf16
+      // epilogue: y -> bf16, + bout, + input, each add rounded to bf16
 #pragma unroll
-    for (int j = 0; j < NTO; ++j) {
-      const int tile = tile0 + j;
-      if (j >= tpw || tile >= ntiles) continue;
-      const int col = tile * 8 + 2 * t4;
-      const float c0 = __bfloat162float(st.bo[col]);
-      const float c1 = __bfloat162float(st.bo[col + 1]);
+      for (int j = 0; j < NTW; ++j) {
+        const int tile = base + j * kNW;
+        if (tile >= ntiles) continue;
+        const int col = tile * 8 + 2 * t4;
+        const float c0 = __bfloat162float(st.bo[col]);
+        const float c1 = __bfloat162float(st.bo[col + 1]);
 #pragma unroll
-      for (int mt = 0; mt < MT; ++mt)
+        for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-        for (int hr = 0; hr < 2; ++hr) {
-          const int r = mt * 16 + g + 8 * hr;
-          const long long row = grow(r);
-          float y0 = round_bf16(round_bf16(acc[mt][j][2 * hr]) + c0);
-          float y1 = round_bf16(round_bf16(acc[mt][j][2 * hr + 1]) + c1);
-          if (s == 0) {
-            if (row >= 0) {
-              const float2 xv = ld_bf162(p.x + row * p.c + col);
+          for (int hr = 0; hr < 2; ++hr) {
+            const int r = mt * 16 + g + 8 * hr;
+            const long long row = grow(r);
+            float y0 = round_bf16(round_bf16(acc[mt][j][2 * hr]) + c0);
+            float y1 = round_bf16(round_bf16(acc[mt][j][2 * hr + 1]) + c1);
+            if (row >= 0) {  // stage 1: + x; stage 2: + stage 1's output
+              const float2 xv = ld_bf162((s == 0 ? p.x : p.out) + row * p.c + col);
               y0 += xv.x;
               y1 += xv.y;
+              *reinterpret_cast<uint32_t*>(p.out + row * p.c + col) =
+                  pack_bf16(y0, y1);
             }
-            *reinterpret_cast<uint32_t*>(sX + r * cp + col) = pack_bf16(y0, y1);
-          } else if (row >= 0) {
-            const float2 xv = ld_bf162(sX + r * cp + col);
-            *reinterpret_cast<uint32_t*>(p.out + row * p.c + col) =
-                pack_bf16(y0 + xv.x, y1 + xv.y);
+            if (s == 0)
+              *reinterpret_cast<uint32_t*>(sZ + r * cp + col) = pack_bf16(y0, y1);
           }
-        }
+      }
     }
-    __syncthreads();  // stage 1's output is whole before stage 2 reads it
+    __syncthreads();  // stage 1's output is whole in sZ before stage 2's LN
   }
 }
 
-template <int MT, int NTO>
+template <int MT, int NTW>
 int launch(const Params& p, cudaStream_t stream) {
   constexpr int BM = 16 * MT;
-  const int smem =
-      (2 * BM * k32_stride(p.c) + BM * kQP + BM * kOP) * (int)sizeof(bf16);
+  const int smem = (2 * BM * k32_stride(p.c) + BM * kQP) * (int)sizeof(bf16);
   cudaError_t err = cudaFuncSetAttribute(
-      tpair_kernel<MT, NTO>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      tpair_kernel<MT, NTW>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   const int ppt = BM / p.t;
   const long long blocks = (long long)p.b * ((p.p + ppt - 1) / ppt);
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  tpair_kernel<MT, NTO><<<(unsigned)blocks, kNW * 32, smem, stream>>>(p);
+  tpair_kernel<MT, NTW><<<(unsigned)blocks, kNW * 32, smem, stream>>>(p);
   return (int)cudaGetLastError();
 }
 
@@ -369,7 +360,9 @@ extern "C" int tc_temporal_attn_pair(
   q.scale = scale;
   q.eps = eps;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (c <= 320) return launch<4, 5>(q, s);
-  if (c <= 640) return launch<2, 10>(q, s);
-  return launch<1, 20>(q, s);
+  // 64 tokens a tile where z and o fit in shared memory beside one head's
+  // q | k | v, else 32; the out-projection's chunk keeps 80 accumulators a
+  // thread
+  if (c <= 640) return launch<4, 5>(q, s);
+  return launch<2, 10>(q, s);
 }

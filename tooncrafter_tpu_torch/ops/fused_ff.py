@@ -34,6 +34,7 @@ import torch
 
 from tooncrafter_tpu_torch.ops import _build
 from tooncrafter_tpu_torch.ops import _launch
+from tooncrafter_tpu_torch.ops.norms import layer_norm_ex2
 
 LAUNCHES: Dict[str, int] = {"_pallas_ff": 0, "_pallas_ff_streamed": 0}
 
@@ -118,16 +119,6 @@ def kernel_name(n: int, c: int, d: int, cout: int) -> str:
 # plain version
 # ---------------------------------------------------------------------------
 
-def _plain_ln(x, w, b, eps: float, cdt):
-    """LayerNorm as the TPU kernel's prologue: fp32, E[x^2] - mean^2
-    clamped at 0, rounded to ``cdt``."""
-    xf = x.float()
-    mean = xf.mean(-1, keepdim=True)
-    var = (xf.square().mean(-1, keepdim=True) - mean.square()).clamp_min(0)
-    return ((xf - mean) * torch.rsqrt(var + eps) * w.float()
-            + b.float()).to(cdt).to(x.dtype)
-
-
 def _plain_ff(x2, w1, b1, w2, b2, ln_w, ln_b, eps: float,
               residual: bool, cdt: Optional[torch.dtype] = None):
     """x2: (N, C) -> (N, Cout), with the kernel's rounding points: the LN
@@ -136,7 +127,8 @@ def _plain_ff(x2, w1, b1, w2, b2, ln_w, ln_b, eps: float,
     fp32 operands and cdt=bf16 it is the kernel with its intermediate
     roundings and an fp32 output, the reference of the card's check."""
     cdt = x2.dtype if cdt is None else cdt
-    z = _plain_ln(x2, ln_w, ln_b, eps, cdt) if ln_w is not None else x2
+    z = (layer_norm_ex2(x2, ln_w, ln_b, eps, cdt) if ln_w is not None
+         else x2)
     a = torch.matmul(z.float(), w1.float().t()) + b1.float()
     h, g = a.chunk(2, dim=-1)
     m = (h * torch.nn.functional.gelu(g)).to(cdt)

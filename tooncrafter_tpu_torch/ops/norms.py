@@ -86,6 +86,17 @@ def layer_norm(x, weight, bias, eps: float = 1e-5):
                         bias.float(), eps).to(x.dtype)
 
 
+def layer_norm_ex2(x, weight, bias, eps: float, cdt):
+    """LayerNorm as the fused kernels' prologues compute it (the TPU
+    kernels' ``_ln_tile``): fp32, variance E[x^2] - mean^2 clamped at 0,
+    rounded to ``cdt`` and returned in x's dtype."""
+    xf = x.float()
+    mean = xf.mean(-1, keepdim=True)
+    var = (xf.square().mean(-1, keepdim=True) - mean.square()).clamp_min(0)
+    return ((xf - mean) * torch.rsqrt(var + eps) * weight.float()
+            + bias.float()).to(cdt).to(x.dtype)
+
+
 class GroupNorm(nn.GroupNorm):
     """torch.nn.GroupNorm's parameters (``weight``, ``bias``) applied to a
     channels-last tensor with fp32 statistics; ``act`` adds SiLU."""

@@ -29,12 +29,13 @@ import torch
 
 from tooncrafter_tpu_torch.ops import _build
 from tooncrafter_tpu_torch.ops import _launch
+from tooncrafter_tpu_torch.ops.norms import layer_norm_ex2
 
 LAUNCHES: Dict[str, int] = {"_fused_tpair_call": 0}
 
 # the kernel's limits (csrc/temporal_attention.cu): 64-wide heads, at most
-# 1280 channels (the output accumulator in registers), T dividing 16 (whole
-# pixels in each m16 row tile)
+# 1280 channels (z and o of a 32-token tile in shared memory), T dividing 16
+# (whole pixels in each m16 row tile)
 HEAD_DIM = 64
 _MAX_C = 1280
 
@@ -47,19 +48,11 @@ def reset_launch_counts() -> None:
 # plain version
 # ---------------------------------------------------------------------------
 
-def _plain_ln(x, w, b, eps: float, cdt):
-    xf = x.float()
-    mean = xf.mean(-1, keepdim=True)
-    var = (xf.square().mean(-1, keepdim=True) - mean.square()).clamp_min(0)
-    return ((xf - mean) * torch.rsqrt(var + eps) * w.float()
-            + b.float()).to(cdt)
-
-
 def _plain_stage(x, stage, heads: int, scale: float, eps: float, cdt):
     """x + to_out(attn_T(qkv(LN(x)))) on (B, T, P, C)."""
     ln_w, ln_b, wq, wk, wv, wo, bo = stage
     bsz, t, p, c = x.shape
-    z = _plain_ln(x, ln_w, ln_b, eps, cdt).float()
+    z = layer_norm_ex2(x, ln_w, ln_b, eps, cdt).float()
 
     def heads_of(w):  # -> (B, P, heads, T, d)
         y = torch.matmul(z, w.float().t()).to(cdt).float()
