@@ -20,7 +20,15 @@ Phases, each printed on its own lines; any failure exits non-zero:
      the full-width 320x512 model (configs/inference_512_v1.0.yaml) with
      random weights from a fixed seed in bf16 and answer two interpolation
      requests (16 frames, DDIM, CFG 7.5 + rescale 0.7, the middle-frame
-     splice) through the port's Pipeline, counting kernel launches.
+     splice) through the port's Pipeline, counting kernel launches;
+  4. training: a reduced model's UNet and image_proj gradients in bf16 on
+     the card against the same model's fp32 gradients on the CPU (same
+     weights, same draws), then the full-width 320x512 training model
+     (configs/training_512_v1.0.yaml: per-block checkpointing with the
+     'dots' policy) with random weights from a fixed seed takes three
+     AdamW steps with EMA on a batch of two 16x320x512 clips through
+     ``make_train_step``, counting the forward and backward kernels'
+     launches, with the step seconds and the peak memory.
 The last two lines are the kernels' JSON summary and the device JSON.
 """
 
@@ -48,6 +56,19 @@ REDUCED_MIN_PSNR = 30.0
 # random weights make no picture; this only rules out a blow-up (the
 # decoder's last conv sees unit-variance features: outputs of a few units)
 OUTPUT_MAX_ABS = 100.0
+# the reduced training model's gradients, card (bf16 autocast, kernels)
+# against CPU (fp32, plain versions): the cosine of the concatenated
+# gradient, and each tensor's relative L2 error
+# (bf16 products round each operand to 2^-9; through the UNet's depth the
+# worst tensor was 3.6% off on the first run, so 0.1 leaves ~3x margin)
+GRAD_MIN_COSINE = 0.99
+GRAD_MAX_REL_L2 = 0.1
+TRAIN_STEPS = 3
+# the kernels only training launches (inference has no backward)
+TRAIN_ONLY = ("_flash_bwd_bh",)
+# the kernels a training step of the 512 model launches
+TRAIN_KERNELS = ("_flash_mh_packed", "_flash_mh", "_pallas_ff",
+                 "_pallas_ff_streamed", "_fused_tpair_call", "_flash_bwd_bh")
 
 def phase(name: str) -> None:
     print(f"== {name}", flush=True)
@@ -190,6 +211,16 @@ def check_kernels(dev) -> dict:
             case.name, r["ms"], r["plain_ms"], r["library_ms"],
             r["bound_ms"], r["bound_by"]))
         row["max_abs_err"] = max(row["max_abs_err"], r["max_abs_err"])
+    for case in kc.bwd_cases(dev):
+        r = kc.run_bwd_case(case)
+        print(kc.bwd_line(case, r), flush=True)
+        if not r["ok"]:
+            failed.append(f"_flash_bwd_bh {case.label}")
+        row = rows.setdefault("_flash_bwd_bh", new_row(
+            "_flash_bwd_bh", r["ms"], r["plain_ms"], r["library_ms"],
+            r["bound_ms"], r["bound_by"]))
+        row["max_abs_err"] = max(row["max_abs_err"], r["max_abs_err"])
+        del case
     if failed:
         raise SystemExit("kernels disagree with their plain versions: "
                          + "; ".join(failed))
@@ -299,7 +330,8 @@ def check_reduced_model(dev) -> None:
               for k, v in pixels.items()}
     print(f"reduced model: pixel counts with a ragged last tile {ragged}",
           flush=True)
-    if not (psnr >= REDUCED_MIN_PSNR and all(hit.values())
+    if not (psnr >= REDUCED_MIN_PSNR
+            and all(v for k, v in hit.items() if k not in TRAIN_ONLY)
             and all(ragged.values())):
         raise SystemExit("reduced model: the card disagrees with the CPU, a "
                          "kernel was not reached or no ragged tile was")
@@ -363,6 +395,168 @@ def answer_requests(dev, ddim_steps: int) -> dict:
     return counts
 
 
+class _KeptDropout(torch.nn.Dropout):
+    """A dropout that passes its input through but keeps its p, so the
+    UNet still takes its training branch: the card and the CPU then see
+    the same (no) masks."""
+
+    def forward(self, x):
+        return x
+
+
+def _keep_dropout(model) -> None:
+    for mod in list(model.modules()):
+        for name, child in list(mod.named_children()):
+            if type(child) is torch.nn.Dropout and child.p > 0:
+                setattr(mod, name, _KeptDropout(child.p))
+
+
+def check_reduced_training(dev) -> None:
+    """The reduced model's trainable gradients: card (bf16 autocast over
+    fp32 weights, the kernels and #6) against CPU (fp32, plain versions),
+    on the same weights, batch and draws, dropout kept out of both."""
+    import copy
+    import dataclasses
+
+    from tooncrafter_tpu_torch.config import ModelConfig
+    from tooncrafter_tpu_torch.models.diffusion import ToonCrafter
+    from tooncrafter_tpu_torch.training import trainer as T
+    from tooncrafter_tpu_torch.utils import kernel_check as kc
+    from tooncrafter_tpu_torch.utils.profiling import random_batch
+    from tooncrafter_tpu_torch.utils.weights import init_random_
+
+    cfg = dataclasses.replace(reduced_config(ModelConfig()),
+                              use_checkpoint=True, remat_policy="dots")
+    cpu_model = ToonCrafter(cfg)
+    init_random_(cpu_model, torch.Generator().manual_seed(1))
+    _keep_dropout(cpu_model)
+    gpu_model = copy.deepcopy(cpu_model).to(dev)
+    gpu_model.config = dataclasses.replace(cfg, compute_dtype=torch.bfloat16)
+    batch = random_batch(cfg, 2, 4, "cpu")
+    draws = T.sample_draws(cpu_model, batch["video"],
+                           torch.Generator().manual_seed(5))
+    draws["rand"] = torch.tensor([0.5, 0.07])  # one clip keeps its text
+    grads = {}
+    for name, model, device in (("cpu", cpu_model, "cpu"),
+                                ("gpu", gpu_model, dev)):
+        train, _ = T.split_trainable(model)
+        kc.reset_launch_counts()
+        b = {k: v.to(device) for k, v in batch.items()}
+        with T.autocast(model, torch.device(device)):
+            loss, _ = T.diffusion_loss(model, b, draws=draws, train=True)
+        loss.backward()
+        if name == "gpu":
+            torch.cuda.synchronize()
+            hit = kc.launch_counts()
+        grads[name] = {k: p.grad.float().cpu() for k, p in train.items()}
+        print(f"reduced training model on the {name}: loss "
+              f"{loss.item():.6f}", flush=True)
+    names = sorted(grads["cpu"])
+    flat = {k: torch.cat([grads[k][n].flatten() for n in names]).double()
+            for k in grads}
+    cos = (flat["gpu"] @ flat["cpu"]
+           / (flat["gpu"].norm() * flat["cpu"].norm())).item()
+    rel = {n: ((grads["gpu"][n] - grads["cpu"][n]).norm()
+               / grads["cpu"][n].norm().clamp_min(1e-30)).item()
+           for n in names}
+    worst = sorted(rel.items(), key=lambda kv: -kv[1])[:5]
+    print(f"reduced training model {cfg.latent_h * 8}x{cfg.latent_w * 8}x"
+          f"{cfg.video_length}, B=2: {len(names)} trainable tensors, "
+          f"gradient cosine {cos:.6f} (bound >= {GRAD_MIN_COSINE}), "
+          f"largest per-tensor relative L2 error {worst[0][1]:.4f} (bound "
+          f"{GRAD_MAX_REL_L2}); worst {worst}; kernel launches {hit}",
+          flush=True)
+    missed = [k for k in TRAIN_KERNELS if not hit[k]]
+    if cos < GRAD_MIN_COSINE or worst[0][1] > GRAD_MAX_REL_L2 or missed:
+        raise SystemExit(f"reduced training model: card gradients disagree "
+                         f"with the CPU's, or kernels {missed} not reached")
+
+
+def train_full_width(dev) -> dict:
+    """Three AdamW steps of the 512 training model at full width; returns
+    the launch counts over the three steps."""
+    import dataclasses
+
+    from tooncrafter_tpu_torch.config import model_config_from_yaml
+    from tooncrafter_tpu_torch.models.diffusion import ToonCrafter
+    from tooncrafter_tpu_torch.training import trainer as T
+    from tooncrafter_tpu_torch.utils import kernel_check as kc
+    from tooncrafter_tpu_torch.utils.profiling import random_batch
+    from tooncrafter_tpu_torch.utils.weights import init_random_
+
+    cfg = dataclasses.replace(
+        model_config_from_yaml(os.path.join(
+            REPO, "configs", "training_512_v1.0.yaml")),
+        compute_dtype=torch.bfloat16)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    torch.manual_seed(SEED)  # dropout's stream
+    t0 = time.perf_counter()
+    with torch.device(dev):
+        model = ToonCrafter(cfg)
+    init_random_(model, torch.Generator(dev).manual_seed(SEED))
+    tcfg = T.TrainConfig(learning_rate=1e-5 * 2)
+    state, opt = T.make_train_state(model, tcfg, use_ema=True)
+    step_fn = T.make_train_step(model, opt, tcfg)
+    n_train = sum(p.numel() for p in state.train_params.values())
+    torch.cuda.synchronize()
+    print(f"training model (use_checkpoint={cfg.use_checkpoint}, "
+          f"remat_policy={cfg.remat_policy}): {n_train / 1e9:.3f} B "
+          f"trainable of {sum(p.numel() for p in model.parameters()) / 1e9:.3f}"
+          f" B parameters, AdamW + EMA, built in "
+          f"{time.perf_counter() - t0:.1f} s, "
+          f"{torch.cuda.memory_allocated(dev) / 2 ** 30:.2f} GiB allocated",
+          flush=True)
+    grad_seen = {}
+
+    def seen(name):
+        def hook(p):
+            flag = (p.grad != 0).any()
+            grad_seen[name] = flag | grad_seen.get(name, flag)
+        return hook
+    hooks = [p.register_post_accumulate_grad_hook(seen(n))
+             for n, p in state.train_params.items()]
+    ema0 = {k: e.double().sum() for k, e in state.ema_params.items()}
+    batch = random_batch(cfg, 2, SEED, dev)
+    gen = torch.Generator(dev).manual_seed(SEED)
+    total = dict.fromkeys(kc.launch_counts(), 0)
+    for i in range(TRAIN_STEPS):
+        kc.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step_fn(state, batch, gen)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = kc.launch_counts()
+        for k, v in counts.items():
+            total[k] += v
+        loss, gnorm = float(metrics["loss"]), float(metrics["grad_norm"])
+        print(f"train step {i}: {dt:.2f} s, loss {loss:.6f}, grad_norm "
+              f"{gnorm:.6f}, t {float(metrics['t_mean']):.0f}; launches "
+              + ", ".join(f"{k} {v}" for k, v in counts.items() if v),
+              flush=True)
+        if not (torch.isfinite(torch.tensor([loss, gnorm])).all()):
+            raise SystemExit(f"train step {i}: non-finite loss or grad_norm")
+    for h in hooks:
+        h.remove()
+    zero = [n for n in state.train_params if not bool(grad_seen.get(n))]
+    still = [k for k, e in state.ema_params.items()
+             if e.double().sum() == ema0[k]]
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    print(f"training: peak memory allocated {peak:.2f} GiB; "
+          f"{len(state.train_params) - len(zero)} of "
+          f"{len(state.train_params)} trainable tensors got a non-zero "
+          f"gradient; EMA shadow moved on {len(ema0) - len(still)} of "
+          f"{len(ema0)}", flush=True)
+    if zero or still:
+        raise SystemExit(f"training: zero gradients {zero[:5]} or an EMA "
+                         f"that did not move {still[:5]}")
+    missed = [k for k in TRAIN_KERNELS if not total[k]]
+    if missed:
+        raise SystemExit(f"training: kernels {missed} never launched")
+    return total
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--ddim_steps", type=int, default=50)
@@ -394,9 +588,8 @@ def main(argv=None) -> int:
           " (nvcc " + ", ".join(f"{k} {v:.1f} s" for k, v in nvcc.items())
           + ")", flush=True)
     for name in nvcc:
-        logs = sorted(_build.BUILD_DIR.glob(f"lib{name}_*.log"),
-                      key=lambda p: p.stat().st_mtime)
-        for line in (logs[-1].read_text().splitlines() if logs else []):
+        log = _build.lib_path(name, kc.LIBRARIES[name]).with_suffix(".log")
+        for line in (log.read_text().splitlines() if log.exists() else []):
             if "registers" in line or "spill" in line or "Compiling" in line:
                 print(f"ptxas {name}: "
                       + line.strip().removeprefix("ptxas info    : "))
@@ -407,15 +600,21 @@ def main(argv=None) -> int:
     check_reduced_model(dev)
     phase(f"3b two full-width requests, DDIM-{args.ddim_steps}")
     counts = answer_requests(dev, args.ddim_steps)
-    summary = []
-    for name, row in rows.items():
-        row["launches"] = counts[name]
-        summary.append(row)
-    print(json.dumps({"kernels": summary}))
-    if not all(counts.values()):
-        print(f"a kernel of the path was never launched: {counts}",
+    serving = {k: v for k, v in counts.items() if k not in TRAIN_ONLY}
+    if not all(serving.values()):
+        print(f"a kernel of the path was never launched: {serving}",
               file=sys.stderr)
         return 1
+    phase("4a reduced training model: card gradients against CPU")
+    check_reduced_training(dev)
+    phase(f"4b full-width training, {TRAIN_STEPS} steps")
+    train_counts = train_full_width(dev)
+    summary = []
+    for name, row in rows.items():
+        row["launches"] = (train_counts if name in TRAIN_ONLY
+                           else counts)[name]
+        summary.append(row)
+    print(json.dumps({"kernels": summary}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

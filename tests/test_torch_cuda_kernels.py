@@ -4,8 +4,12 @@ multiples of the kernels' tiles, odd token counts, Cin != Cout), the strided
 packed/token-major attention views, and a mutation check of the fused
 kernels' bounds: broken builds of each source (output x1.01, a skipped K
 chunk, wrong sums where the kernel has sums) must fail at every path shape
-of ``kernel_check``. The CUDA kernels have no CPU mode, so without a card
-these tests skip.
+of ``kernel_check``. The flash-attention backward (#6) is held to its
+gradient bounds at the training path's attn1 shapes, ragged and short
+lengths, and against two broken builds (dq x1.01, a query tile skipped in
+dk/dv); every wrapper given a tensor that requires grad either returns a
+result with a grad_fn or raises. The CUDA kernels have no CPU mode, so
+without a card these tests skip.
 
     python -m pytest tests/test_torch_cuda_kernels.py --noconftest -q -s
 """
@@ -233,3 +237,141 @@ def test_mutated_kernel_fails_at_every_path_shape(dev, tmp_path, monkeypatch,
         assert not row["ok"], f"{what} passed at {case.label}"
         checked += 1
     assert checked >= 2
+
+
+# ---------------------------------------------------------------------------
+# the flash-attention backward (#6)
+# ---------------------------------------------------------------------------
+
+def _bwd_rows(cases, timed=False):
+    rows = []
+    for case in cases:
+        row = kc.run_bwd_case(case, timed=timed)
+        print(kc.bwd_line(case, row))
+        rows.append(row)
+    return rows
+
+
+def test_bwd_kernel_at_path_shapes(dev):
+    rows = _bwd_rows(kc.bwd_cases(dev))
+    assert all(r["ok"] for r in rows)
+    assert fa.LAUNCHES["_flash_bwd_bh"] == 3
+
+
+@pytest.mark.parametrize("b,s,heads", [(2, 333, 3), (3, 16, 2), (2, 3, 4),
+                                       (1, 200, 5)])
+def test_bwd_kernel_ragged_and_short(dev, b, s, heads):
+    """Lengths that leave the last 64-row tile part empty, a 16-frame
+    sequence (the temporal length) and three tokens (61 of 64 rows
+    masked; with one token the exact dq and dk are 0 and only rounding
+    noise is left to compare)."""
+    rows = _bwd_rows(kc.bwd_cases(dev, shapes=(("ragged", b, s, heads,
+                                                 (1, 1)),)))
+    assert rows[0]["ok"]
+
+
+@pytest.mark.parametrize("sq,sk", [(200, 97), (64, 333)])
+def test_bwd_wrapper_cross_lengths(dev, sq, sk):
+    """The (BH, S, 64) wrapper with Sq != Sk, against the plain version."""
+    q, k, v = (_rand(dev, 50 + i, 3, n, 64) for i, n in enumerate((sq, sk,
+                                                                    sk)))
+    out, lse = fa._flash_bh_with_lse(q, k, v, 0.125)
+    dout = _rand(dev, 54, 3, sq, 64)
+    got = fa._flash_bwd_bh(q, k, v, dout, out, lse, 0.125)
+    refs = fa._plain_bwd_bh(*_f(q, k, v, dout), 0.125, out.float(), lse)
+    torch.cuda.synchronize()
+    for g, ref in zip(got, refs):
+        err = (g.float() - ref).abs()
+        max_bound, mean_bound = fa.grad_error_bounds(ref)
+        assert err.max().item() <= max_bound, (err.max().item(), max_bound)
+        assert err.mean().item() <= mean_bound, (err.mean().item(),
+                                                 mean_bound)
+    assert fa.LAUNCHES["_flash_bwd_bh"] == 1
+
+
+BWD_MUTATIONS = [
+    ("dq x1.01", "             dq, p.scale, t);",
+     "             dq, 1.01f * p.scale, t);"),
+    ("query tile skipped in dk/dv",
+     "    __syncthreads();  // the previous Q/dO tile is consumed",
+     "    if (m0 == kTile) continue;\n"
+     "    __syncthreads();  // the previous Q/dO tile is consumed"),
+]
+
+
+@pytest.mark.parametrize("what,old,new", BWD_MUTATIONS,
+                         ids=[m[0] for m in BWD_MUTATIONS])
+def test_mutated_bwd_kernel_fails_at_every_path_shape(dev, tmp_path,
+                                                      monkeypatch, what, old,
+                                                      new):
+    name, (src,) = fa.BWD_LIBRARY
+    for f in _build.CSRC.iterdir():
+        if f.suffix in (".cu", ".cuh"):
+            shutil.copy(f, tmp_path / f.name)
+    text = (tmp_path / src).read_text()
+    assert text.count(old) == 1, old
+    (tmp_path / src).write_text(text.replace(old, new))
+    monkeypatch.setattr(fa, "_BWD_LIB", fa.bind_bwd(
+        _build.load_library(name, (src,), csrc=tmp_path)))
+    rows = _bwd_rows(kc.bwd_cases(dev))
+    assert len(rows) == 3
+    for row in rows:
+        assert not row["ok"], f"{what} passed"
+
+
+def _grad_inputs(dev, *shapes, dtype=torch.bfloat16):
+    return [(_rand(dev, 60 + i, *s).to(dtype)).requires_grad_()
+            for i, s in enumerate(shapes)]
+
+
+def _attached(fn, *inputs):
+    """fn(*inputs) has a grad_fn and its backward reaches every input."""
+    out = fn(*inputs)
+    out = out[0] if isinstance(out, tuple) else out
+    assert out.grad_fn is not None
+    out.float().square().mean().backward()
+    for t in inputs:
+        assert t.grad is not None and torch.isfinite(t.grad).all()
+
+
+def test_no_wrapper_returns_a_detached_result(dev):
+    """Under grad each kernel wrapper has a Function or raises."""
+    f32 = torch.float32
+    _attached(lambda x: fa._flash_mh_packed(x, 5, 0.125),
+              *_grad_inputs(dev, (2, 512, 960)))
+    _attached(lambda x: fa.flash_attention_packed(x, 2),
+              *_grad_inputs(dev, (2, 160, 384)))
+    _attached(lambda q, k, v: fa._flash_mh(q, k, v, 2, 0.125),
+              *_grad_inputs(dev, (2, 160, 128), (2, 97, 128), (2, 97, 128)))
+    _attached(fa.flash_attention,
+              *_grad_inputs(dev, (1, 200, 2, 64), (1, 300, 2, 64),
+                            (1, 300, 2, 64)))
+    assert fa.LAUNCHES["_flash_bwd_bh"] == 4
+    for call in (
+            lambda q: fa._flash_bh_single(q, q, q, 0.125),
+            lambda q: fa._flash_bh_with_lse(q, q, q, 0.125)):
+        with pytest.raises(RuntimeError, match="no backward"):
+            call(*_grad_inputs(dev, (2, 160, 64)))
+    with pytest.raises(ValueError, match="head dim"):
+        q = _grad_inputs(dev, (1, 256, 1, 512))[0]
+        fa.flash_attention(q, q, q)
+    c, d = 320, 1280
+    x, w1, b1, w2, b2 = _grad_inputs(dev, (77, c), (2 * d, c), (2 * d,),
+                                     (c, d), (c,))
+    lw, lb = _grad_inputs(dev, (c,), (c,), dtype=f32)
+    _attached(lambda *t: ff.fused_geglu_ff(*t, 1e-5, True), x, w1, b1, w2,
+              b2, lw, lb)
+    c = 128
+    x = _grad_inputs(dev, (2, 4, 21, c))[0]
+    stages = [tuple(_grad_inputs(dev, (c,), (c,), dtype=f32)
+                    + _grad_inputs(dev, (c, c), (c, c), (c, c), (c, c),
+                                   (c,))) for _ in range(2)]
+    _attached(lambda x, *w: ta._fused_tpair_call(x, w[:7], w[7:], 2, 0.125),
+              x, *stages[0], *stages[1])
+    x, w3, bias = _grad_inputs(dev, (2, 3, 37, 64), (64, 3, 64), (64,))
+    with pytest.raises(RuntimeError, match="no backward"):
+        tc._pallas_tconv(x, w3, bias, silu=True)
+    x, w, bias = _grad_inputs(dev, (2, 5, 8, 64), (64, 64, 3, 3), (64,))
+    a = torch.ones(2, 64, device=dev)
+    with pytest.raises(RuntimeError, match="no backward"):
+        sc.winograd_gn_silu_conv3x3(x, a, a * 0, w, bias)

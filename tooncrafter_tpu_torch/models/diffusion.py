@@ -64,7 +64,8 @@ class ToonCrafter(nn.Module):
             image_cross_attention_scale_learnable=(
                 c.image_cross_attention_scale_learnable),
             use_causal_attention=c.use_causal_attention,
-            use_relative_position=c.use_relative_position))
+            use_relative_position=c.use_relative_position,
+            use_checkpoint=c.use_checkpoint, remat_policy=c.remat_policy))
         decoder = DualRefVideoDecoder(
             ch=c.vae_ch, ch_mult=tuple(c.vae_ch_mult),
             num_res_blocks=c.vae_num_res_blocks,
@@ -107,11 +108,13 @@ class ToonCrafter(nn.Module):
 
     def encode_first_stage(self, video, generator=None,
                            sample_posterior: bool = True,
-                           chunk_size: Optional[int] = None):
+                           chunk_size: Optional[int] = None, noise=None):
         """video (B, T, H, W, 3) in [-1, 1] -> (z (B, T, h, w, 4) scaled,
         refs: per tap (B, 2, H_l, W_l, C_l) first/last-frame features).
         ``chunk_size`` frames are encoded at a time (the per-frame
-        ``perframe_ae`` path; the encoder is per-frame, so exact)."""
+        ``perframe_ae`` path; the encoder is per-frame, so exact). The
+        posterior's noise (B*T, h, w, 4) is ``noise`` when given, else drawn
+        from ``generator``."""
         b, t = video.shape[:2]
         flat = video.reshape((b * t,) + video.shape[2:]).to(self.dtype)
         vae = self.first_stage_model
@@ -122,7 +125,10 @@ class ToonCrafter(nn.Module):
         taps = [torch.cat([p[1][l] for p in parts])
                 for l in range(len(parts[0][1]))]
         post = DiagonalGaussian(moments.float())
-        z = post.sample(generator) if sample_posterior else post.mode()
+        if noise is not None:
+            z = post.mean + post.std * noise.reshape(post.mean.shape)
+        else:
+            z = post.sample(generator) if sample_posterior else post.mode()
         z = z.reshape((b, t) + z.shape[1:]) * self.config.scale_factor
         refs = []
         for tap in taps:
@@ -133,11 +139,14 @@ class ToonCrafter(nn.Module):
     def encode_text(self, tokens):
         return self.cond_stage_model.model(tokens)
 
+    def image_tokens(self, frame):
+        """frame (B, H, W, 3) in [-1, 1] -> the CLIP vision tokens."""
+        x = clip_preprocess(frame.float(), self.config.clip_image_size)
+        return self.embedder.model.visual(x.to(self.dtype))
+
     def encode_image_context(self, frame):
         """frame (B, H, W, 3) in [-1, 1] -> (B, T*queries, context_dim)."""
-        x = clip_preprocess(frame.float(), self.config.clip_image_size)
-        tokens = self.embedder.model.visual(x.to(self.dtype))
-        return self.image_proj_model(tokens)
+        return self.image_proj_model(self.image_tokens(frame))
 
     def build_concat_cond(self, z, mode: str = "interp"):
         if mode == "interp":

@@ -19,15 +19,25 @@ next norm, and the ResBlock's time embedding folded into that affine; the
 two temporal self-attention sub-blocks of a temporal transformer block as
 one call of the temporal attention pair. The unfused branch keeps dropout
 where upstream has it.
+
+Training with ``use_checkpoint`` recomputes each ResBlock, SpatialTransformer
+and TemporalTransformer in the backward (the JAX package's ``rematted``,
+tooncrafter_tpu/models/unet.py:851-866): ``remat_policy`` None saves
+nothing inside a block, 'dots' keeps the matrix products' outputs (mm,
+addmm, bmm) and 'dots_no_batch' those without a batch dimension (mm,
+addmm). Dropout replays the same mask in the recomputation (the RNG state is
+stashed). Only while grad is enabled; inference runs the blocks as before.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Sequence
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils import checkpoint as ckpt
 
 from tooncrafter_tpu_torch.ops import flash_attention as fa
 from tooncrafter_tpu_torch.ops import temporal_attention as ta
@@ -309,6 +319,24 @@ class TemporalTransformer(nn.Module):
         return x + self.proj_out(h)
 
 
+# remat_policy -> the aten products whose outputs a checkpointed block keeps
+REMAT_POLICIES = {None: None, "dots": ("mm", "addmm", "bmm"),
+                  "dots_no_batch": ("mm", "addmm")}
+
+
+def checkpoint_context(policy):
+    """context_fn for torch.utils.checkpoint under ``policy`` (None: the
+    default, which saves nothing inside the block)."""
+    if policy not in REMAT_POLICIES:
+        raise ValueError(f"remat_policy={policy!r}; expected one of "
+                         f"{sorted(REMAT_POLICIES, key=str)}")
+    names = REMAT_POLICIES[policy]
+    if names is None:
+        return None
+    ops = [getattr(torch.ops.aten, n).default for n in names]
+    return functools.partial(ckpt.create_selective_checkpoint_contexts, ops)
+
+
 class UNetModel(nn.Module):
     def __init__(self, in_channels: int = 8, model_channels: int = 320,
                  out_channels: int = 4, num_res_blocks: int = 2,
@@ -320,11 +348,15 @@ class UNetModel(nn.Module):
                  text_len: int = 77, img_tokens_per_frame: int = 16,
                  image_cross_attention_scale_learnable: bool = False,
                  use_causal_attention: bool = False,
-                 use_relative_position: bool = False):
+                 use_relative_position: bool = False,
+                 use_checkpoint: bool = False, remat_policy=None):
         super().__init__()
         if use_relative_position:
             raise NotImplementedError(
                 "temporal relative-position attention is not ported")
+        self.use_checkpoint = use_checkpoint
+        self._context_fn = (checkpoint_context(remat_policy)
+                            if use_checkpoint else None)
         mc = model_channels
         ted = mc * 4
         self.model_channels = mc
@@ -389,14 +421,24 @@ class UNetModel(nn.Module):
         self.out = nn.Sequential(GroupNorm(mc, 1e-5, act=True), nn.SiLU(),
                                  Conv2d(mc, out_channels, 3, padding=1))
 
+    def _block(self, layer, *args):
+        """One ResBlock or transformer, recomputed in the backward when
+        checkpointing is on and grad is enabled."""
+        if not (self.use_checkpoint and torch.is_grad_enabled()):
+            return layer(*args)
+        kw = {} if self._context_fn is None else {
+            "context_fn": self._context_fn}
+        return ckpt.checkpoint(layer, *args, use_reentrant=False, **kw)
+
     def _run(self, blk, h, emb, ctx, t):
         for layer in blk:
             if isinstance(layer, ResBlock):
-                h = layer(h, emb, t)
+                h = self._block(layer, h, emb, t)
             elif isinstance(layer, SpatialTransformer):
-                h = layer(h, ctx)
+                h = self._block(layer, h, ctx)
             elif isinstance(layer, TemporalTransformer):
-                h = layer(h.reshape((-1, t) + h.shape[1:])).reshape(h.shape)
+                h = self._block(layer, h.reshape((-1, t) + h.shape[1:])
+                                ).reshape(h.shape)
             else:
                 h = layer(h)
         return h

@@ -27,6 +27,32 @@ def on_cpu(what: str, *ts: Optional[torch.Tensor]) -> bool:
                      + ", ".join(str(t.device) for t in ts))
 
 
+def needs_grad(*ts: Optional[torch.Tensor]) -> bool:
+    """Is autograd recording a call on these tensors? Then a wrapper takes
+    its autograd Function (or refuses); otherwise it runs as under
+    no_grad."""
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in ts)
+
+
+def refuse_grad(what: str, *ts: Optional[torch.Tensor]) -> None:
+    """For a kernel with no backward: raise, on the card, for a call that
+    autograd is recording instead of returning a result cut from the
+    graph. Under no_grad, or with no input requiring grad, nothing."""
+    if needs_grad(*ts):
+        raise RuntimeError(
+            f"{what}: the CUDA kernel has no backward and an input requires "
+            "grad; call it under torch.no_grad()")
+
+
+def compute_dtype(t: torch.Tensor) -> torch.dtype:
+    """The dtype a fused kernel computes in for a call on ``t``: CUDA
+    autocast's for a CUDA tensor while it is on, else t's own."""
+    if t.is_cuda and torch.is_autocast_enabled("cuda"):
+        return torch.get_autocast_dtype("cuda")
+    return t.dtype
+
+
 def check(name: str, t: torch.Tensor, shape: Sequence[int],
           dtype: torch.dtype, device) -> None:
     """Refuse what the kernels do not take: another dtype, device or

@@ -22,8 +22,9 @@ def dot_product_attention(q, k, v, mask: Optional[torch.Tensor] = None,
     Logits and softmax in fp32; probabilities cast to v.dtype for the PV
     product. ``mask`` (bool, True = keep) broadcasts to (B, H, Sq, Sk)."""
     scale = q.shape[-1] ** -0.5 if scale is None else scale
+    # fp32 logits also where autocast runs the product in bf16
     logits = torch.matmul(q.float().transpose(1, 2),
-                          k.float().permute(0, 2, 3, 1)) * scale
+                          k.float().permute(0, 2, 3, 1)).float() * scale
     if mask is not None:
         logits = logits.masked_fill(~mask, torch.finfo(torch.float32).min)
     probs = torch.softmax(logits, dim=-1).to(v.dtype)
@@ -57,7 +58,7 @@ def temporal_attention_inplace(q, k, v, *, heads: int, mask=None,
         return x.reshape(b, t, hh * ww, heads, d).permute(0, 2, 3, 1, 4)
 
     logits = torch.matmul(split(q).float(),
-                          split(k).float().transpose(-1, -2)) * scale
+                          split(k).float().transpose(-1, -2)).float() * scale
     if mask is not None:
         logits = logits.masked_fill(~mask, torch.finfo(torch.float32).min)
     probs = torch.softmax(logits, dim=-1).to(v.dtype)

@@ -1,8 +1,10 @@
-"""Flash-attention forward: CUDA kernel wrappers, their plain versions, and
-the dispatch rules of tooncrafter_tpu/ops/flash_attention.py.
+"""Flash attention: CUDA kernel wrappers, their plain versions, the
+autograd Function over them, and the dispatch rules of
+tooncrafter_tpu/ops/flash_attention.py.
 
-Four wrappers carry the names of the four TPU kernels they replace; all of
-them launch the one CUDA C++ kernel in ``csrc/flash_attention.cu``:
+Four forward wrappers carry the names of the four TPU forward kernels they
+replace; all of them launch the one CUDA C++ kernel in
+``csrc/flash_attention.cu``:
 
   * ``_flash_mh_packed(qkv, heads, scale)``: packed (B, S, 3C) -> (B, S, C).
     q, k and v are strided views of the packed projection; nothing is copied.
@@ -12,10 +14,25 @@ them launch the one CUDA C++ kernel in ``csrc/flash_attention.cu``:
   * ``_flash_bh_single(q, k, v, scale)``: (BH, S, D) -> (out, lse), the
     single-pass pick of the same selector, here for D = 512.
 
+The backward, ``_flash_bwd_bh`` (the TPU kernel of the same name), is the
+CUDA C++ kernel pair of ``csrc/flash_attention_bwd.cu`` (dq over query
+tiles, dk/dv over key tiles; head dim 64 only). ``_FlashFunction`` puts it
+behind ``flash_attention_packed``, ``_flash_mh`` and ``flash_attention``
+whenever grad is enabled and an input requires grad: its forward launches
+the forward kernel with the lse and saves q, k, v, O and the lse, its
+backward launches #6 (for a packed projection straight into the (B, S, 3C)
+gradient). The JAX package differentiates its packed and token-major
+entries through XLA and only ``flash_attention`` through its kernel; the
+port sends all three to the kernel (the same gradient, without the
+S x S scores). Under no_grad, or with no input requiring grad, the
+wrappers launch the forward kernel as before. The lse-returning
+(BH, S, D) wrappers serve the frozen VAE and raise under grad on the card.
+
 A wrapper given CPU tensors runs its plain PyTorch version (``_plain_*``),
 which states the math; given CUDA tensors it launches the kernel or raises.
-``LAUNCHES`` counts kernel launches per wrapper. ``error_bounds`` states how
-far a kernel's bf16 output may lie from its fp32 plain version.
+``LAUNCHES`` counts kernel launches per wrapper. ``error_bounds`` and
+``grad_error_bounds`` state how far a kernel's bf16 output may lie from its
+fp32 plain version.
 
 The shape selectors (``_pick_block``, ``_single_pass_blk``, ``_mh_blk``,
 ``_packed_direct_blk``) copy the TPU package's envelopes, which are sized
@@ -39,12 +56,15 @@ _KERNEL_HEAD_DIMS = (64, 512)
 # rows of q processed at once by the plain version: bounds its fp32 score
 # tile (the dual-ref fusion site has 163840 x 20480 scores per head)
 _PLAIN_CHUNK = 2048
+# the backward's plain version keeps four such tiles (s/p, dp, ds)
+_PLAIN_BWD_CHUNK = 512
 
 LAUNCHES: Dict[str, int] = {
     "_flash_mh_packed": 0,
     "_flash_mh": 0,
     "_flash_bh_with_lse": 0,
     "_flash_bh_single": 0,
+    "_flash_bwd_bh": 0,
 }
 
 
@@ -136,6 +156,32 @@ def _plain_bh(q, k, v, scale: float, chunk: int = _PLAIN_CHUNK):
     return torch.cat(outs, 1).to(q.dtype), torch.cat(lses, 1)
 
 
+def _plain_bwd_bh(q, k, v, dout, scale: float, out=None, lse=None):
+    """Gradients of softmax attention over (N, Sq, D) x (N, Sk, D) in fp32,
+    in chunks of query rows: with p = exp(scale q k^T - lse) and
+    D = rowsum(dout * out), dv = p^T dout, ds = p * (dout v^T - D),
+    dq = scale ds k, dk = scale ds^T q. ``out`` and ``lse`` are recomputed
+    when not given. Returns (dq, dk, dv) in q's dtype."""
+    if out is None or lse is None:
+        out, lse = _plain_bh(q, k, v, scale)
+    kf, vf = k.float(), v.float()
+    dmat = (dout.float() * out.float()).sum(-1)
+    dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    dk = torch.zeros(k.shape, dtype=torch.float32, device=k.device)
+    dv = torch.zeros(v.shape, dtype=torch.float32, device=v.device)
+    chunk = _PLAIN_BWD_CHUNK
+    for i in range(0, q.shape[1], chunk):
+        qi, doi = q[:, i:i + chunk].float(), dout[:, i:i + chunk].float()
+        p = torch.exp(torch.matmul(qi, kf.transpose(1, 2)) * scale
+                      - lse[:, i:i + chunk, None])
+        dv += torch.matmul(p.transpose(1, 2), doi)
+        ds = p * (torch.matmul(doi, vf.transpose(1, 2))
+                  - dmat[:, i:i + chunk, None])
+        dq[:, i:i + chunk] = torch.matmul(ds, kf) * scale
+        dk += torch.matmul(ds.transpose(1, 2), qi) * scale
+    return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)
+
+
 def _fold_heads(x, heads: int):
     """(B, S, H*D) -> (B*H, S, D)."""
     b, s, c = x.shape
@@ -165,13 +211,33 @@ MEAN_FACTOR = 4
 LSE_MAX_ABS = 1e-4
 
 
-def error_bounds(ref: torch.Tensor) -> Tuple[float, float]:
+def error_bounds(ref: torch.Tensor, max_ulps: float = MAX_ULPS,
+                 mean_factor: float = MEAN_FACTOR) -> Tuple[float, float]:
     """(max, mean) absolute error allowed against the fp32 output ``ref``."""
     ref = ref.float()
     top = ref.abs().max().clamp_min(torch.finfo(torch.float32).tiny)
     ulp = torch.exp2(torch.floor(torch.log2(top)) - 7)  # bf16: 7-bit mantissa
     rounding = (ref.to(torch.bfloat16).float() - ref).abs().mean()
-    return (MAX_ULPS * ulp).item(), (MEAN_FACTOR * rounding).item()
+    return (max_ulps * ulp).item(), (mean_factor * rounding).item()
+
+
+# The backward kernel's dq, dk and dv against ``_plain_bwd_bh`` in fp32 on
+# the same bf16 q, k, v, dout, out and lse. Besides rounding each gradient
+# to bf16 (the bound above), the kernel rounds p (for dv) and ds (for dq and
+# dk) to bf16 before the products, as the TPU kernel does. Each rounding
+# moves a term by up to 2^-9 of itself, in random directions, so the sums
+# move by about as much as their own rounding: GRAD_MEAN_FACTOR allows the
+# mean error 4x the mean error of rounding the reference, GRAD_MAX_ULPS 4
+# bf16 ulps of its largest |value|. A gradient scaled by 1% (the mean error
+# then is ~8x the rounding's) or a query tile left out of dk/dv exceeds them.
+GRAD_MAX_ULPS = 4
+GRAD_MEAN_FACTOR = 4
+
+
+def grad_error_bounds(ref: torch.Tensor) -> Tuple[float, float]:
+    """(max, mean) absolute error allowed for a backward kernel's gradient
+    against the fp32 gradient ``ref``."""
+    return error_bounds(ref, GRAD_MAX_ULPS, GRAD_MEAN_FACTOR)
 
 
 # ---------------------------------------------------------------------------
@@ -179,7 +245,10 @@ def error_bounds(ref: torch.Tensor) -> Tuple[float, float]:
 # ---------------------------------------------------------------------------
 
 LIBRARY = ("flash_attention", ("flash_attention.cu",))
+BWD_LIBRARY = ("flash_attention_bwd", ("flash_attention_bwd.cu",))
 _LIB: Optional[ctypes.CDLL] = None
+_BWD_LIB: Optional[ctypes.CDLL] = None
+_BWD_HEAD_DIM = 64
 
 
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
@@ -196,6 +265,22 @@ def _library() -> ctypes.CDLL:
     if _LIB is None:
         _LIB = bind(_build.load_library(*LIBRARY))
     return _LIB
+
+
+def bind_bwd(lib: ctypes.CDLL) -> ctypes.CDLL:
+    ll, vp = ctypes.c_longlong, ctypes.c_void_p
+    lib.tc_flash_bwd.argtypes = (
+        [ctypes.c_int] + [vp] * 10 + [ll] * 24 + [ctypes.c_int] * 4
+        + [ctypes.c_float, vp])
+    lib.tc_flash_bwd.restype = ctypes.c_int
+    return lib
+
+
+def _bwd_library() -> ctypes.CDLL:
+    global _BWD_LIB
+    if _BWD_LIB is None:
+        _BWD_LIB = bind_bwd(_build.load_library(*BWD_LIBRARY))
+    return _BWD_LIB
 
 
 def _on_cpu(*ts: torch.Tensor) -> bool:
@@ -249,14 +334,169 @@ def _launch(q4, k4, v4, o4, lse, scale: float) -> None:
                            f"k{tuple(k4.shape)})")
 
 
+def _launch_bwd(q4, k4, v4, o4, do4, dq4, dk4, dv4, lse, scale: float) -> None:
+    """The backward kernel pair on (B, S, H, 64) bf16 views; lse: fp32
+    (B*H, Sq) from the forward. Writes dq4, dk4 and dv4."""
+    b, sq, h, d = q4.shape
+    sk = k4.shape[1]
+    if d != _BWD_HEAD_DIM:
+        raise ValueError(f"the flash-attention backward kernel is built for "
+                         f"head dim {_BWD_HEAD_DIM} only, got {d}")
+    want = {"q": (q4, sq), "k": (k4, sk), "v": (v4, sk), "out": (o4, sq),
+            "dout": (do4, sq), "dq": (dq4, sq), "dk": (dk4, sk),
+            "dv": (dv4, sk)}
+    for name, (t, s) in want.items():
+        if t.shape != (b, s, h, d):
+            raise ValueError(f"{name}: expected shape {(b, s, h, d)}, got "
+                             f"{tuple(t.shape)}")
+        _check_operand(name, t, q4.device)
+    if (lse.dtype != torch.float32 or lse.shape != (b * h, sq)
+            or not lse.is_contiguous() or lse.device != q4.device):
+        raise ValueError("lse must be a contiguous fp32 (B*H, Sq) tensor on "
+                         "the same device")
+    lib = _bwd_library()
+    dsum = torch.empty((b * h, sq), dtype=torch.float32, device=q4.device)
+    strides = []
+    for t in (q4, k4, v4, o4, do4, dq4, dk4, dv4):
+        strides += [t.stride(0), t.stride(1), t.stride(2)]
+    err = lib.tc_flash_bwd(
+        d, q4.data_ptr(), k4.data_ptr(), v4.data_ptr(), o4.data_ptr(),
+        do4.data_ptr(), lse.data_ptr(), dsum.data_ptr(), dq4.data_ptr(),
+        dk4.data_ptr(), dv4.data_ptr(), *strides, b, h, sq, sk, float(scale),
+        torch.cuda.current_stream(q4.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"flash attention backward kernel launch failed "
+                           f"with CUDA error {err} (q{tuple(q4.shape)}, "
+                           f"k{tuple(k4.shape)})")
+    LAUNCHES["_flash_bwd_bh"] += 1
+
+
+def _flash_bwd_bh(q, k, v, dout, out, lse, scale: float):
+    """The backward wrapper named after the TPU kernel: (BH, S, 64) q, k,
+    v, dout and out with the forward's fp32 lse (BH, Sq) -> (dq, dk, dv)."""
+    if _on_cpu(q, k, v, dout, out, lse):
+        return _plain_bwd_bh(q, k, v, dout, scale, out, lse)
+    grads = [torch.empty(t.shape, dtype=t.dtype, device=t.device)
+             for t in (q, k, v)]
+    _launch_bwd(*(t.unsqueeze(2) for t in (q, k, v, out, dout, *grads)),
+                lse, scale)
+    return tuple(grads)
+
+
+def flash_bwd_packed(qkv, out, lse, dout, heads: int, scale: float):
+    """The backward kernel on a packed (B, S, 3C) projection: its output
+    (B, S, C), lse (B*H, S) and dout (B, S, C) -> the (B, S, 3C) gradient,
+    dq, dk and dv written in place at the projection's strides."""
+    dqkv = torch.empty_like(qkv)
+    _launch_bwd(*_packed_views(qkv, heads), out.unflatten(-1, (heads, -1)),
+                dout.unflatten(-1, (heads, -1)),
+                *_packed_views(dqkv, heads), lse, scale)
+    return dqkv
+
+
+def _packed_views(qkv, heads: int):
+    """(B, S, 3C) -> q, k, v as (B, S, H, D) views."""
+    c = qkv.shape[-1] // 3
+    return tuple(qkv[..., i * c:(i + 1) * c].unflatten(-1, (heads, -1))
+                 for i in range(3))
+
+
 # ---------------------------------------------------------------------------
-# the four wrappers
+# the autograd Function
+# ---------------------------------------------------------------------------
+
+def _plain_fwd4(q4, k4, v4, scale: float):
+    """(B, S, H, D) -> (out (B, Sq, H, D), lse (B*H, Sq)), plain."""
+    b, sq, h, d = q4.shape
+
+    def fold(t):
+        return t.transpose(1, 2).reshape(b * h, t.shape[1], d)
+    out, lse = _plain_bh(fold(q4), fold(k4), fold(v4), scale)
+    return out.reshape(b, h, sq, d).transpose(1, 2), lse
+
+
+class _FlashFunction(torch.autograd.Function):
+    """Attention with its backward kernel. ``tensors`` is one packed
+    (B, S, 3C) projection, three token-major (B, S, C) tensors (both with
+    ``heads``; the output is (B, Sq, C)), or three (B, S, H, D) tensors
+    (``heads`` None; the output is (B, Sq, H, D)). Under autocast the
+    operands are cast to bf16, the kernels' type; the gradients come back
+    in each input's dtype. ``name`` counts the forward launch."""
+
+    @staticmethod
+    @torch.amp.custom_fwd(device_type="cuda", cast_inputs=torch.bfloat16)
+    def forward(ctx, scale, name, heads, *tensors):
+        if len(tensors) == 1:
+            q4, k4, v4 = _packed_views(tensors[0], heads)
+        elif heads is None:
+            q4, k4, v4 = tensors
+        else:
+            q4, k4, v4 = (t.unflatten(-1, (heads, -1)) for t in tensors)
+        b, sq, h, d = q4.shape
+        if _on_cpu(*tensors):
+            out4, lse = _plain_fwd4(q4, k4, v4, scale)
+        else:
+            if d != _BWD_HEAD_DIM:
+                raise ValueError(
+                    f"flash attention under autograd on the card needs head "
+                    f"dim {_BWD_HEAD_DIM} (the backward kernel's); got {d}")
+            out4 = torch.empty((b, sq, h, d), dtype=q4.dtype,
+                               device=q4.device)
+            lse = torch.empty((b * h, sq), dtype=torch.float32,
+                              device=q4.device)
+            _launch(q4, k4, v4, out4, lse, scale)
+            LAUNCHES[name] += 1
+        ctx.save_for_backward(*tensors, out4, lse)
+        ctx.scale, ctx.heads = scale, heads
+        return out4 if heads is None else out4.flatten(2)
+
+    @staticmethod
+    @torch.amp.custom_bwd(device_type="cuda")
+    def backward(ctx, gout):
+        *tensors, out4, lse = ctx.saved_tensors
+        scale, heads = ctx.scale, ctx.heads
+        do4 = gout.to(out4.dtype).reshape(out4.shape)
+        if len(tensors) == 1:
+            qkv = tensors[0]
+            views = _packed_views(qkv, heads)
+        elif heads is None:
+            views = tensors
+        else:
+            views = tuple(t.unflatten(-1, (heads, -1)) for t in tensors)
+        b, sq, h, d = views[0].shape
+        if _on_cpu(*tensors):
+            def fold(t):
+                return t.transpose(1, 2).reshape(b * h, t.shape[1], d)
+            grads = _plain_bwd_bh(*(fold(t) for t in views), fold(do4),
+                                  scale, fold(out4), lse)
+            grads = [g.reshape(b, h, -1, d).transpose(1, 2) for g in grads]
+            if len(tensors) == 1:
+                grads = [torch.cat([g.flatten(2) for g in grads], -1)]
+            elif heads is not None:
+                grads = [g.flatten(2) for g in grads]
+        elif len(tensors) == 1:
+            grads = [flash_bwd_packed(qkv, out4.flatten(2), lse,
+                                      do4.contiguous().flatten(2), heads,
+                                      scale)]
+        else:
+            grads = [torch.empty((b, t.shape[1], h, d), dtype=t.dtype,
+                                 device=t.device) for t in views]
+            _launch_bwd(*views, out4, do4.contiguous(), *grads, lse, scale)
+            if heads is not None:
+                grads = [g.flatten(2) for g in grads]
+        return (None, None, None, *grads)
+
+
+# ---------------------------------------------------------------------------
+# the four forward wrappers
 # ---------------------------------------------------------------------------
 
 def _flash_mh_packed(qkv, heads: int, scale: float):
     """Packed-QKV self-attention: (B, S, 3C) -> (B, S, C)."""
     b, s, c3 = qkv.shape
     c = c3 // 3
+    if _checks.needs_grad(qkv):
+        return _FlashFunction.apply(scale, "_flash_mh_packed", heads, qkv)
     if _on_cpu(qkv):
         return _plain_mh(qkv[..., :c], qkv[..., c:2 * c], qkv[..., 2 * c:],
                          heads, scale)
@@ -272,6 +512,8 @@ def _flash_mh_packed(qkv, heads: int, scale: float):
 
 def _flash_mh(q, k, v, heads: int, scale: float):
     """Token-major multi-head attention: (B, S, C) -> (B, Sq, C)."""
+    if _checks.needs_grad(q, k, v):
+        return _FlashFunction.apply(scale, "_flash_mh", heads, q, k, v)
     if _on_cpu(q, k, v):
         return _plain_mh(q, k, v, heads, scale)
     b, sq, c = q.shape
@@ -308,6 +550,7 @@ def _flash_bh_single(q, k, v, scale: float) -> Tuple[torch.Tensor,
     """Single-pass forward with logsumexp: (BH, S, D) -> (out, lse (BH, Sq))."""
     if _on_cpu(q, k, v):
         return _plain_bh(q, k, v, scale)
+    _checks.refuse_grad("_flash_bh_single", q, k, v)
     out, lse = _bh_launch(q.unsqueeze(2), k.unsqueeze(2), v.unsqueeze(2),
                           scale, "_flash_bh_single")
     return out.squeeze(2), lse
@@ -323,6 +566,7 @@ def _flash_bh_with_lse(q, k, v, scale: float) -> Tuple[torch.Tensor,
         return _flash_bh_single(q, k, v, scale)
     if _on_cpu(q, k, v):
         return _plain_bh(q, k, v, scale)
+    _checks.refuse_grad(name, q, k, v)
     out, lse = _bh_launch(q.unsqueeze(2), k.unsqueeze(2), v.unsqueeze(2),
                           scale, name)
     return out.squeeze(2), lse
@@ -339,6 +583,9 @@ def flash_attention(q, k, v, scale: Optional[float] = None):
     b, sq, h, d = q.shape
     sk = k.shape[1]
     scale = d ** -0.5 if scale is None else scale
+    if _checks.needs_grad(q, k, v):
+        return _FlashFunction.apply(scale, _bh_kernel_name(sq, sk, d), None,
+                                    q, k, v)
     if _on_cpu(q, k, v):
         fold = lambda t: t.transpose(1, 2).reshape(b * h, t.shape[1], d)
         out, _ = _plain_bh(fold(q), fold(k), fold(v), scale)
@@ -360,5 +607,8 @@ def flash_attention_packed(qkv, heads: int, scale: Optional[float] = None):
     if not _mh_blk(s, s, c, heads):
         raise ValueError(f"packed attention outside the kernel envelope: "
                          f"S={s}, C={c}, heads={heads}")
+    if _checks.needs_grad(qkv):
+        # one gradient for the projection, written in place by the kernel
+        return _FlashFunction.apply(sc, "_flash_mh", heads, qkv)
     return _flash_mh(qkv[..., :c], qkv[..., c:2 * c], qkv[..., 2 * c:],
                      heads, sc)

@@ -17,6 +17,14 @@ accumulates in fp32 and rounds; then + b2 and + x, each rounded, in the
 compute dtype. The TPU kernel's gate uses a degree-15 erf polynomial
 (|err| <= 8.1e-5, ``_erf_f32``); the port uses the exact erf (``erff``).
 
+Under autograd (grad enabled and an input requiring grad) the wrapper runs
+``_FusedFFFunction``: its forward is the kernel (the plain version on the
+CPU), its backward differentiates the unfused formula ``_unfused_ff`` in the
+compute dtype, as the JAX package's custom_vjp differentiates ``_xla_ff``
+and ``_xla_ln`` (tooncrafter_tpu/ops/fused_ff.py:414-422). Under CUDA
+autocast the operands are cast to its dtype first (the LayerNorm's
+parameters stay fp32), so fp32 master weights get fp32 gradients.
+
 The TPU package has two kernels, ``_pallas_ff`` (weights resident in VMEM,
 C <= 640) and ``_pallas_ff_streamed`` (weight chunks streamed, C = 1280),
 split only by the TPU's VMEM. They compute one function, so one CUDA
@@ -136,6 +144,41 @@ def _plain_ff(x2, w1, b1, w2, b2, ln_w, ln_b, eps: float,
     return y + x2 if residual else y
 
 
+def _unfused_ff(x2, w1, b1, w2, b2, ln_w, ln_b, eps: float, residual: bool):
+    """The unfused formula in x2's dtype (the compute dtype): products in
+    that dtype, LayerNorm statistics, bias-free gate and GELU in fp32, the
+    gated product rounded. The backward differentiates it."""
+    z = (layer_norm_ex2(x2, ln_w, ln_b, eps, x2.dtype) if ln_w is not None
+         else x2)
+    h, g = torch.nn.functional.linear(z, w1, b1).chunk(2, dim=-1)
+    m = (h.float() * torch.nn.functional.gelu(g.float())).to(x2.dtype)
+    y = torch.nn.functional.linear(m, w2, b2)
+    return y + x2 if residual else y
+
+
+class _FusedFFFunction(torch.autograd.Function):
+    """The kernel forward with the unfused formula's gradient."""
+
+    @staticmethod
+    def forward(ctx, eps, residual, x2, w1, b1, w2, b2, ln_w, ln_b):
+        ops = (x2, w1, b1, w2, b2, ln_w, ln_b)
+        ctx.save_for_backward(*ops)
+        ctx.eps, ctx.residual = eps, residual
+        return _dispatch(*ops, eps, residual)
+
+    @staticmethod
+    def backward(ctx, gy):
+        ops = ctx.saved_tensors
+        want = ctx.needs_input_grad[2:]
+        with torch.enable_grad(), torch.autocast("cuda", enabled=False):
+            leaves = [None if t is None else t.detach().requires_grad_(w)
+                      for t, w in zip(ops, want)]
+            y = _unfused_ff(*leaves, ctx.eps, ctx.residual)
+            wrt = [t for t, w in zip(leaves, want) if w]
+            got = iter(torch.autograd.grad(y, wrt, gy.to(y.dtype)))
+        return (None, None, *(next(got) if w else None for w in want))
+
+
 # ---------------------------------------------------------------------------
 # the kernel launch
 # ---------------------------------------------------------------------------
@@ -197,11 +240,23 @@ def fused_geglu_ff(x, w1, b1, w2, b2, ln_w=None, ln_b=None,
     if residual and ln_w is None:
         raise ValueError("residual=True needs the LayerNorm prologue")
     c = x.shape[-1]
-    x2 = x.reshape(-1, c)
     cout = w2.shape[0]
-    if _launch.on_cpu("fused FF", x2, w1, b1, w2, b2, ln_w, ln_b):
-        y = _plain_ff(x2, w1, b1, w2, b2, ln_w, ln_b, ln_eps, residual)
+    cdt = _launch.compute_dtype(x)
+    x2, w1, b1, w2, b2 = (t.to(cdt) for t in (x.reshape(-1, c), w1, b1, w2,
+                                                b2))
+    ops = (x2, w1, b1, w2, b2, ln_w, ln_b)
+    if _launch.needs_grad(*ops):
+        y = _FusedFFFunction.apply(ln_eps, residual, *ops)
     else:
-        y = _launch_ff(x2, w1, b1, w2, b2, ln_w, ln_b, ln_eps, residual)
-        LAUNCHES[kernel_name(x2.shape[0], c, w2.shape[1], cout)] += 1
+        y = _dispatch(*ops, ln_eps, residual)
     return y.reshape(x.shape[:-1] + (cout,))
+
+
+def _dispatch(x2, w1, b1, w2, b2, ln_w, ln_b, eps: float, residual: bool):
+    """The plain version for CPU tensors, the kernel for CUDA tensors."""
+    if _launch.on_cpu("fused FF", x2, w1, b1, w2, b2, ln_w, ln_b):
+        return _plain_ff(x2, w1, b1, w2, b2, ln_w, ln_b, eps, residual)
+    y = _launch_ff(x2, w1, b1, w2, b2, ln_w, ln_b, eps, residual)
+    LAUNCHES[kernel_name(x2.shape[0], x2.shape[1], w2.shape[1],
+                         w2.shape[0])] += 1
+    return y

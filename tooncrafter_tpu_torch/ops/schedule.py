@@ -2,8 +2,8 @@
 
 The per-timestep constants are computed in float64 numpy at build time and
 stored as float32 numpy, exactly as tooncrafter_tpu/ops/schedule.py does;
-the two tensor functions (``rescale_noise_cfg``, ``timestep_embedding``)
-run in torch.
+the tensor functions (``rescale_noise_cfg``, ``timestep_embedding`` and the
+schedule's ``q_sample``, ``get_v`` and ``dynamic_rescale``) run in torch.
 """
 
 from __future__ import annotations
@@ -120,6 +120,33 @@ class DiffusionSchedule:
     scale_arr: Optional[np.ndarray]
     num_timesteps: int
     parameterization: str  # 'eps' | 'x0' | 'v'
+
+    # ---- the training loss's process math (per-sample constants) ----
+
+    def gather(self, arr: np.ndarray, t, ndim: int) -> torch.Tensor:
+        """arr[t] as fp32 on t's device, shaped (B, 1, ..., 1) to broadcast
+        over an ndim-dimensional tensor."""
+        t = torch.as_tensor(t)
+        out = torch.as_tensor(arr, device=t.device)[t.long()]
+        return out.reshape(out.shape + (1,) * (ndim - 1))
+
+    def q_sample(self, x_start, t, noise):
+        """Forward diffusion q(x_t | x_0)."""
+        a = self.gather(self.sqrt_alphas_cumprod, t, x_start.ndim)
+        s = self.gather(self.sqrt_one_minus_alphas_cumprod, t, x_start.ndim)
+        return a * x_start + s * noise
+
+    def get_v(self, x, noise, t):
+        """v-target: v = sqrt(ab) eps - sqrt(1 - ab) x."""
+        a = self.gather(self.sqrt_alphas_cumprod, t, x.ndim)
+        s = self.gather(self.sqrt_one_minus_alphas_cumprod, t, x.ndim)
+        return a * noise - s * x
+
+    def dynamic_rescale(self, x, t):
+        """x * scale_arr[t], applied to x0 before q_sample in training."""
+        if self.scale_arr is None:
+            return x
+        return x * self.gather(self.scale_arr, t, x.ndim)
 
 
 def build_schedule(timesteps: int = 1000, beta_schedule: str = "linear",

@@ -200,9 +200,14 @@ def winograd_gn_silu_conv3x3(x, a, b, weight, bias, res=None,
                              silu: bool = True, stats: bool = False):
     """The wrapper named after the TPU kernel it replaces (the function,
     not the Winograd algorithm). weight: nn.Conv2d's (Cout, Cin, 3, 3).
-    CPU tensors take the plain version, CUDA tensors the kernel."""
+    CPU tensors take the plain version, CUDA tensors the kernel (in CUDA
+    autocast's dtype while it is on)."""
+    cdt = _launch.compute_dtype(x)
+    x, weight, bias = x.to(cdt), weight.to(cdt), bias.to(cdt)
+    res = None if res is None else res.to(cdt)
     if _launch.on_cpu("GN+SiLU+3x3 conv", x, a, b, weight, bias, res):
         return _plain_conv3x3(x, a, b, weight, bias, res, silu, stats)
+    _launch.refuse_grad("GN+SiLU+3x3 conv", x, a, b, weight, bias, res)
     out = _launch_conv(x, a, b, kernel_weight(weight), bias, res, silu, stats)
     LAUNCHES["winograd_gn_silu_conv3x3"] += 1
     return out

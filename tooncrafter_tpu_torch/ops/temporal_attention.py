@@ -12,6 +12,14 @@ and paid a transpose on each side. Each stage is (ln_w, ln_b, wq, wk, wv,
 wo, bo) with torch's Linear layout: wq, wk, wv, wo (C, C), bo (C,); ln_w,
 ln_b fp32.
 
+Under autograd (grad enabled and an input requiring grad) the wrapper runs
+``_TPairFunction``: its forward is the kernel (the plain version on the
+CPU), its backward differentiates the unfused formula ``_unfused_tpair`` in
+the compute dtype, as the JAX package's custom_vjp differentiates
+``_xla_fused_tattn`` (tooncrafter_tpu/ops/temporal_attention.py:437-449).
+Under CUDA autocast the operands are cast to its dtype first (the
+LayerNorms' parameters stay fp32).
+
 Rounding, as the TPU kernel (``_attn_stage``): the LayerNorm runs in fp32
 (E[x^2] - mean^2 clamped at 0) and rounds to the compute dtype; q, k and v
 round after fp32 products; logits and softmax in fp32, the probabilities
@@ -78,6 +86,53 @@ def _plain_tpair(x, stage1, stage2, heads: int, scale: float, eps: float,
     return _plain_stage(y, stage2, heads, scale, eps, cdt)
 
 
+def _unfused_stage(x, stage, heads: int, scale: float, eps: float):
+    """x + to_out(attn_T(qkv(LN(x)))) on (B, T, P, C) in x's dtype (the
+    compute dtype): products in that dtype, LayerNorm statistics, logits
+    and softmax in fp32, the probabilities rounded."""
+    ln_w, ln_b, wq, wk, wv, wo, bo = stage
+    bsz, t, p, c = x.shape
+    z = layer_norm_ex2(x, ln_w, ln_b, eps, x.dtype)
+
+    def heads_of(w):  # -> (B, P, heads, T, d)
+        y = torch.nn.functional.linear(z, w)
+        return y.reshape(bsz, t, p, heads, -1).permute(0, 2, 3, 1, 4)
+
+    q, k, v = heads_of(wq), heads_of(wk), heads_of(wv)
+    logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    probs = torch.softmax(logits, -1).to(x.dtype)
+    o = torch.matmul(probs, v).permute(0, 3, 1, 2, 4).reshape(bsz, t, p, c)
+    return x + torch.nn.functional.linear(o, wo, bo)
+
+
+def _unfused_tpair(x, stage1, stage2, heads: int, scale: float, eps: float):
+    """Both stages unfused; the backward differentiates this."""
+    y = _unfused_stage(x, stage1, heads, scale, eps)
+    return _unfused_stage(y, stage2, heads, scale, eps)
+
+
+class _TPairFunction(torch.autograd.Function):
+    """The kernel forward with the unfused formula's gradient; the tensors
+    are x, then stage 1's seven, then stage 2's."""
+
+    @staticmethod
+    def forward(ctx, heads, scale, eps, x, *weights):
+        ctx.save_for_backward(x, *weights)
+        ctx.cfg = (heads, scale, eps)
+        return _dispatch(x, weights[:7], weights[7:], heads, scale, eps)
+
+    @staticmethod
+    def backward(ctx, gy):
+        ops = ctx.saved_tensors
+        want = ctx.needs_input_grad[3:]
+        with torch.enable_grad(), torch.autocast("cuda", enabled=False):
+            leaves = [t.detach().requires_grad_(w) for t, w in zip(ops, want)]
+            y = _unfused_tpair(leaves[0], leaves[1:8], leaves[8:], *ctx.cfg)
+            wrt = [t for t, w in zip(leaves, want) if w]
+            got = iter(torch.autograd.grad(y, wrt, gy.to(y.dtype)))
+        return (None, None, None, *(next(got) if w else None for w in want))
+
+
 # ---------------------------------------------------------------------------
 # the kernel launch
 # ---------------------------------------------------------------------------
@@ -138,6 +193,17 @@ def _fused_tpair_call(x, stage1: Sequence[torch.Tensor],
                       scale: float, eps: float = 1e-5):
     """The wrapper named after the TPU kernel it replaces. x: (B, T, P, C);
     CPU tensors take the plain version, CUDA tensors the kernel."""
+    cdt = _launch.compute_dtype(x)
+    x = x.to(cdt)
+    stage1, stage2 = ((s[0], s[1], *(w.to(cdt) for w in s[2:]))
+                      for s in (stage1, stage2))
+    if _launch.needs_grad(x, *stage1, *stage2):
+        return _TPairFunction.apply(heads, scale, eps, x, *stage1, *stage2)
+    return _dispatch(x, stage1, stage2, heads, scale, eps)
+
+
+def _dispatch(x, stage1, stage2, heads: int, scale: float, eps: float):
+    """The plain version for CPU tensors, the kernel for CUDA tensors."""
     if _launch.on_cpu("temporal attention pair", x, *stage1, *stage2):
         return _plain_tpair(x, stage1, stage2, heads, scale, eps)
     out = _launch_tpair(x, stage1, stage2, heads, scale, eps)

@@ -132,8 +132,12 @@ def _pallas_tconv(x, w3, bias, a=None, b=None, res=None, scale=None,
     if silu and a is None:
         a = torch.ones(x.shape[0], x.shape[-1], device=x.device)
         b = torch.zeros_like(a)
+    cdt = _launch.compute_dtype(x)  # CUDA autocast's dtype while it is on
+    x, w3, bias = x.to(cdt), w3.to(cdt), bias.to(cdt)
+    res = None if res is None else res.to(cdt)
     if _launch.on_cpu("temporal conv", x, w3, bias, a, b, res, scale):
         return _plain_tconv(x, w3, bias, a, b, res, scale, silu, stats)
+    _launch.refuse_grad("temporal conv", x, w3, bias, a, b, res, scale)
     out = _launch_tconv(x, w3, bias, a, b, res, scale, silu, stats)
     LAUNCHES["_pallas_tconv"] += 1
     return out
@@ -174,9 +178,11 @@ class TemporalConv3(nn.Conv3d):
     def forward(self, x, residual=None, out_scale=None):
         """out_scale * conv(x) + residual (each optional), plain."""
         w = self.weight[:, :, :, 0, 0]
+        # out of place: selective checkpointing may keep the products
         y = F.linear(x, w[:, :, 1], self.bias)
-        y[:, 1:] += F.linear(x[:, :-1], w[:, :, 0])
-        y[:, :-1] += F.linear(x[:, 1:], w[:, :, 2])
+        pad = y.new_zeros(y[:, :1].shape)
+        y = (y + torch.cat([pad, F.linear(x[:, :-1], w[:, :, 0])], 1)
+             + torch.cat([F.linear(x[:, 1:], w[:, :, 2]), pad], 1))
         if out_scale is not None:
             y = y * out_scale.to(y.dtype)
         if residual is not None:

@@ -50,6 +50,10 @@ STATS_REL = 1e-5
 MODULES = (fa, ff, tc, sc, ta)
 SOURCES = {name: "tooncrafter_tpu_torch/csrc/" + mod.LIBRARY[1][0]
            for mod in MODULES for name in mod.LAUNCHES}
+SOURCES["_flash_bwd_bh"] = ("tooncrafter_tpu_torch/csrc/"
+                            + fa.BWD_LIBRARY[1][0])
+# the libraries, each built by one nvcc: every module's and the backward's
+LIBRARIES = dict([mod.LIBRARY for mod in MODULES] + [fa.BWD_LIBRARY])
 REPLACES = {
     "_flash_mh_packed": "tooncrafter_tpu/ops/flash_attention.py:605",
     "_flash_mh": "tooncrafter_tpu/ops/flash_attention.py:414",
@@ -60,6 +64,7 @@ REPLACES = {
     "_pallas_tconv": "tooncrafter_tpu/ops/temporal_conv.py:68",
     "winograd_gn_silu_conv3x3": "tooncrafter_tpu/ops/winograd.py:129",
     "_fused_tpair_call": "tooncrafter_tpu/ops/temporal_attention.py:379",
+    "_flash_bwd_bh": "tooncrafter_tpu/ops/flash_attention.py:126",
 }
 
 
@@ -80,11 +85,11 @@ def build_all() -> Dict[str, float]:
     Returns the build seconds per library."""
     from tooncrafter_tpu_torch.ops import _build
 
-    _build.build(dict(mod.LIBRARY for mod in MODULES))
+    _build.build(LIBRARIES)
     for mod in MODULES:
         mod._library()
-    return {mod.LIBRARY[0]: _build.BUILD_SECONDS[mod.LIBRARY[0]]
-            for mod in MODULES}
+    fa._bwd_library()
+    return {name: _build.BUILD_SECONDS[name] for name in LIBRARIES}
 
 
 @contextlib.contextmanager
@@ -426,3 +431,130 @@ def fused_cases(dev, seed: int = 0) -> List[Tuple[Case, Optional[tuple]]]:
     out += [(c, (1, 2)) for c in conv_cases(dev, gen)]
     out += [(c, None) for c in tpair_cases(dev, gen)]
     return out
+
+
+# ---------------------------------------------------------------------------
+# the flash-attention backward (#6) at the training path's attn1 shapes
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class BwdCase:
+    label: str
+    qkv: torch.Tensor     # (B, S, 3C) bf16, the packed projection
+    out: torch.Tensor     # (B, S, C) bf16, the forward kernel's output
+    lse: torch.Tensor     # (B*H, S) fp32, the forward kernel's lse
+    dout: torch.Tensor    # (B, S, C) bf16
+    heads: int
+    reps: Tuple[int, int]
+    scale: float = 0.125
+
+
+def bwd_cases(dev, seed: int = 0, shapes=None) -> List[BwdCase]:
+    """The UNet's attn1 in a training step of the 512 model (B = 2 clips x
+    16 frames): ds1 (S = 2560, 5 heads), ds2 (640, 10) and ds4 (160, 20),
+    d = 64; the forward kernel makes out and lse."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    cases = []
+    for label, b, s, heads, reps in shapes or (
+            ("ds1", 32, 2560, 5, (10, 2)), ("ds2", 32, 640, 10, (20, 5)),
+            ("ds4", 32, 160, 20, (50, 10))):
+        c = 64 * heads
+        qkv = _rnd(gen, dev, b, s, 3 * c)
+        out = torch.empty((b, s, heads, 64), dtype=torch.bfloat16,
+                          device=dev)
+        lse = torch.empty((b * heads, s), dtype=torch.float32, device=dev)
+        fa._launch(*fa._packed_views(qkv, heads), out, lse, 0.125)
+        cases.append(BwdCase(f"{label} B={b} S={s} C={c} heads={heads}",
+                             qkv, out.flatten(2), lse,
+                             _rnd(gen, dev, b, s, c), heads, reps))
+    return cases
+
+
+def _fold(x, heads: int):
+    return fa._fold_heads(x.float(), heads)
+
+
+def bwd_reference(case: BwdCase):
+    """``_plain_bwd_bh`` in fp32 on the case's bf16 operands: (dq, dk, dv),
+    each (B*H, S, 64)."""
+    c = case.out.shape[-1]
+    q, k, v = (_fold(case.qkv[..., i * c:(i + 1) * c], case.heads)
+               for i in range(3))
+    return fa._plain_bwd_bh(q, k, v, _fold(case.dout, case.heads),
+                            case.scale, _fold(case.out, case.heads),
+                            case.lse)
+
+
+def _sdpa_ms(case: BwdCase, reps: int) -> float:
+    """F.scaled_dot_product_attention's backward at the case's shape:
+    forward + backward minus forward (the library yardstick only)."""
+    c = case.out.shape[-1]
+    q, k, v = (case.qkv[..., i * c:(i + 1) * c].unflatten(-1, (
+        case.heads, 64)).transpose(1, 2).detach().requires_grad_()
+        for i in range(3))
+    do = case.dout.unflatten(-1, (case.heads, 64)).transpose(1, 2)
+
+    def fwd():
+        return F.scaled_dot_product_attention(q, k, v, scale=case.scale)
+
+    def fwd_bwd():
+        torch.autograd.backward(fwd(), do)
+    return cuda_ms(fwd_bwd, reps) - cuda_ms(fwd, reps)
+
+
+def run_bwd_case(case: BwdCase, timed: bool = True) -> dict:
+    """One launch of #6 on the packed projection, each gradient held to
+    ``flash_attention.grad_error_bounds`` of the fp32 reference, then
+    timed against the plain version and SDPA's backward."""
+    before = fa.LAUNCHES["_flash_bwd_bh"]
+
+    def kernel():
+        return fa.flash_bwd_packed(case.qkv, case.out, case.lse, case.dout,
+                                   case.heads, case.scale)
+    dqkv = kernel()
+    if fa.LAUNCHES["_flash_bwd_bh"] != before + 1:
+        raise SystemExit(f"{case.label} did not launch _flash_bwd_bh")
+    with fp32_reference():
+        refs = bwd_reference(case)
+    torch.cuda.synchronize()
+    c = case.out.shape[-1]
+    row = {"ok": True, "max_abs_err": 0.0, "parts": []}
+    for i, (name, ref) in enumerate(zip(("dq", "dk", "dv"), refs)):
+        got = _fold(dqkv[..., i * c:(i + 1) * c], case.heads)
+        err = (got - ref).abs()
+        mx, mean = err.max().item(), err.mean().item()
+        max_bound, mean_bound = fa.grad_error_bounds(ref)
+        ok = (mx <= max_bound and mean <= mean_bound
+              and bool(torch.isfinite(got).all().item()))
+        row["parts"].append((name, mx, max_bound, mean, mean_bound,
+                             ref.abs().max().item(), ok))
+        row["ok"] = row["ok"] and ok
+        row["max_abs_err"] = max(row["max_abs_err"], mx)
+    del refs, dqkv
+    b, s = case.qkv.shape[:2]
+    bh, d = b * case.heads, 64
+    if timed:
+        reps, plain_reps = case.reps
+        row["ms"] = cuda_ms(kernel, reps)
+        with fp32_reference():
+            row["plain_ms"] = cuda_ms(lambda: bwd_reference(case),
+                                      plain_reps)
+        row["library_ms"] = _sdpa_ms(case, reps)
+    # five S x S x 64 products per (b, h); q, k, v, out, dout and the lse
+    # read once, dq, dk, dv written once
+    row["bound_ms"], row["bound_by"] = bound(
+        10.0 * bh * s * s * d, 2.0 * 8 * bh * s * d + 4.0 * bh * s)
+    return row
+
+
+def bwd_line(case: BwdCase, row: dict) -> str:
+    s = f"_flash_bwd_bh {case.label}:"
+    for name, mx, mxb, mean, meanb, top, _ in row["parts"]:
+        s += (f" {name} max_abs_err={mx:.3e} (bound {mxb:.3e}) "
+              f"mean_abs_err={mean:.3e} (bound {meanb:.3e}, |ref| max "
+              f"{top:.3e});")
+    if "ms" in row:
+        s += (f" ms={row['ms']:.4f} plain_ms={row['plain_ms']:.4f} "
+              f"library_ms={row['library_ms']:.4f}")
+    s += f" bound_ms={row['bound_ms']:.4f} ({row['bound_by']})"
+    return s + (" ok" if row["ok"] else " FAIL")

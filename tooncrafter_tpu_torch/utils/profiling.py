@@ -1,8 +1,10 @@
 """Where the card's time goes: a torch.profiler breakdown of one denoise
 step (one CFG-batched UNet call) and one dual-ref decode of the 320x512x16
-path (configs/inference_512_v1.0.yaml), by kernel and by kind.
+path (configs/inference_512_v1.0.yaml), by kernel and by kind; with
+``--train``, of one training step of the 512 model
+(configs/training_512_v1.0.yaml, batch 2, AdamW + EMA) and its phases.
 
-    python -m tooncrafter_tpu_torch.utils.profiling
+    python -m tooncrafter_tpu_torch.utils.profiling [--train]
 
 Needs a CUDA device. Device busy time is the sum of kernel times (one
 stream) from a trace of CUDA activity only. Wall time comes from separate
@@ -23,6 +25,7 @@ import torch
 
 KINDS = (
     ("flash attention (port kernel)", ("flash_fwd_kernel",)),
+    ("flash attention backward (port kernel)", ("flash_bwd_",)),
     ("fused FF (port kernel)", ("fused_ff_kernel",)),
     ("temporal conv (port kernel)", ("igemm::tconv_kernel",)),
     ("GN+SiLU+3x3 conv (port kernel)", ("igemm::conv_kernel",)),
@@ -96,18 +99,114 @@ def report(title: str, wall: float, rows, top: int = 15) -> Dict[str, float]:
     return dict(by_kind, wall_ms=wall, busy_ms=busy)
 
 
+REPO = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
+TRAIN_STEPS = 6
+
+
+def random_batch(cfg, b: int, seed: int, device) -> Dict[str, torch.Tensor]:
+    """A training batch made from ``seed``: ``b`` clips of uniform noise in
+    [-1, 1] at the config's geometry, random tokens, empty null tokens,
+    frame stride 3, 8 fps."""
+    g = torch.Generator(device).manual_seed(seed)
+    t, h, w = cfg.video_length, cfg.latent_h * 8, cfg.latent_w * 8
+    return {"video": torch.rand(b, t, h, w, 3, generator=g,
+                                device=device) * 2 - 1,
+            "tokens": torch.randint(0, 49408, (b, 77), generator=g,
+                                    device=device),
+            "null_tokens": torch.zeros(b, 77, dtype=torch.long,
+                                       device=device),
+            "fs": torch.full((b,), 3, device=device),
+            "fps": torch.full((b,), 8.0, device=device)}
+
+
+def _timed(fn: Callable[[], object]) -> Tuple[object, float]:
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def train_breakdown(dev) -> None:
+    """Steps of the 512 training model: the whole step's wall time per
+    step; then the phases of a step run piecewise with a synchronize
+    between them (frozen encoders, the forward through the loss, the
+    backward, the AdamW update and the EMA); then one traced step by
+    kernel kind."""
+    from tooncrafter_tpu_torch.config import model_config_from_yaml
+    from tooncrafter_tpu_torch.models.diffusion import ToonCrafter
+    from tooncrafter_tpu_torch.training import trainer as T
+    from tooncrafter_tpu_torch.utils.weights import init_random_
+
+    cfg = dataclasses.replace(
+        model_config_from_yaml(os.path.join(REPO, "configs",
+                                            "training_512_v1.0.yaml")),
+        compute_dtype=torch.bfloat16)
+    torch.manual_seed(SEED)
+    with torch.device(dev):
+        model = ToonCrafter(cfg)
+    init_random_(model, torch.Generator(dev).manual_seed(SEED))
+    tcfg = T.TrainConfig(learning_rate=2e-5)
+    state, opt = T.make_train_state(model, tcfg, use_ema=True)
+    step_fn = T.make_train_step(model, opt, tcfg)
+    g = torch.Generator(dev).manual_seed(SEED)
+    batch = random_batch(cfg, 2, SEED, dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    walls = [_timed(lambda: step_fn(state, batch, g))[1]
+             for _ in range(TRAIN_STEPS)]
+    print("-- training step (B=2, 16x320x512, AdamW + EMA): wall ms "
+          + ", ".join(f"{w:.1f}" for w in walls) + f"; peak memory "
+          f"{torch.cuda.max_memory_allocated(dev) / 2 ** 30:.2f} GiB")
+    params = list(state.train_params.values())
+    phases: Dict[str, List[float]] = defaultdict(list)
+    for _ in range(3):
+        draws = T.sample_draws(model, batch["video"], g)
+
+        def encode():
+            with torch.no_grad(), T.autocast(model, dev):
+                model.encode_first_stage(batch["video"],
+                                         noise=draws["posterior"],
+                                         chunk_size=1)
+                model.encode_text(batch["tokens"])
+                model.encode_text(batch["null_tokens"])
+                model.image_tokens(batch["video"][:, 0])
+        phases["frozen encoders (VAE, CLIP text x2, CLIP vision)"].append(
+            _timed(encode)[1])
+        (loss, _), ms = _timed(lambda: T._loss(model, tcfg, state, batch,
+                                               None, draws, True))
+        phases["forward through the loss (encoders included)"].append(ms)
+        phases["backward"].append(_timed(loss.backward)[1])
+        grads = [p.grad for p in params]
+        for p in params:
+            p.grad = None
+        phases["AdamW update + EMA"].append(
+            _timed(lambda: T.update(state, tcfg, grads))[1])
+    for name, ms in phases.items():
+        print(f"   {name:52s} " + ", ".join(f"{m:.1f}" for m in ms) + " ms")
+    report("training step (traced)", *profile(
+        lambda: step_fn(state, batch, g)), top=25)
+
+
 def main() -> None:
+    import argparse
+
     from tooncrafter_tpu_torch.config import model_config_from_yaml
     from tooncrafter_tpu_torch.models.diffusion import ToonCrafter
     from tooncrafter_tpu_torch.utils.weights import init_random_
 
-    repo = os.path.dirname(os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__))))
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--train", action="store_true",
+                    help="profile a training step instead of inference")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profiling needs a CUDA device")
     dev = torch.device("cuda", 0)
+    if args.train:
+        train_breakdown(dev)
+        return
     cfg = dataclasses.replace(
-        model_config_from_yaml(os.path.join(repo, "configs",
+        model_config_from_yaml(os.path.join(REPO, "configs",
                                             "inference_512_v1.0.yaml")),
         compute_dtype=torch.bfloat16)
     with torch.device(dev):
