@@ -9,18 +9,23 @@ Phases, each printed on its own lines; any failure exits non-zero:
      attention pair: one nvcc each, all at once) and print each one's
      registers and spills;
   2. hold each kernel against its plain PyTorch version on the card at the
-     shapes the 320x512 interpolation path gives it, with its time, the
-     plain version's (fp32 products: a reference), the unfused module
-     chain's in bf16 (chain_ms: what the port ran before the kernel), the
-     one PyTorch call that computes the same function where there is one
-     (library_ms; the port never calls it) and the least time the card
-     could take (bound_ms);
+     shapes the 320x512 interpolation path gives it, then at the 576x1024
+     path's most-launched shapes, with its time, the plain version's (fp32
+     products: a reference), the unfused module chain's in bf16 (chain_ms:
+     what the port ran before the kernel), the one PyTorch call that
+     computes the same function where there is one (library_ms; the port
+     never calls it) and the least time the card could take (bound_ms);
   3. check a reduced model on the card against the same model on the CPU
      (every kernel reached, the convs at a ragged pixel tile), then build
      the full-width 320x512 model (configs/inference_512_v1.0.yaml) with
      random weights from a fixed seed in bf16 and answer two interpolation
      requests (16 frames, DDIM, CFG 7.5 + rescale 0.7, the middle-frame
-     splice) through the port's Pipeline, counting kernel launches;
+     splice) through the port's Pipeline, counting kernel launches (3b);
+     then, the 512 model freed, the same for the 576x1024 model
+     (configs/inference_1024_v1.0.yaml: base_scale 0.3), one request
+     (3c); every request at the YAML's default_fs as the frame stride, each
+     with its
+     seconds per phase, peak memory and launches per kernel;
   4. training: a reduced model's UNet and image_proj gradients in bf16 on
      the card against the same model's fp32 gradients on the CPU (same
      weights, same draws), then the full-width 320x512 training model
@@ -29,13 +34,16 @@ Phases, each printed on its own lines; any failure exits non-zero:
      AdamW steps with EMA on a batch of two 16x320x512 clips through
      ``make_train_step``, counting the forward and backward kernels'
      launches, with the step seconds and the peak memory.
-The last two lines are the kernels' JSON summary and the device JSON.
+The last two lines are the kernels' JSON summary (``launches`` from the
+first path that runs the kernel: 3b, else 3c, else 4b; and each path's
+count) and the device JSON.
 """
 
 from __future__ import annotations
 
 import argparse
 import contextlib
+import gc
 import json
 import os
 import subprocess
@@ -64,11 +72,23 @@ OUTPUT_MAX_ABS = 100.0
 GRAD_MIN_COSINE = 0.99
 GRAD_MAX_REL_L2 = 0.1
 TRAIN_STEPS = 3
-# the kernels only training launches (inference has no backward)
-TRAIN_ONLY = ("_flash_bwd_bh",)
 # the kernels a training step of the 512 model launches
 TRAIN_KERNELS = ("_flash_mh_packed", "_flash_mh", "_pallas_ff",
                  "_pallas_ff_streamed", "_fused_tpair_call", "_flash_bwd_bh")
+# the kernels a 320x512 request launches (the reduced model reaches each)
+KERNELS_512 = ("_flash_mh_packed", "_flash_mh", "_flash_bh_with_lse",
+               "_flash_bh_single", "_pallas_ff", "_pallas_ff_streamed",
+               "_pallas_tconv", "winograd_gn_silu_conv3x3",
+               "_fused_tpair_call")
+# the kernels a 576x1024 request launches: attn1 at S = 9216 and 2304 takes
+# the token-major kernel (S > 4096, and 2304 % 640 != 0: never the packed
+# one); the ds4 attn1 (S = 576) and every VAE mid attention (S = 9216, past
+# the single-pass cap) take the two-pass wrapper; the 36x64 640->640 convs
+# are the F(2x4)-named ones
+KERNELS_1024 = ("_flash_mh", "_flash_bh_with_lse", "_pallas_ff",
+                "_pallas_ff_streamed", "_fused_tpair_call", "_pallas_tconv",
+                "winograd_gn_silu_conv3x3", "winograd24_gn_silu_conv3x3")
+
 
 def phase(name: str) -> None:
     print(f"== {name}", flush=True)
@@ -155,6 +175,52 @@ def check_kernels(dev) -> dict:
             lambda q, k, v: fa._plain_bh(q, k, v, 512 ** -0.5),
             lambda q, k, v: sdpa(q, k, v, 512 ** -0.5), None, reps,
             (bh, 2560, 2560, 512)))
+    # the 576x1024 path: attn1 at ds1 and ds2 (S=9216 > 4096, and 2304 %
+    # 640 != 0: the token-major kernel on slices of the packed projection),
+    # attn1 at ds4 (S=576, no single-pass block: the two-pass kernel through
+    # the head-split view the UNet passes ``flash_attention``; 250 of its
+    # 272 launches a request), the fusion at levels 2 and 3 (plain compared
+    # on a subset of query rows) and the decoder's VAE mid attention at
+    # S=9216 (two-pass: K/V past the single-pass cap)
+    for label, s, c, heads, idx, reps in (
+            ("ds1", 9216, 320, 5, torch.arange(0, 9216, 3, device=dev),
+             (5, 1)),
+            ("ds2", 2304, 640, 10, None, (20, 3))):
+        qkv = rnd(32, s, 3 * c)
+        cases.append(("_flash_mh", f"1024 {label} B=32 S={s} C={c}",
+                      (qkv[..., :c], qkv[..., c:2 * c], qkv[..., 2 * c:]),
+                      lambda q, k, v, h=heads: fa._flash_mh(q, k, v, h, 0.125),
+                      lambda q, k, v, h=heads: fa._plain_mh(q, k, v, h, 0.125),
+                      lambda q, k, v, h=heads: sdpa(q, k, v, 0.125, h),
+                      idx, reps, (32 * heads, s, s, 64)))
+    qkv = rnd(32, 576, 3 * 1280)
+    heads4 = lambda t: t.unflatten(-1, (20, 64))
+    cases.append(("_flash_bh_with_lse", "1024 ds4 attn1 B=32 S=576 C=1280, "
+                  "20 heads, head-split view",
+                  (qkv[..., :1280], qkv[..., 1280:2560], qkv[..., 2560:]),
+                  lambda q, k, v: fa.flash_attention(
+                      heads4(q), heads4(k), heads4(v), 0.125).flatten(2),
+                  lambda q, k, v: fa._plain_mh(q, k, v, 20, 0.125),
+                  lambda q, k, v: sdpa(q, k, v, 0.125, 20),
+                  None, (50, 10), (32 * 20, 576, 576, 64)))
+    for label, sq, sk, step, reps in (("level2", 589824, 73728, 149, (2, 1)),
+                                      ("level3", 147456, 18432, 37, (5, 1))):
+        cases.append((
+            "_flash_bh_with_lse", f"1024 {label} BH=8 Sq={sq} Sk={sk}",
+            (fold(rnd(1, sq, 512)), fold(rnd(1, sk, 512)),
+             fold(rnd(1, sk, 512))),
+            lambda q, k, v: fa._flash_bh_with_lse(q, k, v, 0.125),
+            lambda q, k, v: fa._plain_bh(q, k, v, 0.125),
+            lambda q, k, v: sdpa(q, k, v, 0.125),
+            torch.arange(0, sq, step, device=dev)[:4096], reps,
+            (8, sq, sk, 64)))
+    cases.append((
+        "_flash_bh_with_lse", "1024 decoder mid BH=16 S=9216 D=512",
+        tuple(rnd(16, 9216, 512) for _ in range(3)),
+        lambda q, k, v: fa._flash_bh_with_lse(q, k, v, 512 ** -0.5),
+        lambda q, k, v: fa._plain_bh(q, k, v, 512 ** -0.5),
+        lambda q, k, v: sdpa(q, k, v, 512 ** -0.5), None, (3, 1),
+        (16, 9216, 9216, 512)))
 
     rows, failed = {}, []
     for (name, label, args, kernel, plain, library, idx,
@@ -202,15 +268,17 @@ def check_kernels(dev) -> dict:
         row = rows.setdefault(name, new_row(name, ms, plain_ms, library_ms,
                                             bound_ms, bound_by))
         row["max_abs_err"] = max(row["max_abs_err"], mx)
-    for case, axes in kc.fused_cases(dev):
-        r = kc.run_case(case, axes)
-        print(kc.line(case, r), flush=True)
-        if not r["ok"]:
-            failed.append(f"{case.name} {case.label}")
-        row = rows.setdefault(case.name, new_row(
-            case.name, r["ms"], r["plain_ms"], r["library_ms"],
-            r["bound_ms"], r["bound_by"]))
-        row["max_abs_err"] = max(row["max_abs_err"], r["max_abs_err"])
+    del cases, args, got, ref, ref_args, qkv
+    for cases_of in (kc.fused_cases, kc.fused_cases_1024):
+        for case, axes in cases_of(dev):
+            r = kc.run_case(case, axes)
+            print(kc.line(case, r), flush=True)
+            if not r["ok"]:
+                failed.append(f"{case.name} {case.label}")
+            row = rows.setdefault(case.name, new_row(
+                case.name, r["ms"], r["plain_ms"], r["library_ms"],
+                r["bound_ms"], r["bound_by"]))
+            row["max_abs_err"] = max(row["max_abs_err"], r["max_abs_err"])
     for case in kc.bwd_cases(dev):
         r = kc.run_bwd_case(case)
         print(kc.bwd_line(case, r), flush=True)
@@ -286,8 +354,9 @@ def small_inputs(cfg, seed, device):
     tokens = torch.randint(0, 49408, (1, 77), generator=g)
     x_T = torch.randn(1, t, cfg.latent_h, cfg.latent_w, cfg.z_channels,
                       generator=g)
+    fs = torch.full((1,), float(cfg.default_fs))  # the YAML's frame stride
     return [x.to(device) for x in (video, tokens, torch.zeros_like(tokens),
-                                   torch.full((1,), 10.0), x_T)]
+                                   fs, x_T)]
 
 
 def check_reduced_model(dev) -> None:
@@ -330,15 +399,18 @@ def check_reduced_model(dev) -> None:
               for k, v in pixels.items()}
     print(f"reduced model: pixel counts with a ragged last tile {ragged}",
           flush=True)
-    if not (psnr >= REDUCED_MIN_PSNR
-            and all(v for k, v in hit.items() if k not in TRAIN_ONLY)
+    if not (psnr >= REDUCED_MIN_PSNR and all(hit[k] for k in KERNELS_512)
             and all(ragged.values())):
         raise SystemExit("reduced model: the card disagrees with the CPU, a "
                          "kernel was not reached or no ragged tile was")
 
 
-def answer_requests(dev, ddim_steps: int) -> dict:
-    """Full-width 320x512x16 requests through the port's Pipeline."""
+def answer_requests(dev, ddim_steps: int, yaml: str, n_requests: int,
+                    kernels) -> dict:
+    """Full-width requests (16 frames) of the model in ``yaml`` through the
+    port's Pipeline, at the YAML's ``default_fs``. Returns the launch counts
+    over the requests and exits if a kernel of ``kernels`` was never
+    launched."""
     import dataclasses
 
     from tooncrafter_tpu_torch.config import model_config_from_yaml
@@ -348,9 +420,10 @@ def answer_requests(dev, ddim_steps: int) -> dict:
     from tooncrafter_tpu_torch.utils.weights import init_random_
 
     cfg = dataclasses.replace(
-        model_config_from_yaml(os.path.join(
-            REPO, "configs", "inference_512_v1.0.yaml")),
+        model_config_from_yaml(os.path.join(REPO, "configs", yaml)),
         compute_dtype=torch.bfloat16)
+    gc.collect()
+    torch.cuda.empty_cache()
     t0 = time.perf_counter()
     with torch.device(dev):
         model = ToonCrafter(cfg)
@@ -358,15 +431,18 @@ def answer_requests(dev, ddim_steps: int) -> dict:
     model.to_compute_dtype().eval()
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in model.parameters())
-    print(f"full-width model: {n_params / 1e9:.3f} B parameters, built in "
-          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"full-width model {yaml} ({cfg.latent_h * 8}x{cfg.latent_w * 8}, "
+          f"base_scale {cfg.base_scale}): {n_params / 1e9:.3f} B parameters,"
+          f" built in {time.perf_counter() - t0:.1f} s, "
+          f"{torch.cuda.memory_allocated(dev) / 2 ** 30:.2f} GiB allocated",
+          flush=True)
     pipe = Pipeline(model, ddim_steps=ddim_steps, eta=1.0,
                     spacing="uniform_trailing",
                     guidance=GuidanceConfig(cfg_scale=7.5,
                                             guidance_rescale=0.7),
                     perframe_ae=cfg.perframe_ae)
     gen = torch.Generator(dev).manual_seed(SEED)
-    requests = [small_inputs(cfg, 10 + r, dev)[:4] for r in range(2)]
+    requests = [small_inputs(cfg, 10 + r, dev)[:4] for r in range(n_requests)]
     torch.cuda.reset_peak_memory_stats(dev)
     kc.reset_launch_counts()
     outs = []
@@ -374,9 +450,9 @@ def answer_requests(dev, ddim_steps: int) -> dict:
         t0 = time.perf_counter()
         outs.append(pipe(video, tokens, null, fs, generator=gen))
         torch.cuda.synchronize()
-        print(f"request {r}: {time.perf_counter() - t0:.2f} s; phase "
-              "seconds " + ", ".join(f"{k} {v:.2f}"
-                                     for k, v in pipe.timings.items()),
+        print(f"request {r} (fs {fs.item():.0f}): "
+              f"{time.perf_counter() - t0:.2f} s; phase seconds "
+              + ", ".join(f"{k} {v:.2f}" for k, v in pipe.timings.items()),
               flush=True)
     counts = kc.launch_counts()
     peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
@@ -392,6 +468,9 @@ def answer_requests(dev, ddim_steps: int) -> dict:
         if max(abs(lo), abs(hi)) > OUTPUT_MAX_ABS:
             raise SystemExit(f"request {r}: output outside "
                              f"+-{OUTPUT_MAX_ABS}")
+    missed = [k for k in kernels if not counts[k]]
+    if missed:
+        raise SystemExit(f"{yaml}: kernels {missed} never launched")
     return counts
 
 
@@ -488,6 +567,7 @@ def train_full_width(dev) -> dict:
         model_config_from_yaml(os.path.join(
             REPO, "configs", "training_512_v1.0.yaml")),
         compute_dtype=torch.bfloat16)
+    gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
     torch.manual_seed(SEED)  # dropout's stream
@@ -599,20 +679,26 @@ def main(argv=None) -> int:
     phase("3a reduced model: card against CPU")
     check_reduced_model(dev)
     phase(f"3b two full-width requests, DDIM-{args.ddim_steps}")
-    counts = answer_requests(dev, args.ddim_steps)
-    serving = {k: v for k, v in counts.items() if k not in TRAIN_ONLY}
-    if not all(serving.values()):
-        print(f"a kernel of the path was never launched: {serving}",
-              file=sys.stderr)
-        return 1
+    counts = answer_requests(dev, args.ddim_steps, "inference_512_v1.0.yaml",
+                             2, KERNELS_512)
+    phase(f"3c one full-width 576x1024 request, DDIM-{args.ddim_steps}")
+    counts_1024 = answer_requests(dev, args.ddim_steps,
+                                  "inference_1024_v1.0.yaml", 1,
+                                  KERNELS_1024)
     phase("4a reduced training model: card gradients against CPU")
     check_reduced_training(dev)
     phase(f"4b full-width training, {TRAIN_STEPS} steps")
     train_counts = train_full_width(dev)
     summary = []
     for name, row in rows.items():
-        row["launches"] = (train_counts if name in TRAIN_ONLY
-                           else counts)[name]
+        # each kernel's launches on the first path that runs it: two
+        # 320x512 requests, else the 576x1024 request, else training
+        row["launches"] = next((c[name] for c in (counts, counts_1024,
+                                                  train_counts) if c[name]),
+                               0)
+        row["launches_512"] = counts[name]
+        row["launches_1024"] = counts_1024[name]
+        row["launches_train"] = train_counts[name]
         summary.append(row)
     print(json.dumps({"kernels": summary}))
     print(json.dumps({"ok": True, "device": {

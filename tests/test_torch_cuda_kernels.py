@@ -4,7 +4,11 @@ multiples of the kernels' tiles, odd token counts, Cin != Cout), the strided
 packed/token-major attention views, and a mutation check of the fused
 kernels' bounds: broken builds of each source (output x1.01, a skipped K
 chunk, wrong sums where the kernel has sums) must fail at every path shape
-of ``kernel_check``. The flash-attention backward (#6) is held to its
+of ``kernel_check`` (the conv's also at the 576x1024 F(2x4)-named shape).
+The 576x1024 path's new shapes: attn1 at S = 9216, 2304 and 576 (each at
+the UNet's 32 images, through the wrapper the UNet picks), the pair at
+P = 144 and 9216, and the F(2x4)-named conv (#14). The
+flash-attention backward (#6) is held to its
 gradient bounds at the training path's attn1 shapes, ragged and short
 lengths, and against two broken builds (dq x1.01, a query tile skipped in
 dk/dv); every wrapper given a tensor that requires grad either returns a
@@ -20,6 +24,7 @@ import pytest
 import torch
 
 from tooncrafter_tpu_torch.ops import _build
+from tooncrafter_tpu_torch.ops import attention as attn
 from tooncrafter_tpu_torch.ops import flash_attention as fa
 from tooncrafter_tpu_torch.ops import fused_ff as ff
 from tooncrafter_tpu_torch.ops import spatial_conv as sc
@@ -87,6 +92,37 @@ def test_bh_kernels_with_lse(dev, d, sq, sk):
     _close(out, ref)
     torch.cuda.synchronize()
     assert (lse - ref_lse).abs().max().item() <= fa.LSE_MAX_ABS
+    assert sum(fa.LAUNCHES.values()) == 1
+
+
+def test_mh_kernel_at_1024_ds1(dev):
+    """attn1 of the 576x1024 model at ds1: S = 9216 is past the packed
+    kernel's S <= 4096, so the packed projection goes to the token-major
+    kernel on its slices."""
+    qkv = _rand(dev, 8, 2, 9216, 960)
+    out = fa.flash_attention_packed(qkv, 5)
+    ref = fa._plain_mh(*_f(qkv[..., :320], qkv[..., 320:640], qkv[..., 640:]),
+                       5, 0.125)
+    _close(out, ref)
+    assert fa.LAUNCHES["_flash_mh"] == 1
+    assert fa.LAUNCHES["_flash_mh_packed"] == 0
+
+
+@pytest.mark.parametrize("s,c,heads,name", [
+    (2304, 640, 10, "_flash_mh"), (576, 1280, 20, "_flash_bh_with_lse")])
+def test_attn1_at_1024_ds2_and_ds4(dev, s, c, heads, name):
+    """attn1 of the 576x1024 model at ds2 (2304 % 640 != 0: the token-major
+    kernel) and ds4 (S = 576: no packed block, so the head-split view goes
+    to the two-pass kernel), at the UNet's 32 images: a grid of 320 and 640
+    batch x heads."""
+    qkv = _rand(dev, 10, 32, s, 3 * c)
+    q, k, v = qkv[..., :c], qkv[..., c:2 * c], qkv[..., 2 * c:]
+    if fa.use_packed_kernel(s, c, heads):
+        out = fa.flash_attention_packed(qkv, heads)
+    else:
+        out = attn.attention(q, k, v, heads=heads)
+    _close(out, fa._plain_mh(*_f(q, k, v), heads, 0.125))
+    assert fa.LAUNCHES[name] == 1
     assert sum(fa.LAUNCHES.values()) == 1
 
 
@@ -177,6 +213,46 @@ def test_tpair_kernel_ragged_pixels_and_short_clips(dev, t, p, c):
     assert ta.LAUNCHES["_fused_tpair_call"] == 1
 
 
+@pytest.mark.parametrize("p,c", [(144, 1280), (9216, 320)])
+def test_tpair_kernel_at_1024_pixel_counts(dev, p, c):
+    """The 576x1024 model's mid block (P = 144: no 32-pixel tile divides
+    it, a ragged last tile) and its ds1 level (P = 9216)."""
+    test_tpair_kernel_ragged_pixels_and_short_clips(dev, 16, p, c)
+
+
+# the F(2x4)-named conv at the 576x1024 model's ds2 shape, two images
+F24_CARD = (("1024 ds2", (2, 36, 64, 640, 640)),)
+
+
+def _f24_cases(dev):
+    gen = torch.Generator(device=dev).manual_seed(7)
+    return [(c, (1, 2)) for c in kc.conv_cases(dev, gen, F24_CARD)]
+
+
+def test_f24_named_conv_at_its_1024_shape(dev):
+    (case, axes), = _f24_cases(dev)
+    assert case.name == "winograd24_gn_silu_conv3x3"
+    row = kc.run_case(case, axes, timed=False)
+    print(kc.line(case, row))
+    assert row["ok"]
+    # the model's entry names the launch the same way
+    n, h, w, cin, cout = F24_CARD[0][1]
+    conv = sc.Conv2d(cin, cout, 3, padding=1).to(dev, torch.bfloat16)
+    x, res = _rand(dev, 36, n, h, w, cin), _rand(dev, 37, n, h, w, cout)
+    a = 1 + 0.2 * _rand(dev, 38, n, cin).float()
+    b = 0.1 * _rand(dev, 39, n, cin).float()
+    with torch.no_grad():
+        y, s1, s2 = sc.gn_silu_conv3x3(x, (a, b), conv, residual=res,
+                                       return_stats=True)
+        ref = sc._plain_conv3x3(x.float(), a, b, conv.weight.float(),
+                                conv.bias.float(), res.float(), True, False,
+                                cdt=torch.bfloat16)
+    _fused_close(y, ref)
+    _sums_close(y, s1, s2, (1, 2))
+    assert sc.LAUNCHES == {"winograd_gn_silu_conv3x3": 0,
+                           "winograd24_gn_silu_conv3x3": 2}
+
+
 # (what is broken, the library's source, the file edited, text replaced,
 #  replacement); the two convolutions share csrc/implicit_gemm.cuh, and the
 #  edited copy is built into the one library under test
@@ -215,7 +291,8 @@ def test_mutated_kernel_fails_at_every_path_shape(dev, tmp_path, monkeypatch,
                                                   what, src, edited, old, new):
     """A broken copy of the source, built outside the package, must fail
     the check of chip_smoke.py phase 2 at every path shape of its kernel
-    (for wrong sums: every shape that has sums)."""
+    (for wrong sums: every shape that has sums), and the conv's copies also
+    at the F(2x4)-named 576x1024 shape."""
     for f in _build.CSRC.iterdir():
         if f.suffix in (".cu", ".cuh"):
             shutil.copy(f, tmp_path / f.name)
@@ -227,7 +304,7 @@ def test_mutated_kernel_fails_at_every_path_shape(dev, tmp_path, monkeypatch,
     monkeypatch.setattr(mod, "_LIB", mod.bind(
         _build.load_library(name, sources, csrc=tmp_path)))
     checked = 0
-    for case, axes in kc.fused_cases(dev):
+    for case, axes in kc.fused_cases(dev) + _f24_cases(dev):
         if case.name not in mod.LAUNCHES:
             continue
         if what == "wrong stats" and axes is None:

@@ -162,6 +162,9 @@ def _meta_f32(*shape):
     lambda: sc.winograd_gn_silu_conv3x3(
         _meta(2, 8, 8, 64), _meta_f32(2, 64), _meta_f32(2, 64),
         _meta(64, 64, 3, 3), _meta(64)),
+    lambda: sc.winograd24_gn_silu_conv3x3(
+        _meta(2, 36, 64, 64), _meta_f32(2, 64), _meta_f32(2, 64),
+        _meta(64, 64, 3, 3), _meta(64), _meta(2, 36, 64, 64), True, True),
 ])
 def test_cuda_wrappers_raise_without_their_kernel(kernel_library_absent,
                                                   call):

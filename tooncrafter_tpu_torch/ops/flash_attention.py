@@ -54,8 +54,10 @@ from tooncrafter_tpu_torch.ops import _launch as _checks
 
 _KERNEL_HEAD_DIMS = (64, 512)
 # rows of q processed at once by the plain version: bounds its fp32 score
-# tile (the dual-ref fusion site has 163840 x 20480 scores per head)
+# tile (the dual-ref fusion site has 163840 x 20480 scores per head at
+# 320x512, 589824 x 73728 at 576x1024) to _PLAIN_SCORES scores per chunk
 _PLAIN_CHUNK = 2048
+_PLAIN_SCORES = 1 << 28
 # the backward's plain version keeps four such tiles (s/p, dp, ds)
 _PLAIN_BWD_CHUNK = 512
 
@@ -144,6 +146,8 @@ def use_packed_kernel(sq: int, c: int, heads: int) -> bool:
 def _plain_bh(q, k, v, scale: float, chunk: int = _PLAIN_CHUNK):
     """Exact softmax attention over (N, Sq, D) x (N, Sk, D) in fp32, in
     chunks of query rows. Returns (out in q.dtype, lse fp32 (N, Sq))."""
+    chunk = max(64, min(chunk, _PLAIN_SCORES
+                        // max(1, q.shape[0] * k.shape[1])))
     kt = k.float().transpose(1, 2)
     vf = v.float()
     outs, lses = [], []

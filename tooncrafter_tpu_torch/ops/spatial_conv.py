@@ -17,9 +17,15 @@ fused conv's kernel reads, so it takes the parameter itself, no copy.
 
 with per-image per-channel fp32 sums of the rounded y when asked (the next
 GroupNorm's statistics). Its CUDA kernel (``csrc/gn_silu_conv3x3.cu``, a
-direct implicit GEMM) replaces the TPU kernel
-ops/winograd.py::winograd_gn_silu_conv3x3, and runs at every shape, where
-the TPU package dispatched its kernels only on a measured allowlist.
+direct implicit GEMM) runs at every shape, where the TPU package dispatched
+its kernels only on measured allowlists. The TPU package has two Winograd
+kernels for this one function, F(2x2) (ops/winograd.py::
+winograd_gn_silu_conv3x3) and F(2x4) (``winograd24_gn_silu_conv3x3``, taken
+first, on its own allowlist ``_TABLE24``); both are the TPU's way to the
+function, and the CUDA kernel replaces both. ``gn_silu_conv3x3`` counts a
+launch under the F(2x4) wrapper's name exactly where the TPU package takes
+F(2x4) (``table_entry24``: the 576x1024 model's 36x64 640->640 convs), and
+under the F(2x2) name everywhere else.
 """
 
 from __future__ import annotations
@@ -34,9 +40,14 @@ from torch import nn
 from tooncrafter_tpu_torch.ops import _build
 from tooncrafter_tpu_torch.ops import _launch
 
-LAUNCHES: Dict[str, int] = {"winograd_gn_silu_conv3x3": 0}
+LAUNCHES: Dict[str, int] = {"winograd_gn_silu_conv3x3": 0,
+                             "winograd24_gn_silu_conv3x3": 0}
 _CIN_CHUNK = 32  # csrc/implicit_gemm.cuh kBK
 _MAX_WIDTH = 256  # csrc/implicit_gemm.cuh kMaxWidth (the halo staging)
+
+# the keys (H, W, Cin, Cout) of the TPU package's F(2x4) allowlist
+# (tooncrafter_tpu/ops/winograd.py:366-369)
+_TABLE24 = frozenset({(36, 64, 640, 640)})
 
 
 def conv2d_nhwc(x, weight, bias, stride=1, padding=0):
@@ -112,7 +123,20 @@ class Upsample(nn.Module):
 # ---------------------------------------------------------------------------
 
 def reset_launch_counts() -> None:
-    LAUNCHES["winograd_gn_silu_conv3x3"] = 0
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def table_entry24(h: int, w: int, cin: int, cout: int) -> bool:
+    """Would the TPU package take its F(2x4) kernel here? Its allowlist and
+    the tiling's geometry gates (2-row, 4-column output tiles)."""
+    return h % 2 == 0 and w % 4 == 0 and (h, w, cin, cout) in _TABLE24
+
+
+def conv_kernel_name(h: int, w: int, cin: int, cout: int) -> str:
+    """The TPU kernel a launch at this shape is counted under."""
+    return ("winograd24_gn_silu_conv3x3" if table_entry24(h, w, cin, cout)
+            else "winograd_gn_silu_conv3x3")
 
 
 def _prologue(x, a, b, silu: bool, cdt):
@@ -196,12 +220,9 @@ def kernel_weight(weight):
     return weight.permute(0, 2, 3, 1).contiguous()
 
 
-def winograd_gn_silu_conv3x3(x, a, b, weight, bias, res=None,
-                             silu: bool = True, stats: bool = False):
-    """The wrapper named after the TPU kernel it replaces (the function,
-    not the Winograd algorithm). weight: nn.Conv2d's (Cout, Cin, 3, 3).
-    CPU tensors take the plain version, CUDA tensors the kernel (in CUDA
-    autocast's dtype while it is on)."""
+def _conv(name: str, x, a, b, weight, bias, res, silu: bool, stats: bool):
+    """CPU tensors take the plain version, CUDA tensors the kernel (in CUDA
+    autocast's dtype while it is on), its launch counted under ``name``."""
     cdt = _launch.compute_dtype(x)
     x, weight, bias = x.to(cdt), weight.to(cdt), bias.to(cdt)
     res = None if res is None else res.to(cdt)
@@ -209,8 +230,24 @@ def winograd_gn_silu_conv3x3(x, a, b, weight, bias, res=None,
         return _plain_conv3x3(x, a, b, weight, bias, res, silu, stats)
     _launch.refuse_grad("GN+SiLU+3x3 conv", x, a, b, weight, bias, res)
     out = _launch_conv(x, a, b, kernel_weight(weight), bias, res, silu, stats)
-    LAUNCHES["winograd_gn_silu_conv3x3"] += 1
+    LAUNCHES[name] += 1
     return out
+
+
+def winograd_gn_silu_conv3x3(x, a, b, weight, bias, res=None,
+                             silu: bool = True, stats: bool = False):
+    """The wrapper named after the TPU kernel it replaces (the function,
+    not the Winograd algorithm). weight: nn.Conv2d's (Cout, Cin, 3, 3)."""
+    return _conv("winograd_gn_silu_conv3x3", x, a, b, weight, bias, res,
+                 silu, stats)
+
+
+def winograd24_gn_silu_conv3x3(x, a, b, weight, bias, res=None,
+                               silu: bool = True, stats: bool = False):
+    """The same function and kernel, named after the TPU package's F(2x4)
+    kernel (tooncrafter_tpu/ops/winograd.py:390)."""
+    return _conv("winograd24_gn_silu_conv3x3", x, a, b, weight, bias, res,
+                 silu, stats)
 
 
 def gn_silu_conv3x3(x, affine, conv: nn.Conv2d, residual=None,
@@ -218,5 +255,7 @@ def gn_silu_conv3x3(x, affine, conv: nn.Conv2d, residual=None,
     """conv3x3(silu(x * A + B)) + bias (+ residual) with ``conv``'s
     parameters; with return_stats also per-channel sums (s1, s2), each
     (N, Cout), of the output over (H, W)."""
-    return winograd_gn_silu_conv3x3(x, affine[0], affine[1], conv.weight,
-                                    conv.bias, residual, True, return_stats)
+    n, h, w, cin = x.shape
+    return _conv(conv_kernel_name(h, w, cin, conv.weight.shape[0]), x,
+                 affine[0], affine[1], conv.weight, conv.bias, residual, True,
+                 return_stats)

@@ -1,9 +1,10 @@
 """The fused kernels (GEGLU feed-forward, temporal conv, GN+SiLU+3x3 conv,
 temporal attention pair) against their plain versions on the card, at the
-shapes the 320x512 path gives them: the cases, the bounds, the times and the
-least time the card could take. ``chip_smoke.py`` phase 2 runs every case;
-the mutation test in ``tests/test_torch_cuda_kernels.py`` runs them against
-broken builds.
+shapes the 320x512 path gives them (``fused_cases``) and at the 576x1024
+path's most-launched shapes (``fused_cases_1024``): the cases, the bounds,
+the times and the least time the card could take. ``chip_smoke.py`` phase 2
+runs every case; the mutation test in ``tests/test_torch_cuda_kernels.py``
+runs the 320x512 cases and a 576x1024 conv against broken builds.
 
 Times. ``ms`` is the kernel's; ``plain_ms`` its plain version's on the same
 bf16 operands, which computes in fp32 (TF32 off) to state the kernel's
@@ -63,6 +64,7 @@ REPLACES = {
     "_pallas_ff_streamed": "tooncrafter_tpu/ops/fused_ff.py:275",
     "_pallas_tconv": "tooncrafter_tpu/ops/temporal_conv.py:68",
     "winograd_gn_silu_conv3x3": "tooncrafter_tpu/ops/winograd.py:129",
+    "winograd24_gn_silu_conv3x3": "tooncrafter_tpu/ops/winograd.py:390",
     "_fused_tpair_call": "tooncrafter_tpu/ops/temporal_attention.py:379",
     "_flash_bwd_bh": "tooncrafter_tpu/ops/flash_attention.py:126",
 }
@@ -260,12 +262,18 @@ def _chain_tpair(x, stages, heads):
     return x
 
 
-def ff_cases(dev, gen) -> List[Case]:
+# (label, N tokens, C): the transformer blocks' FF at each UNet level
+FF_512 = (("ds1", 81920, 320), ("ds2", 20480, 640), ("ds4", 5120, 1280),
+          ("init_attn", 81920, 512))
+FF_1024 = (("1024 ds1", 294912, 320), ("1024 ds2", 73728, 640),
+           ("1024 ds4", 18432, 1280))
+
+
+def ff_cases(dev, gen, shapes=FF_512) -> List[Case]:
     """LN prologue + GEGLU FF + residual, as the transformer blocks call it
     (``FeedForward.fused``)."""
     cases = []
-    for label, n, c in (("ds1", 81920, 320), ("ds2", 20480, 640),
-                        ("ds4", 5120, 1280), ("init_attn", 81920, 512)):
+    for label, n, c in shapes:
         d = 4 * c
         x = _rnd(gen, dev, n, c)
         w1 = _rnd(gen, dev, 2 * d, c, scale=c ** -0.5)
@@ -291,20 +299,29 @@ def ff_cases(dev, gen) -> List[Case]:
     return cases
 
 
-def tconv_cases(dev, gen) -> List[Case]:
+# (label, (B, T, P, C), residual, out_scale, stats)
+TCONV_512 = (
+    ("UNet ds1 affine+SiLU+stats", (2, 16, 2560, 320), False, False, True),
+    ("UNet ds1 affine+SiLU+residual", (2, 16, 2560, 320), True, False,
+     False),
+    ("UNet ds8 affine+SiLU+stats (ragged P)", (2, 16, 40, 1280), False,
+     False, True),
+    ("decoder level 0 out_scale+residual", (1, 16, 163840, 128), True, True,
+     False))
+# the decoder's level-0 TimeStack at 576x1024: 1.2e9 elements
+TCONV_1024 = (
+    ("1024 UNet ds1 affine+SiLU+stats", (2, 16, 9216, 320), False, False,
+     True),
+    ("1024 decoder level 0 out_scale+residual", (1, 16, 589824, 128), True,
+     True, False))
+
+
+def tconv_cases(dev, gen, shapes=TCONV_512) -> List[Case]:
     """(B, T, P, C): the UNet TemporalConvBlock's convs (GN+SiLU prologue,
     stats, the block residual on conv4) and the decoder's TimeStack out_conv
     at level 0 (alpha merge as out_scale + residual)."""
     cases = []
-    for label, (bsz, t, p, c), res_on, scale_on, stats in (
-            ("UNet ds1 affine+SiLU+stats", (2, 16, 2560, 320), False, False,
-             True),
-            ("UNet ds1 affine+SiLU+residual", (2, 16, 2560, 320), True,
-             False, False),
-            ("UNet ds8 affine+SiLU+stats (ragged P)", (2, 16, 40, 1280),
-             False, False, True),
-            ("decoder level 0 out_scale+residual", (1, 16, 163840, 128),
-             True, True, False)):
+    for label, (bsz, t, p, c), res_on, scale_on, stats in shapes:
         x = _rnd(gen, dev, bsz, t, p, c)
         w3 = _rnd(gen, dev, c, 3, c, scale=(3 * c) ** -0.5)
         bias = _rnd(gen, dev, c, scale=0.1)
@@ -343,16 +360,23 @@ def tconv_cases(dev, gen) -> List[Case]:
     return cases
 
 
-def conv_cases(dev, gen) -> List[Case]:
+# (label, (N, H, W, Cin, Cout))
+CONV_512 = (("ds1", (32, 40, 64, 320, 320)),
+            ("ds2 skip concat", (32, 20, 32, 1920, 640)),
+            ("ds4 skip concat (ragged tile)", (32, 10, 16, 2560, 1280)))
+# ds2 of the 576x1024 model is the TPU package's F(2x4) shape (#14)
+CONV_1024 = (("1024 ds2", (32, 36, 64, 640, 640)),
+             ("1024 ds1", (32, 72, 128, 320, 320)))
+
+
+def conv_cases(dev, gen, shapes=CONV_512) -> List[Case]:
     """(N, H, W, Cin -> Cout): the UNet ResBlocks' out_conv form (folded GN
     affine + SiLU prologue, bias, the skip as residual, sums for the next
     norm) at the input level, an output level's skip concat and the widest
-    concat at 10x16 (a ragged pixel tile)."""
+    concat at 10x16 (a ragged pixel tile). Each case's wrapper is the one
+    ``gn_silu_conv3x3`` takes at its shape."""
     cases = []
-    for label, (n, h, w, cin, cout) in (
-            ("ds1", (32, 40, 64, 320, 320)),
-            ("ds2 skip concat", (32, 20, 32, 1920, 640)),
-            ("ds4 skip concat (ragged tile)", (32, 10, 16, 2560, 1280))):
+    for label, (n, h, w, cin, cout) in shapes:
         x = _rnd(gen, dev, n, h, w, cin)
         a = _rnd(gen, dev, n, cin, scale=0.2, offset=1.0,
                  dtype=torch.float32)
@@ -368,10 +392,10 @@ def conv_cases(dev, gen) -> List[Case]:
             # the conv alone on the activated input, channels-last (cuDNN)
             return F.conv2d(o[0].permute(0, 3, 1, 2), o[3], o[4], padding=1)
 
+        name = sc.conv_kernel_name(h, w, cin, cout)
         cases.append(Case(
-            "winograd_gn_silu_conv3x3",
-            f"{label} N={n} {h}x{w} C={cin}->{cout} stats+residual",
-            kernel=lambda o=ops: sc.winograd_gn_silu_conv3x3(
+            name, f"{label} N={n} {h}x{w} C={cin}->{cout} stats+residual",
+            kernel=lambda o=ops, f=getattr(sc, name): f(
                 *o, silu=True, stats=True),
             reference=lambda o=ops: sc._plain_conv3x3(
                 o[0].float(), o[1], o[2], o[3].float(), o[4].float(),
@@ -387,14 +411,18 @@ def conv_cases(dev, gen) -> List[Case]:
     return cases
 
 
-def tpair_cases(dev, gen) -> List[Case]:
+# (label, P, C)
+TPAIR_512 = (("ds1", 2560, 320), ("init_attn", 2560, 512), ("ds2", 640, 640),
+             ("ds4", 160, 1280), ("mid 5x8", 40, 1280))
+TPAIR_1024 = (("1024 ds1", 9216, 320), ("1024 ds2", 2304, 640),
+              ("1024 ds4", 576, 1280), ("1024 mid 9x16", 144, 1280))
+
+
+def tpair_cases(dev, gen, shapes=TPAIR_512) -> List[Case]:
     """(B, T, P, C): the temporal transformer blocks' attention pair at each
-    UNet level, the init attention's 512-wide blocks, and the mid block's
-    5x8 level."""
+    UNet level, the init attention's 512-wide blocks, and the mid block."""
     cases = []
-    for label, p, c in (("ds1", 2560, 320), ("init_attn", 2560, 512),
-                        ("ds2", 640, 640), ("ds4", 160, 1280),
-                        ("mid 5x8", 40, 1280)):
+    for label, p, c in shapes:
         bsz, t, heads = 2, 16, c // ta.HEAD_DIM
         x = _rnd(gen, dev, bsz, t, p, c)
         stages = tuple(
@@ -421,16 +449,29 @@ def tpair_cases(dev, gen) -> List[Case]:
     return cases
 
 
-def fused_cases(dev, seed: int = 0) -> List[Tuple[Case, Optional[tuple]]]:
-    """Every fused-kernel case with the axes its sums span (None: no sums)."""
+def fused_cases(dev, seed: int = 0, ff=FF_512, tconv=TCONV_512,
+                conv=CONV_512, tpair=TPAIR_512
+                ) -> List[Tuple[Case, Optional[tuple]]]:
+    """Every fused-kernel case with the axes its sums span (None: no sums),
+    at the 320x512 path's shapes unless given others."""
     gen = torch.Generator(device=dev).manual_seed(seed)
     out: List[Tuple[Case, Optional[tuple]]] = []
-    out += [(c, None) for c in ff_cases(dev, gen)]
+    out += [(c, None) for c in ff_cases(dev, gen, ff)]
     out += [(c, (2,) if "stats" in c.label else None)
-            for c in tconv_cases(dev, gen)]
-    out += [(c, (1, 2)) for c in conv_cases(dev, gen)]
-    out += [(c, None) for c in tpair_cases(dev, gen)]
+            for c in tconv_cases(dev, gen, tconv)]
+    out += [(c, (1, 2)) for c in conv_cases(dev, gen, conv)]
+    out += [(c, None) for c in tpair_cases(dev, gen, tpair)]
     return out
+
+
+def fused_cases_1024(dev, seed: int = 0
+                     ) -> List[Tuple[Case, Optional[tuple]]]:
+    """The fused kernels at the 576x1024 path's most-launched shapes (2 CFG
+    branches x 16 frames of a 72x128 latent): the F(2x4)-named conv (#14)
+    first, then #13, the FF at each UNet level (streamed at C = 1280), the
+    temporal conv (UNet and decoder level 0) and the pair at each level and
+    the 9x16 mid block."""
+    return fused_cases(dev, seed, FF_1024, TCONV_1024, CONV_1024, TPAIR_1024)
 
 
 # ---------------------------------------------------------------------------

@@ -1,10 +1,12 @@
 """Where the card's time goes: a torch.profiler breakdown of one denoise
-step (one CFG-batched UNet call) and one dual-ref decode of the 320x512x16
-path (configs/inference_512_v1.0.yaml), by kernel and by kind; with
-``--train``, of one training step of the 512 model
-(configs/training_512_v1.0.yaml, batch 2, AdamW + EMA) and its phases.
+step (one CFG-batched UNet call) and one dual-ref decode of a 16-frame
+interpolation model (``--config``, by default the 320x512 model's
+configs/inference_512_v1.0.yaml; configs/inference_1024_v1.0.yaml for the
+576x1024 model), by kernel and by kind; with ``--train``, of one training
+step of the 512 model (configs/training_512_v1.0.yaml, batch 2, AdamW +
+EMA) and its phases.
 
-    python -m tooncrafter_tpu_torch.utils.profiling [--train]
+    python -m tooncrafter_tpu_torch.utils.profiling [--config YAML] [--train]
 
 Needs a CUDA device. Device busy time is the sum of kernel times (one
 stream) from a trace of CUDA activity only. Wall time comes from separate
@@ -196,6 +198,9 @@ def main() -> None:
     from tooncrafter_tpu_torch.utils.weights import init_random_
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--config", default=os.path.join(
+        REPO, "configs", "inference_512_v1.0.yaml"),
+                    help="the inference model's YAML")
     ap.add_argument("--train", action="store_true",
                     help="profile a training step instead of inference")
     args = ap.parse_args()
@@ -205,10 +210,8 @@ def main() -> None:
     if args.train:
         train_breakdown(dev)
         return
-    cfg = dataclasses.replace(
-        model_config_from_yaml(os.path.join(REPO, "configs",
-                                            "inference_512_v1.0.yaml")),
-        compute_dtype=torch.bfloat16)
+    cfg = dataclasses.replace(model_config_from_yaml(args.config),
+                              compute_dtype=torch.bfloat16)
     with torch.device(dev):
         model = ToonCrafter(cfg)
     init_random_(model, torch.Generator(dev).manual_seed(SEED))
@@ -227,11 +230,15 @@ def main() -> None:
             for i, m in enumerate(cfg.vae_ch_mult)]
     refs.append(torch.randn(1, 2, h * 8, w * 8, cfg.vae_ch, generator=g,
                             device=dev, dtype=torch.bfloat16))
+    geometry = f"{h * 8}x{w * 8}"
+    torch.cuda.reset_peak_memory_stats(dev)
     with torch.no_grad():
-        report("denoise step (UNet, 2 CFG branches x 16 frames)",
+        report(f"denoise step (UNet, 2 CFG branches x 16 frames, {geometry})",
                *profile(lambda: model.unet(x, ts, ctx, fs)))
-        report("dual-ref decode (16 frames)",
+        report(f"dual-ref decode (16 frames, {geometry})",
                *profile(lambda: model.decode_first_stage(z, refs)))
+    print(f"peak memory allocated "
+          f"{torch.cuda.max_memory_allocated(dev) / 2 ** 30:.2f} GiB")
 
 
 if __name__ == "__main__":
