@@ -26,6 +26,13 @@ Phases, each printed on its own lines; any failure exits non-zero:
      (3c); every request at the YAML's default_fs as the frame stride, each
      with its
      seconds per phase, peak memory and launches per kernel;
+  3a', 3d. the JAX package's three opt-in switches on (TC_TATTN_PAIR=0,
+     TC_SPATIAL_CONV_PALLAS=1, TOONCRAFTER_FUSED_GN=1, set as the port's
+     module globals): the reduced model card against CPU again, then one
+     full-width 320x512 request with 3b's model, seed and inputs (the pair
+     at 0 launches; the single-stage temporal attention, the im2col-named
+     conv and the one-pass GroupNorm launched), its PSNR against 3b's
+     first clip printed;
   4. training: a reduced model's UNet and image_proj gradients in bf16 on
      the card against the same model's fp32 gradients on the CPU (same
      weights, same draws), then the full-width 320x512 training model
@@ -88,6 +95,36 @@ KERNELS_512 = ("_flash_mh_packed", "_flash_mh", "_flash_bh_with_lse",
 KERNELS_1024 = ("_flash_mh", "_flash_bh_with_lse", "_pallas_ff",
                 "_pallas_ff_streamed", "_fused_tpair_call", "_pallas_tconv",
                 "winograd_gn_silu_conv3x3", "winograd24_gn_silu_conv3x3")
+# the kernels the three switches add on the 320x512 path (the T-attention
+# core #11 is reached at no shipped site: wherever its rule holds, the
+# single-stage kernel's does too); under them the pair runs nowhere
+KERNELS_SWITCHED = ("_fused_tattn_call", "_pallas_fused_conv", "_pallas_gn")
+TRAIN_KERNELS_SWITCHED = TRAIN_KERNELS + ("_pallas_gn",)
+TRAIN_STEPS_SWITCHED = 2
+
+
+@contextlib.contextmanager
+def switches(pair: bool = False, spatial_conv_pallas: bool = True,
+             fused_gn: bool = True):
+    """The JAX package's opt-in switches as the port's module globals:
+    TC_TATTN_PAIR=0, TC_SPATIAL_CONV_PALLAS=1, TOONCRAFTER_FUSED_GN=1."""
+    from tooncrafter_tpu_torch.ops import fused_norms as fn
+    from tooncrafter_tpu_torch.ops import spatial_conv as sc
+    from tooncrafter_tpu_torch.ops import temporal_attention as ta
+
+    saved = (ta._PAIR, sc._SPATIAL_CONV_PALLAS, fn._FUSED_GN)
+    ta._PAIR, sc._SPATIAL_CONV_PALLAS, fn._FUSED_GN = (
+        pair, spatial_conv_pallas, fused_gn)
+    try:
+        yield
+    finally:
+        ta._PAIR, sc._SPATIAL_CONV_PALLAS, fn._FUSED_GN = saved
+
+
+def psnr(a, b) -> float:
+    """Lowest per-frame PSNR (dB) of two clips in [-1, 1]."""
+    mse = (a.float() - b.float()).square().mean(dim=(2, 3, 4))
+    return (10 * torch.log10(4.0 / mse.clamp_min(1e-12))).min().item()
 
 
 def phase(name: str) -> None:
@@ -269,7 +306,7 @@ def check_kernels(dev) -> dict:
                                             bound_ms, bound_by))
         row["max_abs_err"] = max(row["max_abs_err"], mx)
     del cases, args, got, ref, ref_args, qkv
-    for cases_of in (kc.fused_cases, kc.fused_cases_1024):
+    for cases_of in (kc.fused_cases, kc.fused_cases_1024, kc.switched_cases):
         for case, axes in cases_of(dev):
             r = kc.run_case(case, axes)
             print(kc.line(case, r), flush=True)
@@ -359,9 +396,11 @@ def small_inputs(cfg, seed, device):
                                    fs, x_T)]
 
 
-def check_reduced_model(dev) -> None:
+def check_reduced_model(dev, kernels=KERNELS_512) -> dict:
     """The same reduced model and inputs through the Pipeline on the card
-    (bf16, CUDA kernels) and on the CPU (fp32, plain versions)."""
+    (bf16, CUDA kernels) and on the CPU (fp32, plain versions); every
+    kernel of ``kernels`` must launch. Returns, per conv kernel, the pixel
+    counts it was launched at with a ragged last tile."""
     import copy
     import dataclasses
 
@@ -388,10 +427,9 @@ def check_reduced_model(dev) -> None:
         if name == "gpu":
             hit = kc.launch_counts()
     err = (outs["gpu"] - outs["cpu"]).abs()
-    mse = err.square().mean(dim=(2, 3, 4))
-    psnr = (10 * torch.log10(4.0 / mse.clamp_min(1e-12))).min().item()
+    db = psnr(outs["gpu"], outs["cpu"])
     print(f"reduced model {cfg.latent_h * 8}x{cfg.latent_w * 8}x"
-          f"{cfg.video_length}: card bf16 vs CPU fp32 min PSNR {psnr:.2f} dB"
+          f"{cfg.video_length}: card bf16 vs CPU fp32 min PSNR {db:.2f} dB"
           f", max_abs_err {err.max().item():.4e}, output range "
           f"[{outs['cpu'].min().item():.3f}, {outs['cpu'].max().item():.3f}]"
           f", kernel launches {hit}", flush=True)
@@ -399,18 +437,18 @@ def check_reduced_model(dev) -> None:
               for k, v in pixels.items()}
     print(f"reduced model: pixel counts with a ragged last tile {ragged}",
           flush=True)
-    if not (psnr >= REDUCED_MIN_PSNR and all(hit[k] for k in KERNELS_512)
-            and all(ragged.values())):
-        raise SystemExit("reduced model: the card disagrees with the CPU, a "
-                         "kernel was not reached or no ragged tile was")
+    if not (db >= REDUCED_MIN_PSNR and all(hit[k] for k in kernels)):
+        raise SystemExit("reduced model: the card disagrees with the CPU or "
+                         "a kernel was not reached")
+    return ragged
 
 
 def answer_requests(dev, ddim_steps: int, yaml: str, n_requests: int,
-                    kernels) -> dict:
+                    kernels):
     """Full-width requests (16 frames) of the model in ``yaml`` through the
-    port's Pipeline, at the YAML's ``default_fs``. Returns the launch counts
-    over the requests and exits if a kernel of ``kernels`` was never
-    launched."""
+    port's Pipeline, at the YAML's ``default_fs``; exits if a kernel of
+    ``kernels`` was never launched. Returns the launch counts over the
+    requests, the pipeline, the requests and their clips."""
     import dataclasses
 
     from tooncrafter_tpu_torch.config import model_config_from_yaml
@@ -441,8 +479,21 @@ def answer_requests(dev, ddim_steps: int, yaml: str, n_requests: int,
                     guidance=GuidanceConfig(cfg_scale=7.5,
                                             guidance_rescale=0.7),
                     perframe_ae=cfg.perframe_ae)
-    gen = torch.Generator(dev).manual_seed(SEED)
     requests = [small_inputs(cfg, 10 + r, dev)[:4] for r in range(n_requests)]
+    counts, outs = _serve(pipe, requests, dev)
+    _check_outputs(cfg, outs)
+    missed = [k for k in kernels if not counts[k]]
+    if missed:
+        raise SystemExit(f"{yaml}: kernels {missed} never launched")
+    return counts, pipe, requests, outs
+
+
+def _serve(pipe, requests, dev):
+    """Answer ``requests`` in turn (the generator seeded anew); the launch
+    counts over them and the clips."""
+    from tooncrafter_tpu_torch.utils import kernel_check as kc
+
+    gen = torch.Generator(dev).manual_seed(SEED)
     torch.cuda.reset_peak_memory_stats(dev)
     kc.reset_launch_counts()
     outs = []
@@ -458,6 +509,10 @@ def answer_requests(dev, ddim_steps: int, yaml: str, n_requests: int,
     peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
     print(f"peak memory allocated {peak:.2f} GiB; kernel launches {counts}",
           flush=True)
+    return counts, outs
+
+
+def _check_outputs(cfg, outs) -> None:
     for r, out in enumerate(outs):
         lo, hi = out.min().item(), out.max().item()
         print(f"request {r}: output {tuple(out.shape)} range "
@@ -468,10 +523,6 @@ def answer_requests(dev, ddim_steps: int, yaml: str, n_requests: int,
         if max(abs(lo), abs(hi)) > OUTPUT_MAX_ABS:
             raise SystemExit(f"request {r}: output outside "
                              f"+-{OUTPUT_MAX_ABS}")
-    missed = [k for k in kernels if not counts[k]]
-    if missed:
-        raise SystemExit(f"{yaml}: kernels {missed} never launched")
-    return counts
 
 
 class _KeptDropout(torch.nn.Dropout):
@@ -490,7 +541,7 @@ def _keep_dropout(model) -> None:
                 setattr(mod, name, _KeptDropout(child.p))
 
 
-def check_reduced_training(dev) -> None:
+def check_reduced_training(dev, kernels=TRAIN_KERNELS) -> None:
     """The reduced model's trainable gradients: card (bf16 autocast over
     fp32 weights, the kernels and #6) against CPU (fp32, plain versions),
     on the same weights, batch and draws, dropout kept out of both."""
@@ -545,15 +596,19 @@ def check_reduced_training(dev) -> None:
           f"largest per-tensor relative L2 error {worst[0][1]:.4f} (bound "
           f"{GRAD_MAX_REL_L2}); worst {worst}; kernel launches {hit}",
           flush=True)
-    missed = [k for k in TRAIN_KERNELS if not hit[k]]
+    missed = [k for k in kernels if not hit[k]]
     if cos < GRAD_MIN_COSINE or worst[0][1] > GRAD_MAX_REL_L2 or missed:
         raise SystemExit(f"reduced training model: card gradients disagree "
                          f"with the CPU's, or kernels {missed} not reached")
 
 
-def train_full_width(dev) -> dict:
-    """Three AdamW steps of the 512 training model at full width; returns
-    the launch counts over the three steps."""
+def train_full_width(dev, steps: int = TRAIN_STEPS,
+                     kernels=TRAIN_KERNELS):
+    """``steps`` AdamW steps of the 512 training model at full width;
+    returns the launch counts over the steps, each step's seconds and the
+    peak memory (GiB). With #16 among ``kernels``, then counts its
+    launches in one forward of the loss (a step also recomputes the
+    checkpointed blocks' forward in its backward)."""
     import dataclasses
 
     from tooncrafter_tpu_torch.config import model_config_from_yaml
@@ -600,13 +655,15 @@ def train_full_width(dev) -> dict:
     batch = random_batch(cfg, 2, SEED, dev)
     gen = torch.Generator(dev).manual_seed(SEED)
     total = dict.fromkeys(kc.launch_counts(), 0)
-    for i in range(TRAIN_STEPS):
+    seconds = []
+    for i in range(steps):
         kc.reset_launch_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         state, metrics = step_fn(state, batch, gen)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
+        seconds.append(dt)
         counts = kc.launch_counts()
         for k, v in counts.items():
             total[k] += v
@@ -631,10 +688,18 @@ def train_full_width(dev) -> dict:
     if zero or still:
         raise SystemExit(f"training: zero gradients {zero[:5]} or an EMA "
                          f"that did not move {still[:5]}")
-    missed = [k for k in TRAIN_KERNELS if not total[k]]
+    missed = [k for k in kernels if not total[k]]
     if missed:
         raise SystemExit(f"training: kernels {missed} never launched")
-    return total
+    if "_pallas_gn" in kernels:
+        kc.reset_launch_counts()
+        with T.autocast(model, dev):
+            loss, _ = T.diffusion_loss(model, batch, gen, train=True)
+        torch.cuda.synchronize()
+        print(f"training: _pallas_gn launches in one forward of the loss "
+              f"{kc.launch_counts()['_pallas_gn']}", flush=True)
+        del loss
+    return total, seconds, peak
 
 
 def main(argv=None) -> int:
@@ -677,28 +742,61 @@ def main(argv=None) -> int:
     phase("2 kernels against their plain versions")
     rows = check_kernels(dev)
     phase("3a reduced model: card against CPU")
-    check_reduced_model(dev)
+    if not all(check_reduced_model(dev).values()):
+        raise SystemExit("reduced model: no conv launched at a ragged tile")
+    phase("3a' reduced model with the three switches on: card against CPU")
+    with switches():
+        check_reduced_model(dev, KERNELS_SWITCHED)
     phase(f"3b two full-width requests, DDIM-{args.ddim_steps}")
-    counts = answer_requests(dev, args.ddim_steps, "inference_512_v1.0.yaml",
-                             2, KERNELS_512)
+    counts, pipe, requests, clips = answer_requests(
+        dev, args.ddim_steps, "inference_512_v1.0.yaml", 2, KERNELS_512)
+    phase(f"3d one full-width request with the three switches on, "
+          f"DDIM-{args.ddim_steps}")
+    with switches():
+        counts_sw, clips_sw = _serve(pipe, requests[:1], dev)
+    _check_outputs(pipe.model.config, clips_sw)
+    print(f"3d against 3b's first clip (same weights, seed and inputs): "
+          f"min PSNR {psnr(clips_sw[0], clips[0]):.2f} dB", flush=True)
+    missed = [k for k in KERNELS_SWITCHED if not counts_sw[k]]
+    if missed or counts_sw["_fused_tpair_call"]:
+        raise SystemExit(f"3d: kernels {missed} never launched, or the pair "
+                         f"launched {counts_sw['_fused_tpair_call']} times")
+    del pipe, requests, clips, clips_sw
     phase(f"3c one full-width 576x1024 request, DDIM-{args.ddim_steps}")
     counts_1024 = answer_requests(dev, args.ddim_steps,
                                   "inference_1024_v1.0.yaml", 1,
-                                  KERNELS_1024)
+                                  KERNELS_1024)[0]
     phase("4a reduced training model: card gradients against CPU")
     check_reduced_training(dev)
     phase(f"4b full-width training, {TRAIN_STEPS} steps")
-    train_counts = train_full_width(dev)
+    train_counts, train_s, train_peak = train_full_width(dev)
+    phase("4a' reduced training model with TOONCRAFTER_FUSED_GN=1: card "
+          "gradients against CPU")
+    with switches(pair=True, spatial_conv_pallas=False):
+        check_reduced_training(dev, TRAIN_KERNELS_SWITCHED)
+    phase(f"4b' full-width training with TOONCRAFTER_FUSED_GN=1, "
+          f"{TRAIN_STEPS_SWITCHED} steps")
+    with switches(pair=True, spatial_conv_pallas=False):
+        train_sw, sw_s, sw_peak = train_full_width(
+            dev, TRAIN_STEPS_SWITCHED, TRAIN_KERNELS_SWITCHED)
+    print(f"4b' beside 4b: _pallas_gn launches per step "
+          f"{train_sw['_pallas_gn'] / TRAIN_STEPS_SWITCHED:.0f} (the "
+          f"checkpointed blocks' recomputation included) against 0; step "
+          f"seconds {', '.join(f'{t:.2f}' for t in sw_s)} against "
+          f"{', '.join(f'{t:.2f}' for t in train_s)}; peak {sw_peak:.2f} "
+          f"GiB against {train_peak:.2f}", flush=True)
     summary = []
+    paths = (counts, counts_1024, train_counts, counts_sw, train_sw)
     for name, row in rows.items():
         # each kernel's launches on the first path that runs it: two
-        # 320x512 requests, else the 576x1024 request, else training
-        row["launches"] = next((c[name] for c in (counts, counts_1024,
-                                                  train_counts) if c[name]),
-                               0)
+        # 320x512 requests, else the 576x1024 request, else training, else
+        # the switched request (3d), else the switched training steps (4b')
+        row["launches"] = next((c[name] for c in paths if c[name]), 0)
         row["launches_512"] = counts[name]
         row["launches_1024"] = counts_1024[name]
         row["launches_train"] = train_counts[name]
+        row["launches_512_switched"] = counts_sw[name]
+        row["launches_train_switched"] = train_sw[name]
         summary.append(row)
     print(json.dumps({"kernels": summary}))
     print(json.dumps({"ok": True, "device": {

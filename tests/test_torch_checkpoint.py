@@ -15,6 +15,8 @@ from tooncrafter_tpu_torch import config as port_config
 from tooncrafter_tpu_torch.utils import checkpoint as ckpt
 from tooncrafter_tpu_torch.utils.tokenizer import ClipTokenizer
 
+torch.set_num_threads(1)  # one thread a pytest worker: the suite runs six
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MERGES = os.path.join(REPO, "tests", "goldens", "clip_bpe_merges.txt")
 

@@ -11,6 +11,9 @@ import pytest
 from tooncrafter_tpu.config import model_config_from_yaml as jax_from_yaml
 from tooncrafter_tpu.models.diffusion import ModelConfig as JaxConfig
 from tooncrafter_tpu_torch.config import ModelConfig, model_config_from_yaml
+import torch  # noqa: E402
+
+torch.set_num_threads(1)  # one thread a pytest worker: the suite runs six
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -12,8 +12,13 @@ flash-attention backward (#6) is held to its
 gradient bounds at the training path's attn1 shapes, ragged and short
 lengths, and against two broken builds (dq x1.01, a query tile skipped in
 dk/dv); every wrapper given a tensor that requires grad either returns a
-result with a grad_fn or raises. The CUDA kernels have no CPU mode, so
-without a card these tests skip.
+result with a grad_fn or raises. The kernels of the JAX package's opt-in
+switches (#10 the single-stage temporal attention, #11 the T-attention
+core, #15 the im2col-named conv with its fp32 cast point, #16 the one-pass
+GroupNorm) at ragged shapes, and each against one broken build that must
+fail at every one of its ``kernel_check.switched_cases`` shapes; #15's
+cast point through an identity conv, and against a build that takes #13's. The CUDA
+kernels have no CPU mode, so without a card these tests skip.
 
     python -m pytest tests/test_torch_cuda_kernels.py --noconftest -q -s
 """
@@ -27,6 +32,7 @@ from tooncrafter_tpu_torch.ops import _build
 from tooncrafter_tpu_torch.ops import attention as attn
 from tooncrafter_tpu_torch.ops import flash_attention as fa
 from tooncrafter_tpu_torch.ops import fused_ff as ff
+from tooncrafter_tpu_torch.ops import fused_norms as fn
 from tooncrafter_tpu_torch.ops import spatial_conv as sc
 from tooncrafter_tpu_torch.ops import temporal_attention as ta
 from tooncrafter_tpu_torch.ops import temporal_conv as tc
@@ -250,7 +256,8 @@ def test_f24_named_conv_at_its_1024_shape(dev):
     _fused_close(y, ref)
     _sums_close(y, s1, s2, (1, 2))
     assert sc.LAUNCHES == {"winograd_gn_silu_conv3x3": 0,
-                           "winograd24_gn_silu_conv3x3": 2}
+                           "winograd24_gn_silu_conv3x3": 2,
+                           "_pallas_fused_conv": 0}
 
 
 # (what is broken, the library's source, the file edited, text replaced,
@@ -312,6 +319,174 @@ def test_mutated_kernel_fails_at_every_path_shape(dev, tmp_path, monkeypatch,
         row = kc.run_case(case, axes, timed=False)
         print(f"{what} in {src}: {kc.line(case, row)}")
         assert not row["ok"], f"{what} passed at {case.label}"
+        checked += 1
+    assert checked >= 2
+
+
+# ---------------------------------------------------------------------------
+# the kernels of the three opt-in switches (#10, #11, #15, #16)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("t,p,c", [(16, 37, 320), (4, 21, 512),
+                                   (16, 3, 1280)])
+def test_single_stage_kernel_ragged_pixels_and_short_clips(dev, t, p, c):
+    x = _rand(dev, 70, 2, t, p, c)
+    stage = (1 + 0.1 * _rand(dev, 71, c).float(),
+             0.1 * _rand(dev, 72, c).float(),
+             *(_rand(dev, 73 + j, c, c) * c ** -0.5 for j in range(4)),
+             0.1 * _rand(dev, 77, c))
+    out = ta._fused_tattn_call(x, stage, c // 64, 0.125)
+    ref = ta._plain_stage(x.float(), tuple(w.float() for w in stage),
+                          c // 64, 0.125, 1e-5, torch.bfloat16)
+    _fused_close(out, ref)
+    assert ta.LAUNCHES["_fused_tattn_call"] == 1
+    assert ta.LAUNCHES["_fused_tpair_call"] == 0
+
+
+@pytest.mark.parametrize("t,p,inner,heads", [(16, 37, 320, 5),
+                                             (8, 21, 256, 2), (32, 5, 128, 2),
+                                             (3, 9, 192, 3)])
+def test_ptc_kernel_strided_and_ragged(dev, t, p, inner, heads):
+    """q, k, v as slices of one packed projection; T = 32, 3 and 8 (d =
+    128 at T = 8), pixel counts no warp count divides."""
+    qkv = _rand(dev, 80, 2, t, p, 3 * inner)
+    q, k, v = qkv.chunk(3, dim=-1)
+    d = inner // heads
+    out = ta.temporal_attention_ptc(q, k, v, heads=heads, scale=d ** -0.5)
+    ref = ta._xla_ptc(*_f(q, k, v), heads, d ** -0.5, cdt=torch.bfloat16)
+    _fused_close(out, ref)
+    assert ta.LAUNCHES["_ptc_kernel_call"] == 1
+
+
+@pytest.mark.parametrize("h,w,cin,cout", [(8, 12, 128, 64), (9, 10, 64, 192)])
+def test_im2col_named_conv_fp32_cast_point(dev, h, w, cin, cout):
+    x = _rand(dev, 90, 3, h, w, cin)
+    a = 1 + 0.2 * _rand(dev, 91, 3, cin).float()
+    b = 0.1 * _rand(dev, 92, 3, cin).float()
+    weight = _rand(dev, 93, cout, cin, 3, 3) * (9 * cin) ** -0.5
+    bias, res = _rand(dev, 94, cout), _rand(dev, 95, 3, h, w, cout)
+    y, s1, s2 = sc._pallas_fused_conv(x, a, b, weight, bias, res, stats=True)
+    ref = sc._plain_conv3x3(x.float(), a, b, *_f(weight, bias, res), True,
+                            False, cdt=torch.bfloat16, round_first=False)
+    _fused_close(y, ref)
+    _sums_close(y, s1, s2, (1, 2))
+    assert sc.LAUNCHES["_pallas_fused_conv"] == 1
+
+
+def _identity_conv(dev):
+    """#15 through a centre-tap identity weight (Cin = Cout = 64, zero
+    bias): y is z = bf16(silu(x A + B)) itself, so its cast point shows.
+    Returns the kernel's y and the plain version's."""
+    x = (_rand(dev, 99, 2, 8, 12, 64).float() * 2 + 0.5).to(torch.bfloat16)
+    a = 1 + 0.2 * _rand(dev, 100, 2, 64).float()
+    b = 0.1 * _rand(dev, 101, 2, 64).float()
+    weight = torch.zeros(64, 64, 3, 3, dtype=torch.bfloat16, device=dev)
+    weight[:, :, 1, 1] = torch.eye(64, device=dev)
+    bias = torch.zeros(64, dtype=torch.bfloat16, device=dev)
+    y = sc._pallas_fused_conv(x, a, b, weight, bias)
+    ref = sc._plain_conv3x3(x, a, b, weight, bias, None, True, False,
+                            round_first=False)
+    return y.float(), ref.float()
+
+
+def _same_cast_point(y, ref):
+    """At most 1 % of the elements off, each by at most one bf16 ulp: the
+    kernel's SiLU (__expf) against torch's flips a rare rounding; a
+    rounding before the SiLU as well moves ~27 % of them."""
+    off = y != ref
+    print(f"#15 identity conv: {off.float().mean().item():.4%} of the "
+          f"elements off the plain version")
+    return bool(off.float().mean().item() <= 0.01
+                and ((y - ref).abs() <= 2.0 ** -7 * ref.abs()).all().item())
+
+
+def test_im2col_named_conv_cast_point_through_an_identity_conv(dev):
+    assert _same_cast_point(*_identity_conv(dev))
+    assert sc.LAUNCHES["_pallas_fused_conv"] == 1
+
+
+def test_im2col_named_conv_with_the_ref_cast_point_fails(dev, tmp_path,
+                                                         monkeypatch):
+    """A build whose #15 launch takes #13's prologue (kRoundFirst)."""
+    for f in _build.CSRC.iterdir():
+        if f.suffix in (".cu", ".cuh"):
+            shutil.copy(f, tmp_path / f.name)
+    src = tmp_path / "gn_silu_conv3x3.cu"
+    text = src.read_text()
+    assert text.count("false>(q, s)") == 2
+    src.write_text(text.replace("false>(q, s)", "true>(q, s)"))
+    built = _build.load_library(*sc.LIBRARY, csrc=tmp_path)
+    monkeypatch.setattr(sc, "_LIB", sc.bind(built))
+    assert not _same_cast_point(*_identity_conv(dev))
+
+
+@pytest.mark.parametrize("shape,silu", [((3, 7, 9, 96), True),
+                                        ((2, 4, 5, 6, 320), False),
+                                        ((1, 1000, 2048), True)])
+def test_gn_kernel_ragged_rows(dev, shape, silu):
+    x = (_rand(dev, 96, *shape).float() * 2 + 0.5).to(torch.bfloat16)
+    c = shape[-1]
+    w = 1 + 0.2 * _rand(dev, 97, c).float()
+    b = 0.2 * _rand(dev, 98, c).float()
+    out = fn._pallas_gn(x, w, b, 32, 1e-5, silu)
+    ref = fn._plain_gn(x.float(), w, b, 32, 1e-5, silu, cdt=torch.bfloat16)
+    _fused_close(out, ref)
+    assert fn.LAUNCHES["_pallas_gn"] == 1
+
+
+# (the kernel, its library's module and (name, sources), the file edited,
+#  the text replaced, the replacement)
+SWITCHED_MUTATIONS = [
+    ("_fused_tattn_call", "temporal_attention.cu",
+     "  if (c <= 640) return launch<4, 5, 1>(q, s);",
+     "  q.eps = 0.5f;\n  if (c <= 640) return launch<4, 5, 1>(q, s);"),
+    ("_ptc_kernel_call", "temporal_ptc.cu",
+     "l[j] = round_bf16(l[j] / den);",
+     "l[j] = round_bf16(1.01f * l[j] / den);"),
+    ("_pallas_fused_conv", _IGEMM,
+     "    if (silu) {\n      z0 = fast_silu(z0);",
+     "    if (silu && kRoundFirst) {\n      z0 = fast_silu(z0);"),
+    ("_pallas_gn", "group_norm_silu.cu",
+     "const float inv = 1.f / sqrtf(var + eps);",
+     "const float inv = 1.01f / sqrtf(var + eps);"),
+]
+
+
+def _switched_library(name):
+    if name == "_ptc_kernel_call":
+        return ta, "_PTC_LIB", ta.PTC_LIBRARY
+    mod = {"_fused_tattn_call": ta, "_pallas_fused_conv": sc,
+           "_pallas_gn": fn}[name]
+    return mod, "_LIB", mod.LIBRARY
+
+
+@pytest.mark.parametrize("name,edited,old,new", SWITCHED_MUTATIONS,
+                         ids=[m[0] for m in SWITCHED_MUTATIONS])
+def test_mutated_switched_kernel_fails_at_every_shape(dev, tmp_path,
+                                                      monkeypatch, name,
+                                                      edited, old, new):
+    for f in _build.CSRC.iterdir():
+        if f.suffix in (".cu", ".cuh"):
+            shutil.copy(f, tmp_path / f.name)
+    text = (tmp_path / edited).read_text()
+    assert text.count(old) == 1, (edited, old)
+    (tmp_path / edited).write_text(text.replace(old, new))
+    mod, attr, (lib, sources) = _switched_library(name)
+    built = _build.load_library(lib, sources, csrc=tmp_path)
+    if attr == "_PTC_LIB":
+        monkeypatch.setattr(ta, "_PTC_LIB", None)
+        monkeypatch.setattr(_build, "load_library",
+                            lambda *a, **k: built)
+        ta._ptc_library()
+    else:
+        monkeypatch.setattr(mod, attr, mod.bind(built))
+    checked = 0
+    for case, axes in kc.switched_cases(dev):
+        if case.name != name:
+            continue
+        row = kc.run_case(case, axes, timed=False)
+        print(f"{name} broken in {edited}: {kc.line(case, row)}")
+        assert not row["ok"], f"the broken {name} passed at {case.label}"
         checked += 1
     assert checked >= 2
 

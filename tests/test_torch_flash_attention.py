@@ -14,6 +14,8 @@ from tooncrafter_tpu.ops import flash_attention as jfa
 from tooncrafter_tpu_torch.ops import attention as att
 from tooncrafter_tpu_torch.ops import flash_attention as fa
 
+torch.set_num_threads(1)  # one thread a pytest worker: the suite runs six
+
 ATOL = 2e-5
 
 

@@ -21,6 +21,8 @@ import torch
 from tooncrafter_tpu.ops import flash_attention as jfa
 from tooncrafter_tpu_torch.ops import flash_attention as fa
 
+torch.set_num_threads(1)  # one thread a pytest worker: the suite runs six
+
 TOL = 1e-4
 
 

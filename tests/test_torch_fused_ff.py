@@ -17,6 +17,8 @@ import torch
 from tooncrafter_tpu.ops import fused_ff as jff
 from tooncrafter_tpu_torch.ops import fused_ff as ff
 
+torch.set_num_threads(1)  # one thread a pytest worker: the suite runs six
+
 ERF_ERR = 8.1e-5 + 2.2e-5
 C, D = 64, 256
 

@@ -12,9 +12,13 @@ from tooncrafter_tpu_torch.ops import _build
 from tooncrafter_tpu_torch.ops import _launch
 from tooncrafter_tpu_torch.ops import flash_attention as fa
 from tooncrafter_tpu_torch.ops import fused_ff as ff
+from tooncrafter_tpu_torch.ops import fused_norms as fn
 from tooncrafter_tpu_torch.ops import spatial_conv as sc
+from tooncrafter_tpu_torch.ops import temporal_attention as ta
 from tooncrafter_tpu_torch.ops import temporal_conv as tc
 from tooncrafter_tpu_torch.utils import kernel_check as kc
+
+torch.set_num_threads(1)  # one thread a pytest worker: the suite runs six
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -88,7 +92,7 @@ print("ok")
 
 
 def test_port_imports_and_runs_without_jax():
-    env = dict(os.environ, PYTHONPATH=REPO)
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
     r = subprocess.run([sys.executable, "-c", _NO_JAX], cwd=REPO, env=env,
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0 and r.stdout.strip().endswith("ok"), (
@@ -128,6 +132,7 @@ def kernel_library_absent(monkeypatch):
     monkeypatch.setattr(_launch, "is_cuda", lambda t: t.device.type != "cpu")
     for mod in kc.MODULES:
         monkeypatch.setattr(mod, "_LIB", None)
+    monkeypatch.setattr(ta, "_PTC_LIB", None)
     monkeypatch.setattr(_build, "load_library", no_nvcc)
     kc.reset_launch_counts()
     yield
@@ -165,6 +170,16 @@ def _meta_f32(*shape):
     lambda: sc.winograd24_gn_silu_conv3x3(
         _meta(2, 36, 64, 64), _meta_f32(2, 64), _meta_f32(2, 64),
         _meta(64, 64, 3, 3), _meta(64), _meta(2, 36, 64, 64), True, True),
+    lambda: sc._pallas_fused_conv(
+        _meta(2, 8, 8, 64), _meta_f32(2, 64), _meta_f32(2, 64),
+        _meta(64, 64, 3, 3), _meta(64)),
+    lambda: ta._fused_tattn_call(
+        _meta(2, 16, 40, 320), (_meta_f32(320), _meta_f32(320),
+                                *(_meta(320, 320) for _ in range(4)),
+                                _meta(320)), 5, 0.125),
+    lambda: ta._ptc_kernel_call(*(_meta(2, 16, 40, 320) for _ in range(3)),
+                                5, 0.125),
+    lambda: fn._pallas_gn(_meta(2, 8, 8, 64), _meta_f32(64), _meta_f32(64)),
 ])
 def test_cuda_wrappers_raise_without_their_kernel(kernel_library_absent,
                                                   call):

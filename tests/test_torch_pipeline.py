@@ -25,6 +25,8 @@ from tooncrafter_tpu_torch.models.diffusion import Pipeline, ToonCrafter
 from tooncrafter_tpu_torch.sampling.ddim import GuidanceConfig
 from tooncrafter_tpu_torch.utils.weights import from_jax_params
 
+torch.set_num_threads(1)  # one thread a pytest worker: the suite runs six
+
 
 def _fill_zero_leaves(tree, seed):
     rng = np.random.default_rng(seed)

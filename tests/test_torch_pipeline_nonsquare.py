@@ -31,6 +31,8 @@ from tooncrafter_tpu_torch.models.diffusion import Pipeline, ToonCrafter
 from tooncrafter_tpu_torch.sampling.ddim import GuidanceConfig
 from tooncrafter_tpu_torch.utils.weights import from_jax_params
 
+torch.set_num_threads(1)  # one thread a pytest worker: the suite runs six
+
 YAML_1024 = os.path.join(os.path.dirname(__file__), "..", "configs",
                          "inference_1024_v1.0.yaml")
 STEPS = 2

@@ -10,6 +10,8 @@ import torch
 from tooncrafter_tpu.ops import schedule as JS
 from tooncrafter_tpu_torch.ops import schedule as S
 
+torch.set_num_threads(1)  # one thread a pytest worker: the suite runs six
+
 FIELDS = ("betas", "alphas_cumprod", "alphas_cumprod_prev",
           "sqrt_alphas_cumprod", "sqrt_one_minus_alphas_cumprod",
           "log_one_minus_alphas_cumprod", "posterior_variance",

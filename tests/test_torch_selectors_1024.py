@@ -51,6 +51,8 @@ from tooncrafter_tpu_torch.ops import temporal_attention as ta
 from tooncrafter_tpu_torch.ops import temporal_conv as tc
 from tooncrafter_tpu_torch.utils import kernel_check as kc
 
+torch.set_num_threads(1)  # one thread a pytest worker: the suite runs six
+
 YAML_1024 = os.path.join(os.path.dirname(__file__), "..", "configs",
                          "inference_1024_v1.0.yaml")
 

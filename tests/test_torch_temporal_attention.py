@@ -26,6 +26,8 @@ from tooncrafter_tpu.ops import temporal_attention as jta
 from tooncrafter_tpu_torch.models.unet import BasicTransformerBlock
 from tooncrafter_tpu_torch.ops import temporal_attention as ta
 
+torch.set_num_threads(1)  # one thread a pytest worker: the suite runs six
+
 B, P, C, HEADS = 2, 16, 128, 2
 
 

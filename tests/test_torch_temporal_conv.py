@@ -20,6 +20,8 @@ from tooncrafter_tpu.ops.norms import gn_affine as jax_gn_affine
 from tooncrafter_tpu_torch.ops import norms
 from tooncrafter_tpu_torch.ops import temporal_conv as tc
 
+torch.set_num_threads(1)  # one thread a pytest worker: the suite runs six
+
 B, T, H, W, C = 2, 4, 8, 8, 64
 
 

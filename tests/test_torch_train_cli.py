@@ -18,6 +18,9 @@ import os
 import numpy as np
 import pytest
 import yaml
+import torch  # noqa: E402
+
+torch.set_num_threads(1)  # one thread a pytest worker: the suite runs six
 
 cv2 = pytest.importorskip("cv2")
 

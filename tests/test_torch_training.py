@@ -40,6 +40,8 @@ from tooncrafter_tpu_torch.training import trainer as T
 from tooncrafter_tpu_torch.utils import checkpoint as ckpt
 from tooncrafter_tpu_torch.utils.weights import from_jax_params, init_random_
 
+torch.set_num_threads(1)  # one thread a pytest worker: the suite runs six
+
 WARMUP = {"target": "utils.lr_scheduler.LambdaLRScheduler",
           "params": {"num_warmup_steps": 2}}
 COSINE = {"target": "torch.optim.lr_scheduler.CosineAnnealingLR",

@@ -15,6 +15,8 @@ from tooncrafter_tpu_torch.models.diffusion import ToonCrafter
 from tooncrafter_tpu_torch.training import trainer as T
 from tooncrafter_tpu_torch.utils.weights import init_random_
 
+torch.set_num_threads(1)  # one thread a pytest worker: the suite runs six
+
 WARMUP = {"target": "utils.lr_scheduler.LambdaLRScheduler",
           "params": {"num_warmup_steps": 2}}
 

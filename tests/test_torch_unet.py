@@ -22,6 +22,8 @@ from tooncrafter_tpu_torch.models.unet import UNetModel
 from tooncrafter_tpu_torch.models.diffusion import ToonCrafter
 from tooncrafter_tpu_torch.utils.weights import from_jax_params
 
+torch.set_num_threads(1)  # one thread a pytest worker: the suite runs six
+
 TOL = 2e-4
 PREFIX = "model.diffusion_model."
 

@@ -15,6 +15,8 @@ import torch
 from tooncrafter_tpu_torch.models.unet import UNetModel
 from tooncrafter_tpu_torch.utils.weights import init_random_
 
+torch.set_num_threads(1)  # one thread a pytest worker: the suite runs six
+
 KW = dict(model_channels=64, num_res_blocks=1, channel_mult=(1, 2),
           attention_resolutions=(1, 2), num_head_channels=32,
           context_dim=64, temporal_length=4)

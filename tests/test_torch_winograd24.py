@@ -24,6 +24,8 @@ from tooncrafter_tpu.ops import winograd as wg
 from tooncrafter_tpu_torch.ops import norms
 from tooncrafter_tpu_torch.ops import spatial_conv as sc
 
+torch.set_num_threads(1)  # one thread a pytest worker: the suite runs six
+
 N, H, W, CIN, COUT = 2, 8, 8, 128, 128
 F24 = "winograd24_gn_silu_conv3x3"
 

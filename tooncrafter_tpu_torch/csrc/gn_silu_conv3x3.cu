@@ -10,7 +10,9 @@
 // The halo outside the image contributes 0: the zero of z, not silu(B).
 //
 // Replaces the TPU kernel tooncrafter_tpu/ops/winograd.py::
-// winograd_gn_silu_conv3x3 (F(2x2,3x3) Winograd). This is a direct
+// winograd_gn_silu_conv3x3 (F(2x2,3x3) Winograd), its F(2x4) twin and, with
+// the prologue at the fp32 cast point (round_first 0), the im2col kernel
+// tooncrafter_tpu/ops/spatial_conv.py::_pallas_fused_conv. This is a direct
 // implicit GEMM instead (implicit_gemm.cuh): M = the pixels of one image,
 // N = Cout, K = 9 * Cin (tap-major, then input channel). The function is the
 // same; the Winograd transform was the TPU's way to spend fewer MXU
@@ -35,19 +37,21 @@ namespace {
 
 using igemm::Params;
 
-template <int BM>
+template <int BM, bool kRoundFirst>
 int launch_bm(Params q, cudaStream_t stream) {
   q.n_mtiles = (q.h * q.wd + BM - 1) / BM;
   const int rows = BM + 2 * q.wd + 2;  // the halo
   const int smem = igemm::conv_smem_fixed<BM>() + 2 * q.cin * 4 +
                    2 * rows * igemm::kKP * 2;
   cudaError_t err = cudaFuncSetAttribute(
-      igemm::conv_kernel<BM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      igemm::conv_kernel<BM, kRoundFirst>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(q.n_mtiles, (q.cout + igemm::kConvBN - 1) / igemm::kConvBN,
                   q.frames);
-  igemm::conv_kernel<BM><<<grid, igemm::kThreads, smem, stream>>>(q);
+  igemm::conv_kernel<BM, kRoundFirst>
+      <<<grid, igemm::kThreads, smem, stream>>>(q);
   return (int)cudaGetLastError();
 }
 
@@ -62,7 +66,8 @@ extern "C" int tc_gn_silu_conv3x3(const void* x, const float* a, const float* b,
                                   const void* w, const void* bias,
                                   const void* res, void* out, float* s1,
                                   float* s2, int n, int h, int wd, int cin,
-                                  int cout, int silu, int bm, void* stream) {
+                                  int cout, int silu, int bm, int round_first,
+                                  void* stream) {
   Params q;
   q.x = static_cast<const bf16*>(x);
   q.a = a;
@@ -85,7 +90,9 @@ extern "C" int tc_gn_silu_conv3x3(const void* x, const float* a, const float* b,
       wd > igemm::kMaxWidth)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bm == 128) return launch_bm<128>(q, s);
-  if (bm == 64) return launch_bm<64>(q, s);
+  if (bm == 128)
+    return round_first ? launch_bm<128, true>(q, s) : launch_bm<128, false>(q, s);
+  if (bm == 64)
+    return round_first ? launch_bm<64, true>(q, s) : launch_bm<64, false>(q, s);
   return (int)cudaErrorInvalidValue;
 }

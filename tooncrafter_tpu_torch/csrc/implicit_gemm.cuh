@@ -11,7 +11,9 @@
 // Prologue, applied to an input chunk in shared memory before the products
 // read it (the folded GroupNorm affine A, B of the sample, fp32):
 //   3x3 conv:       z = silu(bf16(x * A + B)), rounded to bf16 (the "ref"
-//                   cast point of tooncrafter_tpu/ops/spatial_conv.py)
+//                   cast point of tooncrafter_tpu/ops/spatial_conv.py), or
+//                   at the fp32 one, as the temporal conv
+//                   (_pallas_fused_conv's prologue)
 //   temporal conv:  z = silu(x * A + B) in fp32, rounded once to bf16
 //                   (tooncrafter_tpu/ops/temporal_conv.py:107-110)
 // Epilogue: y = (acc + bias) * scale + residual, rounded once to bf16; the
@@ -346,7 +348,10 @@ constexpr int conv_smem_fixed() {
   return kConvStages * kConvBN * kKP * 2 + 2 * 2 * kConvBN * 4;
 }
 
-template <int BM>
+// kRoundFirst: the "ref" cast point (the affine rounds to bf16 before the
+// SiLU); false: the fp32 one (tooncrafter_tpu/ops/spatial_conv.py::
+// _pallas_fused_conv rounds once, after the SiLU)
+template <int BM, bool kRoundFirst = true>
 __global__ void __launch_bounds__(kThreads, 2) conv_kernel(const Params p) {
   constexpr int MT = BM / 32;
   constexpr int S = kConvStages, BN = kConvBN;
@@ -394,7 +399,7 @@ __global__ void __launch_bounds__(kThreads, 2) conv_kernel(const Params p) {
       uint4* dst = reinterpret_cast<uint4*>(sH + row * kKP + c);
       if (s >= 0 && s < hw) {
         *dst = *reinterpret_cast<const uint4*>(sRaw + row * kKP + c);
-        prologue8<true>(sH + row * kKP + c, sAff + k0 + c,
+        prologue8<kRoundFirst>(sH + row * kKP + c, sAff + k0 + c,
                         sAff + p.cin + k0 + c, p.silu);
       } else {
         *dst = make_uint4(0u, 0u, 0u, 0u);

@@ -5,7 +5,9 @@
 //   out = y + to_out2(attn_T(qkv2(LN2(y))))
 //
 // attn_T is softmax attention over the T frames of each pixel, per 64-wide
-// head. Replaces tooncrafter_tpu/ops/temporal_attention.py::_fused_tpair_call.
+// head. Replaces tooncrafter_tpu/ops/temporal_attention.py::_fused_tpair_call
+// and, run for one stage (NS = 1), its single sub-block kernel
+// _fused_tattn_call.
 //
 // Layout. x and out are (B, T, P, C) bf16, the UNet's own layout (frames
 // outer, pixels inner): the kernel gathers each pixel's T frames by stride,
@@ -80,7 +82,10 @@ __device__ __forceinline__ uint4 ldg128(const bf16* p) {
   return __ldg(reinterpret_cast<const uint4*>(p));
 }
 
-template <int MT, int NTW>
+// NS = 2: the pair (tc_temporal_attn_pair); NS = 1: one sub-block, the single-
+// stage kernel tooncrafter_tpu/ops/temporal_attention.py::_fused_tattn_call
+// (tc_temporal_attn_single), whose st[0] is the stage
+template <int MT, int NTW, int NS>
 __global__ void __launch_bounds__(kNW * 32, 1) tpair_kernel(const Params p) {
   constexpr int BM = 16 * MT;
   constexpr int WPM = kNW / MT;  // warps per m16 tile in step b
@@ -107,7 +112,7 @@ __global__ void __launch_bounds__(kNW * 32, 1) tpair_kernel(const Params p) {
   const int ntiles = p.c / 8;
   const int heads = p.c / kD;
 
-  for (int s = 0; s < 2; ++s) {
+  for (int s = 0; s < NS; ++s) {
     const Stage st = s == 0 ? p.st[0] : p.st[1];
 
     // 1. z = LN(input) for the token tile, one warp per row (stage 2 reads
@@ -308,7 +313,7 @@ __global__ void __launch_bounds__(kNW * 32, 1) tpair_kernel(const Params p) {
               *reinterpret_cast<uint32_t*>(p.out + row * p.c + col) =
                   pack_bf16(y0, y1);
             }
-            if (s == 0)
+            if (s + 1 < NS)
               *reinterpret_cast<uint32_t*>(sZ + r * cp + col) = pack_bf16(y0, y1);
           }
       }
@@ -317,17 +322,18 @@ __global__ void __launch_bounds__(kNW * 32, 1) tpair_kernel(const Params p) {
   }
 }
 
-template <int MT, int NTW>
+template <int MT, int NTW, int NS>
 int launch(const Params& p, cudaStream_t stream) {
   constexpr int BM = 16 * MT;
   const int smem = (2 * BM * k32_stride(p.c) + BM * kQP) * (int)sizeof(bf16);
   cudaError_t err = cudaFuncSetAttribute(
-      tpair_kernel<MT, NTW>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      tpair_kernel<MT, NTW, NS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
   if (err != cudaSuccess) return (int)err;
   const int ppt = BM / p.t;
   const long long blocks = (long long)p.b * ((p.p + ppt - 1) / ppt);
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  tpair_kernel<MT, NTW><<<(unsigned)blocks, kNW * 32, smem, stream>>>(p);
+  tpair_kernel<MT, NTW, NS><<<(unsigned)blocks, kNW * 32, smem, stream>>>(p);
   return (int)cudaGetLastError();
 }
 
@@ -363,6 +369,32 @@ extern "C" int tc_temporal_attn_pair(
   // 64 tokens a tile where z and o fit in shared memory beside one head's
   // q | k | v, else 32; the out-projection's chunk keeps 80 accumulators a
   // thread
-  if (c <= 640) return launch<4, 5>(q, s);
-  return launch<2, 10>(q, s);
+  if (c <= 640) return launch<4, 5, 2>(q, s);
+  return launch<2, 10, 2>(q, s);
+}
+
+// One sub-block, y = x + to_out(attn_T(qkv(LN(x)))), with the pair's limits
+// and layouts.
+extern "C" int tc_temporal_attn_single(
+    const void* x, const float* lnw, const float* lnb, const void* wq,
+    const void* wk, const void* wv, const void* wo, const void* bo, void* out,
+    int b, int t, int p, int c, float scale, float eps, void* stream) {
+  if (b <= 0 || p <= 0 || t <= 0 || 16 % t || c <= 0 || c % kD || c > 1280)
+    return (int)cudaErrorInvalidValue;
+  Params q;
+  q.x = static_cast<const bf16*>(x);
+  q.out = static_cast<bf16*>(out);
+  q.st[0] = {lnw, lnb, static_cast<const bf16*>(wq),
+             static_cast<const bf16*>(wk), static_cast<const bf16*>(wv),
+             static_cast<const bf16*>(wo), static_cast<const bf16*>(bo)};
+  q.st[1] = q.st[0];
+  q.b = b;
+  q.t = t;
+  q.p = p;
+  q.c = c;
+  q.scale = scale;
+  q.eps = eps;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (c <= 640) return launch<4, 5, 1>(q, s);
+  return launch<2, 10, 1>(q, s);
 }

@@ -20,6 +20,17 @@ two temporal self-attention sub-blocks of a temporal transformer block as
 one call of the temporal attention pair. The unfused branch keeps dropout
 where upstream has it.
 
+The temporal blocks take their kernel by the JAX package's coverage rules
+(tooncrafter_tpu/models/unet.py:547-567, 688-700): the pair where
+``use_pair_kernel`` holds (and, under the default TC_TATTN_PAIR=1, also
+where the JAX package runs its XLA chain: the same function); under
+TC_TATTN_PAIR=0 each sub-block through the single-stage kernel (#10) where
+``use_fused_kernel`` holds, else the T-attention core (#11) where
+``use_kernel`` does, else the plain chain. A GroupNorm that the JAX package
+applies without producer sums (every norm of the training branch, the init
+attention's) goes through ``fused_norms.group_norm_silu``: the one-pass
+kernel (#16) under TOONCRAFTER_FUSED_GN=1.
+
 Training with ``use_checkpoint`` recomputes each ResBlock, SpatialTransformer
 and TemporalTransformer in the backward (the JAX package's ``rematted``,
 tooncrafter_tpu/models/unet.py:851-866): ``remat_policy`` None saves
@@ -44,7 +55,8 @@ from tooncrafter_tpu_torch.ops import temporal_attention as ta
 from tooncrafter_tpu_torch.ops.fused_ff import fused_geglu_ff
 from tooncrafter_tpu_torch.ops.attention import (attention,
                                                  temporal_attention_inplace)
-from tooncrafter_tpu_torch.ops.norms import GroupNorm, LayerNorm
+from tooncrafter_tpu_torch.ops.norms import (GroupNorm, LayerNorm,
+                                             layer_norm_ex2)
 from tooncrafter_tpu_torch.ops.schedule import timestep_embedding
 from tooncrafter_tpu_torch.ops.spatial_conv import (Conv1d1, Conv1x1, Conv2d,
                                                     Downsample, Upsample,
@@ -107,10 +119,16 @@ class ResBlock(nn.Module):
                                 else nn.Identity())
         self.temopral_conv = TemporalConvBlock(cout)  # upstream spelling
 
+    @property
+    def unfused(self) -> bool:
+        """The training branch (dropout on): the JAX package's ``fused``
+        (and its UNet's stats ``chain``) is false."""
+        return self.training and self.out_layers[2].p > 0
+
     def forward(self, x, emb, num_frames: int):
         e = self.emb_layers[1](F.silu(emb))
         skip = self.skip_connection(x)
-        if self.training and self.out_layers[2].p > 0:
+        if self.unfused:
             h = self.in_layers[2](self.in_layers[0](x))
             h = self.out_layers[2](self.out_layers[0](h, shift=e))
             h = skip + self.out_layers[3](h)
@@ -239,10 +257,14 @@ class BasicTransformerBlock(nn.Module):
         self.norm3 = LayerNorm(dim)
         self.ff = FeedForward(dim)
 
-    def forward(self, x, context=None, mask=None):
+    def forward(self, x, context=None, mask=None, route: str = "pair"):
+        """``route`` picks a 5-D (temporal) block's kernels: 'pair', 'single'
+        (#10 for each sub-block), 'ptc' (the LayerNorm, projections and
+        out-projection plain around #11) or 'plain'."""
         fused = not (self.training and self.ff.net[1].p > 0)
-        if fused and x.ndim == 5 and mask is None:
-            x = self.temporal_pair(x)
+        if fused and x.ndim == 5 and mask is None and route != "plain":
+            x = {"pair": self.temporal_pair, "single": self.temporal_single,
+                 "ptc": self.temporal_ptc}[route](x)
         else:
             x = self.attn1(self.norm1(x), None, mask) + x
             x = self.attn2(self.norm2(x), context if self.cross else None,
@@ -265,6 +287,34 @@ class BasicTransformerBlock(nn.Module):
                                  self.attn1.dim_head ** -0.5, self.norm1.eps)
         return y.reshape(x.shape)
 
+    def temporal_single(self, x):
+        """The two sub-blocks as two calls of the single-stage kernel (the
+        JAX package's ``ln=`` path under TC_TATTN_PAIR=0)."""
+        y = x.reshape(x.shape[:2] + (-1, x.shape[-1]))
+        for norm, attn in ((self.norm1, self.attn1), (self.norm2, self.attn2)):
+            y = ta._fused_tattn_call(
+                y, (norm.weight, norm.bias, attn.to_q.weight,
+                    attn.to_k.weight, attn.to_v.weight,
+                    attn.to_out[0].weight, attn.to_out[0].bias),
+                attn.heads, attn.dim_head ** -0.5, norm.eps)
+        return y.reshape(x.shape)
+
+    def temporal_ptc(self, x):
+        """The ``ln=`` path's fallback: the LayerNorm (E[x^2] - mean^2, as
+        the JAX package's ``norms.layer_norm``), one packed q | k | v
+        projection whose slices the T-attention core reads at their
+        strides, the out-projection and the residual."""
+        y = x.reshape(x.shape[:2] + (-1, x.shape[-1]))
+        for norm, attn in ((self.norm1, self.attn1), (self.norm2, self.attn2)):
+            w = torch.cat([attn.to_q.weight, attn.to_k.weight,
+                           attn.to_v.weight])
+            z = layer_norm_ex2(y, norm.weight, norm.bias, norm.eps, y.dtype)
+            q, k, v = F.linear(z, w).chunk(3, dim=-1)
+            o = ta.temporal_attention_ptc(q, k, v, heads=attn.heads,
+                                          scale=attn.dim_head ** -0.5)
+            y = y + attn.to_out(o)
+        return y.reshape(x.shape)
+
 
 class SpatialTransformer(nn.Module):
     """Attention over the h*w tokens of each frame, linear projections."""
@@ -282,9 +332,10 @@ class SpatialTransformer(nn.Module):
             for _ in range(depth))
         self.proj_out = nn.Linear(inner, c)
 
-    def forward(self, x, context):
+    def forward(self, x, context, chained: bool = False):
         bt, hh, ww, c = x.shape
-        h = self.proj_in(self.norm(x).reshape(bt, hh * ww, c))
+        h = self.proj_in(self.norm(x, chained=chained).reshape(bt, hh * ww,
+                                                               c))
         for blk in self.transformer_blocks:
             h = blk(h, context)
         return x + self.proj_out(h).reshape(bt, hh, ww, c)
@@ -307,15 +358,31 @@ class TemporalTransformer(nn.Module):
             for _ in range(depth))
         self.proj_out = proj(inner, c)
 
-    def forward(self, x):
+    def route(self, t: int, p: int) -> str:
+        """The kernels of this transformer's blocks at T frames of P
+        pixels, by the JAX package's rules (see the module docstring)."""
+        blk = self.transformer_blocks[0]
+        d, inner = blk.attn1.dim_head, blk.attn1.heads * blk.attn1.dim_head
+        fused_ok = ta.use_fused_kernel(t, p, d, inner, inner)
+        fast = not self.causal and (
+            ta.use_kernel(t, p, d, inner=inner) or fused_ok)
+        if ta._PAIR and (ta.use_pair_kernel(t, p, d, inner, inner)
+                         or not fast):
+            return "pair"
+        if fast:
+            return "single" if fused_ok else "ptc"
+        return "plain"
+
+    def forward(self, x, chained: bool = False):
         t = x.shape[1]
         mask = None
         if self.causal:
             mask = torch.ones(t, t, dtype=torch.bool,
                               device=x.device).tril()
-        h = self.proj_in(self.norm(x))
+        route = self.route(t, x.shape[2] * x.shape[3])
+        h = self.proj_in(self.norm(x, chained=chained))
         for blk in self.transformer_blocks:
-            h = blk(h, None, mask)
+            h = blk(h, None, mask, route)
         return x + self.proj_out(h)
 
 
@@ -430,15 +497,17 @@ class UNetModel(nn.Module):
             "context_fn": self._context_fn}
         return ckpt.checkpoint(layer, *args, use_reentrant=False, **kw)
 
-    def _run(self, blk, h, emb, ctx, t):
+    def _run(self, blk, h, emb, ctx, t, chain: bool):
+        """``chain``: the JAX package folds the producer's sums into the
+        transformers' norms here (its eval-mode stats chain)."""
         for layer in blk:
             if isinstance(layer, ResBlock):
                 h = self._block(layer, h, emb, t)
             elif isinstance(layer, SpatialTransformer):
-                h = self._block(layer, h, ctx)
+                h = self._block(layer, h, ctx, chain)
             elif isinstance(layer, TemporalTransformer):
-                h = self._block(layer, h.reshape((-1, t) + h.shape[1:])
-                                ).reshape(h.shape)
+                h = self._block(layer, h.reshape((-1, t) + h.shape[1:]),
+                                chain).reshape(h.shape)
             else:
                 h = layer(h)
         return h
@@ -469,15 +538,19 @@ class UNetModel(nn.Module):
             ctx = context.repeat_interleave(t, dim=0)
         ctx = ctx.to(dt)
 
+        # the JAX package's stats chain: on unless the ResBlocks train with
+        # dropout; the init attention follows the input conv (no sums)
+        chain = not self.middle_block[0].unfused
         h = x.reshape(b * t, hh, ww, x.shape[-1]).to(dt)
         h = self.input_blocks[0][0](h)
-        h = self._run(self.init_attn, h, emb, ctx, t)
+        h = self._run(self.init_attn, h, emb, ctx, t, False)
         hs = [h]
         for blk in self.input_blocks[1:]:
-            h = self._run(blk, h, emb, ctx, t)
+            h = self._run(blk, h, emb, ctx, t, chain)
             hs.append(h)
-        h = self._run(self.middle_block, h, emb, ctx, t)
+        h = self._run(self.middle_block, h, emb, ctx, t, chain)
         for blk in self.output_blocks:
-            h = self._run(blk, torch.cat([h, hs.pop()], dim=-1), emb, ctx, t)
-        h = self.out[2](self.out[0](h))
+            h = self._run(blk, torch.cat([h, hs.pop()], dim=-1), emb, ctx, t,
+                          chain)
+        h = self.out[2](self.out[0](h, chained=chain))
         return h.reshape(b, t, hh, ww, self.out_channels).float()

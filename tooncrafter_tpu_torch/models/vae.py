@@ -16,11 +16,17 @@ from torch import nn
 from tooncrafter_tpu_torch.ops.attention import attention
 from tooncrafter_tpu_torch.ops.norms import GroupNorm
 from tooncrafter_tpu_torch.ops.spatial_conv import (Conv1x1, Conv2d,
-                                                    Downsample)
+                                                    Downsample,
+                                                    spatial_conv3x3)
 
 
 class ResnetBlock(nn.Module):
-    """GN+swish+conv x2 with a 1x1 ``nin_shortcut`` on a channel change."""
+    """GN+swish+conv x2 with a 1x1 ``nin_shortcut`` on a channel change,
+    run as the JAX package's fused branch (its dropout is 0, so always;
+    tooncrafter_tpu/models/vae.py:54-63): norm1 folds into conv1's
+    prologue, conv1's sums fold norm2 into conv2's, and the skip rides
+    conv2's epilogue, each conv through ``spatial_conv3x3`` (a kernel where
+    the JAX package takes a TPU kernel, F.conv2d where it runs XLA)."""
 
     def __init__(self, cin: int, cout: int):
         super().__init__()
@@ -32,9 +38,11 @@ class ResnetBlock(nn.Module):
             self.nin_shortcut = Conv1x1(cin, cout)
 
     def forward(self, x):
-        h = self.conv2(self.norm2(self.conv1(self.norm1(x))))
         skip = self.nin_shortcut(x) if hasattr(self, "nin_shortcut") else x
-        return skip + h
+        h, s1, s2 = spatial_conv3x3(x, self.norm1.folded(x), self.conv1,
+                                    return_stats=True)
+        return spatial_conv3x3(h, self.norm2.folded(h, stats=(s1, s2)),
+                               self.conv2, residual=skip)
 
 
 class AttnBlock(nn.Module):
@@ -42,7 +50,7 @@ class AttnBlock(nn.Module):
 
     def __init__(self, c: int):
         super().__init__()
-        self.norm = GroupNorm(c, 1e-6)
+        self.norm = GroupNorm(c, 1e-6, one_pass=False)
         self.q = Conv1x1(c, c)
         self.k = Conv1x1(c, c)
         self.v = Conv1x1(c, c)

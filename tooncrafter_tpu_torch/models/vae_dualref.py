@@ -91,7 +91,7 @@ class FusionCrossAttention(nn.Module):
         super().__init__()
         inner = heads * dim_head
         self.heads = heads
-        self.norm = GroupNorm(c, 1e-6)
+        self.norm = GroupNorm(c, 1e-6, one_pass=False)
         self.to_q = nn.Linear(c, inner, bias=False)
         self.to_k = nn.Linear(c, inner, bias=False)
         self.to_v = nn.Linear(c, inner, bias=False)
@@ -153,7 +153,8 @@ class DualRefVideoDecoder(nn.Module):
         self.up = nn.ModuleList(reversed(ups))
         self.attn_refinement = nn.ModuleList(
             list(reversed(refine)) + [Combiner(c)])
-        self.norm_out = GroupNorm(c, 1e-6)
+        # the JAX package folds it from the chained sums (no one-pass kernel)
+        self.norm_out = GroupNorm(c, 1e-6, one_pass=False)
         self.conv_out = AE3DConv(c, out_ch)
 
     def forward(self, z, refs: List[torch.Tensor]):

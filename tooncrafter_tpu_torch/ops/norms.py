@@ -99,16 +99,31 @@ def layer_norm_ex2(x, weight, bias, eps: float, cdt):
 
 class GroupNorm(nn.GroupNorm):
     """torch.nn.GroupNorm's parameters (``weight``, ``bias``) applied to a
-    channels-last tensor with fp32 statistics; ``act`` adds SiLU."""
+    channels-last tensor with fp32 statistics; ``act`` adds SiLU.
+
+    ``one_pass`` marks the JAX package's ``GroupNormAct`` sites (False where
+    it runs its plain ``GroupNorm``): there, called with ``chained`` False
+    (the JAX package has no producer sums to fold at this site), the norm
+    goes through ``fused_norms.group_norm_silu``, as ``GroupNormAct`` does
+    (tooncrafter_tpu/ops/norms.py:170-175): the one-pass kernel under
+    TOONCRAFTER_FUSED_GN=1 where a sample fits its budget, else this
+    module's own formula."""
 
     def __init__(self, channels: int, eps: float = 1e-6, act: bool = False,
-                 num_groups: int = 32):
+                 num_groups: int = 32, one_pass: bool = True):
         super().__init__(num_groups, channels, eps=eps)
         self.act = act
+        self.one_pass = one_pass
 
-    def forward(self, x, shift=None):
-        return group_norm(x, self.weight, self.bias, self.num_groups,
-                          self.eps, self.act, shift)
+    def forward(self, x, shift=None, chained: bool = False):
+        from tooncrafter_tpu_torch.ops import fused_norms
+
+        if chained or not self.one_pass:
+            return group_norm(x, self.weight, self.bias, self.num_groups,
+                              self.eps, self.act, shift)
+        return fused_norms.group_norm_silu(x, self.weight, self.bias,
+                                           self.num_groups, self.eps,
+                                           self.act, shift)
 
     def folded(self, x, shift=None, stats=None):
         """Folded fp32 (A, B) for a fused conv prologue; ``stats`` (s1, s2)

@@ -1,7 +1,12 @@
 """Both self-attention sub-blocks of the UNet's temporal transformer block
 in one CUDA kernel (``csrc/temporal_attention.cu``, replacing the TPU
 kernel tooncrafter_tpu/ops/temporal_attention.py::_fused_tpair_call), and
-its plain version:
+its plain version; the same kernel run for one sub-block
+(``_fused_tattn_call``, #10); the per-pixel attention core alone
+(``temporal_attention_ptc`` over ``_ptc_kernel_call``, #11,
+``csrc/temporal_ptc.cu``); and the JAX package's coverage rules that pick
+among them (``use_pair_kernel``, ``use_fused_kernel``, ``use_kernel``), with
+``TC_TATTN_PAIR`` read once at import into ``_PAIR`` as it reads it.
 
     y   = x + to_out1(attn_T(qkv1(LN1(x))))
     out = y + to_out2(attn_T(qkv2(LN2(y))))
@@ -31,6 +36,7 @@ is stage 2's input, in the compute dtype.
 from __future__ import annotations
 
 import ctypes
+import os
 from typing import Dict, Optional, Sequence
 
 import torch
@@ -39,7 +45,9 @@ from tooncrafter_tpu_torch.ops import _build
 from tooncrafter_tpu_torch.ops import _launch
 from tooncrafter_tpu_torch.ops.norms import layer_norm_ex2
 
-LAUNCHES: Dict[str, int] = {"_fused_tpair_call": 0}
+LAUNCHES: Dict[str, int] = {"_fused_tpair_call": 0, "_fused_tattn_call": 0,
+                             "_ptc_kernel_call": 0}
+_PAIR = os.environ.get("TC_TATTN_PAIR", "1") == "1"
 
 # the kernel's limits (csrc/temporal_attention.cu): 64-wide heads, at most
 # 1280 channels (z and o of a 32-token tile in shared memory), T dividing 16
@@ -49,7 +57,70 @@ _MAX_C = 1280
 
 
 def reset_launch_counts() -> None:
-    LAUNCHES["_fused_tpair_call"] = 0
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+# ---------------------------------------------------------------------------
+# the JAX package's coverage rules (temporal_attention.py:51-70, 195-218,
+# 348-376), copied as rules: they pick the kernel at each site; the CUDA
+# kernels' own limits (``covers``) only refuse a shape
+# ---------------------------------------------------------------------------
+
+def _pick_ptile(p: int, inner: int, t: int,
+                budget: int = 6 * 1024 * 1024) -> int:
+    for blk in (512, 256, 160, 128, 64, 32, 16, 8):
+        if p % blk == 0 and t * blk * inner * 2 <= budget:
+            return blk
+    return 0
+
+
+def use_kernel(t: int, p: int, d: int, *, mask=None, rel_k=None,
+               rel_v=None, inner: int = 0) -> bool:
+    """Coverage of the T-attention core (#11)."""
+    return (mask is None and rel_k is None and rel_v is None
+            and t <= 32 and d in (64, 128) and p >= 128
+            and _pick_ptile(p, inner or d, t) >= 64)
+
+
+def _fused_vmem(pt: int, t: int, c: int, inner: int, stages: int = 1) -> int:
+    tok = pt * t
+    io = 4 * tok * c * 2
+    w = stages * (c * 3 * inner + inner * c) * 2
+    z = tok * c * 2
+    qkv = tok * 3 * inner * 2
+    o = tok * inner * 2
+    acc = tok * c * 4
+    blk = 128 if (t <= 128 and 128 % t == 0) else t
+    logits = tok * blk * 4 * 2
+    return io + w + z + qkv + o + acc + logits
+
+
+def _pick_ptile_fused(p: int, t: int, c: int, inner: int,
+                      budget: int = 64 * 1024 * 1024,
+                      stages: int = 1) -> int:
+    pref = {(2560, 320): 160, (640, 640): 64}.get((p, c))
+    if pref and p % pref == 0 \
+            and _fused_vmem(pref, t, c, inner, stages) <= budget:
+        return pref
+    for blk in (512, 256, 160, 128, 80, 64, 40, 32, 16, 8):
+        if p % blk == 0 and _fused_vmem(blk, t, c, inner, stages) <= budget:
+            return blk
+    return 0
+
+
+def use_fused_kernel(t: int, p: int, d: int, c: int, inner: int) -> bool:
+    """Coverage of the single sub-block kernel (#10)."""
+    return (t <= 32 and d in (64, 128) and p >= 32
+            and c % 64 == 0 and inner % 64 == 0
+            and _pick_ptile_fused(p, t, c, inner) >= 32)
+
+
+def use_pair_kernel(t: int, p: int, d: int, c: int, inner: int) -> bool:
+    """Coverage of the pair kernel (#9), off under TC_TATTN_PAIR=0."""
+    return (_PAIR and t <= 32 and d in (64, 128) and p >= 32
+            and c % 64 == 0 and inner % 64 == 0
+            and _pick_ptile_fused(p, t, c, inner, stages=2) >= 32)
 
 
 # ---------------------------------------------------------------------------
@@ -145,6 +216,8 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.tc_temporal_attn_pair.argtypes = [vp] * 16 + [i] * 4 + [f, f, vp]
     lib.tc_temporal_attn_pair.restype = ctypes.c_int
+    lib.tc_temporal_attn_single.argtypes = [vp] * 9 + [i] * 4 + [f, f, vp]
+    lib.tc_temporal_attn_single.restype = ctypes.c_int
     return lib
 
 
@@ -209,3 +282,194 @@ def _dispatch(x, stage1, stage2, heads: int, scale: float, eps: float):
     out = _launch_tpair(x, stage1, stage2, heads, scale, eps)
     LAUNCHES["_fused_tpair_call"] += 1
     return out
+
+
+# ---------------------------------------------------------------------------
+# one sub-block (#10): the pair kernel run for one stage
+# ---------------------------------------------------------------------------
+
+class _TAttnFunction(torch.autograd.Function):
+    """The kernel forward with the unfused formula's gradient
+    (``_fused_tattn_bwd``, temporal_attention.py:486-495)."""
+
+    @staticmethod
+    def forward(ctx, heads, scale, eps, x, *weights):
+        ctx.save_for_backward(x, *weights)
+        ctx.cfg = (heads, scale, eps)
+        return _dispatch_single(x, weights, heads, scale, eps)
+
+    @staticmethod
+    def backward(ctx, gy):
+        ops = ctx.saved_tensors
+        want = ctx.needs_input_grad[3:]
+        with torch.enable_grad(), torch.autocast("cuda", enabled=False):
+            leaves = [t.detach().requires_grad_(w) for t, w in zip(ops, want)]
+            y = _unfused_stage(leaves[0], leaves[1:], *ctx.cfg)
+            wrt = [t for t, w in zip(leaves, want) if w]
+            got = iter(torch.autograd.grad(y, wrt, gy.to(y.dtype)))
+        return (None, None, None, *(next(got) if w else None for w in want))
+
+
+def _launch_single(x, stage, heads: int, scale: float, eps: float):
+    bsz, t, p, c = x.shape
+    dev, bf, f32 = x.device, torch.bfloat16, torch.float32
+    if not covers(t, c // heads, c) or c % heads:
+        raise ValueError(f"temporal attention kernel: needs T dividing 16, "
+                         f"heads of {HEAD_DIM} and C <= {_MAX_C}; got T={t},"
+                         f" C={c}, heads={heads}")
+    _launch.check("x", x, (bsz, t, p, c), bf, dev)
+    for name, ten, shape, dt in zip(
+            ("ln_w", "ln_b", "wq", "wk", "wv", "wo", "bo"), stage,
+            ((c,), (c,), (c, c), (c, c), (c, c), (c, c), (c,)),
+            (f32, f32, bf, bf, bf, bf, bf)):
+        _launch.check(name, ten, shape, dt, dev)
+    out = torch.empty_like(x)
+    if x.numel():
+        err = _library().tc_temporal_attn_single(
+            x.data_ptr(), *(w.data_ptr() for w in stage), out.data_ptr(),
+            bsz, t, p, c, float(scale), float(eps), _launch.stream(x))
+        _launch.raise_on_error(err, f"temporal attention (B={bsz}, T={t}, "
+                                    f"P={p}, C={c})")
+    return out
+
+
+def _fused_tattn_call(x, stage: Sequence[torch.Tensor], heads: int,
+                      scale: float, eps: float = 1e-5):
+    """x + to_out(attn_T(qkv(LN(x)))) on x (B, T, P, C); ``stage`` is
+    (ln_w, ln_b, wq, wk, wv, wo, bo) as a stage of the pair. The wrapper
+    named after the TPU kernel; CPU tensors take the plain version, CUDA
+    tensors the kernel."""
+    cdt = _launch.compute_dtype(x)
+    x = x.to(cdt)
+    stage = (stage[0], stage[1], *(w.to(cdt) for w in stage[2:]))
+    if _launch.needs_grad(x, *stage):
+        return _TAttnFunction.apply(heads, scale, eps, x, *stage)
+    return _dispatch_single(x, stage, heads, scale, eps)
+
+
+def _dispatch_single(x, stage, heads: int, scale: float, eps: float):
+    if _launch.on_cpu("temporal attention", x, *stage):
+        return _plain_stage(x, stage, heads, scale, eps, x.dtype)
+    out = _launch_single(x, stage, heads, scale, eps)
+    LAUNCHES["_fused_tattn_call"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the T-attention core (#11) on (B, T, P, heads * d), read at its strides
+# ---------------------------------------------------------------------------
+
+PTC_LIBRARY = ("temporal_ptc", ("temporal_ptc.cu",))
+_PTC_LIB: Optional[ctypes.CDLL] = None
+_PTC_MAX_T = 32
+
+
+def _ptc_library() -> ctypes.CDLL:
+    global _PTC_LIB
+    if _PTC_LIB is None:
+        lib = _build.load_library(*PTC_LIBRARY)
+        vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.tc_temporal_ptc.argtypes = [vp] * 5 + [i] * 5 + [f, vp]
+        lib.tc_temporal_ptc.restype = ctypes.c_int
+        _PTC_LIB = lib
+    return _PTC_LIB
+
+
+def _xla_ptc(q, k, v, heads: int, scale: float,
+             cdt: Optional[torch.dtype] = None):
+    """The T-attention core's formula on (B, T, P, heads * d) in the inputs'
+    dtype: fp32 logits and softmax, the probabilities rounded to ``cdt``
+    (v's dtype unless given), the product with v in fp32 rounded once to
+    v's dtype (the JAX package's ``_xla_ptc`` and its kernel's rounding)."""
+    cdt = v.dtype if cdt is None else cdt
+    b, t, p, inner = q.shape
+
+    def split(z):  # -> (B, P, heads, T, d)
+        return z.reshape(b, t, p, heads, -1).permute(0, 2, 3, 1, 4)
+
+    qh, kh, vh = split(q), split(k), split(v)
+    logits = torch.matmul(qh.float(), kh.float().transpose(-1, -2)) * scale
+    probs = torch.softmax(logits, -1).to(cdt)
+    o = torch.matmul(probs.float(), vh.float()).to(v.dtype)
+    return o.permute(0, 3, 1, 2, 4).reshape(b, t, p, inner)
+
+
+class _PTCFunction(torch.autograd.Function):
+    """The kernel forward with ``_xla_ptc``'s gradient (``_ptc_bwd``,
+    temporal_attention.py:141-152)."""
+
+    @staticmethod
+    def forward(ctx, heads, scale, q, k, v):
+        ctx.save_for_backward(q, k, v)
+        ctx.cfg = (heads, scale)
+        return _dispatch_ptc(q, k, v, heads, scale)
+
+    @staticmethod
+    def backward(ctx, go):
+        want = ctx.needs_input_grad[2:]
+        with torch.enable_grad(), torch.autocast("cuda", enabled=False):
+            leaves = [t.detach().requires_grad_(w)
+                      for t, w in zip(ctx.saved_tensors, want)]
+            y = _xla_ptc(*leaves, *ctx.cfg)
+            wrt = [t for t, w in zip(leaves, want) if w]
+            got = iter(torch.autograd.grad(y, wrt, go.to(y.dtype)))
+        return (None, None, *(next(got) if w else None for w in want))
+
+
+def _launch_ptc(q, k, v, heads: int, scale: float):
+    b, t, p, inner = q.shape
+    d = inner // heads
+    if t > _PTC_MAX_T or d not in (64, 128) or inner % heads:
+        raise ValueError(f"T-attention kernel: needs T <= {_PTC_MAX_T} and "
+                         f"heads of 64 or 128; got T={t}, inner={inner}, "
+                         f"heads={heads}")
+    strides = []
+    for name, z in (("q", q), ("k", k), ("v", v)):
+        if z.dtype != torch.bfloat16 or z.device != q.device:
+            raise TypeError(f"T-attention kernel: {name} must be bf16 on "
+                            f"{q.device}, got {z.dtype} on {z.device}")
+        if tuple(z.shape) != (b, t, p, inner):
+            raise ValueError(f"T-attention kernel: {name} has shape "
+                             f"{tuple(z.shape)}, expected {(b, t, p, inner)}")
+        if (z.stride(-1) != 1 or any(s % 8 for s in z.stride()[:3])
+                or z.data_ptr() % 16):
+            raise ValueError(f"T-attention kernel: {name} needs a contiguous "
+                             f"last axis, strides in multiples of 8 and a "
+                             f"16-byte aligned pointer; got strides "
+                             f"{z.stride()}")
+        strides += list(z.stride()[:3])
+    out = torch.empty((b, t, p, inner), dtype=torch.bfloat16, device=q.device)
+    if out.numel():
+        arr = (ctypes.c_longlong * 9)(*strides)
+        err = _ptc_library().tc_temporal_ptc(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            ctypes.addressof(arr), b, t, p, heads, d, float(scale),
+            _launch.stream(q))
+        _launch.raise_on_error(err, f"T-attention (B={b}, T={t}, P={p}, "
+                                    f"inner={inner})")
+    return out
+
+
+def _ptc_kernel_call(q, k, v, heads: int, scale: float):
+    """Per-pixel attention over T on q, k, v (B, T, P, heads * d), each at
+    its own strides; the wrapper named after the TPU kernel. CPU tensors
+    take the plain version, CUDA tensors the kernel."""
+    cdt = _launch.compute_dtype(q)
+    q, k, v = q.to(cdt), k.to(cdt), v.to(cdt)
+    if _launch.needs_grad(q, k, v):
+        return _PTCFunction.apply(heads, scale, q, k, v)
+    return _dispatch_ptc(q, k, v, heads, scale)
+
+
+def _dispatch_ptc(q, k, v, heads: int, scale: float):
+    if _launch.on_cpu("T-attention", q, k, v):
+        return _xla_ptc(q, k, v, heads, scale)
+    out = _launch_ptc(q, k, v, heads, scale)
+    LAUNCHES["_ptc_kernel_call"] += 1
+    return out
+
+
+def temporal_attention_ptc(q, k, v, *, heads: int, scale: float):
+    """The JAX package's ``temporal_attention_ptc`` on the port's (B, T, P,
+    heads * d) layout: the kernel forward, ``_xla_ptc``'s backward."""
+    return _ptc_kernel_call(q, k, v, heads, scale)

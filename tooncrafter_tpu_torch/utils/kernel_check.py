@@ -1,10 +1,13 @@
 """The fused kernels (GEGLU feed-forward, temporal conv, GN+SiLU+3x3 conv,
 temporal attention pair) against their plain versions on the card, at the
 shapes the 320x512 path gives them (``fused_cases``) and at the 576x1024
-path's most-launched shapes (``fused_cases_1024``): the cases, the bounds,
-the times and the least time the card could take. ``chip_smoke.py`` phase 2
-runs every case; the mutation test in ``tests/test_torch_cuda_kernels.py``
-runs the 320x512 cases and a 576x1024 conv against broken builds.
+path's most-launched shapes (``fused_cases_1024``), and the kernels of the
+JAX package's opt-in switches (the single-stage temporal attention, the
+T-attention core, the im2col-named conv, the one-pass GroupNorm) at the
+switched 320x512 path's (``switched_cases``): the cases, the bounds, the
+times and the least time the card could take. ``chip_smoke.py`` phase 2
+runs every case; the mutation tests in ``tests/test_torch_cuda_kernels.py``
+run them against broken builds.
 
 Times. ``ms`` is the kernel's; ``plain_ms`` its plain version's on the same
 bf16 operands, which computes in fp32 (TF32 off) to state the kernel's
@@ -38,6 +41,7 @@ import torch.nn.functional as F
 from tooncrafter_tpu_torch.ops import attention as attn
 from tooncrafter_tpu_torch.ops import flash_attention as fa
 from tooncrafter_tpu_torch.ops import fused_ff as ff
+from tooncrafter_tpu_torch.ops import fused_norms as fn
 from tooncrafter_tpu_torch.ops import norms
 from tooncrafter_tpu_torch.ops import spatial_conv as sc
 from tooncrafter_tpu_torch.ops import temporal_attention as ta
@@ -48,13 +52,17 @@ PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_PER_S = 3.35e12
 STATS_REL = 1e-5
 
-MODULES = (fa, ff, tc, sc, ta)
+MODULES = (fa, ff, tc, sc, ta, fn)
 SOURCES = {name: "tooncrafter_tpu_torch/csrc/" + mod.LIBRARY[1][0]
            for mod in MODULES for name in mod.LAUNCHES}
 SOURCES["_flash_bwd_bh"] = ("tooncrafter_tpu_torch/csrc/"
                             + fa.BWD_LIBRARY[1][0])
-# the libraries, each built by one nvcc: every module's and the backward's
-LIBRARIES = dict([mod.LIBRARY for mod in MODULES] + [fa.BWD_LIBRARY])
+SOURCES["_ptc_kernel_call"] = ("tooncrafter_tpu_torch/csrc/"
+                               + ta.PTC_LIBRARY[1][0])
+# the libraries, each built by one nvcc: every module's, the backward's and
+# the T-attention core's
+LIBRARIES = dict([mod.LIBRARY for mod in MODULES]
+                 + [fa.BWD_LIBRARY, ta.PTC_LIBRARY])
 REPLACES = {
     "_flash_mh_packed": "tooncrafter_tpu/ops/flash_attention.py:605",
     "_flash_mh": "tooncrafter_tpu/ops/flash_attention.py:414",
@@ -67,6 +75,10 @@ REPLACES = {
     "winograd24_gn_silu_conv3x3": "tooncrafter_tpu/ops/winograd.py:390",
     "_fused_tpair_call": "tooncrafter_tpu/ops/temporal_attention.py:379",
     "_flash_bwd_bh": "tooncrafter_tpu/ops/flash_attention.py:126",
+    "_fused_tattn_call": "tooncrafter_tpu/ops/temporal_attention.py:243",
+    "_ptc_kernel_call": "tooncrafter_tpu/ops/temporal_attention.py:89",
+    "_pallas_fused_conv": "tooncrafter_tpu/ops/spatial_conv.py:117",
+    "_pallas_gn": "tooncrafter_tpu/ops/fused_norms.py:88",
 }
 
 
@@ -91,6 +103,7 @@ def build_all() -> Dict[str, float]:
     for mod in MODULES:
         mod._library()
     fa._bwd_library()
+    ta._ptc_library()
     return {name: _build.BUILD_SECONDS[name] for name in LIBRARIES}
 
 
@@ -369,12 +382,14 @@ CONV_1024 = (("1024 ds2", (32, 36, 64, 640, 640)),
              ("1024 ds1", (32, 72, 128, 320, 320)))
 
 
-def conv_cases(dev, gen, shapes=CONV_512) -> List[Case]:
+def conv_cases(dev, gen, shapes=CONV_512, name=None) -> List[Case]:
     """(N, H, W, Cin -> Cout): the UNet ResBlocks' out_conv form (folded GN
     affine + SiLU prologue, bias, the skip as residual, sums for the next
     norm) at the input level, an output level's skip concat and the widest
     concat at 10x16 (a ragged pixel tile). Each case's wrapper is the one
-    ``gn_silu_conv3x3`` takes at its shape."""
+    ``gn_silu_conv3x3`` takes at its shape, or ``name``'s (#15, with its
+    prologue's cast point)."""
+    fixed = name
     cases = []
     for label, (n, h, w, cin, cout) in shapes:
         x = _rnd(gen, dev, n, h, w, cin)
@@ -392,15 +407,18 @@ def conv_cases(dev, gen, shapes=CONV_512) -> List[Case]:
             # the conv alone on the activated input, channels-last (cuDNN)
             return F.conv2d(o[0].permute(0, 3, 1, 2), o[3], o[4], padding=1)
 
-        name = sc.conv_kernel_name(h, w, cin, cout)
+        name = fixed or sc.conv_kernel_name(h, w, cin, cout)
+        rf = name != "_pallas_fused_conv"
         cases.append(Case(
             name, f"{label} N={n} {h}x{w} C={cin}->{cout} stats+residual",
             kernel=lambda o=ops, f=getattr(sc, name): f(
                 *o, silu=True, stats=True),
-            reference=lambda o=ops: sc._plain_conv3x3(
+            reference=lambda o=ops, rf=rf: sc._plain_conv3x3(
                 o[0].float(), o[1], o[2], o[3].float(), o[4].float(),
-                o[5].float(), True, False, cdt=torch.bfloat16),
-            plain=lambda o=ops: sc._plain_conv3x3(*o, True, True),
+                o[5].float(), True, False, cdt=torch.bfloat16,
+                round_first=rf),
+            plain=lambda o=ops, rf=rf: sc._plain_conv3x3(
+                *o, True, True, round_first=rf),
             chain=lambda o=ops: _chain_conv(*o),
             library=library,
             # only in-image taps: (3H - 2)(3W - 2) (pixel, tap) pairs
@@ -447,6 +465,136 @@ def tpair_cases(dev, gen, shapes=TPAIR_512) -> List[Case]:
             nbytes=2.0 * 2 * n * c + 2 * (8.0 * c * c + 2.0 * c + 8.0 * c),
             reps=(10, 3)))
     return cases
+
+
+# the temporal sub-block (#10) under TC_TATTN_PAIR=0: (label, P, C)
+TATTN_512 = (("ds1", 2560, 320), ("init_attn", 2560, 512), ("ds4", 160, 1280))
+
+
+def tattn_cases(dev, gen, shapes=TATTN_512) -> List[Case]:
+    """One temporal self-attention sub-block (B, T, P, C) at the UNet's
+    levels: the single-stage kernel (#10); its chain is one stage of the
+    pair's unfused bf16 chain."""
+    cases = []
+    for label, p, c in shapes:
+        bsz, t, heads = 2, 16, c // ta.HEAD_DIM
+        x = _rnd(gen, dev, bsz, t, p, c)
+        stage = (_rnd(gen, dev, c, scale=0.1, offset=1.0, dtype=torch.float32),
+                 _rnd(gen, dev, c, scale=0.1, dtype=torch.float32),
+                 *(_rnd(gen, dev, c, c, scale=c ** -0.5) for _ in range(4)),
+                 _rnd(gen, dev, c, scale=0.1))
+        ref_stage = tuple(w.float() for w in stage)
+        n = bsz * t * p
+        cases.append(Case(
+            "_fused_tattn_call", f"{label} B={bsz} T={t} P={p} C={c}",
+            kernel=lambda x=x, s=stage, h=heads: (ta._fused_tattn_call(
+                x, s, h, 0.125),),
+            reference=lambda x=x, s=ref_stage, h=heads: ta._plain_stage(
+                x.float(), s, h, 0.125, 1e-5, torch.bfloat16),
+            plain=lambda x=x, s=stage, h=heads: ta._plain_stage(
+                x, s, h, 0.125, 1e-5, x.dtype),
+            chain=lambda x=x, s=stage, h=heads: _chain_tpair(x, (s,), h),
+            library=None,
+            flops=8.0 * n * c * c + 4.0 * n * t * c,
+            nbytes=2.0 * 2 * n * c + 8.0 * c * c + 2.0 * c + 8.0 * c,
+            reps=(10, 3)))
+    return cases
+
+
+# the T-attention core (#11): (label, T, P, inner, heads)
+PTC_512 = (("ds1", 16, 2560, 320, 5), ("ds4", 16, 160, 1280, 20),
+           ("T=8 d=128", 8, 640, 640, 5))
+
+
+def ptc_cases(dev, gen, shapes=PTC_512) -> List[Case]:
+    """(B, T, P, heads * d) q, k, v as slices of one packed projection (the
+    strides the UNet's ``temporal_ptc`` gives them); library: SDPA over the
+    (B, P, heads) batch."""
+    cases = []
+    for label, t, p, inner, heads in shapes:
+        bsz, d = 2, inner // heads
+        scale = d ** -0.5
+        qkv = _rnd(gen, dev, bsz, t, p, 3 * inner)
+        q, k, v = qkv.chunk(3, dim=-1)
+
+        def split(z, h=heads):  # (B, T, P, inner) -> (B, P, heads, T, d)
+            return z.unflatten(-1, (h, -1)).permute(0, 2, 3, 1, 4)
+
+        n = bsz * t * p
+        cases.append(Case(
+            "_ptc_kernel_call", f"{label} B={bsz} T={t} P={p} inner={inner}"
+            f" heads={heads} (strided q, k, v)",
+            kernel=lambda q=q, k=k, v=v, h=heads, sc_=scale: (
+                ta._ptc_kernel_call(q, k, v, h, sc_),),
+            reference=lambda q=q, k=k, v=v, h=heads, sc_=scale: ta._xla_ptc(
+                q.float(), k.float(), v.float(), h, sc_, cdt=torch.bfloat16),
+            plain=lambda q=q, k=k, v=v, h=heads, sc_=scale: ta._xla_ptc(
+                q, k, v, h, sc_),
+            chain=lambda q=q, k=k, v=v, h=heads: attn.temporal_attention_inplace(
+                q.unsqueeze(3), k.unsqueeze(3), v.unsqueeze(3), heads=h),
+            library=lambda q=q, k=k, v=v, sc_=scale: (
+                F.scaled_dot_product_attention(split(q), split(k), split(v),
+                                               scale=sc_)),
+            flops=4.0 * n * t * inner,
+            nbytes=2.0 * 4 * n * inner,
+            reps=(10, 3)))
+    return cases
+
+
+# the im2col conv's shapes (#15) on the switched 512 path: (label, (N, H, W,
+# Cin, Cout)): the UNet's 40x64 ResBlock convs and the VAE's 40x64 level
+CONV15_512 = (("UNet ds1", (32, 40, 64, 320, 320)),
+              ("VAE 40x64 (decoder, 16 frames)", (16, 40, 64, 512, 512)))
+
+# the one-pass GroupNorm (#16): (label, (N, HW, C), silu)
+GN_512 = (("train ResBlock ds1", (32, 2560, 320), True),
+          ("train spatial norm ds2", (32, 640, 640), False),
+          ("encoder norm_out", (1, 2560, 512), True),
+          ("decoder level 0 (past the 4 MiB rule)", (16, 163840, 128), True))
+
+
+def gn_cases(dev, gen, shapes=GN_512) -> List[Case]:
+    """GroupNorm (+SiLU) over (N, HW, C) at the switched 512 path's sites;
+    chain: ``norms.group_norm`` (+ SiLU) in bf16, the port's route before;
+    library: ATen's ``F.group_norm`` on the channels-first view, the whole
+    function without SiLU and the core op with it (as ``F.conv2d`` is for
+    the GN+SiLU+3x3 conv)."""
+    cases = []
+    for label, (n, hw, c), silu in shapes:
+        x = _rnd(gen, dev, n, hw, c, scale=2.0, offset=0.5)
+        w = _rnd(gen, dev, c, scale=0.2, offset=1.0, dtype=torch.float32)
+        b = _rnd(gen, dev, c, scale=0.2, dtype=torch.float32)
+        w16, b16 = w.to(x.dtype), b.to(x.dtype)  # ATen's wants x's dtype
+        cases.append(Case(
+            "_pallas_gn", f"{label} N={n} HW={hw} C={c} silu={silu}",
+            kernel=lambda x=x, w=w, b=b, s=silu: (
+                fn._pallas_gn(x, w, b, 32, 1e-5, s),),
+            reference=lambda x=x, w=w, b=b, s=silu: fn._plain_gn(
+                x.float(), w, b, 32, 1e-5, s, cdt=torch.bfloat16),
+            plain=lambda x=x, w=w, b=b, s=silu: fn._plain_gn(
+                x, w, b, 32, 1e-5, s),
+            chain=lambda x=x, w=w, b=b, s=silu: norms.group_norm(
+                x, w, b, 32, 1e-5, s),
+            library=lambda x=x, w=w16, b=b16: F.group_norm(
+                x.transpose(1, 2), 32, w, b, 1e-5),
+            flops=12.0 * n * hw * c,
+            nbytes=2.0 * 2 * n * hw * c + 8.0 * c,
+            reps=(10, 3)))
+    return cases
+
+
+def switched_cases(dev, seed: int = 0
+                   ) -> List[Tuple[Case, Optional[tuple]]]:
+    """The kernels of the three opt-in switches at the switched 512 path's
+    shapes: #10, #11, #15 and #16."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    out: List[Tuple[Case, Optional[tuple]]] = []
+    out += [(c, None) for c in tattn_cases(dev, gen)]
+    out += [(c, None) for c in ptc_cases(dev, gen)]
+    out += [(c, (1, 2)) for c in conv_cases(dev, gen, CONV15_512,
+                                             "_pallas_fused_conv")]
+    out += [(c, None) for c in gn_cases(dev, gen)]
+    return out
 
 
 def fused_cases(dev, seed: int = 0, ff=FF_512, tconv=TCONV_512,

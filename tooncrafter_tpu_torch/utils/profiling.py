@@ -8,6 +8,11 @@ EMA) and its phases.
 
     python -m tooncrafter_tpu_torch.utils.profiling [--config YAML] [--train]
 
+The JAX package's opt-in switches apply as they do to the CLI, read at
+import: ``TC_TATTN_PAIR=0 TC_SPATIAL_CONV_PALLAS=1 TOONCRAFTER_FUSED_GN=1``
+before the command profiles the switched routes (the single-stage temporal
+attention, the im2col-named conv, the one-pass GroupNorm).
+
 Needs a CUDA device. Device busy time is the sum of kernel times (one
 stream) from a trace of CUDA activity only. Wall time comes from separate
 runs without the profiler, timed on the host around a synchronize; the
@@ -31,7 +36,11 @@ KINDS = (
     ("fused FF (port kernel)", ("fused_ff_kernel",)),
     ("temporal conv (port kernel)", ("igemm::tconv_kernel",)),
     ("GN+SiLU+3x3 conv (port kernel)", ("igemm::conv_kernel",)),
-    ("temporal attention pair (port kernel)", ("tpair_kernel",)),
+    ("temporal attention pair / single stage (port kernel)",
+     ("tpair_kernel",)),
+    ("T-attention core (port kernel)", ("ptc_kernel",)),
+    ("one-pass GroupNorm (port kernel)", ("gn_partial", "gn_finalize",
+                                          "gn_apply")),
     ("convolution", ("conv", "implicit", "winograd", "fprop", "dgrad",
                      "nhwc", "xmma_fprop")),
     ("matmul", ("gemm", "nvjet", "cutlass", "xmma", "matmul", "sm90_")),
