@@ -4,19 +4,28 @@
 
 Phases, each printed on its own lines; any failure exits non-zero:
   0. the card (nvidia-smi name and power limit), torch and CUDA versions;
-  1. build the CUDA kernels from tooncrafter_tpu_torch/csrc (flash
-     attention, fused FF, temporal conv, GN+SiLU+3x3 conv, temporal
-     attention pair: one nvcc each, all at once) and print each one's
-     registers and spills;
+  1. build the CUDA kernels from tooncrafter_tpu_torch/csrc (one nvcc per
+     library, all at once) and print each one's registers and spills;
   2. hold each kernel against its plain PyTorch version on the card at the
      shapes the 320x512 interpolation path gives it, then at the 576x1024
-     path's most-launched shapes, with its time, the plain version's (fp32
-     products: a reference), the unfused module chain's in bf16 (chain_ms:
-     what the port ran before the kernel), the one PyTorch call that
-     computes the same function where there is one (library_ms; the port
-     never calls it) and the least time the card could take (bound_ms);
+     path's most-launched shapes, the switched path's, and the shapes the
+     op functions of the kernels no model reaches are driven with, with
+     its time, the plain version's (fp32 products: a reference), the
+     unfused module chain's in bf16 (chain_ms: what the port ran before the
+     kernel), the one PyTorch call that computes the same function where
+     there is one (library_ms; the port never calls it) and the least time
+     the card could take (bound_ms);
+  2'. the op functions of the kernels no model reaches, as their users
+     call them: ``dual_cross_attention`` at the 512 UNet's attn2 shapes
+     with TC_DUAL_CROSS_PALLAS on (#17, one launch a call) and off (none),
+     ``stats.channel_sums`` at its GroupNorm inputs inside the envelope
+     (#18), ``_flash_mh_ones`` at #2's and the 1024 attn1 shapes (#5) and
+     ``temporal_attention_ptc`` (#11, no shipped site), each output against
+     its plain version;
   3. check a reduced model on the card against the same model on the CPU
-     (every kernel reached, the convs at a ragged pixel tile), then build
+     (every kernel reached, the convs at a ragged pixel tile), and a batch
+     of two clips with per-item generators against the two clips alone
+     (the --bs contract, 3a''), then build
      the full-width 320x512 model (configs/inference_512_v1.0.yaml) with
      random weights from a fixed seed in bf16 and answer two interpolation
      requests (16 frames, DDIM, CFG 7.5 + rescale 0.7, the middle-frame
@@ -41,8 +50,9 @@ Phases, each printed on its own lines; any failure exits non-zero:
      AdamW steps with EMA on a batch of two 16x320x512 clips through
      ``make_train_step``, counting the forward and backward kernels'
      launches, with the step seconds and the peak memory.
-The last two lines are the kernels' JSON summary (``launches`` from the
-first path that runs the kernel: 3b, else 3c, else 4b; and each path's
+No model phase launches #5, #17 or #18. The last two lines are the
+kernels' JSON summary (``launches`` from the first path that runs the
+kernel: 3b, else 3c, else 4b, else 3d, else 4b', else 2'; and each path's
 count) and the device JSON.
 """
 
@@ -101,6 +111,17 @@ KERNELS_1024 = ("_flash_mh", "_flash_bh_with_lse", "_pallas_ff",
 KERNELS_SWITCHED = ("_fused_tattn_call", "_pallas_fused_conv", "_pallas_gn")
 TRAIN_KERNELS_SWITCHED = TRAIN_KERNELS + ("_pallas_gn",)
 TRAIN_STEPS_SWITCHED = 2
+# the kernels no model reaches, driven through their op functions (2')
+OP_KERNELS = ("_dual_kernel_call", "_pallas_sums", "_flash_mh_ones",
+              "_ptc_kernel_call")
+# a batch of two clips with per-item generators against each clip alone,
+# reduced model in bf16 on the card, against the same comparison with
+# nothing drawn (3a'' prints both): batched and single runs sum in other
+# orders (torch's reductions, cuBLAS and cuDNN pick theirs by shape), and 3
+# DDIM steps at CFG 7.5 spread that over the clip, so the per-item draws may
+# cost at most this many dB more than that floor. A whole-batch draw (clip
+# 1's noise after clip 0's) must fall at least as far below the per-item run.
+PER_ITEM_MARGIN_DB = 3.0
 
 
 @contextlib.contextmanager
@@ -306,7 +327,8 @@ def check_kernels(dev) -> dict:
                                             bound_ms, bound_by))
         row["max_abs_err"] = max(row["max_abs_err"], mx)
     del cases, args, got, ref, ref_args, qkv
-    for cases_of in (kc.fused_cases, kc.fused_cases_1024, kc.switched_cases):
+    for cases_of in (kc.fused_cases, kc.fused_cases_1024, kc.switched_cases,
+                     kc.op_cases):
         for case, axes in cases_of(dev):
             r = kc.run_case(case, axes)
             print(kc.line(case, r), flush=True)
@@ -339,6 +361,158 @@ def new_row(name, ms, plain_ms, library_ms, bound_ms, bound_by) -> dict:
             "replaces": kc.REPLACES[name], "max_abs_err": 0.0, "ms": ms,
             "plain_ms": plain_ms, "library_ms": library_ms,
             "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def drive_op_functions(dev) -> dict:
+    """2': the op functions of #17, #18, #5 and #11 at the shapes of their
+    phase-2 cases, counts set to 0 just before and read just after; each
+    output against its plain version (bf16 operands, fp32 products) within
+    the phase-2 bounds. #17 once more with its switch off: no launch."""
+    from tooncrafter_tpu_torch.ops import cross_attention as ca
+    from tooncrafter_tpu_torch.ops import flash_attention as fa
+    from tooncrafter_tpu_torch.ops import stats as st
+    from tooncrafter_tpu_torch.ops import temporal_attention as ta
+    from tooncrafter_tpu_torch.utils import kernel_check as kc
+
+    gen = torch.Generator(device=dev).manual_seed(1)
+    calls = []  # (what, fn, plain) with the operands bound
+    for label, sq, c in kc.ATTN2_512:
+        ops = kc.dual_operands(dev, gen, sq, c)
+        gate = torch.tensor(kc.DUAL_S_IP, device=dev)  # a learnable gate
+        calls.append((f"dual_cross_attention attn2 {label} Sq={sq} C={c}",
+                      lambda o=ops, g=gate, c=c: ca.dual_cross_attention(
+                          *o, g, c // 64),
+                      lambda o=ops, c=c: ca._plain_dual(
+                          *(t.float() for t in o), kc.DUAL_S_IP, c // 64,
+                          0.125, cdt=torch.bfloat16)))
+    for label, (n, s, c), _ in kc.STATS_512[:6]:
+        x = kc._rnd(gen, dev, n, 16, s // 16, c, scale=2.0, offset=0.5)
+        calls.append((f"channel_sums {label} (N, 16, S/16, C)",
+                      lambda x=x: st.channel_sums(x),
+                      lambda x=x: kc.sums_reference(x.flatten(1, 2))))
+    for label, b, s, c, _ in kc.ONES_SHAPES:
+        qkv = kc._rnd(gen, dev, b, s, 3 * c)
+        ops = (qkv[..., :c], qkv[..., c:2 * c], qkv[..., 2 * c:])
+        calls.append((f"_flash_mh_ones {label} S={s} C={c}",
+                      lambda o=ops, c=c: fa._flash_mh_ones(*o, c // 64,
+                                                           0.125),
+                      lambda o=ops, c=c: fa._plain_mh_ones(
+                          *(t.float() for t in o), c // 64, 0.125,
+                          cdt=torch.bfloat16)))
+    for label, t, p, inner, heads in kc.PTC_512:
+        qkv = kc._rnd(gen, dev, 2, t, p, 3 * inner)
+        q, k, v = qkv.chunk(3, dim=-1)
+        d = inner // heads
+        calls.append((f"temporal_attention_ptc {label} T={t} P={p}",
+                      lambda q=q, k=k, v=v, h=heads, d=d:
+                      ta.temporal_attention_ptc(q, k, v, heads=h,
+                                                scale=d ** -0.5),
+                      lambda q=q, k=k, v=v, h=heads, d=d: ta._xla_ptc(
+                          q.float(), k.float(), v.float(), h, d ** -0.5,
+                          cdt=torch.bfloat16)))
+    saved = ca._DUAL_CROSS_PALLAS
+    ca._DUAL_CROSS_PALLAS = True
+    try:
+        kc.reset_launch_counts()
+        outs = [fn() for _, fn, _ in calls]
+        torch.cuda.synchronize()
+        counts = kc.launch_counts()
+    finally:
+        ca._DUAL_CROSS_PALLAS = saved
+    print(f"2' op functions: kernel launches {counts}", flush=True)
+    failed = []
+    for (what, _, plain), got in zip(calls, outs):
+        with kc.fp32_reference():
+            ref = plain()
+        if isinstance(ref, tuple):
+            row = kc._sums_row(got, ref)
+        else:
+            row = kc._output_row((got,), ref, None)
+        print(f"2' {what}: max_abs_err {row['max_abs_err']:.3e}"
+              + (f" (rel {row['rel_err']:.3e})" if "rel_err" in row else
+                 f" (bound {row['max_bound']:.3e})")
+              + (" ok" if row["ok"] else " FAIL"), flush=True)
+        if not row["ok"]:
+            failed.append(what)
+    del outs
+    ca._DUAL_CROSS_PALLAS = False
+    kc.reset_launch_counts()
+    for what, fn, _ in calls[:len(kc.ATTN2_512)]:
+        fn()
+    torch.cuda.synchronize()
+    off = kc.launch_counts()["_dual_kernel_call"]
+    ca._DUAL_CROSS_PALLAS = saved
+    print(f"2' dual_cross_attention with TC_DUAL_CROSS_PALLAS off: "
+          f"_dual_kernel_call launches {off}", flush=True)
+    want = {"_dual_kernel_call": len(kc.ATTN2_512),
+            "_pallas_sums": len(kc.STATS_512[:6]),
+            "_flash_mh_ones": len(kc.ONES_SHAPES),
+            "_ptc_kernel_call": len(kc.PTC_512)}
+    others = {k: v for k, v in counts.items() if v and k not in want}
+    if failed or off or others or any(counts[k] != v
+                                      for k, v in want.items()):
+        raise SystemExit(f"2': outputs off their plain versions {failed}, "
+                         f"launches {counts} (want {want}), {off} launches "
+                         f"with the switch off")
+    return counts
+
+
+def check_per_item_noise(dev) -> dict:
+    """3a'': the reduced model in bf16 on the card, DDIM-3 at eta 1 with a
+    sampled posterior: one batch of two clips with per-item generators
+    (``utils/rngs.py``) against each clip alone with its own generator.
+    Held to the card's floor for that comparison: the same two runs with
+    nothing drawn (eta 0, the posterior's mode, each clip's x_T given),
+    where only the bf16 numerics' dependence on the batch size separates
+    them (torch's reductions, cuBLAS and cuDNN pick their summation order
+    by shape). One generator for the whole batch, as before the per-item
+    draws, must fall far below: clip 1's noise then follows clip 0's."""
+    import dataclasses
+
+    from tooncrafter_tpu_torch.config import ModelConfig
+    from tooncrafter_tpu_torch.models.diffusion import Pipeline, ToonCrafter
+    from tooncrafter_tpu_torch.utils import rngs as R
+    from tooncrafter_tpu_torch.utils.weights import init_random_
+
+    cfg = dataclasses.replace(reduced_config(ModelConfig()),
+                              compute_dtype=torch.bfloat16)
+    with torch.device(dev):
+        model = ToonCrafter(cfg)
+    init_random_(model, torch.Generator(dev).manual_seed(1))
+    model.to_compute_dtype().eval()
+    inputs = [small_inputs(cfg, seed, dev) for seed in (2, 3)]
+    batch = [torch.cat(parts) for parts in zip(*inputs)]
+
+    def against_alone(pipe, both, alone_kw):
+        return [psnr(both[i:i + 1], pipe(*inputs[i][:4], **alone_kw(i)))
+                for i in range(2)]
+    pipe = Pipeline(model, ddim_steps=3, eta=1.0, perframe_ae=True)
+    per_item = against_alone(
+        pipe, pipe(*batch[:4], generator=R.per_item_generators(
+            SEED, [0, 1], dev)),
+        lambda i: {"generator": R.per_item_generators(SEED, [i], dev)})
+    shared = against_alone(
+        pipe, pipe(*batch[:4], generator=torch.Generator(dev).manual_seed(
+            SEED)),
+        lambda i: {"generator": torch.Generator(dev).manual_seed(SEED)})
+    still = Pipeline(model, ddim_steps=3, eta=0.0, perframe_ae=True)
+    floor = against_alone(still, still(*batch[:4], x_T=batch[4]),
+                          lambda i: {"x_T": inputs[i][4]})
+    out = {"per_item_db": min(per_item), "floor_db": min(floor),
+           "shared_db": shared[1]}
+    print(f"per-item noise, a batch of two clips against each alone: min "
+          f"PSNR {out['per_item_db']:.2f} dB (clips "
+          f"{', '.join(f'{d:.2f}' for d in per_item)}); with nothing drawn "
+          f"(the card's bf16 floor for B = 2 against B = 1) "
+          f"{out['floor_db']:.2f} dB; one generator for the batch, clip 1: "
+          f"{out['shared_db']:.2f} dB", flush=True)
+    if (out["per_item_db"] < out["floor_db"] - PER_ITEM_MARGIN_DB
+            or out["shared_db"] > out["per_item_db"] - PER_ITEM_MARGIN_DB):
+        raise SystemExit(
+            f"per-item noise: a batched clip is more than "
+            f"{PER_ITEM_MARGIN_DB} dB below the numerics' floor, or the "
+            f"whole-batch draw is not {PER_ITEM_MARGIN_DB} dB below it")
+    return out
 
 
 def reduced_config(base):
@@ -741,9 +915,13 @@ def main(argv=None) -> int:
 
     phase("2 kernels against their plain versions")
     rows = check_kernels(dev)
+    phase("2' the op functions of the kernels no model reaches")
+    counts_ops = drive_op_functions(dev)
     phase("3a reduced model: card against CPU")
     if not all(check_reduced_model(dev).values()):
         raise SystemExit("reduced model: no conv launched at a ragged tile")
+    phase("3a'' per-item noise: a batch of two against each clip alone")
+    check_per_item_noise(dev)
     phase("3a' reduced model with the three switches on: card against CPU")
     with switches():
         check_reduced_model(dev, KERNELS_SWITCHED)
@@ -786,18 +964,32 @@ def main(argv=None) -> int:
           f"{', '.join(f'{t:.2f}' for t in train_s)}; peak {sw_peak:.2f} "
           f"GiB against {train_peak:.2f}", flush=True)
     summary = []
-    paths = (counts, counts_1024, train_counts, counts_sw, train_sw)
+    paths = (counts, counts_1024, train_counts, counts_sw, train_sw,
+             counts_ops)
+    in_models = {k: [c[k] for c in paths[:-1]]
+                 for k in ("_dual_kernel_call", "_pallas_sums",
+                           "_flash_mh_ones")}
+    if any(any(v) for v in in_models.values()):
+        raise SystemExit(f"a model phase launched a kernel no model reaches: "
+                         f"{in_models}")
     for name, row in rows.items():
         # each kernel's launches on the first path that runs it: two
         # 320x512 requests, else the 576x1024 request, else training, else
-        # the switched request (3d), else the switched training steps (4b')
+        # the switched request (3d), else the switched training steps
+        # (4b'), else the op functions (2')
         row["launches"] = next((c[name] for c in paths if c[name]), 0)
         row["launches_512"] = counts[name]
         row["launches_1024"] = counts_1024[name]
         row["launches_train"] = train_counts[name]
         row["launches_512_switched"] = counts_sw[name]
         row["launches_train_switched"] = train_sw[name]
+        row["launches_ops"] = counts_ops[name]
         summary.append(row)
+    missed = [r["name"] for r in summary if not r["launches"]]
+    if missed or len(summary) != len(kc.REPLACES):
+        raise SystemExit(f"kernels {missed} launched on no path, or "
+                         f"{len(summary)} rows for {len(kc.REPLACES)} TPU "
+                         f"kernels")
     print(json.dumps({"kernels": summary}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

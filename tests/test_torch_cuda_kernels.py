@@ -18,6 +18,10 @@ core, #15 the im2col-named conv with its fp32 cast point, #16 the one-pass
 GroupNorm) at ragged shapes, and each against one broken build that must
 fail at every one of its ``kernel_check.switched_cases`` shapes; #15's
 cast point through an identity conv, and against a build that takes #13's. The CUDA
+kernels of the op functions no model reaches (#17 the dual cross-attention,
+#18 the per-channel sums, #5 the ones-column flash) at ragged and strided
+shapes, at every ``kernel_check.op_cases`` shape, and each one's cast point
+against a build that takes the other rounding. The CUDA
 kernels have no CPU mode, so without a card these tests skip.
 
     python -m pytest tests/test_torch_cuda_kernels.py --noconftest -q -s
@@ -30,10 +34,12 @@ import torch
 
 from tooncrafter_tpu_torch.ops import _build
 from tooncrafter_tpu_torch.ops import attention as attn
+from tooncrafter_tpu_torch.ops import cross_attention as ca
 from tooncrafter_tpu_torch.ops import flash_attention as fa
 from tooncrafter_tpu_torch.ops import fused_ff as ff
 from tooncrafter_tpu_torch.ops import fused_norms as fn
 from tooncrafter_tpu_torch.ops import spatial_conv as sc
+from tooncrafter_tpu_torch.ops import stats as st
 from tooncrafter_tpu_torch.ops import temporal_attention as ta
 from tooncrafter_tpu_torch.ops import temporal_conv as tc
 from tooncrafter_tpu_torch.utils import kernel_check as kc
@@ -627,3 +633,192 @@ def test_no_wrapper_returns_a_detached_result(dev):
     a = torch.ones(2, 64, device=dev)
     with pytest.raises(RuntimeError, match="no backward"):
         sc.winograd_gn_silu_conv3x3(x, a, a * 0, w, bias)
+
+
+# ---------------------------------------------------------------------------
+# the kernels of the op functions no model reaches (#17, #18, #5)
+# ---------------------------------------------------------------------------
+
+def _broken_copy(tmp_path, edited, old, new):
+    for f in _build.CSRC.iterdir():
+        if f.suffix in (".cu", ".cuh"):
+            shutil.copy(f, tmp_path / f.name)
+    text = (tmp_path / edited).read_text()
+    assert text.count(old) == 1, (edited, old)
+    (tmp_path / edited).write_text(text.replace(old, new))
+    return tmp_path
+
+
+def test_op_kernels_at_their_shapes(dev):
+    rows = []
+    for case, axes in kc.op_cases(dev):
+        row = kc.run_case(case, axes, timed=False)
+        print(kc.line(case, row))
+        rows.append(row["ok"])
+    assert all(rows) and len(rows) == 3 + len(kc.STATS_512) + 3
+
+
+@pytest.mark.parametrize("sq,lt,li,strided", [(200, 77, 16, False),
+                                              (64, 100, 32, True),
+                                              (37, 1, 1, False)])
+def test_dual_kernel_ragged_long_and_strided(dev, sq, lt, li, strided):
+    """Query rows that leave the last 64-row tile part empty, contexts
+    past one tile (the online rescale), one-token contexts, and q, k, v as
+    slices of wider projections."""
+    c, heads = 192, 3
+    if strided:
+        q = _rand(dev, 110, 2, sq, 2 * c)[..., c:]
+        kv = _rand(dev, 111, 2, lt, 2 * c)
+        kt, vt = kv[..., :c], kv[..., c:]
+        kv = _rand(dev, 112, 2, li, 2 * c)
+        ki, vi = kv[..., :c], kv[..., c:]
+    else:
+        q, kt, vt = (_rand(dev, 113 + i, 2, n, c)
+                     for i, n in enumerate((sq, lt, lt)))
+        ki, vi = _rand(dev, 116, 2, li, c), _rand(dev, 117, 2, li, c)
+    s_ip = torch.tensor([0.4], device=dev)
+    out = ca._dual_kernel_call(q, kt, vt, ki, vi, s_ip, heads, 0.125)
+    ref = ca._plain_dual(*_f(q, kt, vt, ki, vi), s_ip, heads, 0.125,
+                         cdt=torch.bfloat16)
+    _close(out, ref)
+    assert ca.LAUNCHES["_dual_kernel_call"] == 1
+
+
+def test_dual_entry_follows_the_switch_and_differentiates(dev, monkeypatch):
+    q, kt, vt, ki, vi = (_rand(dev, 120 + i, 2, n, 128).requires_grad_()
+                         for i, n in enumerate((256, 77, 77, 16, 16)))
+    s_ip = torch.tensor(0.3, device=dev, requires_grad=True)
+    monkeypatch.setattr(ca, "_DUAL_CROSS_PALLAS", False)
+    off = ca.dual_cross_attention(q, kt, vt, ki, vi, s_ip, 2)
+    assert ca.LAUNCHES["_dual_kernel_call"] == 0
+    monkeypatch.setattr(ca, "_DUAL_CROSS_PALLAS", True)
+    on = ca.dual_cross_attention(q, kt, vt, ki, vi, s_ip, 2)
+    assert ca.LAUNCHES["_dual_kernel_call"] == 1
+    _close(on, ca._plain_dual(*_f(q, kt, vt, ki, vi), s_ip.detach(), 2,
+                              0.125, cdt=torch.bfloat16))
+    g = _rand(dev, 126, 2, 256, 128)
+    grads = torch.autograd.grad((on.float() * g.float()).sum(),
+                                (q, kt, vt, ki, vi, s_ip))
+    want = torch.autograd.grad((off.float() * g.float()).sum(),
+                               (q, kt, vt, ki, vi, s_ip))
+    for a, b in zip(grads, want):  # the same formula differentiated
+        torch.testing.assert_close(a, b)
+
+
+def _dual_pin(dev):
+    """``kernel_check.dual_pin_inputs`` on the card: the share of the
+    kernel's outputs off the fp32 plain version rounded once."""
+    mats, s_ip, heads = kc.dual_pin_inputs()
+    ts = [torch.from_numpy(m).to(dev) for m in mats]
+    out = ca._dual_kernel_call(*(t.bfloat16() for t in ts), s_ip, heads,
+                               0.125)
+    ref = ca._plain_dual(*ts, s_ip, heads, 0.125).bfloat16()
+    torch.cuda.synchronize()
+    moved = (out != ref).float().mean().item()
+    print(f"#17 pin: {moved:.2%} of the outputs off the one rounding")
+    return moved
+
+
+def test_dual_kernel_rounds_once_after_the_combine(dev):
+    assert _dual_pin(dev) == 0.0
+
+
+def test_dual_kernel_rounding_each_branch_fails(dev, tmp_path, monkeypatch):
+    old = "y[e] = __fadd_rn(ot[j][e], __fmul_rn(si, oi[j][e]));"
+    new = ("y[e] = __fadd_rn(round_bf16(ot[j][e]), "
+           "round_bf16(__fmul_rn(si, oi[j][e])));")
+    src = _broken_copy(tmp_path, "dual_cross_attention.cu", old, new)
+    monkeypatch.setattr(ca, "_LIB", ca.bind(
+        _build.load_library(*ca.LIBRARY, csrc=src)))
+    assert _dual_pin(dev) > 0.05
+
+
+@pytest.mark.parametrize("shape,dtype", [((3, 7, 9, 96), torch.bfloat16),
+                                         ((2, 300, 64), torch.float32),
+                                         ((2, 5, 61, 2560), torch.float16),
+                                         ((1, 1, 8), torch.bfloat16)])
+def test_sums_kernel_ragged_and_dtypes(dev, shape, dtype):
+    x = (_rand(dev, 130, *shape).float() * 2 + 0.5).to(dtype)
+    n, c = shape[0], shape[-1]
+    got = st._pallas_sums(x.reshape(n, -1, c))
+    row = kc._sums_row(got, kc.sums_reference(x.reshape(n, -1, c)))
+    assert row["ok"], row
+    assert st.LAUNCHES["_pallas_sums"] == 1
+
+
+def test_channel_sums_entry_takes_the_kernel_in_the_envelope(dev):
+    x = _rand(dev, 131, 2, 16, 16, 128).requires_grad_()
+    s1, s2 = st.channel_sums(x)
+    assert st.LAUNCHES["_pallas_sums"] == 1
+    assert kc._sums_row((s1, s2), kc.sums_reference(
+        x.detach().flatten(1, 2)))["ok"]
+    (gx,) = torch.autograd.grad((s1 + s2).sum(), x)
+    torch.testing.assert_close(gx, (1 + 2 * x.detach().float()).to(x.dtype),
+                               rtol=0, atol=0)
+    st.channel_sums(_rand(dev, 132, 2, 8, 8, 128))  # S = 64: outside
+    assert st.LAUNCHES["_pallas_sums"] == 1
+
+
+def _sums_pin(dev):
+    """x = +-2^k (1 + 2^-7) at the UNet's ds1 GroupNorm input: the fp32
+    square is exact, a bf16 square is 6e-5 low."""
+    n, s, c = 32, 2560, 320
+    k = (torch.arange(c, device=dev) % 5 - 2).float()
+    sign = torch.where(_rand(dev, 133, n, s, c) >= 0, 1.0, -1.0)
+    x = (sign * torch.exp2(k) * (1 + 2.0 ** -7)).to(torch.bfloat16)
+    row = kc._sums_row(st._pallas_sums(x), kc.sums_reference(x))
+    print(f"#18 pin: relative error {row['rel_err']:.3e}")
+    return row["ok"]
+
+
+def test_sums_kernel_squares_in_fp32(dev):
+    assert _sums_pin(dev)
+
+
+def test_sums_kernel_squaring_in_bf16_fails(dev, tmp_path, monkeypatch):
+    old = "float sq(float v) { return v * v; }"
+    new = ("float sq(float v) { "
+           "return __bfloat162float(__float2bfloat16(v * v)); }")
+    src = _broken_copy(tmp_path, "channel_sums.cu", old, new)
+    monkeypatch.setattr(st, "_LIB", st.bind(
+        _build.load_library(*st.LIBRARY, csrc=src)))
+    assert not _sums_pin(dev)
+
+
+@pytest.mark.parametrize("sq,sk", [(200, 200), (160, 97), (64, 333)])
+def test_ones_kernel_ragged_and_strided(dev, sq, sk):
+    q = _rand(dev, 140, 2, sq, 3 * 128)[..., :128]
+    k, v = _rand(dev, 141, 2, sk, 128), _rand(dev, 142, 2, sk, 128)
+    out = fa._flash_mh_ones(q, k, v, 2, 0.125)
+    _close(out, fa._plain_mh_ones(*_f(q, k, v), 2, 0.125,
+                                  cdt=torch.bfloat16))
+    assert fa.LAUNCHES["_flash_mh_ones"] == 1
+    with pytest.raises(RuntimeError, match="no backward"):
+        fa._flash_mh_ones(q.detach().requires_grad_(), k, v, 2, 0.125)
+
+
+def _ones_pin(dev):
+    """``kernel_check.ones_pin_inputs`` on the card: #5's output and
+    #2's."""
+    q, k, v, heads, scale = kc.ones_pin_inputs()
+    ts = [torch.from_numpy(t).to(dev).bfloat16() for t in (q, k, v)]
+    ones = fa._flash_mh_ones(*ts, heads, scale)
+    mh = fa._flash_mh(*ts, heads, scale)
+    torch.cuda.synchronize()
+    return ones.float(), mh.float()
+
+
+def test_ones_kernel_divides_by_the_sum_of_rounded_p(dev):
+    ones, mh = _ones_pin(dev)
+    assert (ones == 1.0).all() and (mh == 0.99609375).all()
+
+
+def test_ones_kernel_with_the_unrounded_sum_fails(dev, tmp_path,
+                                                  monkeypatch):
+    src = _broken_copy(tmp_path, "flash_attention.cu",
+                       "l_r[e >> 1] += ONES ? round_bf16(pv) : pv;",
+                       "l_r[e >> 1] += pv;")
+    monkeypatch.setattr(fa, "_LIB", fa.bind(
+        _build.load_library(*fa.LIBRARY, csrc=src)))
+    ones, _ = _ones_pin(dev)
+    assert not (ones == 1.0).all()

@@ -13,6 +13,7 @@ import torch
 from tooncrafter_tpu.ops import flash_attention as jfa
 from tooncrafter_tpu_torch.ops import attention as att
 from tooncrafter_tpu_torch.ops import flash_attention as fa
+from tooncrafter_tpu_torch.utils import kernel_check as kc
 
 torch.set_num_threads(1)  # one thread a pytest worker: the suite runs six
 
@@ -86,6 +87,41 @@ def test_single_pass_d512_matches_flash_bh_single():
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=ATOL)
     np.testing.assert_allclose(lse.numpy(), np.asarray(ref_lse)[..., 0],
                                atol=ATOL)
+
+
+@pytest.mark.parametrize("dtype,atol", [("float32", 1e-5),
+                                        ("bfloat16", 2.0 ** -7)])
+def test_mh_ones_matches_flash_mh_ones(dtype, atol):
+    """#5 at tests/test_flash_attention.py's shapes: fp32 to 1e-5 as that
+    test holds it; in bf16 both sides round p for the product and its sum
+    and the output once, so only a rounding that the two summation orders
+    straddle moves, by one bf16 ulp: 2^-7 of max |out|."""
+    q = _rand(16, 2, 256, 128)
+    k, v = _rand(17, 2, 512, 128), _rand(18, 2, 512, 128)
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    ref = np.asarray(jfa._flash_mh_ones(
+        *(jnp.asarray(t).astype(jdt) for t in (q, k, v)), 2, 64 ** -0.5,
+        128).astype(jnp.float32))
+    out = fa._flash_mh_ones(*(torch.from_numpy(t).to(tdt) for t in (q, k, v)),
+                            2, 64 ** -0.5)
+    assert out.dtype == tdt and tuple(out.shape) == (2, 256, 128)
+    np.testing.assert_allclose(out.float().numpy(), ref, rtol=0,
+                               atol=atol * np.abs(ref).max())
+
+
+def test_mh_ones_normalizer_cast_point():
+    """#5 divides by the sum of bf16(p), #2 by the unrounded sum
+    (kernel_check.ones_pin_inputs), bit for bit."""
+    q, k, v, heads, scale = kc.ones_pin_inputs()
+    jq, jk, jv = (jnp.asarray(t).astype(jnp.bfloat16) for t in (q, k, v))
+    ones = np.asarray(jfa._flash_mh_ones(jq, jk, jv, heads, scale, 128)
+                      .astype(jnp.float32))
+    mh = np.asarray(jfa._flash_mh(jq, jk, jv, heads, scale, 128)
+                    .astype(jnp.float32))
+    assert (ones == 1.0).all() and (mh == 0.99609375).all()
+    out = fa._flash_mh_ones(*(torch.from_numpy(t).bfloat16()
+                              for t in (q, k, v)), heads, scale)
+    assert np.array_equal(out.float().numpy(), ones)
 
 
 @pytest.mark.parametrize("sq,sk,d", [(2560, 2560, 64), (640, 640, 64),

@@ -10,10 +10,12 @@ import torch
 
 from tooncrafter_tpu_torch.ops import _build
 from tooncrafter_tpu_torch.ops import _launch
+from tooncrafter_tpu_torch.ops import cross_attention as ca
 from tooncrafter_tpu_torch.ops import flash_attention as fa
 from tooncrafter_tpu_torch.ops import fused_ff as ff
 from tooncrafter_tpu_torch.ops import fused_norms as fn
 from tooncrafter_tpu_torch.ops import spatial_conv as sc
+from tooncrafter_tpu_torch.ops import stats as st
 from tooncrafter_tpu_torch.ops import temporal_attention as ta
 from tooncrafter_tpu_torch.ops import temporal_conv as tc
 from tooncrafter_tpu_torch.utils import kernel_check as kc
@@ -180,6 +182,13 @@ def _meta_f32(*shape):
     lambda: ta._ptc_kernel_call(*(_meta(2, 16, 40, 320) for _ in range(3)),
                                 5, 0.125),
     lambda: fn._pallas_gn(_meta(2, 8, 8, 64), _meta_f32(64), _meta_f32(64)),
+    lambda: ca._dual_kernel_call(_meta(2, 2560, 320), _meta(2, 77, 320),
+                                 _meta(2, 77, 320), _meta(2, 16, 320),
+                                 _meta(2, 16, 320), 0.7, 5, 0.125),
+    lambda: st._pallas_sums(_meta(2, 2560, 320)),
+    lambda: st.channel_sums(_meta(2, 16, 16, 128)),
+    lambda: fa._flash_mh_ones(_meta(2, 160, 128), _meta(2, 160, 128),
+                              _meta(2, 160, 128), 2, 0.125),
 ])
 def test_cuda_wrappers_raise_without_their_kernel(kernel_library_absent,
                                                   call):
@@ -199,3 +208,24 @@ def test_cuda_wrappers_check_their_operands(kernel_library_absent):
     with pytest.raises(ValueError, match="CPU tensors"):
         fa._flash_mh(_meta(1, 160, 128), torch.empty(1, 160, 128),
                      _meta(1, 160, 128), 2, 0.125)
+    # the kernels of the op functions no model reaches (#17, #18, #5)
+    f32 = lambda *shape: torch.empty(*shape, device="meta")
+    with pytest.raises(TypeError, match="bfloat16"):
+        fa._flash_mh_ones(f32(1, 160, 128), f32(1, 160, 128),
+                          f32(1, 160, 128), 2, 0.125)
+    with pytest.raises(ValueError, match="head dim"):
+        fa._flash_mh_ones(*(_meta(1, 160, 256) for _ in range(3)), 2, 0.125)
+    with pytest.raises(TypeError, match="bfloat16"):
+        ca._dual_kernel_call(f32(1, 128, 128), *(f32(1, n, 128) for n in (
+            77, 77, 16, 16)), 0.5, 2, 0.125)
+    with pytest.raises(ValueError, match="head dim"):
+        ca._dual_kernel_call(_meta(1, 128, 128), *(_meta(1, n, 128) for n in (
+            77, 77, 16, 16)), 0.5, 4, 0.125)
+    with pytest.raises(ValueError, match="strides"):
+        ca._dual_kernel_call(odd, *(_meta(1, n, 128) for n in (
+            77, 77, 16, 16)), 0.5, 2, 0.125)
+    with pytest.raises(TypeError, match="channel sums"):
+        st._pallas_sums(torch.empty(2, 256, 128, device="meta",
+                                    dtype=torch.float64))
+    with pytest.raises(ValueError, match="C % 8"):
+        st._pallas_sums(_meta(2, 256, 12))

@@ -10,8 +10,12 @@ inference.py parser):
       --timestep_spacing uniform_trailing --guidance_rescale 0.7 \
       --frame_stride 10 --seed 123
 
-It runs on one CUDA device and refuses to start without one. Without
---ckpt_path the weights are random, drawn from --seed. Optional packages:
+It runs on one CUDA device and refuses to start without one unless
+``--device cpu`` is passed (fp32, the kernels' plain versions). Without
+--ckpt_path the weights are random, drawn from --seed. Each clip's noise
+comes from its own generator, seeded from (--seed, its global index
+prompt * n_samples + sample) (``utils/rngs.py``), so --bs 2 writes the
+videos --bs 1 writes. Optional packages:
 Pillow reads the input images; OpenCV writes mp4 (without it each clip is
 written as PNG frames through Pillow); ``regex`` is needed only with
 --bpe_path (the CLIP tokenizer's pattern).
@@ -59,6 +63,8 @@ def get_parser():
     p.add_argument("--bpe_path", type=str, default=None,
                    help="CLIP BPE merges file (ships with the checkpoint)")
     p.add_argument("--save_fps", type=int, default=8)
+    p.add_argument("--device", type=str, default="cuda",
+                   help="cuda (one card, bf16) or cpu (fp32)")
     return p
 
 
@@ -97,8 +103,8 @@ def load_data_prompts(data_dir, video_size, video_frames, interp):
 
 
 def build_model(args, device):
-    """The configured model on ``device`` in bf16, from --ckpt_path or
-    random weights drawn from --seed."""
+    """The configured model on ``device`` (bf16 on a card, fp32 on the
+    CPU), from --ckpt_path or random weights drawn from --seed."""
     from tooncrafter_tpu_torch.config import ModelConfig, model_config_from_yaml
     from tooncrafter_tpu_torch.models.diffusion import ToonCrafter
     from tooncrafter_tpu_torch.utils.weights import init_random_
@@ -107,7 +113,9 @@ def build_model(args, device):
         else ModelConfig()
     cfg = dataclasses.replace(
         cfg, video_length=args.video_length, latent_h=args.height // 8,
-        latent_w=args.width // 8, compute_dtype=torch.bfloat16)
+        latent_w=args.width // 8,
+        compute_dtype=(torch.float32 if device.type == "cpu"
+                       else torch.bfloat16))
     with torch.device(device):
         model = ToonCrafter(cfg)
     if args.ckpt_path:
@@ -125,12 +133,17 @@ def build_model(args, device):
 
 def main(argv=None):
     args = get_parser().parse_args(argv)
-    if not torch.cuda.is_available():
+    if args.device == "cpu":
+        device = torch.device("cpu")
+    elif not torch.cuda.is_available():
         raise SystemExit("the PyTorch port's inference runs on a CUDA "
-                         "device; none is available")
-    device = torch.device("cuda", 0)
+                         "device and none is available (pass --device cpu "
+                         "to run on the CPU)")
+    else:
+        device = torch.device("cuda", 0)
     from tooncrafter_tpu_torch.models.diffusion import Pipeline
     from tooncrafter_tpu_torch.sampling.ddim import GuidanceConfig
+    from tooncrafter_tpu_torch.utils import rngs as R
     from tooncrafter_tpu_torch.utils.tokenizer import ClipTokenizer
     from tooncrafter_tpu_torch.utils.video_io import write_video
 
@@ -158,7 +171,6 @@ def main(argv=None):
                     perframe_ae=perframe_ae)
     os.makedirs(os.path.join(args.savedir, "samples_separate"),
                 exist_ok=True)
-    gen = torch.Generator(device).manual_seed(args.seed)
     bs = max(1, args.bs)
     for i0 in range(0, len(prompts), bs):
         chunk = list(range(i0, min(i0 + bs, len(prompts))))
@@ -173,8 +185,10 @@ def main(argv=None):
         video = torch.from_numpy(np.stack([data[j] for j in chunk]))
         fs = torch.full((len(chunk),), float(args.frame_stride))
         for n in range(args.n_samples):
+            gens = R.per_item_generators(
+                args.seed, [j * args.n_samples + n for j in chunk], device)
             out = pipe(video.to(device), tokens.to(device),
-                       null_tokens.to(device), fs.to(device), generator=gen)
+                       null_tokens.to(device), fs.to(device), generator=gens)
             print("phase seconds: " + ", ".join(
                 f"{k} {v:.2f}" for k, v in pipe.timings.items()))
             for k, idx in enumerate(chunk):

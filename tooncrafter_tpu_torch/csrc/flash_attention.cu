@@ -10,6 +10,14 @@
 // for the batch, sequence and head axes of q, k, v and o, so the packed
 // projection and the token-major layouts are read in place, with no copy.
 //
+// Its ONES flag (entry tc_flash_fwd_ones) is the fifth, _flash_mh_ones: the
+// normalizer l sums the bf16-rounded p that the PV product consumes, where
+// the others sum the unrounded p. The TPU kernel gets that sum from the
+// matrix unit's idle output lanes by appending a block of ones to V outside
+// the kernel ((B, S, H * 2D)); here the row sum is a register add of the
+// same rounded value, rescaled with the running max exactly as the
+// accumulator is, so no [v | ones] tensor is built.
+//
 // What bounds it on the H100: at d = 64 every score costs one 64-deep
 // product on the tensor cores but also an exp2, a max and a rescale on the
 // FP32 units, so the softmax work, not the tensor-core rate, sets the pace.
@@ -65,6 +73,10 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
+__device__ __forceinline__ float round_bf16(float v) {
+  return __bfloat162float(__float2bfloat16(v));
+}
+
 __device__ __forceinline__ uint32_t ld32(const bf16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
@@ -81,8 +93,9 @@ __device__ __forceinline__ void mma_16816(float c[4], const uint32_t a[4],
 
 // D: q/k head dim. DV: value columns one block computes (blockIdx.z picks
 // the slice). BN: keys per tile. Shared rows are padded by 8 elements so
-// the quad-strided 32-bit fragment loads hit 32 distinct banks.
-template <int D, int DV, int BN>
+// the quad-strided 32-bit fragment loads hit 32 distinct banks. ONES: the
+// row sum adds bf16(p), the value the PV product reads (_flash_mh_ones).
+template <int D, int DV, int BN, bool ONES>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const Params p) {
   constexpr int DP = D + 8;
@@ -202,7 +215,7 @@ flash_fwd_kernel(const Params p) {
       for (int e = 0; e < 4; ++e) {
         const float pv = exp2f(s[j][e] - mu[e >> 1]);
         s[j][e] = pv;
-        l_r[e >> 1] += pv;
+        l_r[e >> 1] += ONES ? round_bf16(pv) : pv;
       }
     }
 
@@ -247,17 +260,40 @@ flash_fwd_kernel(const Params p) {
   }
 }
 
-template <int D, int DV, int BN>
+template <int D, int DV, int BN, bool ONES = false>
 int launch(const Params& p, int batch, cudaStream_t stream) {
   const int smem = (kBlockM * (D + 8) + BN * (D + 8) + DV * (BN + 8)) *
                    (int)sizeof(bf16);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<D, DV, BN>,
+      flash_fwd_kernel<D, DV, BN, ONES>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((p.sq + kBlockM - 1) / kBlockM, batch * p.heads, D / DV);
-  flash_fwd_kernel<D, DV, BN><<<grid, kThreads, smem, stream>>>(p);
+  flash_fwd_kernel<D, DV, BN, ONES><<<grid, kThreads, smem, stream>>>(p);
   return (int)cudaGetLastError();
+}
+
+Params make_params(const void* q, const void* k, const void* v, void* o,
+                   float* lse, long long q_sb, long long q_ss, long long q_sh,
+                   long long k_sb, long long k_ss, long long k_sh,
+                   long long v_sb, long long v_ss, long long v_sh,
+                   long long o_sb, long long o_ss, long long o_sh, int heads,
+                   int sq, int sk, float scale) {
+  Params p;
+  p.q = static_cast<const bf16*>(q);
+  p.k = static_cast<const bf16*>(k);
+  p.v = static_cast<const bf16*>(v);
+  p.o = static_cast<bf16*>(o);
+  p.lse = lse;
+  p.q_sb = q_sb; p.q_ss = q_ss; p.q_sh = q_sh;
+  p.k_sb = k_sb; p.k_ss = k_ss; p.k_sh = k_sh;
+  p.v_sb = v_sb; p.v_ss = v_ss; p.v_sh = v_sh;
+  p.o_sb = o_sb; p.o_ss = o_ss; p.o_sh = o_sh;
+  p.heads = heads;
+  p.sq = sq;
+  p.sk = sk;
+  p.scale_log2 = scale * kLog2e;
+  return p;
 }
 
 }  // namespace
@@ -273,24 +309,32 @@ extern "C" int tc_flash_fwd(int head_dim, const void* q, const void* k,
                             long long o_sb, long long o_ss, long long o_sh,
                             int batch, int heads, int sq, int sk, float scale,
                             void* stream) {
-  Params p;
-  p.q = static_cast<const bf16*>(q);
-  p.k = static_cast<const bf16*>(k);
-  p.v = static_cast<const bf16*>(v);
-  p.o = static_cast<bf16*>(o);
-  p.lse = lse;
-  p.q_sb = q_sb; p.q_ss = q_ss; p.q_sh = q_sh;
-  p.k_sb = k_sb; p.k_ss = k_ss; p.k_sh = k_sh;
-  p.v_sb = v_sb; p.v_ss = v_ss; p.v_sh = v_sh;
-  p.o_sb = o_sb; p.o_ss = o_ss; p.o_sh = o_sh;
-  p.heads = heads;
-  p.sq = sq;
-  p.sk = sk;
-  p.scale_log2 = scale * kLog2e;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (sq <= 0 || sk <= 0 || batch <= 0 || heads <= 0)
     return (int)cudaErrorInvalidValue;
+  const Params p = make_params(q, k, v, o, lse, q_sb, q_ss, q_sh, k_sb, k_ss,
+                               k_sh, v_sb, v_ss, v_sh, o_sb, o_ss, o_sh, heads,
+                               sq, sk, scale);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (head_dim == 64) return launch<64, 64, 64>(p, batch, s);
   if (head_dim == 512) return launch<512, 128, 32>(p, batch, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// The same at head_dim 64 with the normalizer of _flash_mh_ones (the sum of
+// the bf16-rounded p) and no lse.
+extern "C" int tc_flash_fwd_ones(const void* q, const void* k, const void* v,
+                                 void* o, long long q_sb, long long q_ss,
+                                 long long q_sh, long long k_sb,
+                                 long long k_ss, long long k_sh,
+                                 long long v_sb, long long v_ss,
+                                 long long v_sh, long long o_sb,
+                                 long long o_ss, long long o_sh, int batch,
+                                 int heads, int sq, int sk, float scale,
+                                 void* stream) {
+  if (sq <= 0 || sk <= 0 || batch <= 0 || heads <= 0)
+    return (int)cudaErrorInvalidValue;
+  const Params p = make_params(q, k, v, o, nullptr, q_sb, q_ss, q_sh, k_sb,
+                               k_ss, k_sh, v_sb, v_ss, v_sh, o_sb, o_ss, o_sh,
+                               heads, sq, sk, scale);
+  return launch<64, 64, 64, true>(p, batch, static_cast<cudaStream_t>(stream));
 }

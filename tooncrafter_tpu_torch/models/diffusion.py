@@ -28,6 +28,7 @@ from tooncrafter_tpu_torch.models.vae import AutoencoderKL, DiagonalGaussian
 from tooncrafter_tpu_torch.models.vae_dualref import DualRefVideoDecoder
 from tooncrafter_tpu_torch.ops import schedule as S
 from tooncrafter_tpu_torch.sampling.ddim import GuidanceConfig, ddim_sample
+from tooncrafter_tpu_torch.utils import rngs as R
 
 
 class _Holder(nn.Module):
@@ -114,7 +115,8 @@ class ToonCrafter(nn.Module):
         ``chunk_size`` frames are encoded at a time (the per-frame
         ``perframe_ae`` path; the encoder is per-frame, so exact). The
         posterior's noise (B*T, h, w, 4) is ``noise`` when given, else drawn
-        from ``generator``."""
+        from ``generator``: one generator draws it whole, a sequence of B
+        (``utils/rngs.py``) draws each clip's (T, h, w, 4) from its own."""
         b, t = video.shape[:2]
         flat = video.reshape((b * t,) + video.shape[2:]).to(self.dtype)
         vae = self.first_stage_model
@@ -125,6 +127,9 @@ class ToonCrafter(nn.Module):
         taps = [torch.cat([p[1][l] for p in parts])
                 for l in range(len(parts[0][1]))]
         post = DiagonalGaussian(moments.float())
+        if noise is None and sample_posterior and R.is_batched(generator):
+            noise = R.normal(generator, (b, t) + post.mean.shape[1:],
+                             post.mean.device, post.mean.dtype)
         if noise is not None:
             z = post.mean + post.std * noise.reshape(post.mean.shape)
         else:
@@ -225,11 +230,15 @@ class Pipeline:
 
     @torch.no_grad()
     def __call__(self, video, tokens, null_tokens, fs,
-                 generator: Optional[torch.Generator] = None,
+                 generator: R.Generators = None,
                  x_T: Optional[torch.Tensor] = None):
         """video (B, T, H, W, 3) in [-1, 1]; tokens, null_tokens (B, 77);
         fs (B,). The posterior is sampled from ``generator`` when one is
-        given (its mode otherwise); x_T is drawn from it unless passed.
+        given (its mode otherwise); x_T is drawn from it unless passed, then
+        the steps' noise. ``generator`` is one torch.Generator for the whole
+        batch or B of them (``utils/rngs.per_item_generators``): then clip i
+        draws its posterior, x_T and step noise, in that order, from its
+        own, and its noise does not depend on the batch around it.
         Returns (B, T, H, W, 3) fp32."""
         m = self.model
         self.timings = {}
@@ -240,7 +249,7 @@ class Pipeline:
         contexts = self._timed("conditioning", self.conditioning, tokens,
                                null_tokens, video[:, 0])
         if x_T is None:
-            x_T = torch.randn(z.shape, generator=generator, device=z.device)
+            x_T = R.normal(generator, z.shape, z.device)
         samples = self._timed("denoise", m.denoise, x_T.float(), contexts,
                               concat, fs.float(), self.guidance,
                               generator=generator, **self.ddim)

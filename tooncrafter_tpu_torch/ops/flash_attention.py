@@ -14,6 +14,14 @@ replace; all of them launch the one CUDA C++ kernel in
   * ``_flash_bh_single(q, k, v, scale)``: (BH, S, D) -> (out, lse), the
     single-pass pick of the same selector, here for D = 512.
 
+A fifth, ``_flash_mh_ones(q, k, v, heads, scale)``, is ``_flash_mh`` with
+the normalizer of the TPU kernel of that name: l sums the bf16-rounded p
+that the PV product reads (the TPU kernel appends a ones block to V to get
+that sum from its matrix unit), where the others sum the unrounded p. It
+launches the same kernel with its ONES flag, head dim 64 only; nothing in
+the JAX package dispatches to it, so no model does. It has no backward (the
+JAX function has no custom_vjp) and raises under grad on the card.
+
 The backward, ``_flash_bwd_bh`` (the TPU kernel of the same name), is the
 CUDA C++ kernel pair of ``csrc/flash_attention_bwd.cu`` (dq over query
 tiles, dk/dv over key tiles; head dim 64 only). ``_FlashFunction`` puts it
@@ -53,6 +61,7 @@ from tooncrafter_tpu_torch.ops import _build
 from tooncrafter_tpu_torch.ops import _launch as _checks
 
 _KERNEL_HEAD_DIMS = (64, 512)
+_LOG2E = 1.4426950408889634
 # rows of q processed at once by the plain version: bounds its fp32 score
 # tile (the dual-ref fusion site has 163840 x 20480 scores per head at
 # 320x512, 589824 x 73728 at 576x1024) to _PLAIN_SCORES scores per chunk
@@ -67,6 +76,7 @@ LAUNCHES: Dict[str, int] = {
     "_flash_bh_with_lse": 0,
     "_flash_bh_single": 0,
     "_flash_bwd_bh": 0,
+    "_flash_mh_ones": 0,
 }
 
 
@@ -202,6 +212,30 @@ def _plain_mh(q, k, v, heads: int, scale: float):
         b, sq, c)
 
 
+def _plain_mh_ones(q, k, v, heads: int, scale: float,
+                   cdt: Optional[torch.dtype] = None,
+                   chunk: int = _PLAIN_CHUNK):
+    """``_flash_mh_ones``'s function and rounding, token-major (B, S, H*D)
+    -> (B, Sq, H*D): one pass in the exp2 domain, p rounded to ``cdt`` (v's
+    dtype unless given) for the PV product AND for the normalizer l, fp32
+    otherwise, in chunks of query rows."""
+    b, sq, c = q.shape
+    cdt = v.dtype if cdt is None else cdt
+    qh, kh, vh = (_fold_heads(t, heads) for t in (q, k, v))
+    chunk = max(64, min(chunk, _PLAIN_SCORES
+                        // max(1, qh.shape[0] * kh.shape[1])))
+    kt = kh.float().transpose(1, 2)
+    vf = vh.float()
+    outs = []
+    for i in range(0, sq, chunk):
+        s = torch.matmul(qh[:, i:i + chunk].float(), kt) * (scale * _LOG2E)
+        p = torch.exp2(s - s.amax(-1, keepdim=True)).to(cdt).float()
+        outs.append(torch.matmul(p, vf) / p.sum(-1, keepdim=True))
+    out = torch.cat(outs, 1).to(q.dtype)
+    return out.reshape(b, heads, sq, c // heads).transpose(1, 2).reshape(
+        b, sq, c)
+
+
 # A kernel's bf16 output against its plain version run in fp32 on the same
 # bf16 inputs. Rounding the output to bf16 alone costs up to half an ulp
 # per element; the kernel adds the rounding of P to bf16 before the PV
@@ -261,6 +295,9 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         [ctypes.c_int, vp, vp, vp, vp, vp] + [ll] * 12
         + [ctypes.c_int] * 4 + [ctypes.c_float, vp])
     lib.tc_flash_fwd.restype = ctypes.c_int
+    lib.tc_flash_fwd_ones.argtypes = (
+        [vp] * 4 + [ll] * 12 + [ctypes.c_int] * 4 + [ctypes.c_float, vp])
+    lib.tc_flash_fwd_ones.restype = ctypes.c_int
     return lib
 
 
@@ -303,13 +340,16 @@ def _check_operand(name: str, t: torch.Tensor, device) -> None:
         raise ValueError(f"{name}: data pointer is not 16-byte aligned")
 
 
-def _launch(q4, k4, v4, o4, lse, scale: float) -> None:
-    """q4/k4/v4/o4: (B, S, H, D) bf16 views; lse: fp32 (B*H, Sq) or None."""
+def _launch(q4, k4, v4, o4, lse, scale: float, ones: bool = False) -> None:
+    """q4/k4/v4/o4: (B, S, H, D) bf16 views; lse: fp32 (B*H, Sq) or None.
+    ``ones``: the normalizer of ``_flash_mh_ones`` (head dim 64, no lse)."""
     b, sq, h, d = q4.shape
     sk = k4.shape[1]
-    if d not in _KERNEL_HEAD_DIMS:
+    if d not in ((_BWD_HEAD_DIM,) if ones else _KERNEL_HEAD_DIMS):
         raise ValueError(f"head dim {d} has no kernel build "
-                         f"({_KERNEL_HEAD_DIMS})")
+                         f"({_BWD_HEAD_DIM if ones else _KERNEL_HEAD_DIMS})")
+    if ones and lse is not None:
+        raise ValueError("_flash_mh_ones returns no lse")
     if (k4.shape != (b, sk, h, d) or v4.shape != (b, sk, h, d)
             or o4.shape != (b, sq, h, d)):
         raise ValueError(f"shape mismatch q{tuple(q4.shape)} "
@@ -328,10 +368,15 @@ def _launch(q4, k4, v4, o4, lse, scale: float) -> None:
     strides = []
     for t in (q4, k4, v4, o4):
         strides += [t.stride(0), t.stride(1), t.stride(2)]
-    err = lib.tc_flash_fwd(
-        d, q4.data_ptr(), k4.data_ptr(), v4.data_ptr(), o4.data_ptr(),
-        None if lse is None else lse.data_ptr(), *strides,
-        b, h, sq, sk, float(scale), stream)
+    if ones:
+        err = lib.tc_flash_fwd_ones(
+            q4.data_ptr(), k4.data_ptr(), v4.data_ptr(), o4.data_ptr(),
+            *strides, b, h, sq, sk, float(scale), stream)
+    else:
+        err = lib.tc_flash_fwd(
+            d, q4.data_ptr(), k4.data_ptr(), v4.data_ptr(), o4.data_ptr(),
+            None if lse is None else lse.data_ptr(), *strides,
+            b, h, sq, sk, float(scale), stream)
     if err != 0:
         raise RuntimeError(f"flash attention kernel launch failed with CUDA "
                            f"error {err} (q{tuple(q4.shape)}, "
@@ -527,6 +572,22 @@ def _flash_mh(q, k, v, heads: int, scale: float):
             v.unflatten(-1, (heads, d)), out.unflatten(-1, (heads, d)),
             None, scale)
     LAUNCHES["_flash_mh"] += 1
+    return out
+
+
+def _flash_mh_ones(q, k, v, heads: int, scale: float):
+    """Token-major multi-head attention with l = sum of bf16(p): (B, S, C)
+    -> (B, Sq, C)."""
+    if _on_cpu(q, k, v):
+        return _plain_mh_ones(q, k, v, heads, scale)
+    _checks.refuse_grad("_flash_mh_ones", q, k, v)
+    b, sq, c = q.shape
+    d = c // heads
+    out = torch.empty((b, sq, c), dtype=q.dtype, device=q.device)
+    _launch(q.unflatten(-1, (heads, d)), k.unflatten(-1, (heads, d)),
+            v.unflatten(-1, (heads, d)), out.unflatten(-1, (heads, d)),
+            None, scale, ones=True)
+    LAUNCHES["_flash_mh_ones"] += 1
     return out
 
 

@@ -15,6 +15,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from tooncrafter_tpu_torch.ops import stats as _stats
+
 
 def group_norm(x, weight, bias, num_groups: int = 32, eps: float = 1e-6,
                act: bool = False, shift: Optional[torch.Tensor] = None):
@@ -62,12 +64,11 @@ def gn_affine_from_stats(s1, s2, spatial: int, weight, bias,
     return a, b
 
 
-def channel_sums(x):
-    """Per-sample per-channel fp32 sums of x and x^2 over every axis but
-    the first and the last: (N, *spatial, C) -> two (N, C)."""
-    axes = tuple(range(1, x.ndim - 1))
-    xf = x.float()
-    return xf.sum(axes), xf.square().sum(axes)
+# Per-sample per-channel fp32 sums of x and x^2 over every axis but the
+# first and the last: (N, *spatial, C) -> two (N, C). The plain version of
+# ops/stats.py, beside its kernel; the models keep it (the JAX package's
+# models take their sums inline, not through its parked kernel).
+channel_sums = _stats._plain_sums
 
 
 def gn_affine(x, weight, bias, num_groups: int = 32, eps: float = 1e-6,

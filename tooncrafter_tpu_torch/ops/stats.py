@@ -1,0 +1,166 @@
+"""Per-channel (s1, s2) sums over every non-batch, non-channel axis
+(tooncrafter_tpu/ops/stats.py): the CUDA kernel ``csrc/channel_sums.cu``
+(replacing the TPU kernel ``_pallas_sums``), its plain version, the
+autograd Function and the JAX package's dispatch rule.
+
+s1 = sum(x) and s2 = sum(x^2) per (N, C) in fp32, with x cast to fp32
+*before* it is squared (not #16's bf16 square). ``channel_sums`` takes the
+kernel on CUDA tensors inside the JAX package's envelope (``_use_kernel``,
+with "on a TPU" read as "on CUDA"), as the JAX function does on a TPU;
+elsewhere the plain version. No model calls it: the JAX package parks the
+kernel (its A/B lost to XLA's inline sums) and the port's models keep
+``ops.norms.channel_sums``, which is this module's plain version.
+
+Under autograd ``_SumsFunction`` runs the same dispatch forward and the JAX
+custom_vjp's backward, gx = g1 + 2 x g2 in x's dtype
+(tooncrafter_tpu/ops/stats.py:117-122).
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from tooncrafter_tpu_torch.ops import _build
+from tooncrafter_tpu_torch.ops import _launch
+
+LAUNCHES: Dict[str, int] = {"_pallas_sums": 0}
+
+_DTYPES = {torch.bfloat16: 0, torch.float16: 1, torch.float32: 2}
+_TARGET_BLOCKS = 1056  # 8 blocks an SM of the H100's 132
+_MAX_THREADS = 1024    # csrc/channel_sums.cu: C / (16 bytes of x) a block
+
+
+def reset_launch_counts() -> None:
+    LAUNCHES["_pallas_sums"] = 0
+
+
+# ---------------------------------------------------------------------------
+# the JAX package's envelope (sized for TPU VMEM), unchanged
+# ---------------------------------------------------------------------------
+
+def _pick_stile(s: int, c: int, budget: int = 4 * 1024 * 1024) -> int:
+    for st in (4096, 2048, 1024, 512, 320, 256, 160, 128, 64, 32, 16, 8):
+        if s % st == 0 and 2 * st * c * 2 <= budget:
+            return st
+    return 0
+
+
+def _use_kernel(s: int, c: int, cuda: bool) -> bool:
+    """The JAX rule (stats.py:50-52) for S positions of C channels; ``cuda``
+    stands for its "on a TPU"."""
+    return c % 128 in (0, 64) and s >= 256 and _pick_stile(s, c) >= 8 and cuda
+
+
+# ---------------------------------------------------------------------------
+# plain version
+# ---------------------------------------------------------------------------
+
+def _plain_sums(x) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(N, *spatial, C) -> fp32 (s1, s2), each (N, C); x cast to fp32
+    before the square."""
+    axes = tuple(range(1, x.ndim - 1))
+    xf = x.float()
+    return xf.sum(axes), xf.square().sum(axes)
+
+
+# ---------------------------------------------------------------------------
+# the kernel launch
+# ---------------------------------------------------------------------------
+
+LIBRARY = ("channel_sums", ("channel_sums.cu",))
+_LIB: Optional[ctypes.CDLL] = None
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    vp, i = ctypes.c_void_p, ctypes.c_int
+    lib.tc_channel_sums.argtypes = [vp] * 4 + [i] * 5 + [vp]
+    lib.tc_channel_sums.restype = ctypes.c_int
+    return lib
+
+
+def _library() -> ctypes.CDLL:
+    global _LIB
+    if _LIB is None:
+        _LIB = bind(_build.load_library(*LIBRARY))
+    return _LIB
+
+
+def chunks(n: int, s: int) -> int:
+    """Spatial chunks a sample is cut into: ~_TARGET_BLOCKS blocks over the
+    batch, at least 64 positions a chunk, every chunk non-empty."""
+    want = max(1, min(-(-_TARGET_BLOCKS // n), -(-s // 64)))
+    rows = -(-s // want)
+    return -(-s // rows)
+
+
+def _launch_sums(x):
+    """x (N, S, C) contiguous on the card -> fp32 (s1, s2), each (N, C)."""
+    if x.dtype not in _DTYPES:
+        raise TypeError(f"channel sums: the CUDA kernel takes "
+                        f"{sorted(map(str, _DTYPES))}, got {x.dtype}")
+    if x.ndim != 3:
+        raise ValueError(f"channel sums: expected (N, S, C), got shape "
+                         f"{tuple(x.shape)}")
+    n, s, c = x.shape
+    _launch.check("x", x, x.shape, x.dtype, x.device)
+    vec = 16 // x.element_size()
+    if c % vec or c // vec > _MAX_THREADS or n == 0 or s == 0:
+        raise ValueError(f"channel sums kernel: needs C % {vec} == 0, "
+                         f"C <= {vec * _MAX_THREADS} and N, S > 0; got "
+                         f"shape {tuple(x.shape)}")
+    k = chunks(n, s)
+    part = torch.empty((n, k, 2, c), dtype=torch.float32, device=x.device)
+    out = torch.empty((2, n, c), dtype=torch.float32, device=x.device)
+    err = _library().tc_channel_sums(
+        x.data_ptr(), part.data_ptr(), out[0].data_ptr(), out[1].data_ptr(),
+        n, s, c, k, _DTYPES[x.dtype], _launch.stream(x))
+    _launch.raise_on_error(err, f"channel sums (N={n}, S={s}, C={c})")
+    return out[0], out[1]
+
+
+def _pallas_sums(x):
+    """The wrapper named after the TPU kernel it replaces: x (N, S, C) ->
+    fp32 (s1, s2). CPU tensors take the plain version, CUDA tensors the
+    kernel."""
+    if _launch.on_cpu("channel sums", x):
+        return _plain_sums(x)
+    _launch.refuse_grad("_pallas_sums", x)
+    out = _launch_sums(x)
+    LAUNCHES["_pallas_sums"] += 1
+    return out
+
+
+def _impl(x):
+    n, c = x.shape[0], x.shape[-1]
+    s = x[0].numel() // c if c else 0
+    if _use_kernel(s, c, _launch.is_cuda(x)):
+        return _pallas_sums(x.reshape(n, s, c).contiguous())
+    return _plain_sums(x)
+
+
+class _SumsFunction(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return _impl(x)
+
+    @staticmethod
+    def backward(ctx, g1, g2):
+        x, = ctx.saved_tensors
+        shape = (x.shape[0],) + (1,) * (x.ndim - 2) + (x.shape[-1],)
+        gx = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+        if g1 is not None:
+            gx = gx + g1.float().reshape(shape)
+        if g2 is not None:
+            gx = gx + 2.0 * x.float() * g2.float().reshape(shape)
+        return gx.to(x.dtype)
+
+
+def channel_sums(x):
+    """(N, *spatial, C) -> per-channel fp32 sums (s1, s2), each (N, C)."""
+    if _launch.needs_grad(x):
+        return _SumsFunction.apply(x)
+    return _impl(x)

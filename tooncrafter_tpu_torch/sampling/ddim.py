@@ -1,6 +1,7 @@
 """DDIM sampling with the CFG branches batched into one UNet call
 (tooncrafter_tpu/sampling/ddim.py): v -> eps, CFG rescale, dynamic rescale
-of x0, per-step noise from an explicit ``torch.Generator``."""
+of x0, per-step noise from an explicit ``torch.Generator`` (or one per
+batch item, ``utils/rngs.py``)."""
 
 from __future__ import annotations
 
@@ -13,6 +14,7 @@ import torch
 from tooncrafter_tpu_torch.ops.schedule import (DDIMSchedule,
                                                 DiffusionSchedule,
                                                 rescale_noise_cfg)
+from tooncrafter_tpu_torch.utils import rngs as R
 
 
 @dataclasses.dataclass(frozen=True)
@@ -36,12 +38,13 @@ def ddim_sample(denoiser: Callable, sched: DiffusionSchedule,
                 ddim: DDIMSchedule, x_T: torch.Tensor,
                 contexts: torch.Tensor, concat: torch.Tensor,
                 fs: torch.Tensor, guidance: GuidanceConfig,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: R.Generators = None) -> torch.Tensor:
     """Run the DDIM loop from x_T (B, T, h, w, C) fp32.
 
     ``denoiser(x, t, context, fs)`` receives the CFG-batched tensors;
     ``contexts`` stacks the branches (n, B, L, D) as [uncond, (uncond_img,)
-    cond]. Per-step noise (sigma > 0) is drawn from ``generator``."""
+    cond]. Per-step noise (sigma > 0) is drawn from ``generator``: one
+    generator for the batch, or a sequence of B, one per item."""
     n = guidance.num_branches
     b = x_T.shape[0]
     ctx_flat = contexts.reshape((n * b,) + contexts.shape[2:])
@@ -89,7 +92,6 @@ def ddim_sample(denoiser: Callable, sched: DiffusionSchedule,
             np.float32(1.0) - a_prev - sigma ** 2, np.float32(0.0)))
         x = float(np.sqrt(a_prev)) * pred_x0 + float(dir_coef) * e_t
         if sigma > 0:
-            x = x + float(sigma) * torch.randn(
-                x.shape, generator=generator, device=x.device,
-                dtype=x.dtype)
+            x = x + float(sigma) * R.normal(generator, x.shape, x.device,
+                                            x.dtype)
     return x

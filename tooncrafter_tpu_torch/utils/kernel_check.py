@@ -4,10 +4,13 @@ shapes the 320x512 path gives them (``fused_cases``) and at the 576x1024
 path's most-launched shapes (``fused_cases_1024``), and the kernels of the
 JAX package's opt-in switches (the single-stage temporal attention, the
 T-attention core, the im2col-named conv, the one-pass GroupNorm) at the
-switched 320x512 path's (``switched_cases``): the cases, the bounds, the
-times and the least time the card could take. ``chip_smoke.py`` phase 2
-runs every case; the mutation tests in ``tests/test_torch_cuda_kernels.py``
-run them against broken builds.
+switched 320x512 path's (``switched_cases``), and the kernels that no
+model reaches, driven through their op functions (``op_cases``: the dual
+cross-attention at the 512 UNet's attn2 shapes, the per-channel sums at its
+GroupNorm inputs, the ones-column flash at #2's and the 1024 attn1 shapes):
+the cases, the bounds, the times and the least time the card could take.
+``chip_smoke.py`` phase 2 runs every case; the mutation tests in
+``tests/test_torch_cuda_kernels.py`` run them against broken builds.
 
 Times. ``ms`` is the kernel's; ``plain_ms`` its plain version's on the same
 bf16 operands, which computes in fp32 (TF32 off) to state the kernel's
@@ -26,7 +29,7 @@ max|ref| anywhere, and a mean error at most 4x the mean error of rounding
 the reference itself to bf16. The per-channel sums are held against the
 sums of the kernel's own output, taken by torch in fp32: within
 STATS_REL of the sum of |y| (s1) or of y^2 (s2), a margin for summation
-order only.
+order only; #18's sums of its input the same way.
 """
 
 from __future__ import annotations
@@ -35,24 +38,28 @@ import contextlib
 import dataclasses
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from tooncrafter_tpu_torch.ops import attention as attn
+from tooncrafter_tpu_torch.ops import cross_attention as ca
 from tooncrafter_tpu_torch.ops import flash_attention as fa
 from tooncrafter_tpu_torch.ops import fused_ff as ff
 from tooncrafter_tpu_torch.ops import fused_norms as fn
 from tooncrafter_tpu_torch.ops import norms
 from tooncrafter_tpu_torch.ops import spatial_conv as sc
+from tooncrafter_tpu_torch.ops import stats as st
 from tooncrafter_tpu_torch.ops import temporal_attention as ta
 from tooncrafter_tpu_torch.ops import temporal_conv as tc
 
 # the card's published peaks (H100 SXM, dense, at a 700 W power limit)
 PEAK_BF16_FLOPS = 989e12
+PEAK_FP32_FLOPS = 67e12  # outside the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
 STATS_REL = 1e-5
 
-MODULES = (fa, ff, tc, sc, ta, fn)
+MODULES = (fa, ff, tc, sc, ta, fn, ca, st)
 SOURCES = {name: "tooncrafter_tpu_torch/csrc/" + mod.LIBRARY[1][0]
            for mod in MODULES for name in mod.LAUNCHES}
 SOURCES["_flash_bwd_bh"] = ("tooncrafter_tpu_torch/csrc/"
@@ -79,6 +86,9 @@ REPLACES = {
     "_ptc_kernel_call": "tooncrafter_tpu/ops/temporal_attention.py:89",
     "_pallas_fused_conv": "tooncrafter_tpu/ops/spatial_conv.py:117",
     "_pallas_gn": "tooncrafter_tpu/ops/fused_norms.py:88",
+    "_flash_mh_ones": "tooncrafter_tpu/ops/flash_attention.py:474",
+    "_dual_kernel_call": "tooncrafter_tpu/ops/cross_attention.py:81",
+    "_pallas_sums": "tooncrafter_tpu/ops/stats.py:55",
 }
 
 
@@ -135,11 +145,12 @@ def cuda_ms(fn: Callable[[], object], reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound(flops: float, nbytes: float) -> Tuple[float, str]:
+def bound(flops: float, nbytes: float,
+          peak: float = PEAK_BF16_FLOPS) -> Tuple[float, str]:
     """(least ms on the card, what bounds it): each input read once and
-    each output written once at the memory rate, against the products at
-    the bf16 tensor-core rate."""
-    t_ops = flops / PEAK_BF16_FLOPS * 1e3
+    each output written once at the memory rate, against the operations at
+    ``peak`` (the bf16 tensor-core rate unless given)."""
+    t_ops = flops / peak * 1e3
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     return (max(t_ops, t_bytes),
             "operations" if t_ops >= t_bytes else "bytes")
@@ -157,6 +168,7 @@ class Case:
     flops: float
     nbytes: float
     reps: Tuple[int, int]            # timing reps of kernel, plain/library
+    peak: float = PEAK_BF16_FLOPS    # the rate ``flops`` runs at
 
 
 def _stats_error(y: torch.Tensor, s1: torch.Tensor, s2: torch.Tensor,
@@ -181,21 +193,11 @@ def run_case(case: Case, stats_axes: Optional[Tuple[int, ...]] = None,
     with fp32_reference():
         ref = case.reference()
     torch.cuda.synchronize()
-    y = got[0].float()
-    err = (y - ref).abs()
-    mx, mean = err.max().item(), err.mean().item()
-    max_bound, mean_bound = fa.error_bounds(ref)
-    ok = (mx <= max_bound and mean <= mean_bound
-          and bool(torch.isfinite(y).all().item()))
-    row = {"max_abs_err": mx, "max_bound": max_bound, "mean_abs_err": mean,
-           "mean_bound": mean_bound, "ref_abs_max": ref.abs().max().item()}
-    del ref, err, y
-    if len(got) == 3:
-        row["stats_err"], stats_ok = _stats_error(got[0], got[1], got[2],
-                                                  stats_axes)
-        ok = ok and stats_ok
-    del got
-    row["ok"] = ok
+    if isinstance(ref, tuple):
+        row = _sums_row(got, ref)
+    else:
+        row = _output_row(got, ref, stats_axes)
+    del got, ref
     if timed:
         reps, plain_reps = case.reps
         row["ms"] = cuda_ms(case.kernel, reps)
@@ -204,15 +206,52 @@ def run_case(case: Case, stats_axes: Optional[Tuple[int, ...]] = None,
         with fp32_reference():
             row["library_ms"] = (None if case.library is None
                                  else cuda_ms(case.library, reps))
-    row["bound_ms"], row["bound_by"] = bound(case.flops, case.nbytes)
+    row["bound_ms"], row["bound_by"] = bound(case.flops, case.nbytes,
+                                             case.peak)
+    return row
+
+
+def _sums_row(got, ref) -> dict:
+    """#18's (s1, s2) against the fp32 sums of its input (s1, s2, sum |x|):
+    each within STATS_REL of sum |x| (s1) or of s2."""
+    (s1, s2), (r1, r2, a1) = got, ref
+    tiny = torch.finfo(torch.float32).tiny
+    e1, e2 = (s1 - r1).abs(), (s2 - r2).abs()
+    rel = max((e1 / a1.clamp_min(tiny)).max().item(),
+              (e2 / r2.clamp_min(tiny)).max().item())
+    ok = (rel <= STATS_REL and bool(torch.isfinite(s1).all().item())
+          and bool(torch.isfinite(s2).all().item()))
+    return {"max_abs_err": max(e1.max().item(), e2.max().item()),
+            "rel_err": rel, "ok": ok}
+
+
+def _output_row(got, ref, stats_axes) -> dict:
+    y = got[0].float()
+    err = (y - ref).abs()
+    mx, mean = err.max().item(), err.mean().item()
+    max_bound, mean_bound = fa.error_bounds(ref)
+    ok = (mx <= max_bound and mean <= mean_bound
+          and bool(torch.isfinite(y).all().item()))
+    row = {"max_abs_err": mx, "max_bound": max_bound, "mean_abs_err": mean,
+           "mean_bound": mean_bound, "ref_abs_max": ref.abs().max().item()}
+    if len(got) == 3:
+        row["stats_err"], stats_ok = _stats_error(got[0], got[1], got[2],
+                                                  stats_axes)
+        ok = ok and stats_ok
+    row["ok"] = ok
     return row
 
 
 def line(case: Case, row: dict) -> str:
-    s = (f"{case.name} {case.label}: max_abs_err={row['max_abs_err']:.3e} "
-         f"(bound {row['max_bound']:.3e}) mean_abs_err="
-         f"{row['mean_abs_err']:.3e} (bound {row['mean_bound']:.3e}, "
-         f"|ref| max {row['ref_abs_max']:.3e})")
+    if "rel_err" in row:
+        s = (f"{case.name} {case.label}: max_abs_err="
+             f"{row['max_abs_err']:.3e}, largest error relative to sum |x| "
+             f"(s1) or s2: {row['rel_err']:.3e} (bound {STATS_REL:.0e})")
+    else:
+        s = (f"{case.name} {case.label}: max_abs_err={row['max_abs_err']:.3e} "
+             f"(bound {row['max_bound']:.3e}) mean_abs_err="
+             f"{row['mean_abs_err']:.3e} (bound {row['mean_bound']:.3e}, "
+             f"|ref| max {row['ref_abs_max']:.3e})")
     if "stats_err" in row:
         s += f" stats_err={row['stats_err']:.3e}"
     if "ms" in row:
@@ -620,6 +659,202 @@ def fused_cases_1024(dev, seed: int = 0
     temporal conv (UNet and decoder level 0) and the pair at each level and
     the 9x16 mid block."""
     return fused_cases(dev, seed, FF_1024, TCONV_1024, CONV_1024, TPAIR_1024)
+
+
+# ---------------------------------------------------------------------------
+# the kernels no model reaches, through their op functions: dual
+# cross-attention (#17), per-channel sums (#18), the ones-column flash (#5)
+# ---------------------------------------------------------------------------
+
+# the 512 UNet's attn2 sites (2 CFG branches x 16 frames; 77 text and 16
+# image tokens): (label, Sq, C)
+ATTN2_512 = (("ds1", 2560, 320), ("ds2", 640, 640), ("ds4", 160, 1280))
+DUAL_S_IP = 0.73  # the JAX test's gate
+
+
+def dual_operands(dev, gen, sq: int, c: int, b: int = 32, lt: int = 77,
+                  li: int = 16):
+    """bf16 q (B, Sq, C), kt, vt (B, Lt, C), ki, vi (B, Li, C)."""
+    return tuple(_rnd(gen, dev, b, n, c) for n in (sq, lt, lt, li, li))
+
+
+def _sdpa_heads(t, heads: int):
+    return t.unflatten(-1, (heads, -1)).transpose(1, 2)
+
+
+def dual_cases(dev, gen, shapes=ATTN2_512) -> List[Case]:
+    """#17 through its wrapper; chain: the off route (two attentions and a
+    bf16 combine, ``_xla_dual``); library: two SDPA calls and the add."""
+    cases = []
+    for label, sq, c in shapes:
+        heads = c // ca.HEAD_DIM
+        ops = dual_operands(dev, gen, sq, c)
+        b, lt, li = ops[0].shape[0], ops[1].shape[1], ops[3].shape[1]
+
+        def library(o=ops, h=heads):
+            q = _sdpa_heads(o[0], h)
+            out = F.scaled_dot_product_attention(
+                q, _sdpa_heads(o[1], h), _sdpa_heads(o[2], h), scale=0.125)
+            return out + DUAL_S_IP * F.scaled_dot_product_attention(
+                q, _sdpa_heads(o[3], h), _sdpa_heads(o[4], h), scale=0.125)
+
+        cases.append(Case(
+            "_dual_kernel_call", f"attn2 {label} B={b} Sq={sq} C={c} "
+            f"Lt={lt} Li={li}",
+            kernel=lambda o=ops, h=heads: (ca._dual_kernel_call(
+                *o, DUAL_S_IP, h, 0.125),),
+            reference=lambda o=ops, h=heads: ca._plain_dual(
+                *(t.float() for t in o), DUAL_S_IP, h, 0.125,
+                cdt=torch.bfloat16),
+            plain=lambda o=ops, h=heads: ca._plain_dual(*o, DUAL_S_IP, h,
+                                                        0.125),
+            chain=lambda o=ops, h=heads: ca._xla_dual(*o, DUAL_S_IP, h,
+                                                      0.125),
+            library=library,
+            flops=4.0 * b * sq * (lt + li) * c,
+            nbytes=2.0 * (2 * b * sq * c + 2 * b * (lt + li) * c) + 4.0,
+            reps=(20, 3)))
+    return cases
+
+
+# the 512 UNet's GroupNorm inputs that ``ops/stats._use_kernel`` takes,
+# with their count in one UNet call (2 CFG branches x 16 frames; read off
+# the model on the meta device by tests/test_torch_stats.py), then the JAX
+# test's shape: (label, (N, S, C), count)
+STATS_512 = (
+    ("ResBlock / transformer norm ds1", (32, 2560, 320), 13),
+    ("temporal conv norm ds8", (2, 640, 1280), 29),
+    ("temporal conv norm ds1", (2, 40960, 320), 26),
+    ("temporal conv norm ds2", (2, 10240, 640), 25),
+    ("temporal conv norm ds4", (2, 2560, 1280), 25),
+    ("ResBlock / transformer norm ds2", (32, 640, 640), 11),
+    ("ResBlock skip concat ds1", (32, 2560, 640), 2),
+    ("ResBlock skip concat ds1, 960", (32, 2560, 960), 1),
+    ("ResBlock ds2 in", (32, 640, 320), 1),
+    ("ResBlock skip concat ds2, 960", (32, 640, 960), 1),
+    ("ResBlock skip concat ds2, 1280", (32, 640, 1280), 1),
+    ("ResBlock skip concat ds2, 1920", (32, 640, 1920), 1),
+    ("JAX test (2, 16, 16, 128)", (2, 256, 128), 0),
+)
+
+
+def sums_reference(x):
+    """(s1, s2, sum |x|) of x (N, S, C) in fp32."""
+    xf = x.float()
+    return xf.sum(1), xf.square().sum(1), xf.abs().sum(1)
+
+
+def stats_cases(dev, gen, shapes=STATS_512) -> List[Case]:
+    """#18 through its wrapper on bf16 (N, S, C); plain and chain: the fp32
+    sums in torch (``ops/norms.channel_sums``, the models' route); no one
+    PyTorch call returns both sums."""
+    cases = []
+    for label, (n, s, c), count in shapes:
+        x = _rnd(gen, dev, n, s, c, scale=2.0, offset=0.5)
+        cases.append(Case(
+            "_pallas_sums", f"{label} N={n} S={s} C={c} ({count} a UNet "
+            f"call)",
+            kernel=lambda x=x: st._pallas_sums(x),
+            reference=lambda x=x: sums_reference(x),
+            plain=lambda x=x: st._plain_sums(x),
+            chain=lambda x=x: (x.float().sum(1), x.float().square().sum(1)),
+            library=None,
+            flops=3.0 * n * s * c,
+            nbytes=2.0 * n * s * c + 8.0 * n * c,
+            reps=(20, 5), peak=PEAK_FP32_FLOPS))
+    return cases
+
+
+# #5 at #2's most-launched 512 shape (attn1 ds4) and at the two shapes of
+# tools/bench_attn1_1024.py: (label, B, S, C, reps)
+ONES_SHAPES = (("512 ds4 attn1 (#2's shape)", 32, 160, 1280, (50, 10)),
+               ("1024 ds2 attn1", 32, 2304, 640, (20, 3)),
+               ("1024 ds1 attn1", 32, 9216, 320, (5, 1)))
+
+
+def _chain_attention(q, k, v, heads: int):
+    """``ops.attention.dot_product_attention`` (fp32 logits, bf16 p and PV)
+    on as many images at a time as keep the logits within the plain
+    version's 2^28 scores: the unfused route at a bounded footprint."""
+    images = max(1, fa._PLAIN_SCORES // (heads * q.shape[1] * k.shape[1]))
+    split = lambda t: t.unflatten(-1, (heads, -1))
+    return torch.cat([attn.dot_product_attention(
+        split(q[i:i + images]), split(k[i:i + images]),
+        split(v[i:i + images]), scale=0.125).flatten(2)
+        for i in range(0, q.shape[0], images)])
+
+
+def ones_cases(dev, gen, shapes=ONES_SHAPES) -> List[Case]:
+    """#5 on slices of a packed projection, as attn1 gives them; library:
+    SDPA."""
+    cases = []
+    for label, b, s, c, reps in shapes:
+        heads = c // 64
+        qkv = _rnd(gen, dev, b, s, 3 * c)
+        ops = (qkv[..., :c], qkv[..., c:2 * c], qkv[..., 2 * c:])
+        cases.append(Case(
+            "_flash_mh_ones", f"{label} B={b} S={s} C={c} heads={heads}",
+            kernel=lambda o=ops, h=heads: (fa._flash_mh_ones(*o, h, 0.125),),
+            reference=lambda o=ops, h=heads: fa._plain_mh_ones(
+                *(t.float() for t in o), h, 0.125, cdt=torch.bfloat16),
+            plain=lambda o=ops, h=heads: fa._plain_mh_ones(*o, h, 0.125),
+            chain=lambda o=ops, h=heads: _chain_attention(*o, h),
+            library=lambda o=ops, h=heads: F.scaled_dot_product_attention(
+                *(_sdpa_heads(t, h) for t in o), scale=0.125),
+            flops=4.0 * b * s * s * c,
+            nbytes=2.0 * 4 * b * s * c,
+            reps=reps))
+    return cases
+
+
+def dual_pin_inputs():
+    """#17's cast point: every branch exact before the combine. Row r's
+    text attention is one-hot on key r % 64 (q, kt one-hot at 32: a score
+    gap of 184 in log2 units, so every other p is exactly 0); its image
+    attention is one-hot on key r % 64 where r % 64 < 16, else uniform over
+    the 16 keys (all scores 0). V entries are multiples of 1/128 in [-1, 1]
+    (bf16-exact), so every sum, the division by l (1 or 16) and s_ip = 0.75
+    times it are exact in fp32, with more bits than bf16 keeps: the one
+    rounding after the combine is the only one, and rounding each branch
+    first moves many outputs. Returns fp32 (bf16-exact) q, kt, vt, ki, vi
+    (B = 2, Sq = 128, C = 128), s_ip and heads."""
+    b, sq, heads, d = 2, 128, 2, 64
+    c = heads * d
+    rng = np.random.default_rng(6)
+    eye = np.eye(d, dtype=np.float32)
+    q = 32 * np.tile(eye[np.arange(sq) % d], (b, 1, heads))
+    kt = np.zeros((b, 77, c), np.float32)
+    kt[:, :d] = 32 * np.tile(eye, (1, heads))
+    ki = np.zeros((b, 16, c), np.float32)
+    ki[:, :16] = 32 * np.tile(eye[:16], (1, heads))
+    vt, vi = (rng.integers(-128, 129, size=(b, n, c)).astype(np.float32)
+              / 128 for n in (77, 16))
+    return [q.reshape(b, sq, c), kt, vt, ki, vi], 0.75, heads
+
+
+def ones_pin_inputs():
+    """#5's cast point: V = 1; row r's one top key is key r % 64 (q and k
+    one-hot), every other key scores 0, and the scale puts p = exp(-scale)
+    = 0.5 + 0.9 * 2^-9 there, which bf16 rounds down to 0.5. l = sum of
+    bf16(p) (#5's) gives exactly 1.0; the unrounded sum (#2's) gives
+    32.5 / 32.61 -> 0.99609375 in bf16. Returns fp32 q, k, v (B = 2, S =
+    128, C = 128), heads and the scale."""
+    b, s, heads, d = 2, 128, 2, 64
+    eye = np.eye(d, dtype=np.float32)
+    q = np.tile(eye[np.arange(s) % d], (b, 1, heads)).reshape(b, s, heads * d)
+    k = np.zeros((b, s, heads * d), np.float32)
+    k[:, :d] = np.tile(eye, (1, heads))
+    v = np.ones((b, s, heads * d), np.float32)
+    return q, k, v, heads, float(np.log(2.0) - np.log1p(0.9 * 2.0 ** -8))
+
+
+def op_cases(dev, seed: int = 0) -> List[Tuple[Case, Optional[tuple]]]:
+    """#17, #18 and #5 at the shapes their op functions are driven with."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    out: List[Tuple[Case, Optional[tuple]]] = []
+    for make in (dual_cases, stats_cases, ones_cases):
+        out += [(c, None) for c in make(dev, gen)]
+    return out
 
 
 # ---------------------------------------------------------------------------
