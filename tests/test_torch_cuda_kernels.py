@@ -27,6 +27,7 @@ kernels have no CPU mode, so without a card these tests skip.
     python -m pytest tests/test_torch_cuda_kernels.py --noconftest -q -s
 """
 
+import functools
 import shutil
 
 import pytest
@@ -100,7 +101,7 @@ def test_bh_kernels_with_lse(dev, d, sq, sk):
                                                                   sk)))
     sc = d ** -0.5
     out, lse = fa._flash_bh_with_lse(q, k, v, sc)
-    ref, ref_lse = fa._plain_bh(*_f(q, k, v), sc)
+    ref, ref_lse = fa._plain_bh_ones(*_f(q, k, v), sc, cdt=torch.bfloat16)
     _close(out, ref)
     torch.cuda.synchronize()
     assert (lse - ref_lse).abs().max().item() <= fa.LSE_MAX_ABS
@@ -133,7 +134,9 @@ def test_attn1_at_1024_ds2_and_ds4(dev, s, c, heads, name):
         out = fa.flash_attention_packed(qkv, heads)
     else:
         out = attn.attention(q, k, v, heads=heads)
-    _close(out, fa._plain_mh(*_f(q, k, v), heads, 0.125))
+    plain = (fa._plain_mh if name == "_flash_mh" else functools.partial(
+        fa._plain_mh_ones, cdt=torch.bfloat16))
+    _close(out, plain(*_f(q, k, v), heads, 0.125))
     assert fa.LAUNCHES[name] == 1
     assert sum(fa.LAUNCHES.values()) == 1
 
@@ -142,7 +145,8 @@ def test_flash_attention_entry_counts_one_launch(dev):
     q = _rand(dev, 9, 1, 2560, 1, 512)
     out = fa.flash_attention(q, q, q)
     q3 = q[:, :, 0].float()
-    _close(out[:, :, 0], fa._plain_bh(q3, q3, q3, 512 ** -0.5)[0])
+    _close(out[:, :, 0], fa._plain_bh_ones(q3, q3, q3, 512 ** -0.5,
+                                           cdt=torch.bfloat16)[0])
     assert fa.LAUNCHES["_flash_bh_single"] == 1
 
 
@@ -813,12 +817,63 @@ def test_ones_kernel_divides_by_the_sum_of_rounded_p(dev):
     assert (ones == 1.0).all() and (mh == 0.99609375).all()
 
 
-def test_ones_kernel_with_the_unrounded_sum_fails(dev, tmp_path,
-                                                  monkeypatch):
-    src = _broken_copy(tmp_path, "flash_attention.cu",
-                       "l_r[e >> 1] += ONES ? round_bf16(pv) : pv;",
-                       "l_r[e >> 1] += pv;")
+# the normalizer's one line in csrc/flash_attention.cu, and a build that
+# sums the unrounded p for every flag
+_ROUNDED_SUM = "return ONES ? round_bf16(p) : p;"
+
+
+def _unrounded_build(tmp_path, monkeypatch):
+    src = _broken_copy(tmp_path, "flash_attention.cu", _ROUNDED_SUM,
+                       "return p;")
     monkeypatch.setattr(fa, "_LIB", fa.bind(
         _build.load_library(*fa.LIBRARY, csrc=src)))
+
+
+def test_ones_kernel_with_the_unrounded_sum_fails(dev, tmp_path,
+                                                  monkeypatch):
+    _unrounded_build(tmp_path, monkeypatch)
     ones, _ = _ones_pin(dev)
     assert not (ones == 1.0).all()
+
+
+PIN_LSE = 4.8563027
+
+
+def _bh_pin(dev, d, monkeypatch):
+    """``kernel_check.ones_pin_inputs`` folded to (B*H, S, 64), and at
+    d = 512 padded (q, k with zeros, v with ones: the same scores), through
+    #3 (the two-pass pick forced) and #4. Returns [(out, lse)] of each and
+    asserts each counted its own launch."""
+    q, k, v, heads, scale = kc.ones_pin_inputs()
+    ts = []
+    for t, fill in ((q, 0.0), (k, 0.0), (v, 1.0)):
+        t = fa._fold_heads(torch.from_numpy(t), heads)
+        pad = torch.full((*t.shape[:2], d - 64), fill)
+        ts.append(torch.cat([t, pad], -1).to(dev).bfloat16())
+    got = [fa._flash_bh_single(*ts, scale)]
+    with monkeypatch.context() as m:
+        m.setattr(fa, "_single_pass_blk", lambda *a: 0)
+        got.append(fa._flash_bh_with_lse(*ts, scale))
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["_flash_bh_single"] == 1
+    assert fa.LAUNCHES["_flash_bh_with_lse"] == 1
+    return got
+
+
+def _pinned(out, lse):
+    return bool((out.float() == 1.0).all().item()
+                and (lse - PIN_LSE).abs().max().item() <= fa.LSE_MAX_ABS)
+
+
+@pytest.mark.parametrize("d", [64, 512])
+def test_bh_kernels_normalize_by_the_sum_of_rounded_p(dev, monkeypatch, d):
+    """#3 and #4 as the JAX kernels compute them (the CPU test pins those):
+    output exactly 1.0, lse 4.8563027 within LSE_MAX_ABS."""
+    assert all(_pinned(*r) for r in _bh_pin(dev, d, monkeypatch))
+
+
+@pytest.mark.parametrize("d", [64, 512])
+def test_bh_kernels_with_the_unrounded_sum_fail(dev, tmp_path, monkeypatch,
+                                                d):
+    _unrounded_build(tmp_path, monkeypatch)
+    assert not any(_pinned(*r) for r in _bh_pin(dev, d, monkeypatch))

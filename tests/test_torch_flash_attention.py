@@ -124,6 +124,37 @@ def test_mh_ones_normalizer_cast_point():
     assert np.array_equal(out.float().numpy(), ones)
 
 
+PIN_LSE = 4.8563027
+
+
+def test_bh_kernels_normalize_by_the_sum_of_rounded_p(monkeypatch):
+    """#3 and #4 append a block of ones to V, so l sums the bf16-rounded p
+    and the lse is m + log(l) of that sum: at ``ones_pin_inputs`` folded to
+    (B*H, S, 64) in bf16 both TPU kernels (the two-pass body forced) give
+    exactly 1.0 and an lse of 4.8563027; the unrounded sum gives an lse
+    ~3.5e-3 higher. The port's plain version matches both."""
+    q, k, v, heads, scale = kc.ones_pin_inputs()
+    folded = [fa._fold_heads(torch.from_numpy(t), heads).numpy()
+              for t in (q, k, v)]
+    jq, jk, jv = (jnp.asarray(t).astype(jnp.bfloat16) for t in folded)
+    single = jfa._flash_bh_single(jq, jk, jv, scale,
+                                  jfa._single_pass_blk(128, 128, 64))
+    monkeypatch.setattr(jfa, "_single_pass_blk", lambda *a: 0)
+    two_pass = jfa._flash_bh_with_lse(jq, jk, jv, scale)
+    for out, lse in (single, two_pass):
+        assert (np.asarray(out.astype(jnp.float32)) == 1.0).all()
+        np.testing.assert_allclose(np.asarray(lse)[..., 0], PIN_LSE,
+                                   rtol=0, atol=1e-6)
+    tq, tk, tv = (torch.from_numpy(t).bfloat16() for t in folded)
+    for wrapper in (fa._flash_bh_with_lse, fa._flash_bh_single):
+        out, lse = wrapper(tq, tk, tv, scale)
+        assert out.dtype == torch.bfloat16 and (out.float() == 1.0).all()
+        assert (lse - PIN_LSE).abs().max().item() <= fa.LSE_MAX_ABS
+    # the exact softmax's lse (#1's and #2's sum) lies outside the bound
+    _, exact = fa._plain_bh(tq, tk, tv, scale)
+    assert (exact - PIN_LSE).abs().min().item() > 10 * fa.LSE_MAX_ABS
+
+
 @pytest.mark.parametrize("sq,sk,d", [(2560, 2560, 64), (640, 640, 64),
                                      (160, 160, 64), (40960, 5120, 64),
                                      (163840, 20480, 64), (2560, 2560, 512),

@@ -10,13 +10,14 @@
 // for the batch, sequence and head axes of q, k, v and o, so the packed
 // projection and the token-major layouts are read in place, with no copy.
 //
-// Its ONES flag (entry tc_flash_fwd_ones) is the fifth, _flash_mh_ones: the
-// normalizer l sums the bf16-rounded p that the PV product consumes, where
-// the others sum the unrounded p. The TPU kernel gets that sum from the
-// matrix unit's idle output lanes by appending a block of ones to V outside
-// the kernel ((B, S, H * 2D)); here the row sum is a register add of the
-// same rounded value, rescaled with the running max exactly as the
-// accumulator is, so no [v | ones] tensor is built.
+// Its ONES flag (the entry's `ones`) gives the normalizer of the TPU
+// kernels that append a block of ones to V outside the kernel: _flash_mh_ones
+// ((B, S, H * 2D)) and the two (BH, S, D) kernels, _flash_bh_with_lse and
+// _flash_bh_single ((BH, S, 2D)). Their l sums the bf16-rounded p that the
+// PV product consumes, and their lse is m + log(l) of that sum; _flash_mh
+// and _flash_mh_packed sum the unrounded p. Here the row sum is a register
+// add of the same rounded value, rescaled with the running max exactly as
+// the accumulator is, so no [v | ones] tensor is built.
 //
 // What bounds it on the H100: at d = 64 every score costs one 64-deep
 // product on the tensor cores but also an exp2, a max and a rescale on the
@@ -75,6 +76,13 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 
 __device__ __forceinline__ float round_bf16(float v) {
   return __bfloat162float(__float2bfloat16(v));
+}
+
+// What the normalizer l adds for one p: with ONES (#3, #4, #5) the
+// bf16-rounded p that the PV product reads, else (#1, #2) p itself.
+template <bool ONES>
+__device__ __forceinline__ float norm_term(float p) {
+  return ONES ? round_bf16(p) : p;
 }
 
 __device__ __forceinline__ uint32_t ld32(const bf16* p) {
@@ -215,7 +223,7 @@ flash_fwd_kernel(const Params p) {
       for (int e = 0; e < 4; ++e) {
         const float pv = exp2f(s[j][e] - mu[e >> 1]);
         s[j][e] = pv;
-        l_r[e >> 1] += ONES ? round_bf16(pv) : pv;
+        l_r[e >> 1] += norm_term<ONES>(pv);
       }
     }
 
@@ -300,9 +308,11 @@ Params make_params(const void* q, const void* k, const void* v, void* o,
 
 // q, k, v, o: bf16 (batch, seq, heads, head_dim) with unit stride on the
 // last axis and the given element strides on the other three; lse: fp32
-// (batch * heads, sq) or null. Returns a cudaError_t code (0 on success).
-extern "C" int tc_flash_fwd(int head_dim, const void* q, const void* k,
-                            const void* v, void* o, float* lse,
+// (batch * heads, sq) or null. ones: the normalizer sums the bf16-rounded
+// p (#3, #4, #5), else the unrounded p (#1, #2). Returns a cudaError_t code
+// (0 on success).
+extern "C" int tc_flash_fwd(int head_dim, int ones, const void* q,
+                            const void* k, const void* v, void* o, float* lse,
                             long long q_sb, long long q_ss, long long q_sh,
                             long long k_sb, long long k_ss, long long k_sh,
                             long long v_sb, long long v_ss, long long v_sh,
@@ -315,26 +325,11 @@ extern "C" int tc_flash_fwd(int head_dim, const void* q, const void* k,
                                k_sh, v_sb, v_ss, v_sh, o_sb, o_ss, o_sh, heads,
                                sq, sk, scale);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (head_dim == 64) return launch<64, 64, 64>(p, batch, s);
-  if (head_dim == 512) return launch<512, 128, 32>(p, batch, s);
+  if (head_dim == 64)
+    return ones ? launch<64, 64, 64, true>(p, batch, s)
+                : launch<64, 64, 64>(p, batch, s);
+  if (head_dim == 512)
+    return ones ? launch<512, 128, 32, true>(p, batch, s)
+                : launch<512, 128, 32>(p, batch, s);
   return (int)cudaErrorInvalidValue;
-}
-
-// The same at head_dim 64 with the normalizer of _flash_mh_ones (the sum of
-// the bf16-rounded p) and no lse.
-extern "C" int tc_flash_fwd_ones(const void* q, const void* k, const void* v,
-                                 void* o, long long q_sb, long long q_ss,
-                                 long long q_sh, long long k_sb,
-                                 long long k_ss, long long k_sh,
-                                 long long v_sb, long long v_ss,
-                                 long long v_sh, long long o_sb,
-                                 long long o_ss, long long o_sh, int batch,
-                                 int heads, int sq, int sk, float scale,
-                                 void* stream) {
-  if (sq <= 0 || sk <= 0 || batch <= 0 || heads <= 0)
-    return (int)cudaErrorInvalidValue;
-  const Params p = make_params(q, k, v, o, nullptr, q_sb, q_ss, q_sh, k_sb,
-                               k_ss, k_sh, v_sb, v_ss, v_sh, o_sb, o_ss, o_sh,
-                               heads, sq, sk, scale);
-  return launch<64, 64, 64, true>(p, batch, static_cast<cudaStream_t>(stream));
 }

@@ -15,12 +15,19 @@ replace; all of them launch the one CUDA C++ kernel in
     single-pass pick of the same selector, here for D = 512.
 
 A fifth, ``_flash_mh_ones(q, k, v, heads, scale)``, is ``_flash_mh`` with
-the normalizer of the TPU kernel of that name: l sums the bf16-rounded p
-that the PV product reads (the TPU kernel appends a ones block to V to get
-that sum from its matrix unit), where the others sum the unrounded p. It
-launches the same kernel with its ONES flag, head dim 64 only; nothing in
-the JAX package dispatches to it, so no model does. It has no backward (the
-JAX function has no custom_vjp) and raises under grad on the card.
+the normalizer of the TPU kernel of that name; nothing in the JAX package
+dispatches to it, so no model does. It has no backward (the JAX function
+has no custom_vjp) and raises under grad on the card.
+
+Two normalizers: the TPU kernels that append a block of ones to V
+(``_flash_mh_ones``, ``_flash_bh_with_lse``, ``_flash_bh_single``) get the
+softmax row sum l from their matrix unit, so l sums the bf16-rounded p that
+the PV product reads, and their lse is m + log(l) of that sum;
+``_flash_mh`` and ``_flash_mh_packed`` sum the unrounded p. The kernel
+takes the choice as its ``ones`` flag, and the plain versions follow:
+``_plain_bh_ones`` (and ``_plain_mh_ones`` on it) round p to v's dtype for
+the product and l, ``_plain_bh`` is the exact softmax. In fp32 the two
+agree.
 
 The backward, ``_flash_bwd_bh`` (the TPU kernel of the same name), is the
 CUDA C++ kernel pair of ``csrc/flash_attention_bwd.cu`` (dq over query
@@ -62,6 +69,7 @@ from tooncrafter_tpu_torch.ops import _launch as _checks
 
 _KERNEL_HEAD_DIMS = (64, 512)
 _LOG2E = 1.4426950408889634
+_LN2 = 0.6931471805599453
 # rows of q processed at once by the plain version: bounds its fp32 score
 # tile (the dual-ref fusion site has 163840 x 20480 scores per head at
 # 320x512, 589824 x 73728 at 576x1024) to _PLAIN_SCORES scores per chunk
@@ -212,26 +220,38 @@ def _plain_mh(q, k, v, heads: int, scale: float):
         b, sq, c)
 
 
+def _plain_bh_ones(q, k, v, scale: float,
+                   cdt: Optional[torch.dtype] = None,
+                   chunk: int = _PLAIN_CHUNK):
+    """The ones-column kernels' function and rounding over (N, Sq, D) x
+    (N, Sk, D): one pass in the exp2 domain, p rounded to ``cdt`` (v's
+    dtype unless given) for the PV product AND for the normalizer l, fp32
+    otherwise, in chunks of query rows. Returns (out in q.dtype, lse fp32
+    (N, Sq) = (m + log2 l) ln 2 of that l)."""
+    cdt = v.dtype if cdt is None else cdt
+    chunk = max(64, min(chunk, _PLAIN_SCORES
+                        // max(1, q.shape[0] * k.shape[1])))
+    kt = k.float().transpose(1, 2)
+    vf = v.float()
+    outs, lses = [], []
+    for i in range(0, q.shape[1], chunk):
+        s = torch.matmul(q[:, i:i + chunk].float(), kt) * (scale * _LOG2E)
+        m = s.amax(-1, keepdim=True)
+        p = torch.exp2(s - m).to(cdt).float()
+        l = p.sum(-1, keepdim=True)
+        outs.append(torch.matmul(p, vf) / l)
+        lses.append(((m + torch.log2(l)) * _LN2)[..., 0])
+    return torch.cat(outs, 1).to(q.dtype), torch.cat(lses, 1)
+
+
 def _plain_mh_ones(q, k, v, heads: int, scale: float,
                    cdt: Optional[torch.dtype] = None,
                    chunk: int = _PLAIN_CHUNK):
-    """``_flash_mh_ones``'s function and rounding, token-major (B, S, H*D)
-    -> (B, Sq, H*D): one pass in the exp2 domain, p rounded to ``cdt`` (v's
-    dtype unless given) for the PV product AND for the normalizer l, fp32
-    otherwise, in chunks of query rows."""
+    """``_flash_mh_ones``'s function and rounding (``_plain_bh_ones``),
+    token-major (B, S, H*D) -> (B, Sq, H*D)."""
     b, sq, c = q.shape
-    cdt = v.dtype if cdt is None else cdt
-    qh, kh, vh = (_fold_heads(t, heads) for t in (q, k, v))
-    chunk = max(64, min(chunk, _PLAIN_SCORES
-                        // max(1, qh.shape[0] * kh.shape[1])))
-    kt = kh.float().transpose(1, 2)
-    vf = vh.float()
-    outs = []
-    for i in range(0, sq, chunk):
-        s = torch.matmul(qh[:, i:i + chunk].float(), kt) * (scale * _LOG2E)
-        p = torch.exp2(s - s.amax(-1, keepdim=True)).to(cdt).float()
-        outs.append(torch.matmul(p, vf) / p.sum(-1, keepdim=True))
-    out = torch.cat(outs, 1).to(q.dtype)
+    out, _ = _plain_bh_ones(_fold_heads(q, heads), _fold_heads(k, heads),
+                            _fold_heads(v, heads), scale, cdt, chunk)
     return out.reshape(b, heads, sq, c // heads).transpose(1, 2).reshape(
         b, sq, c)
 
@@ -292,12 +312,9 @@ _BWD_HEAD_DIM = 64
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     ll, vp = ctypes.c_longlong, ctypes.c_void_p
     lib.tc_flash_fwd.argtypes = (
-        [ctypes.c_int, vp, vp, vp, vp, vp] + [ll] * 12
+        [ctypes.c_int] * 2 + [vp] * 5 + [ll] * 12
         + [ctypes.c_int] * 4 + [ctypes.c_float, vp])
     lib.tc_flash_fwd.restype = ctypes.c_int
-    lib.tc_flash_fwd_ones.argtypes = (
-        [vp] * 4 + [ll] * 12 + [ctypes.c_int] * 4 + [ctypes.c_float, vp])
-    lib.tc_flash_fwd_ones.restype = ctypes.c_int
     return lib
 
 
@@ -342,14 +359,13 @@ def _check_operand(name: str, t: torch.Tensor, device) -> None:
 
 def _launch(q4, k4, v4, o4, lse, scale: float, ones: bool = False) -> None:
     """q4/k4/v4/o4: (B, S, H, D) bf16 views; lse: fp32 (B*H, Sq) or None.
-    ``ones``: the normalizer of ``_flash_mh_ones`` (head dim 64, no lse)."""
+    ``ones``: l sums the bf16-rounded p (#3, #4, #5), else the unrounded
+    p (#1, #2)."""
     b, sq, h, d = q4.shape
     sk = k4.shape[1]
-    if d not in ((_BWD_HEAD_DIM,) if ones else _KERNEL_HEAD_DIMS):
+    if d not in _KERNEL_HEAD_DIMS:
         raise ValueError(f"head dim {d} has no kernel build "
-                         f"({_BWD_HEAD_DIM if ones else _KERNEL_HEAD_DIMS})")
-    if ones and lse is not None:
-        raise ValueError("_flash_mh_ones returns no lse")
+                         f"({_KERNEL_HEAD_DIMS})")
     if (k4.shape != (b, sk, h, d) or v4.shape != (b, sk, h, d)
             or o4.shape != (b, sq, h, d)):
         raise ValueError(f"shape mismatch q{tuple(q4.shape)} "
@@ -368,15 +384,10 @@ def _launch(q4, k4, v4, o4, lse, scale: float, ones: bool = False) -> None:
     strides = []
     for t in (q4, k4, v4, o4):
         strides += [t.stride(0), t.stride(1), t.stride(2)]
-    if ones:
-        err = lib.tc_flash_fwd_ones(
-            q4.data_ptr(), k4.data_ptr(), v4.data_ptr(), o4.data_ptr(),
-            *strides, b, h, sq, sk, float(scale), stream)
-    else:
-        err = lib.tc_flash_fwd(
-            d, q4.data_ptr(), k4.data_ptr(), v4.data_ptr(), o4.data_ptr(),
-            None if lse is None else lse.data_ptr(), *strides,
-            b, h, sq, sk, float(scale), stream)
+    err = lib.tc_flash_fwd(
+        d, int(ones), q4.data_ptr(), k4.data_ptr(), v4.data_ptr(),
+        o4.data_ptr(), None if lse is None else lse.data_ptr(), *strides,
+        b, h, sq, sk, float(scale), stream)
     if err != 0:
         raise RuntimeError(f"flash attention kernel launch failed with CUDA "
                            f"error {err} (q{tuple(q4.shape)}, "
@@ -454,13 +465,15 @@ def _packed_views(qkv, heads: int):
 # the autograd Function
 # ---------------------------------------------------------------------------
 
-def _plain_fwd4(q4, k4, v4, scale: float):
-    """(B, S, H, D) -> (out (B, Sq, H, D), lse (B*H, Sq)), plain."""
+def _plain_fwd4(q4, k4, v4, scale: float, ones: bool = False):
+    """(B, S, H, D) -> (out (B, Sq, H, D), lse (B*H, Sq)), plain; ``ones``:
+    the rounded-p normalizer (``_plain_bh_ones``)."""
     b, sq, h, d = q4.shape
 
     def fold(t):
         return t.transpose(1, 2).reshape(b * h, t.shape[1], d)
-    out, lse = _plain_bh(fold(q4), fold(k4), fold(v4), scale)
+    out, lse = (_plain_bh_ones if ones else _plain_bh)(
+        fold(q4), fold(k4), fold(v4), scale)
     return out.reshape(b, h, sq, d).transpose(1, 2), lse
 
 
@@ -470,7 +483,10 @@ class _FlashFunction(torch.autograd.Function):
     ``heads``; the output is (B, Sq, C)), or three (B, S, H, D) tensors
     (``heads`` None; the output is (B, Sq, H, D)). Under autocast the
     operands are cast to bf16, the kernels' type; the gradients come back
-    in each input's dtype. ``name`` counts the forward launch."""
+    in each input's dtype. ``name`` counts the forward launch. The
+    (B, S, H, D) form is the TPU package's ``flash_attention``, whose
+    forward and backward run ``_flash_bh_with_lse``: the rounded-p
+    normalizer and its lse; the other two take the unrounded sum."""
 
     @staticmethod
     @torch.amp.custom_fwd(device_type="cuda", cast_inputs=torch.bfloat16)
@@ -482,8 +498,9 @@ class _FlashFunction(torch.autograd.Function):
         else:
             q4, k4, v4 = (t.unflatten(-1, (heads, -1)) for t in tensors)
         b, sq, h, d = q4.shape
+        ones = heads is None
         if _on_cpu(*tensors):
-            out4, lse = _plain_fwd4(q4, k4, v4, scale)
+            out4, lse = _plain_fwd4(q4, k4, v4, scale, ones)
         else:
             if d != _BWD_HEAD_DIM:
                 raise ValueError(
@@ -493,7 +510,7 @@ class _FlashFunction(torch.autograd.Function):
                                device=q4.device)
             lse = torch.empty((b * h, sq), dtype=torch.float32,
                               device=q4.device)
-            _launch(q4, k4, v4, out4, lse, scale)
+            _launch(q4, k4, v4, out4, lse, scale, ones)
             LAUNCHES[name] += 1
         ctx.save_for_backward(*tensors, out4, lse)
         ctx.scale, ctx.heads = scale, heads
@@ -593,12 +610,12 @@ def _flash_mh_ones(q, k, v, heads: int, scale: float):
 
 def _bh_launch(q4, k4, v4, scale: float, name: str, with_lse: bool = True):
     """q4/k4/v4: (B, S, H, D) views -> (out (B, Sq, H, D), lse (B*H, Sq) or
-    None), counted under ``name``."""
+    None), counted under ``name``: #3 or #4, the rounded-p normalizer."""
     b, sq, h, d = q4.shape
     out = torch.empty((b, sq, h, d), dtype=q4.dtype, device=q4.device)
     lse = (torch.empty((b * h, sq), dtype=torch.float32, device=q4.device)
            if with_lse else None)
-    _launch(q4, k4, v4, out, lse, scale)
+    _launch(q4, k4, v4, out, lse, scale, ones=True)
     LAUNCHES[name] += 1
     return out, lse
 
@@ -614,7 +631,7 @@ def _flash_bh_single(q, k, v, scale: float) -> Tuple[torch.Tensor,
                                                      torch.Tensor]:
     """Single-pass forward with logsumexp: (BH, S, D) -> (out, lse (BH, Sq))."""
     if _on_cpu(q, k, v):
-        return _plain_bh(q, k, v, scale)
+        return _plain_bh_ones(q, k, v, scale)
     _checks.refuse_grad("_flash_bh_single", q, k, v)
     out, lse = _bh_launch(q.unsqueeze(2), k.unsqueeze(2), v.unsqueeze(2),
                           scale, "_flash_bh_single")
@@ -630,7 +647,7 @@ def _flash_bh_with_lse(q, k, v, scale: float) -> Tuple[torch.Tensor,
     if name == "_flash_bh_single":
         return _flash_bh_single(q, k, v, scale)
     if _on_cpu(q, k, v):
-        return _plain_bh(q, k, v, scale)
+        return _plain_bh_ones(q, k, v, scale)
     _checks.refuse_grad(name, q, k, v)
     out, lse = _bh_launch(q.unsqueeze(2), k.unsqueeze(2), v.unsqueeze(2),
                           scale, name)
@@ -653,7 +670,7 @@ def flash_attention(q, k, v, scale: Optional[float] = None):
                                     q, k, v)
     if _on_cpu(q, k, v):
         fold = lambda t: t.transpose(1, 2).reshape(b * h, t.shape[1], d)
-        out, _ = _plain_bh(fold(q), fold(k), fold(v), scale)
+        out, _ = _plain_bh_ones(fold(q), fold(k), fold(v), scale)
         return out.reshape(b, h, sq, d).transpose(1, 2)
     out, _ = _bh_launch(q, k, v, scale, _bh_kernel_name(sq, sk, d),
                         with_lse=False)
