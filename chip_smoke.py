@@ -175,7 +175,8 @@ def check_kernels(dev) -> dict:
     from tooncrafter_tpu_torch.ops import flash_attention as fa
     from tooncrafter_tpu_torch.utils import kernel_check as kc
 
-    bf16 = torch.bfloat16  # #3 and #4 round p for their normalizer
+    # #3 and #4 round p for their normalizer, at the kernel's running max
+    bf16 = torch.bfloat16
     gen = torch.Generator(device=dev).manual_seed(0)
     rnd = lambda *s: torch.randn(*s, device=dev, generator=gen,
                                  dtype=torch.float32).to(torch.bfloat16)
@@ -221,7 +222,8 @@ def check_kernels(dev) -> dict:
             (fold(rnd(1, sq, 512)), fold(rnd(1, sk, 512)),
              fold(rnd(1, sk, 512))),
             lambda q, k, v: fa._flash_bh_with_lse(q, k, v, 0.125),
-            lambda q, k, v: fa._plain_bh_ones(q, k, v, 0.125, cdt=bf16),
+            lambda q, k, v: fa._plain_bh_ones(q, k, v, 0.125, cdt=bf16,
+                                              block=fa.KEY_TILE[64]),
             lambda q, k, v: sdpa(q, k, v, 0.125),
             (torch.arange(0, sq, 41, device=dev)[:4096]
              if label == "level2" else None), reps, (8, sq, sk, 64)))
@@ -232,7 +234,8 @@ def check_kernels(dev) -> dict:
             tuple(rnd(bh, 2560, 512) for _ in range(3)),
             lambda q, k, v: fa._flash_bh_with_lse(q, k, v, 512 ** -0.5),
             lambda q, k, v: fa._plain_bh_ones(q, k, v, 512 ** -0.5,
-                                            cdt=bf16),
+                                            cdt=bf16,
+                                            block=fa.KEY_TILE[512]),
             lambda q, k, v: sdpa(q, k, v, 512 ** -0.5), None, reps,
             (bh, 2560, 2560, 512)))
     # the 576x1024 path: attn1 at ds1 and ds2 (S=9216 > 4096, and 2304 %
@@ -260,8 +263,8 @@ def check_kernels(dev) -> dict:
                   (qkv[..., :1280], qkv[..., 1280:2560], qkv[..., 2560:]),
                   lambda q, k, v: fa.flash_attention(
                       heads4(q), heads4(k), heads4(v), 0.125).flatten(2),
-                  lambda q, k, v: fa._plain_mh_ones(q, k, v, 20, 0.125,
-                                                    cdt=bf16),
+                  lambda q, k, v: fa._plain_mh_ones(
+                      q, k, v, 20, 0.125, cdt=bf16, block=fa.KEY_TILE[64]),
                   lambda q, k, v: sdpa(q, k, v, 0.125, 20),
                   None, (50, 10), (32 * 20, 576, 576, 64)))
     for label, sq, sk, step, reps in (("level2", 589824, 73728, 149, (2, 1)),
@@ -271,7 +274,8 @@ def check_kernels(dev) -> dict:
             (fold(rnd(1, sq, 512)), fold(rnd(1, sk, 512)),
              fold(rnd(1, sk, 512))),
             lambda q, k, v: fa._flash_bh_with_lse(q, k, v, 0.125),
-            lambda q, k, v: fa._plain_bh_ones(q, k, v, 0.125, cdt=bf16),
+            lambda q, k, v: fa._plain_bh_ones(q, k, v, 0.125, cdt=bf16,
+                                              block=fa.KEY_TILE[64]),
             lambda q, k, v: sdpa(q, k, v, 0.125),
             torch.arange(0, sq, step, device=dev)[:4096], reps,
             (8, sq, sk, 64)))
@@ -280,7 +284,8 @@ def check_kernels(dev) -> dict:
         tuple(rnd(16, 9216, 512) for _ in range(3)),
         lambda q, k, v: fa._flash_bh_with_lse(q, k, v, 512 ** -0.5),
         lambda q, k, v: fa._plain_bh_ones(q, k, v, 512 ** -0.5,
-                                            cdt=bf16),
+                                            cdt=bf16,
+                                            block=fa.KEY_TILE[512]),
         lambda q, k, v: sdpa(q, k, v, 512 ** -0.5), None, (3, 1),
         (16, 9216, 9216, 512)))
 

@@ -30,6 +30,7 @@ kernels have no CPU mode, so without a card these tests skip.
 import functools
 import shutil
 
+import numpy as np
 import pytest
 import torch
 
@@ -101,7 +102,8 @@ def test_bh_kernels_with_lse(dev, d, sq, sk):
                                                                   sk)))
     sc = d ** -0.5
     out, lse = fa._flash_bh_with_lse(q, k, v, sc)
-    ref, ref_lse = fa._plain_bh_ones(*_f(q, k, v), sc, cdt=torch.bfloat16)
+    ref, ref_lse = fa._plain_bh_ones(*_f(q, k, v), sc, cdt=torch.bfloat16,
+                                     block=fa.KEY_TILE[d])
     _close(out, ref)
     torch.cuda.synchronize()
     assert (lse - ref_lse).abs().max().item() <= fa.LSE_MAX_ABS
@@ -135,7 +137,7 @@ def test_attn1_at_1024_ds2_and_ds4(dev, s, c, heads, name):
     else:
         out = attn.attention(q, k, v, heads=heads)
     plain = (fa._plain_mh if name == "_flash_mh" else functools.partial(
-        fa._plain_mh_ones, cdt=torch.bfloat16))
+        fa._plain_mh_ones, cdt=torch.bfloat16, block=fa.KEY_TILE[64]))
     _close(out, plain(*_f(q, k, v), heads, 0.125))
     assert fa.LAUNCHES[name] == 1
     assert sum(fa.LAUNCHES.values()) == 1
@@ -146,8 +148,77 @@ def test_flash_attention_entry_counts_one_launch(dev):
     out = fa.flash_attention(q, q, q)
     q3 = q[:, :, 0].float()
     _close(out[:, :, 0], fa._plain_bh_ones(q3, q3, q3, 512 ** -0.5,
-                                           cdt=torch.bfloat16)[0])
+                                           cdt=torch.bfloat16,
+                                           block=fa.KEY_TILE[512])[0])
     assert fa.LAUNCHES["_flash_bh_single"] == 1
+
+
+# the head-dim-64 kernel (wgmma, 128 query rows and 128 keys a tile) at
+# lengths that are not multiples of its tiles, on the packed projection's
+# strides, with the lse and with #5's normalizer
+def _flash64_checks(dev):
+    """[(label, ok)] of the d = 64 kernel against its plain version."""
+    def within(out, ref):
+        torch.cuda.synchronize()
+        err = (out.float() - ref).abs()
+        max_bound, mean_bound = fa.error_bounds(ref)
+        return (err.max().item() <= max_bound
+                and err.mean().item() <= mean_bound)
+
+    rows = []
+    qkv = _rand(dev, 150, 3, 333, 3 * 320)
+    q, k, v = qkv[..., :320], qkv[..., 320:640], qkv[..., 640:]
+    rows.append(("packed S=333", within(fa._flash_mh_packed(qkv, 5, 0.125),
+                                        fa._plain_mh(*_f(q, k, v), 5, 0.125))))
+    k2, v2 = _rand(dev, 151, 3, 200, 320), _rand(dev, 152, 3, 200, 320)
+    rows.append(("token-major Sq=333 Sk=200",
+                 within(fa._flash_mh(q, k2, v2, 5, 0.125),
+                        fa._plain_mh(*_f(q, k2, v2), 5, 0.125))))
+    rows.append(("ones Sq=333 Sk=200",
+                 within(fa._flash_mh_ones(q, k2, v2, 5, 0.125),
+                        fa._plain_mh_ones(*_f(q, k2, v2), 5, 0.125,
+                                          cdt=torch.bfloat16,
+                                          block=fa.KEY_TILE[64]))))
+    for sq, sk in ((257, 1025), (130, 1000)):  # a last tile of one key
+        qb, kb, vb = (_rand(dev, 153 + i, 4, s, 64)
+                      for i, s in enumerate((sq, sk, sk)))
+        out, lse = fa._flash_bh_with_lse(qb, kb, vb, 0.125)
+        ref, ref_lse = fa._plain_bh_ones(*_f(qb, kb, vb), 0.125,
+                                         cdt=torch.bfloat16,
+                                         block=fa.KEY_TILE[64])
+        ok = (within(out, ref)
+              and (lse - ref_lse).abs().max().item() <= fa.LSE_MAX_ABS)
+        rows.append((f"bh Sq={sq} Sk={sk} + lse", ok,
+                     (out.float() - ref).abs().max().item(),
+                     (lse - ref_lse).abs().max().item()))
+    return rows
+
+
+def test_flash64_kernel_ragged_strided_lse_and_ones(dev):
+    rows = _flash64_checks(dev)
+    assert all(r[1] for r in rows), rows
+
+
+FLASH_MUTATIONS = [
+    ("output x1.01", "inv[r] = 1.f / l_r[r];", "inv[r] = 1.01f / l_r[r];"),
+    ("skipped key tile",
+     "    if (n0 + kBN > p.sk) {  // the ragged last tile: keys past sk",
+     "    if (it == 1)\n      for (int i = 0; i < kBN / 2; ++i) sc[i] = "
+     "neg_inf();\n    if (n0 + kBN > p.sk) {"),
+]
+
+
+@pytest.mark.parametrize("what,old,new", FLASH_MUTATIONS,
+                         ids=[m[0] for m in FLASH_MUTATIONS])
+def test_mutated_flash64_kernel_fails_at_every_shape(dev, tmp_path,
+                                                     monkeypatch, what, old,
+                                                     new):
+    src = _broken_copy(tmp_path, "flash_attention.cu", old, new)
+    monkeypatch.setattr(fa, "_LIB", fa.bind(
+        _build.load_library(*fa.LIBRARY, csrc=src)))
+    rows = _flash64_checks(dev)
+    print(what, rows)
+    assert not any(r[1] for r in rows), rows
 
 
 def _fused_close(out, ref):
@@ -208,6 +279,33 @@ def test_conv_kernel_ragged_tile_and_cin_ne_cout(dev, h, w, cin, cout):
     _fused_close(y, ref)
     _sums_close(y, s1, s2, (1, 2))
     assert sc.LAUNCHES["winograd_gn_silu_conv3x3"] == 1
+
+
+@pytest.mark.parametrize("name", ["winograd_gn_silu_conv3x3",
+                                  "_pallas_fused_conv"])
+@pytest.mark.parametrize("h,w,cin,cout", [
+    (40, 64, 320, 320),    # 20 full tiles of 128 pixels
+    (20, 32, 640, 640),
+    (10, 16, 1280, 1280),  # 160 pixels: a ragged last tile of 64
+    (3, 256, 96, 160),     # W = 256 (the halo's cap); Cin not a multiple
+    (7, 9, 160, 320)])     # of the 64-channel chunk
+def test_conv_kernel_widths_chunks_and_ragged_tiles(dev, h, w, cin, cout,
+                                                    name):
+    """The wgmma conv (160 output channels and 64 or 128 pixels a block,
+    64-channel chunks) at the UNet's widths, the widest image it takes and
+    input widths that end in a half chunk, at both cast points."""
+    x = _rand(dev, 160, 2, h, w, cin)
+    a = 1 + 0.2 * _rand(dev, 161, 2, cin).float()
+    b = 0.1 * _rand(dev, 162, 2, cin).float()
+    weight = _rand(dev, 163, cout, cin, 3, 3) * (9 * cin) ** -0.5
+    bias, res = _rand(dev, 164, cout), _rand(dev, 165, 2, h, w, cout)
+    y, s1, s2 = getattr(sc, name)(x, a, b, weight, bias, res, stats=True)
+    ref = sc._plain_conv3x3(x.float(), a, b, *_f(weight, bias, res), True,
+                            False, cdt=torch.bfloat16,
+                            round_first=name != "_pallas_fused_conv")
+    _fused_close(y, ref)
+    _sums_close(y, s1, s2, (1, 2))
+    assert sc.LAUNCHES[name] == 1
 
 
 @pytest.mark.parametrize("t,p,c", [(16, 37, 320), (4, 21, 512),
@@ -271,8 +369,7 @@ def test_f24_named_conv_at_its_1024_shape(dev):
 
 
 # (what is broken, the library's source, the file edited, text replaced,
-#  replacement); the two convolutions share csrc/implicit_gemm.cuh, and the
-#  edited copy is built into the one library under test
+#  replacement); the edited copy is built into the one library under test
 _IGEMM = "implicit_gemm.cuh"
 MUTATIONS = [
     ("output x1.01", "fused_ff.cu", "fused_ff.cu", "pack_bf16(y0, y1)",
@@ -281,13 +378,21 @@ MUTATIONS = [
      "for (int j0 = 0; j0 < p.d; j0 += DK) {",
      "for (int j0 = 0; j0 < p.d; j0 += DK) {\n    if (j0 == DK) continue;"),
 ] + [
-    m for src in ("temporal_conv.cu", "gn_silu_conv3x3.cu") for m in (
-        ("output x1.01", src, _IGEMM, "pack_bf16(y0, y1)",
-         "pack_bf16(1.01f * y0, 1.01f * y1)"),
-        ("skipped K chunk", src, _IGEMM, "const bool ok = n < p.cout;",
-         "const bool ok = n < p.cout && !(tap == 1 && k0 == kBK);"),
-        ("wrong stats", src, _IGEMM, "p.s2[o] = sStat[2 * BN + c]",
-         "p.s2[o] = sStat[0 * BN + c]"))
+    ("output x1.01", "temporal_conv.cu", _IGEMM, "pack_bf16(y0, y1)",
+     "pack_bf16(1.01f * y0, 1.01f * y1)"),
+    ("skipped K chunk", "temporal_conv.cu", _IGEMM,
+     "const bool ok = n < p.cout;",
+     "const bool ok = n < p.cout && !(tap == 1 && k0 == kBK);"),
+    ("wrong stats", "temporal_conv.cu", _IGEMM, "p.s2[o] = sStat[2 * BN + c]",
+     "p.s2[o] = sStat[0 * BN + c]"),
+    # the 3x3 conv: its own source since the wgmma redesign
+    ("output x1.01", "gn_silu_conv3x3.cu", "gn_silu_conv3x3.cu",
+     "pack_bf16(y0, y1)", "pack_bf16(1.01f * y0, 1.01f * y1)"),
+    ("skipped K chunk", "gn_silu_conv3x3.cu", "gn_silu_conv3x3.cu",
+     "sm90::wgmma_m64n160k16_rs<0>(acc,",
+     "if (!(c == 1 && tap == 1)) sm90::wgmma_m64n160k16_rs<0>(acc,"),
+    ("wrong stats", "gn_silu_conv3x3.cu", "gn_silu_conv3x3.cu",
+     "p.s2[o] = r2;", "p.s2[o] = r1;"),
 ] + [
     ("output x1.01", "temporal_attention.cu", "temporal_attention.cu",
      "p.out + row * p.c + col) =\n                  pack_bf16(y0, y1);",
@@ -423,8 +528,8 @@ def test_im2col_named_conv_with_the_ref_cast_point_fails(dev, tmp_path,
             shutil.copy(f, tmp_path / f.name)
     src = tmp_path / "gn_silu_conv3x3.cu"
     text = src.read_text()
-    assert text.count("false>(q, s)") == 2
-    src.write_text(text.replace("false>(q, s)", "true>(q, s)"))
+    assert text.count("false>(q, wt, n, s)") == 2
+    src.write_text(text.replace("false>(q, wt, n, s)", "true>(q, wt, n, s)"))
     built = _build.load_library(*sc.LIBRARY, csrc=tmp_path)
     monkeypatch.setattr(sc, "_LIB", sc.bind(built))
     assert not _same_cast_point(*_identity_conv(dev))
@@ -453,7 +558,7 @@ SWITCHED_MUTATIONS = [
     ("_ptc_kernel_call", "temporal_ptc.cu",
      "l[j] = round_bf16(l[j] / den);",
      "l[j] = round_bf16(1.01f * l[j] / den);"),
-    ("_pallas_fused_conv", _IGEMM,
+    ("_pallas_fused_conv", "gn_silu_conv3x3.cu",
      "    if (silu) {\n      z0 = fast_silu(z0);",
      "    if (silu && kRoundFirst) {\n      z0 = fast_silu(z0);"),
     ("_pallas_gn", "group_norm_silu.cu",
@@ -817,14 +922,19 @@ def test_ones_kernel_divides_by_the_sum_of_rounded_p(dev):
     assert (ones == 1.0).all() and (mh == 0.99609375).all()
 
 
-# the normalizer's one line in csrc/flash_attention.cu, and a build that
-# sums the unrounded p for every flag
-_ROUNDED_SUM = "return ONES ? round_bf16(p) : p;"
+# where csrc/flash_attention.cu takes the rounded sum: the head-dim-64
+# kernel's ones column and the d = 512 kernel's row sum; a build that sums
+# the unrounded p for every flag takes neither
+_ROUNDED_SUM = (("constexpr bool kOnesColumn = ONES;",
+                 "constexpr bool kOnesColumn = ONES && false;"),
+                ("return ONES ? round_bf16(p) : p;", "return p;"))
 
 
 def _unrounded_build(tmp_path, monkeypatch):
-    src = _broken_copy(tmp_path, "flash_attention.cu", _ROUNDED_SUM,
-                       "return p;")
+    src = _broken_copy(tmp_path, "flash_attention.cu", *_ROUNDED_SUM[0])
+    text = (src / "flash_attention.cu").read_text()
+    assert text.count(_ROUNDED_SUM[1][0]) == 1
+    (src / "flash_attention.cu").write_text(text.replace(*_ROUNDED_SUM[1]))
     monkeypatch.setattr(fa, "_LIB", fa.bind(
         _build.load_library(*fa.LIBRARY, csrc=src)))
 
@@ -842,9 +952,17 @@ PIN_LSE = 4.8563027
 def _bh_pin(dev, d, monkeypatch):
     """``kernel_check.ones_pin_inputs`` folded to (B*H, S, 64), and at
     d = 512 padded (q, k with zeros, v with ones: the same scores), through
-    #3 (the two-pass pick forced) and #4. Returns [(out, lse)] of each and
-    asserts each counted its own launch."""
+    #3 (the two-pass pick forced) and #4. Row r's top key is key r % 64, in
+    the kernel's first key tile at d = 64 (128 keys); at d = 512 (32-key
+    tiles) q is one-hot at r % 32 instead, so there too the running max is
+    the row's max from the first tile on, as in the TPU kernels' one step
+    over these 128 keys, and only the normalizer's cast point shows (the
+    lse does not depend on which key is on top). Returns [(out, lse)] of
+    each and asserts each counted its own launch."""
     q, k, v, heads, scale = kc.ones_pin_inputs()
+    top = min(64, fa.KEY_TILE[d])
+    q = np.tile(np.eye(64, dtype=np.float32)[np.arange(q.shape[1]) % top],
+                (q.shape[0], 1, heads))
     ts = []
     for t, fill in ((q, 0.0), (k, 0.0), (v, 1.0)):
         t = fa._fold_heads(torch.from_numpy(t), heads)

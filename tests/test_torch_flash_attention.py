@@ -155,6 +155,42 @@ def test_bh_kernels_normalize_by_the_sum_of_rounded_p(monkeypatch):
     assert (exact - PIN_LSE).abs().min().item() > 10 * fa.LSE_MAX_ABS
 
 
+@pytest.mark.parametrize("sk,block", [(300, 128), (129, 128), (700, 32),
+                                      (64, 128)])
+def test_rounded_reference_follows_the_kernels_running_max(sk, block):
+    """``_plain_bh_ones`` with ``block``: each key's p rounded to bf16 at the
+    running max of the key tiles read so far, l and the output rescaled to
+    the final max, as an online-softmax loop over tiles of ``block`` keys
+    computes them (the kernels' key tiles, ``KEY_TILE``); at most a few fp32
+    ulps apart. Without ``block``, p is rounded at the max of all keys."""
+    q, k, v = (torch.from_numpy(_rand(30 + i, 2, n, 64)).bfloat16().float()
+               for i, n in enumerate((77, sk, sk)))
+    s2 = 0.125 * 1.4426950408889634
+    s = q @ k.transpose(1, 2) * s2
+    m = torch.full((2, 77), -float("inf"))
+    l = torch.zeros(2, 77)
+    acc = torch.zeros(2, 77, 64)
+    for n0 in range(0, sk, block):
+        t = s[..., n0:n0 + block]
+        mn = torch.maximum(m, t.amax(-1))
+        corr = torch.exp2(m - mn)
+        p = torch.exp2(t - mn[..., None]).bfloat16().float()
+        l = l * corr + p.sum(-1)
+        acc = acc * corr[..., None] + p @ v[:, n0:n0 + block]
+        m = mn
+    out, lse = fa._plain_bh_ones(q, k, v, 0.125, cdt=torch.bfloat16,
+                                 block=block)
+    torch.testing.assert_close(lse, (m + torch.log2(l)) * np.log(2),
+                               rtol=0, atol=2e-6)
+    torch.testing.assert_close(out.float(), acc / l[..., None], rtol=0,
+                               atol=2e-6)
+    assert fa.KEY_TILE == {64: 128, 512: 32}
+    # one tile (or all keys at once): the global max
+    whole = fa._plain_bh_ones(q, k, v, 0.125, cdt=torch.bfloat16)
+    tiled = fa._plain_bh_ones(q, k, v, 0.125, cdt=torch.bfloat16, block=sk)
+    assert torch.equal(whole[1], tiled[1])
+
+
 @pytest.mark.parametrize("sq,sk,d", [(2560, 2560, 64), (640, 640, 64),
                                      (160, 160, 64), (40960, 5120, 64),
                                      (163840, 20480, 64), (2560, 2560, 512),

@@ -140,3 +140,19 @@ def test_gn_affine_with_shift_matches_group_norm_of_the_shifted_input():
         torch.from_numpy(got), norms.group_norm(
             xt, torch.from_numpy(gw), torch.from_numpy(gb), 32, 1e-5,
             shift=torch.from_numpy(e)), rtol=0, atol=4e-5)
+
+
+@pytest.mark.parametrize("h,w,bm,tiles", [
+    (40, 64, 128, 20), (20, 32, 128, 5), (10, 16, 64, 3), (5, 8, 64, 1),
+    (72, 128, 128, 72), (36, 64, 128, 18), (18, 32, 64, 9), (9, 16, 64, 3),
+    (3, 256, 128, 6)])
+def test_conv_tiles_and_sums_per_tile(h, w, bm, tiles):
+    """The conv kernel's pixel tile at the UNet's levels of both models and
+    its widest image: 128 pixels a block (two wgmma warpgroups) where that
+    divides them or they are many, else 64 (one); the sums come per tile,
+    (N, tiles, Cout), and the wrapper adds them over the tiles."""
+    from tooncrafter_tpu_torch.ops import _launch
+
+    assert sc.conv_tiles(h, w) == (bm, tiles)
+    assert _launch.pixel_tile(h * w) == bm
+    assert sc._CIN_CHUNK == 32 and sc._MAX_WIDTH == 256

@@ -43,6 +43,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "sm90.cuh"
+
 namespace {
 
 typedef __nv_bfloat16 bf16;
@@ -79,10 +81,18 @@ __device__ __forceinline__ float round_bf16(float v) {
 }
 
 // What the normalizer l adds for one p: with ONES (#3, #4, #5) the
-// bf16-rounded p that the PV product reads, else (#1, #2) p itself.
+// bf16-rounded p that the PV product reads, else (#1, #2) p itself. (The
+// head-dim-64 kernel also hands this value on to the PV product, whose
+// packing to bf16 rounds it: exact where it is rounded already.)
 template <bool ONES>
 __device__ __forceinline__ float norm_term(float p) {
   return ONES ? round_bf16(p) : p;
+}
+
+__device__ __forceinline__ float ex2(float x) {  // 2^x, ex2.approx (ftz)
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 __device__ __forceinline__ uint32_t ld32(const bf16* p) {
@@ -281,6 +291,312 @@ int launch(const Params& p, int batch, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// head dim 64: wgmma with a TMA-fed K/V ring
+// ---------------------------------------------------------------------------
+
+namespace wg {
+
+constexpr int kD = 64;
+constexpr int kBM = 128;              // query rows a block: two warpgroups
+constexpr int kBN = 128;              // keys a tile
+constexpr int kStages = 3;            // the K/V ring
+constexpr int kConsumers = kBM / 64;  // warpgroups running products
+constexpr int kThreads = (kConsumers + 1) * 128;
+constexpr int kTile = kBN * kD * 2;   // bytes of a K or V tile (= a Q tile)
+
+struct Smem {  // 1024-byte aligned: every tile is a whole number of atoms
+  bf16 q[kBM * kD];
+  bf16 k[kStages][kBN * kD];
+  bf16 v[kStages][2][kBN * kD];  // V, then a tile of ones (the ones column)
+  uint64_t q_full;
+  uint64_t k_full[kStages];
+  uint64_t v_full[kStages];
+  uint64_t empty[kStages];
+};
+constexpr int kSmemBytes = (int)sizeof(Smem) + 1024;
+
+// Warpgroups 0 .. kConsumers - 1 each own 64 query rows; the last
+// warpgroup's first thread issues the TMA loads (Q once, then K and V of
+// every key tile into the ring), the rest of it idles.
+template <bool ONES>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_fwd_wgmma(const Params p, const __grid_constant__ CUtensorMap tm_q,
+                const __grid_constant__ CUtensorMap tm_k,
+                const __grid_constant__ CUtensorMap tm_v) {
+  extern __shared__ unsigned char smem_raw[];
+  Smem& sm = *reinterpret_cast<Smem*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  const int tid = threadIdx.x;
+  const int wgi = tid / 128;
+  const int m0 = blockIdx.x * kBM;
+  const int bh = blockIdx.y;
+  const int b = bh / p.heads;
+  const int h = bh % p.heads;
+  const int n_tiles = (p.sk + kBN - 1) / kBN;
+
+  if (tid == 0) {
+    sm90::mbar_init(&sm.q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      sm90::mbar_init(&sm.k_full[s], 1);
+      sm90::mbar_init(&sm.v_full[s], 1);
+      sm90::mbar_init(&sm.empty[s], kConsumers * 4);  // one per warp
+    }
+    sm90::mbar_fence_init();
+  }
+  __syncthreads();
+
+  // the normalizer of ONES: the PV product's extra 8 columns, whose B is a
+  // tile of ones kTile bytes past each V tile (the descriptor's leading
+  // offset), sum the bf16 p that the product reads and are rescaled with
+  // the accumulator; otherwise the threads sum the unrounded p
+  constexpr bool kOnesColumn = ONES;
+  constexpr int kDV = kOnesColumn ? kD + 8 : kD;  // accumulator columns
+
+  if (wgi == kConsumers) {  // the producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (tid == kConsumers * 128) {
+      sm90::mbar_expect_tx(&sm.q_full, kBM * kD * 2);
+      sm90::tma_load_4d(sm.q, &tm_q, &sm.q_full, 0, h, m0, b);
+      for (int it = 0; it < n_tiles; ++it) {
+        const int s = it % kStages;
+        sm90::mbar_wait(&sm.empty[s], ((it / kStages) & 1) ^ 1);
+        sm90::mbar_expect_tx(&sm.k_full[s], kTile);
+        sm90::tma_load_4d(sm.k[s], &tm_k, &sm.k_full[s], 0, h, it * kBN, b);
+        sm90::mbar_expect_tx(&sm.v_full[s], kTile);
+        sm90::tma_load_4d(sm.v[s][0], &tm_v, &sm.v_full[s], 0, h, it * kBN,
+                          b);
+      }
+    }
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+
+  const int lane = tid & 31;
+  const int warp = (tid >> 5) & 3;  // within the warpgroup
+  const int g = lane >> 2, t = lane & 3;
+  bf16* q_tile = sm.q + wgi * 64 * kD;
+  const uint64_t desc_q = sm90::desc_sw128(q_tile);
+  const float sl2 = p.scale_log2;
+
+  if constexpr (kOnesColumn) {  // the ones tiles, read by wgmma
+    for (int s = 0; s < kStages; ++s) {
+      uint4* ones = reinterpret_cast<uint4*>(sm.v[s][1]);
+      for (int i = tid; i < kTile / 16; i += kConsumers * 128)
+        ones[i] = make_uint4(0x3f803f80u, 0x3f803f80u, 0x3f803f80u,
+                             0x3f803f80u);  // bf16 1.0
+    }
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    asm volatile("bar.sync 15, %0;\n" ::"n"(kConsumers * 128) : "memory");
+  }
+
+  float o_acc[kDV / 2];
+#pragma unroll
+  for (int i = 0; i < kDV / 2; ++i) o_acc[i] = 0.f;
+  float m_r[2] = {neg_inf(), neg_inf()};  // running max of the raw scores
+  float l_r[2] = {0.f, 0.f};  // without the ones column: this thread's sums
+  float sc[kBN / 2];                      // S, then p, of the current tile
+  uint32_t pa[kBN / 16][4];               // the previous tile's p, bf16
+
+  // S = Q K^T of tile `it` into sc: 64 x 128, K-major from both tiles
+  auto issue_s = [&](int it) {
+    const int s = it % kStages;
+    sm90::mbar_wait(&sm.k_full[s], (it / kStages) & 1);
+    const uint64_t desc_k = sm90::desc_sw128(sm.k[s]);
+    sm90::fence_regs(sc);
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kD / 16; ++kk)
+      sm90::wgmma_m64n128k16_ss<0>(sc, sm90::desc_add(desc_q, 32 * kk),
+                                   sm90::desc_add(desc_k, 32 * kk), kk > 0);
+    sm90::wgmma_commit();
+  };
+  // O (+ the ones column) += P V of tile `it` (pa): V's tile key-major,
+  // read MN-major (the transpose flag)
+  auto issue_pv = [&](int it) {
+    const int s = it % kStages;
+    sm90::mbar_wait(&sm.v_full[s], (it / kStages) & 1);
+    const uint64_t desc_v = sm90::desc_sw128(sm.v[s][0], 1024, kTile);
+    sm90::fence_regs(o_acc);
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kBN / 16; ++kk) {
+      if constexpr (kOnesColumn)
+        sm90::wgmma_m64n72k16_rs<1>(o_acc, pa[kk],
+                                    sm90::desc_add(desc_v, 2048 * kk), 1);
+      else
+        sm90::wgmma_m64n64k16_rs<1>(o_acc, pa[kk],
+                                    sm90::desc_add(desc_v, 2048 * kk), 1);
+    }
+    sm90::wgmma_commit();
+  };
+  // the online softmax of tile `it` in sc (sc[4j + e]: row g + 8 (e / 2),
+  // key 8j + 2t + (e % 2) of the tile), in the exp2 domain: p in place,
+  // the rows' new max (and without the ones column l rescaled and added
+  // to); returns the factor that rescales O to the new max
+  auto softmax = [&](int it, float (&corr)[2]) {
+    const int n0 = it * kBN;
+    if (n0 + kBN > p.sk) {  // the ragged last tile: keys past sk
+#pragma unroll
+      for (int j = 0; j < kBN / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (n0 + 8 * j + 2 * t + (e & 1) >= p.sk) sc[4 * j + e] = neg_inf();
+    }
+    float mx[2] = {m_r[0], m_r[1]};
+#pragma unroll
+    for (int j = 0; j < kBN / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], sc[4 * j + e]);
+    float ms[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      corr[r] = ex2((m_r[r] - mx[r]) * sl2);  // 0 on the first tile
+      m_r[r] = mx[r];
+      ms[r] = mx[r] * sl2;
+      if constexpr (!kOnesColumn) l_r[r] *= corr[r];
+    }
+#pragma unroll
+    for (int j = 0; j < kBN / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float pv = ex2(fmaf(sc[4 * j + e], sl2, -ms[e >> 1]));
+        sc[4 * j + e] = pv;
+        if constexpr (!kOnesColumn) l_r[e >> 1] += pv;
+      }
+  };
+  auto pack_p = [&]() {  // sc -> pa, in the A-fragment order of PV
+#pragma unroll
+    for (int kk = 0; kk < kBN / 16; ++kk) {
+      pa[kk][0] = pack_bf16(sc[8 * kk + 0], sc[8 * kk + 1]);
+      pa[kk][1] = pack_bf16(sc[8 * kk + 2], sc[8 * kk + 3]);
+      pa[kk][2] = pack_bf16(sc[8 * kk + 4], sc[8 * kk + 5]);
+      pa[kk][3] = pack_bf16(sc[8 * kk + 6], sc[8 * kk + 7]);
+    }
+  };
+  auto release = [&](int it) {
+    if (lane == 0) sm90::mbar_arrive(&sm.empty[it % kStages]);
+  };
+
+  sm90::mbar_wait(&sm.q_full, 0);
+  float corr[2];
+  issue_s(0);
+  sm90::wgmma_wait<0>();
+  sm90::fence_regs(sc);
+  softmax(0, corr);
+  pack_p();
+  // tile it's S runs on the tensor cores, then tile it - 1's PV, while
+  // this warpgroup's softmax of tile it waits only for the S
+  for (int it = 1; it < n_tiles; ++it) {
+    issue_s(it);
+    issue_pv(it - 1);
+    sm90::wgmma_wait<1>();
+    sm90::fence_regs(sc);
+    softmax(it, corr);
+    sm90::wgmma_wait<0>();
+    sm90::fence_regs(o_acc);
+    sm90::fence_regs(pa);
+#pragma unroll
+    for (int j = 0; j < kDV / 8; ++j) {
+      o_acc[4 * j + 0] *= corr[0];
+      o_acc[4 * j + 1] *= corr[0];
+      o_acc[4 * j + 2] *= corr[1];
+      o_acc[4 * j + 3] *= corr[1];
+    }
+    release(it - 1);
+    pack_p();
+  }
+  issue_pv(n_tiles - 1);
+  sm90::wgmma_wait<0>();
+  sm90::fence_regs(o_acc);
+  sm90::fence_regs(pa);
+  release(n_tiles - 1);
+
+  float inv[2];  // every row has a valid key 0: l >= 1
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if constexpr (kOnesColumn) {
+      l_r[r] = o_acc[kD / 2 + 2 * r];  // column kD + 2t of row g + 8r
+    } else {
+      l_r[r] += __shfl_xor_sync(0xffffffffu, l_r[r], 1);
+      l_r[r] += __shfl_xor_sync(0xffffffffu, l_r[r], 2);
+    }
+    inv[r] = 1.f / l_r[r];
+  }
+  // the output tile through this warpgroup's (consumed) Q tile: 16-byte
+  // chunk c of row r at chunk c ^ (r % 8), then 16-byte rows out
+  uint4* stage = reinterpret_cast<uint4*>(q_tile);
+  const int row0 = warp * 16 + g;
+#pragma unroll
+  for (int j = 0; j < kD / 8; ++j) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + 8 * r;
+      uint32_t* dst = reinterpret_cast<uint32_t*>(stage + row * 8 + (j ^ (row & 7)));
+      dst[t] = pack_bf16(o_acc[4 * j + 2 * r] * inv[r],
+                         o_acc[4 * j + 2 * r + 1] * inv[r]);
+    }
+  }
+  asm volatile("bar.sync %0, 128;\n" ::"r"(wgi + 1) : "memory");
+  bf16* ob = p.o + b * p.o_sb + h * p.o_sh;
+  const int tw = tid & 127;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = (tw >> 3) + 16 * i;
+    const int c = tw & 7;
+    const int qrow = m0 + wgi * 64 + row;
+    if (qrow < p.sq)
+      *reinterpret_cast<uint4*>(ob + (long long)qrow * p.o_ss + 8 * c) =
+          stage[row * 8 + (c ^ (row & 7))];
+  }
+  if (p.lse != nullptr && t == 0) {
+    float* lse = p.lse + (long long)bh * p.sq;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int qrow = m0 + wgi * 64 + row0 + 8 * r;
+      if (qrow < p.sq) lse[qrow] = (m_r[r] * sl2 + log2f(l_r[r])) * kLn2;
+    }
+  }
+}
+
+// tensor maps of a (batch, seq, heads, 64) view: dims innermost first
+// (64, heads, seq, batch), boxes of one head's `rows` rows
+int make_map(CUtensorMap* map, const bf16* base, long long sb, long long ss,
+             long long sh, int heads, int seq, int batch, int rows) {
+  const uint64_t dims[4] = {(uint64_t)kD, (uint64_t)heads, (uint64_t)seq,
+                            (uint64_t)batch};
+  const uint64_t strides[3] = {(uint64_t)sh * 2, (uint64_t)ss * 2,
+                               (uint64_t)sb * 2};
+  const uint32_t box[4] = {kD, 1, (uint32_t)rows, 1};
+  return sm90_host::make_map(map, base, 4, dims, strides, box);
+}
+
+template <bool ONES>
+int launch(const Params& p, int batch, cudaStream_t stream) {
+  CUtensorMap tq, tk, tv;
+  int err = make_map(&tq, p.q, p.q_sb, p.q_ss, p.q_sh, p.heads, p.sq, batch,
+                     kBM);
+  if (!err)
+    err = make_map(&tk, p.k, p.k_sb, p.k_ss, p.k_sh, p.heads, p.sk, batch,
+                   kBN);
+  if (!err)
+    err = make_map(&tv, p.v, p.v_sb, p.v_ss, p.v_sh, p.heads, p.sk, batch,
+                   kBN);
+  if (err) return err;
+  cudaError_t e = cudaFuncSetAttribute(
+      flash_fwd_wgmma<ONES>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kSmemBytes);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((p.sq + kBM - 1) / kBM, batch * p.heads);
+  flash_fwd_wgmma<ONES><<<grid, kThreads, kSmemBytes, stream>>>(p, tq, tk,
+                                                               tv);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace wg
+
 Params make_params(const void* q, const void* k, const void* v, void* o,
                    float* lse, long long q_sb, long long q_ss, long long q_sh,
                    long long k_sb, long long k_ss, long long k_sh,
@@ -326,8 +642,7 @@ extern "C" int tc_flash_fwd(int head_dim, int ones, const void* q,
                                sq, sk, scale);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (head_dim == 64)
-    return ones ? launch<64, 64, 64, true>(p, batch, s)
-                : launch<64, 64, 64>(p, batch, s);
+    return ones ? wg::launch<true>(p, batch, s) : wg::launch<false>(p, batch, s);
   if (head_dim == 512)
     return ones ? launch<512, 128, 32, true>(p, batch, s)
                 : launch<512, 128, 32>(p, batch, s);

@@ -9,49 +9,412 @@
 //
 // The halo outside the image contributes 0: the zero of z, not silu(B).
 //
-// Replaces the TPU kernel tooncrafter_tpu/ops/winograd.py::
-// winograd_gn_silu_conv3x3 (F(2x2,3x3) Winograd), its F(2x4) twin and, with
-// the prologue at the fp32 cast point (round_first 0), the im2col kernel
+// Replaces the TPU kernels tooncrafter_tpu/ops/winograd.py::
+// winograd_gn_silu_conv3x3 (F(2x2,3x3) Winograd), its F(2x4) twin
+// winograd24_gn_silu_conv3x3 and, with the prologue at the fp32 cast point
+// (round_first 0: one rounding, after the SiLU), the im2col kernel
 // tooncrafter_tpu/ops/spatial_conv.py::_pallas_fused_conv. This is a direct
-// implicit GEMM instead (implicit_gemm.cuh): M = the pixels of one image,
-// N = Cout, K = 9 * Cin (tap-major, then input channel). The function is the
-// same; the Winograd transform was the TPU's way to spend fewer MXU
-// multiplies where its direct conv ran at 71-98% of peak, and it rounds its
-// transformed tiles to bf16, which a direct product does not. The TPU
-// dispatched it only on an allowlist of shapes that Mosaic could lower (cin
-// % 128, not the 40x64 level); this kernel runs at every 3x3 conv of the
-// UNet's ResBlocks.
+// implicit GEMM instead: M = the pixels of one image, N = Cout, K = 9 * Cin
+// (per 64-channel chunk, the nine taps). The function is the same; the
+// Winograd transform was the TPU's way to spend fewer MXU multiplies, and
+// it rounds its transformed tiles to bf16, which a direct product does not.
 //
 // What bounds it on the H100: 2 * 9 * Cin operations per output element
-// against ~4 bytes in and out per pixel and channel: at Cin >= 320 well
-// above ~295 operations per byte, so the tensor cores bound it. What the
-// fused form saves: the normalised, activated z never reaches device
-// memory (the plain form writes and reads it, plus an fp32 copy for the
-// norm), and the residual add and the next norm's statistics ride the
-// epilogue. Each block activates each input element of its halo once per
-// 32-channel chunk, and its nine taps read that halo shifted.
+// against ~4 bytes in and out per pixel and channel: at Cin >= 320 far above
+// the card's ~295 operations per byte, so the tensor cores bound it, and
+// only wgmma reaches their rate. What the fused form saves: the normalised,
+// activated z never reaches device memory, and the residual add and the
+// next norm's statistics ride the epilogue.
+//
+// Design (one block per (pixel tile of BM = 64 or 128, Cout tile of BN =
+// 160, image); every UNet width is a multiple of 160):
+//   * BM / 64 consumer warpgroups, each a 64-row wgmma tile, its fp32
+//     accumulator in registers; B (the weight, (Cout, 9, Cin), K-major)
+//     from shared memory through a descriptor, A from registers;
+//   * the weight tile of each (chunk, tap) is brought by TMA (128-byte
+//     swizzle) into a ring of 2-4 stages on mbarriers by one producer
+//     thread, up to the ring's depth ahead of the products;
+//   * each 64-channel chunk's halo (BM + 2W + 2 source pixels, rows padded
+//     to 144 bytes so ldmatrix reads them conflict-free) is copied by seven
+//     helper warps with cp.async (all of a chunk's loads in flight at once)
+//     into a ring of three buffers (two at W > 128) and activated there in
+//     place, once, so the next chunks land and are activated while the
+//     current chunk's nine taps run; setmaxnreg moves the helpers'
+//     registers to the consumers;
+//   * each tap reads the halo shifted by dy * W + dx with ldmatrix into
+//     the A fragments and zeroes the rows whose source lies past the
+//     image's left or right edge (in the linear pixel order those are
+//     pixels of the neighbouring row; sources above or below the image are
+//     the halo's zero rows). A shared-memory descriptor cannot start a
+//     view at any row of a swizzled tile; a plain (unswizzled) tile can,
+//     but wgmma read it 1.5-2.5x slower than this (PERF.md, PR 7). The
+//     next tap's fragments load while the current tap's products run.
+// The sums of the epilogue are reduced over each warp's rows by shuffles,
+// then over the warps in a fixed order: deterministic, no atomics.
 
-#include "implicit_gemm.cuh"
+#include <cuda_runtime.h>
+
+#include "mma_bf16.cuh"
+#include "sm90.cuh"
 
 namespace {
 
-using igemm::Params;
+constexpr int kBN = 160;        // output channels a block
+constexpr int kKC = 64;         // input channels a chunk
+constexpr int kHaloLd = 72;     // halo row stride, elements (144 bytes)
+constexpr int kMaxWidth = 256;  // image width cap: the halo's size
+constexpr int kMaxSmem = 232448;
+constexpr int kActThreads = 224;  // seven helper warps activate the halo
 
-template <int BM, bool kRoundFirst>
-int launch_bm(Params q, cudaStream_t stream) {
+struct Params {
+  const bf16* x;       // (N, H, W, cin)
+  const float* a;      // (N, cin) folded affine
+  const float* b;
+  const bf16* bias;    // (cout)
+  const bf16* res;     // like out, or null
+  bf16* out;           // (N, H * W, cout)
+  float* s1;           // (N, n_mtiles, cout), or null: no sums
+  float* s2;
+  int h, wd, cin, cout, silu, n_mtiles;
+  int stages;          // the weight ring's depth
+  int bufs;            // halo buffers, 2 or 3
+  int halo_rows;       // BM + 2 W + 2
+};
+
+// 16 bytes global -> shared, asynchronously (cp.async)
+__device__ __forceinline__ void cp_async16(bf16* dst, const bf16* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   sm90::smem_u32(dst)),
+               "l"(src)
+               : "memory");
+}
+
+// v * sigmoid(v) with the approximate exponential and reciprocal (a few
+// fp32 ulps, far below the bf16 rounding that follows; the IEEE-rounded
+// reciprocal costs a call per element, which made the prologue the
+// kernel's bottleneck)
+__device__ __forceinline__ float fast_silu(float v) {
+  float r;
+  asm("rcp.approx.ftz.f32 %0, %1;\n" : "=f"(r) : "f"(1.f + __expf(-v)));
+  return v * r;
+}
+
+// z for eight channels: the affine (fp32), for the "ref" cast point rounded
+// to bf16 first, the SiLU, one rounding to bf16
+template <bool kRoundFirst>
+__device__ __forceinline__ uint4 activate8(uint4 v, const float (&as)[8],
+                                           const float (&bs)[8], int silu) {
+  uint32_t* u = reinterpret_cast<uint32_t*>(&v);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const float2 x =
+        __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&u[j]));
+    float z0 = x.x * as[2 * j] + bs[2 * j];
+    float z1 = x.y * as[2 * j + 1] + bs[2 * j + 1];
+    if (kRoundFirst) {
+      z0 = round_bf16(z0);
+      z1 = round_bf16(z1);
+    }
+    if (silu) {
+      z0 = fast_silu(z0);
+      z1 = fast_silu(z1);
+    }
+    u[j] = pack_bf16(z0, z1);
+  }
+  return v;
+}
+
+// Shared memory, from a 1024-byte aligned base: the weight ring
+// [stages][kBN][64] (swizzled by TMA), the halo buffers
+// [bufs][halo_rows][kHaloLd], then the barriers.
+struct Smem {
+  bf16* w;
+  bf16* halo;
+  uint64_t* w_full;
+  uint64_t* w_empty;
+  uint64_t* h_full;   // [bufs]
+  uint64_t* h_empty;  // [bufs]
+  __device__ Smem(unsigned char* raw, const Params& p) {
+    unsigned char* base = reinterpret_cast<unsigned char*>(
+        (reinterpret_cast<uintptr_t>(raw) + 1023) & ~uintptr_t(1023));
+    w = reinterpret_cast<bf16*>(base);
+    halo = w + p.stages * kBN * kKC;
+    w_full =
+        reinterpret_cast<uint64_t*>(halo + p.bufs * p.halo_rows * kHaloLd);
+    w_empty = w_full + p.stages;
+    h_full = w_empty + p.stages;
+    h_empty = h_full + p.bufs;
+  }
+};
+
+constexpr int kStageBytes = kBN * kKC * 2;
+
+// NWG consumer warpgroups (BM = 64 NWG pixels), then two warpgroups of
+// helpers: warp 0 issues the weight TMA loads, warps 1-7 the halo's.
+template <int NWG, bool kRoundFirst>
+__global__ void __launch_bounds__((NWG + 2) * 128, 1)
+conv_kernel(const Params p, const __grid_constant__ CUtensorMap tm_w) {
+  constexpr int BM = 64 * NWG;
+  // the registers a consumer thread may hold once the helpers drop to 64
+  constexpr int kConsumerRegs = NWG == 2 ? 192 : 232;
+  extern __shared__ unsigned char smem_raw[];
+  const Smem sm(smem_raw, p);
+  const int tid = threadIdx.x;
+  const int W = p.wd, hw = p.h * W, R = p.halo_rows;
+  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * kBN, f = blockIdx.z;
+  const int chunks = (p.cin + kKC - 1) / kKC;
+
+  if (tid == 0) {
+    for (int s = 0; s < p.stages; ++s) {
+      sm90::mbar_init(&sm.w_full[s], 1);
+      sm90::mbar_init(&sm.w_empty[s], NWG * 4);  // one per consumer warp
+    }
+    for (int i = 0; i < p.bufs; ++i) {
+      sm90::mbar_init(&sm.h_full[i], kActThreads);
+      sm90::mbar_init(&sm.h_empty[i], NWG * 4);
+    }
+    sm90::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (tid >= NWG * 128) {  // the helpers
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 64;\n" ::: "memory");
+    if (tid == NWG * 128) {  // the weight producer
+      const int steps = 9 * chunks;
+      for (int s = 0; s < steps; ++s) {
+        const int st = s % p.stages;
+        const int c = s / 9, tap = s - 9 * c;
+        sm90::mbar_wait(&sm.w_empty[st], ((s / p.stages) & 1) ^ 1);
+        sm90::mbar_expect_tx(&sm.w_full[st], kStageBytes);
+        sm90::tma_load_3d(sm.w + st * kBN * kKC, &tm_w, &sm.w_full[st],
+                          c * kKC, tap, n0);
+      }
+    } else if (tid >= NWG * 128 + 32) {  // the halo: copy, activate in place
+      const int at = tid - (NWG * 128 + 32);
+      const int cg = at & 7;  // this thread's 8-channel group
+      const int base = m0 - W - 1;
+      const bf16* xf = p.x + (long long)f * hw * p.cin;
+      for (int c = 0; c < chunks; ++c) {
+        const int buf = c % p.bufs;
+        const int ch = c * kKC + cg * 8;
+        const bool cv = ch < p.cin;
+        bf16* hb = sm.halo + buf * R * kHaloLd + cg * 8;
+        sm90::mbar_wait(&sm.h_empty[buf], ((c / p.bufs) & 1) ^ 1);
+        // every load of the chunk in flight at once, zeros where the
+        // source lies outside the image or past cin
+        for (int row = at >> 3; row < R; row += kActThreads / 8) {
+          const int src = base + row;
+          if (cv && src >= 0 && src < hw)
+            cp_async16(hb + row * kHaloLd, xf + (long long)src * p.cin + ch);
+          else
+            *reinterpret_cast<uint4*>(hb + row * kHaloLd) =
+                make_uint4(0u, 0u, 0u, 0u);
+        }
+        asm volatile("cp.async.commit_group;\n" ::: "memory");
+        float as[8], bs[8];
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          as[j] = cv ? p.a[(long long)f * p.cin + ch + j] : 0.f;
+          bs[j] = cv ? p.b[(long long)f * p.cin + ch + j] : 0.f;
+        }
+        asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+        if (cv) {
+#pragma unroll 4
+          for (int row = at >> 3; row < R; row += kActThreads / 8) {
+            const int src = base + row;
+            if (src >= 0 && src < hw) {
+              uint4* h = reinterpret_cast<uint4*>(hb + row * kHaloLd);
+              *h = activate8<kRoundFirst>(*h, as, bs, p.silu);
+            }
+          }
+        }
+        sm90::mbar_arrive(&sm.h_full[buf]);
+      }
+    }
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs)
+               : "memory");
+
+  // the consumers
+  const int wgi = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int wrow = wgi * 64 + warp * 16;  // this warp's first tile row
+  // the left / right edge bits of this thread's two fragment rows
+  uint32_t edge = 0;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int pix = m0 + wrow + g + 8 * r;
+    const int x = pix % W;
+    edge |= (uint32_t)((x == 0) | ((x == W - 1) << 1)) << (2 * r);
+  }
+  const int lrow = wrow + (lane & 15), lcol = (lane >> 4) * 8;
+
+  float acc[kBN / 2];
+#pragma unroll
+  for (int i = 0; i < kBN / 2; ++i) acc[i] = 0.f;
+  uint32_t af[2][4][4];
+
+  for (int c = 0; c < chunks; ++c) {
+    const int buf = c % p.bufs;
+    const int ksteps = min(kKC, p.cin - c * kKC) / 16;
+    const bf16* hb = sm.halo + buf * R * kHaloLd;
+    sm90::mbar_wait(&sm.h_full[buf], (c / p.bufs) & 1);
+    // A fragments of tap `tap` (rows shifted by dy * W + dx) into af[set]
+    auto load_a = [&](int set, int tap) {
+      const int dy = tap / 3 - 1, dx = tap % 3 - 1;
+      const bf16* src = hb + (lrow + W + 1 + dy * W + dx) * kHaloLd + lcol;
+      uint32_t keep[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const uint32_t e = edge >> (2 * r);
+        keep[r] = ((dx < 0 && (e & 1)) || (dx > 0 && (e & 2))) ? 0u
+                                                                : 0xffffffffu;
+      }
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        if (kk < ksteps) {
+          ldmatrix_x4(af[set][kk], src + kk * 16);
+          af[set][kk][0] &= keep[0];
+          af[set][kk][2] &= keep[0];
+          af[set][kk][1] &= keep[1];
+          af[set][kk][3] &= keep[1];
+        }
+      }
+    };
+    load_a(0, 0);
+#pragma unroll
+    for (int tap = 0; tap < 9; ++tap) {
+      const int s = 9 * c + tap, st = s % p.stages;
+      sm90::mbar_wait(&sm.w_full[st], (s / p.stages) & 1);
+      const uint64_t desc = sm90::desc_sw128(sm.w + st * kBN * kKC);
+      sm90::fence_regs(acc);
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        if (kk < ksteps)
+          sm90::wgmma_m64n160k16_rs<0>(acc, af[tap & 1][kk],
+                                       sm90::desc_add(desc, 32 * kk), 1);
+      sm90::wgmma_commit();
+      if (tap > 0) {  // the previous tap's products are done
+        sm90::wgmma_wait<1>();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) sm90::fence_regs(af[(tap - 1) & 1][kk]);
+        if (lane == 0) sm90::mbar_arrive(&sm.w_empty[(s - 1) % p.stages]);
+      }
+      if (tap < 8) load_a((tap + 1) & 1, tap + 1);
+    }
+    sm90::wgmma_wait<0>();
+    sm90::fence_regs(acc);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) sm90::fence_regs(af[0][kk]);
+    if (lane == 0) {
+      sm90::mbar_arrive(&sm.w_empty[(9 * c + 8) % p.stages]);
+      sm90::mbar_arrive(&sm.h_empty[buf]);
+    }
+  }
+
+  // epilogue: acc + bias + residual, one rounding, and the sums of the
+  // rounded y over this warp's rows (lanes g == 0 hold them)
+  float* st = reinterpret_cast<float*>(sm.halo);  // [2][NWG * 4][kBN]
+  const bool sums = p.s1 != nullptr;
+  if (sums)  // every consumer is done with the halo
+    asm volatile("bar.sync 1, %0;\n" ::"n"(NWG * 128) : "memory");
+  const int wid = wgi * 4 + warp;
+#pragma unroll
+  for (int j = 0; j < kBN / 8; ++j) {
+    const int col = n0 + 8 * j + 2 * t4;
+    float q1[2] = {0.f, 0.f}, q2[2] = {0.f, 0.f};
+    if (col < p.cout) {
+      const float c0 = __bfloat162float(p.bias[col]);
+      const float c1 = __bfloat162float(p.bias[col + 1]);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int pix = m0 + wrow + g + 8 * r;
+        if (pix >= hw) continue;
+        const long long o = ((long long)f * hw + pix) * p.cout + col;
+        float y0 = acc[4 * j + 2 * r] + c0;
+        float y1 = acc[4 * j + 2 * r + 1] + c1;
+        if (p.res) {
+          const float2 rv = ld_bf162(p.res + o);
+          y0 += rv.x;
+          y1 += rv.y;
+        }
+        const uint32_t packed = pack_bf16(y0, y1);
+        *reinterpret_cast<uint32_t*>(p.out + o) = packed;
+        const float2 yr = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(&packed));
+        q1[0] += yr.x;
+        q1[1] += yr.y;
+        q2[0] += yr.x * yr.x;
+        q2[1] += yr.y * yr.y;
+      }
+    }
+    if (sums) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+#pragma unroll
+        for (int o = 4; o < 32; o <<= 1) {
+          q1[e] += __shfl_xor_sync(0xffffffffu, q1[e], o);
+          q2[e] += __shfl_xor_sync(0xffffffffu, q2[e], o);
+        }
+        if (g == 0) {
+          st[(0 * NWG * 4 + wid) * kBN + 8 * j + 2 * t4 + e] = q1[e];
+          st[(1 * NWG * 4 + wid) * kBN + 8 * j + 2 * t4 + e] = q2[e];
+        }
+      }
+    }
+  }
+  if (!sums) return;
+  asm volatile("bar.sync 1, %0;\n" ::"n"(NWG * 128) : "memory");
+  for (int c = tid; c < kBN && n0 + c < p.cout; c += NWG * 128) {
+    float r1 = 0.f, r2 = 0.f;
+    for (int w = 0; w < NWG * 4; ++w) {
+      r1 += st[(0 * NWG * 4 + w) * kBN + c];
+      r2 += st[(1 * NWG * 4 + w) * kBN + c];
+    }
+    const long long o =
+        ((long long)f * p.n_mtiles + blockIdx.x) * p.cout + n0 + c;
+    p.s1[o] = r1;
+    p.s2[o] = r2;
+  }
+}
+
+template <int NWG, bool kRoundFirst>
+int launch(Params q, const bf16* w, int frames, cudaStream_t stream) {
+  constexpr int BM = 64 * NWG;
   q.n_mtiles = (q.h * q.wd + BM - 1) / BM;
-  const int rows = BM + 2 * q.wd + 2;  // the halo
-  const int smem = igemm::conv_smem_fixed<BM>() + 2 * q.cin * 4 +
-                   2 * rows * igemm::kKP * 2;
-  cudaError_t err = cudaFuncSetAttribute(
-      igemm::conv_kernel<BM, kRoundFirst>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid(q.n_mtiles, (q.cout + igemm::kConvBN - 1) / igemm::kConvBN,
-                  q.frames);
-  igemm::conv_kernel<BM, kRoundFirst>
-      <<<grid, igemm::kThreads, smem, stream>>>(q);
+  q.halo_rows = BM + 2 * q.wd + 2;
+  // the deepest rings that fit: three halo buffers where they do (two
+  // chunks may land ahead of the products), then up to four weight stages
+  auto bytes = [&](int bufs, int stages) {
+    return 1024 + stages * kStageBytes + bufs * q.halo_rows * kHaloLd * 2 +
+           2 * (stages + bufs) * 8;
+  };
+  q.bufs = 0;
+  for (int b = 3; b >= 2 && q.bufs == 0; --b)
+    for (int st = 4; st >= 2 && q.bufs == 0; --st)
+      if (bytes(b, st) <= kMaxSmem) {
+        q.bufs = b;
+        q.stages = st;
+      }
+  if (q.bufs == 0) return (int)cudaErrorInvalidValue;
+  const int smem = bytes(q.bufs, q.stages);
+  // the weight (cout, 9, cin): dims innermost first, boxes of one tap's 64
+  // input channels of kBN output channels
+  CUtensorMap tm;
+  const uint64_t dims[3] = {(uint64_t)q.cin, 9, (uint64_t)q.cout};
+  const uint64_t strides[2] = {(uint64_t)q.cin * 2, (uint64_t)q.cin * 18};
+  const uint32_t box[3] = {kKC, 1, kBN};
+  const int err = sm90_host::make_map(&tm, w, 3, dims, strides, box);
+  if (err) return err;
+  cudaError_t e = cudaFuncSetAttribute(
+      conv_kernel<NWG, kRoundFirst>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid(q.n_mtiles, (q.cout + kBN - 1) / kBN, frames);
+  conv_kernel<NWG, kRoundFirst><<<grid, (NWG + 2) * 128, smem, stream>>>(q,
+                                                                         tm);
   return (int)cudaGetLastError();
 }
 
@@ -60,7 +423,8 @@ int launch_bm(Params q, cudaStream_t stream) {
 // x (N, H, W, cin), w (cout, 3, 3, cin), bias (cout), res/out (N, H, W,
 // cout): contiguous bf16; a, b: fp32 (N, cin); s1, s2: fp32 (N, n_mtiles,
 // cout) with n_mtiles = ceil(H * W / bm), or both null. bm is 64 or 128,
-// cin % 32 == 0, cout % 8 == 0, W <= 256. Returns a cudaError_t code (0 on
+// cin % 32 == 0, cout % 8 == 0, W <= 256. round_first: the "ref" cast
+// point, else the fp32 one (#15). Returns a cudaError_t code (0 on
 // success).
 extern "C" int tc_gn_silu_conv3x3(const void* x, const float* a, const float* b,
                                   const void* w, const void* bias,
@@ -72,27 +436,27 @@ extern "C" int tc_gn_silu_conv3x3(const void* x, const float* a, const float* b,
   q.x = static_cast<const bf16*>(x);
   q.a = a;
   q.b = b;
-  q.w = static_cast<const bf16*>(w);
   q.bias = static_cast<const bf16*>(bias);
   q.res = static_cast<const bf16*>(res);
-  q.scale = nullptr;
   q.out = static_cast<bf16*>(out);
   q.s1 = s1;
   q.s2 = s2;
-  q.frames = n;
-  q.t = 1;
   q.h = h;
   q.wd = wd;
   q.cin = cin;
   q.cout = cout;
   q.silu = silu;
-  if (a == nullptr || b == nullptr || igemm::bad_params(q) ||
-      wd > igemm::kMaxWidth)
+  if (a == nullptr || b == nullptr || (s1 == nullptr) != (s2 == nullptr) ||
+      n <= 0 || n > 65535 || h <= 0 || wd <= 0 || wd > kMaxWidth ||
+      cin <= 0 || cin % 32 || cin > 8192 || cout <= 0 || cout % 8)
     return (int)cudaErrorInvalidValue;
+  const bf16* wt = static_cast<const bf16*>(w);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bm == 128)
-    return round_first ? launch_bm<128, true>(q, s) : launch_bm<128, false>(q, s);
+    return round_first ? launch<2, true>(q, wt, n, s)
+                       : launch<2, false>(q, wt, n, s);
   if (bm == 64)
-    return round_first ? launch_bm<64, true>(q, s) : launch_bm<64, false>(q, s);
+    return round_first ? launch<1, true>(q, wt, n, s)
+                       : launch<1, false>(q, wt, n, s);
   return (int)cudaErrorInvalidValue;
 }

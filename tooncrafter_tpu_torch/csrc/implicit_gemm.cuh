@@ -1,48 +1,35 @@
-// Implicit-GEMM kernels of the two fused convolutions, gn_silu_conv3x3.cu (a
-// 3x3 SAME conv over each image) and temporal_conv.cu (a (3,1,1) conv over
-// the frames of each sample): bf16 in and out, fp32 accumulation.
+// Implicit-GEMM kernel of the temporal convolution, temporal_conv.cu (a
+// (3,1,1) conv over the frames of each sample): bf16 in and out, fp32
+// accumulation.
 //
-//   M = the pixels of one image / frame, N = Cout, K = taps x Cin
-//   (the weight is (Cout, taps, Cin)).
+//   M = the pixels of one frame, N = Cout, K = 3 taps x Cin
+//   (the weight is (Cout, 3, Cin)).
 //
-// A source outside the image or the clip reads zeros of z, the activated
-// input, not the prologue of a zero x.
+// A source outside the clip reads zeros of z, the activated input, not the
+// prologue of a zero x.
 //
 // Prologue, applied to an input chunk in shared memory before the products
 // read it (the folded GroupNorm affine A, B of the sample, fp32):
-//   3x3 conv:       z = silu(bf16(x * A + B)), rounded to bf16 (the "ref"
-//                   cast point of tooncrafter_tpu/ops/spatial_conv.py), or
-//                   at the fp32 one, as the temporal conv
-//                   (_pallas_fused_conv's prologue)
-//   temporal conv:  z = silu(x * A + B) in fp32, rounded once to bf16
-//                   (tooncrafter_tpu/ops/temporal_conv.py:107-110)
+//   z = silu(x * A + B) in fp32, rounded once to bf16
+//   (tooncrafter_tpu/ops/temporal_conv.py:107-110)
 // Epilogue: y = (acc + bias) * scale + residual, rounded once to bf16; the
 // per-channel fp32 sums of the rounded y over the tile's pixels go to a
 // (frames, n_mtiles, Cout) buffer that the caller sums over the tiles: a
 // fixed order and no atomics, so a run is deterministic.
 //
-// Both kernels: blocks of 256 threads over (pixel tile of BM = 64 or 128
-// rows, 128 output channels, image / frame); 8 warps as 2 (M) x 4 (N), each
-// a BM/2 x 32 fp32 tile in registers; mma.sync m16n8k16 with fragments by
-// ldmatrix from shared rows padded to 80 bytes (the eight rows of a
-// fragment fall in distinct banks). K runs in 32-channel steps through a
-// ring of S shared-memory stages filled by cp.async S - 1 steps ahead, so
-// the loads' latency hides behind the products; one barrier per step.
-//
-// The prologue costs more than the products it feeds (a SiLU is ~10
-// instructions a thread, an m16n8k16 product one per warp), so each input
-// element is activated as few times as the tiling allows:
-//   * the 3x3 conv stages each 32-channel input chunk once, as a halo of
-//     BM + 2W + 2 source pixels around the tile (copied raw with cp.async
-//     while the previous chunk's nine taps run, then activated in place),
-//     and each tap reads it shifted by dy * W + dx, zeroing the fragment
-//     rows whose tap falls off the image's left or right edge (in the
-//     linear pixel order those sources are pixels of the next row);
-//   * the temporal conv activates each stage's chunk of one source frame
-//     in place when it lands (three taps, so three times per element);
-//   * the SiLU uses the fast exponential and reciprocal (their error is a
-//     few fp32 ulps, far below the bf16 rounding that follows).
-// wgmma, TMA and a persistent schedule are left for later work.
+// Blocks of 256 threads over (pixel tile of BM = 64 or 128 rows, 32 NT
+// output channels, frame); 8 warps as 2 (M) x 4 (N), each a BM/2 x 8 NT
+// fp32 tile in registers; mma.sync m16n8k16 with fragments by ldmatrix from
+// shared rows padded to 80 bytes (the eight rows of a fragment fall in
+// distinct banks). K runs in 32-channel steps through a ring of S
+// shared-memory stages filled by cp.async S - 1 steps ahead, so the loads'
+// latency hides behind the products; one barrier per step. Each stage's
+// chunk of one source frame is activated in place when it lands (three
+// taps, so three times per element); the SiLU uses the fast exponential
+// and reciprocal (their error is a few fp32 ulps, far below the bf16
+// rounding that follows). At the UNet's widths this kernel already beats
+// F.conv3d (PERF.md), so it keeps mma.sync; the 3x3 conv
+// (gn_silu_conv3x3.cu) moved to wgmma.
 
 #pragma once
 
@@ -55,7 +42,6 @@ namespace igemm {
 constexpr int kThreads = 256;
 constexpr int kBK = 32;         // input channels per step
 constexpr int kKP = kBK + 8;    // padded shared row: 80 bytes
-constexpr int kMaxWidth = 256;  // the conv's halo staging: image width cap
 
 struct Params {
   const bf16* x;       // conv: (N, H, W, cin); temporal: (B, T, P, cin)
@@ -95,9 +81,8 @@ __device__ __forceinline__ float fast_silu(float v) {
   return v * __frcp_rn(1.f + __expf(-v));
 }
 
-// z for eight channels in place: the affine (fp32), for the conv rounded to
-// bf16 first, the SiLU, one rounding to bf16.
-template <bool kRoundFirst>
+// z for eight channels in place: the affine and the SiLU in fp32, one
+// rounding to bf16.
 __device__ __forceinline__ void prologue8(bf16* p, const float* as,
                                           const float* bs, int silu) {
   uint4 v = *reinterpret_cast<const uint4*>(p);
@@ -107,10 +92,6 @@ __device__ __forceinline__ void prologue8(bf16* p, const float* as,
     const float2 x = __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&u[j]));
     float z0 = x.x * as[2 * j] + bs[2 * j];
     float z1 = x.y * as[2 * j + 1] + bs[2 * j + 1];
-    if (kRoundFirst) {
-      z0 = round_bf16(z0);
-      z1 = round_bf16(z1);
-    }
     if (silu) {
       z0 = fast_silu(z0);
       z1 = fast_silu(z1);
@@ -325,7 +306,7 @@ __global__ void __launch_bounds__(kThreads, 2) tconv_kernel(const Params p) {
 #pragma unroll
       for (int i = 0; i < RPT; ++i)
         if (valid(i, tap))
-          prologue8<false>(a + (ar + 64 * i) * kKP + ac, sAff + k0 + ac,
+          prologue8(a + (ar + 64 * i) * kKP + ac, sAff + k0 + ac,
                            sAff + p.cin + k0 + ac, p.silu);
     }
     __syncthreads();  // step s is in place for all; step s - 1 is consumed
@@ -336,124 +317,7 @@ __global__ void __launch_bounds__(kThreads, 2) tconv_kernel(const Params p) {
   epilogue<BM, NT>(p, acc, sStat, m0, n0, f);
 }
 
-// ---------------------------------------------------------------------------
-// the 3x3 conv: per input chunk, a halo of source pixels activated once
-// ---------------------------------------------------------------------------
-
-constexpr int kConvStages = 4;
-constexpr int kConvBN = 128;
-
-template <int BM>
-constexpr int conv_smem_fixed() {
-  return kConvStages * kConvBN * kKP * 2 + 2 * 2 * kConvBN * 4;
-}
-
-// kRoundFirst: the "ref" cast point (the affine rounds to bf16 before the
-// SiLU); false: the fp32 one (tooncrafter_tpu/ops/spatial_conv.py::
-// _pallas_fused_conv rounds once, after the SiLU)
-template <int BM, bool kRoundFirst = true>
-__global__ void __launch_bounds__(kThreads, 2) conv_kernel(const Params p) {
-  constexpr int MT = BM / 32;
-  constexpr int S = kConvStages, BN = kConvBN;
-  const int W = p.wd;
-  const int hw = p.h * W;
-  const int R = BM + 2 * W + 2;  // halo rows: source pixels m0-W-1 .. m0+BM+W
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* sB = reinterpret_cast<bf16*>(smem);                   // [S][BN][kKP]
-  float* sStat = reinterpret_cast<float*>(sB + S * BN * kKP);
-  float* sAff = sStat + 2 * 2 * BN;                           // [2][cin]
-  bf16* sH = reinterpret_cast<bf16*>(sAff + 2 * p.cin);       // [R][kKP] z
-  bf16* sRaw = sH + R * kKP;                                  // [R][kKP] x
-
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, wm = warp >> 2, wn = warp & 3;
-  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN, f = blockIdx.z;
-  const int base = m0 - W - 1;   // the source pixel of halo row 0
-  stage_affine(sAff, p, f);
-
-  // the edges of this thread's fragment rows: top, bottom, left, right
-  uint32_t edge = 0;
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int pix = m0 + wm * (BM / 2) + mt * 16 + g + 8 * r;
-      const int y = pix / W, x = pix - y * W;
-      const uint32_t bits = (y == 0) | ((y == p.h - 1) << 1) | ((x == 0) << 2) |
-                            ((x == W - 1) << 3);
-      edge |= bits << (4 * (2 * mt + r));
-    }
-
-  const bf16* xf = p.x + (long long)f * hw * p.cin;
-  auto copy_raw = [&](int k0) {  // the chunk's halo, raw, by cp.async
-    for (int j = tid; j < R * 4; j += kThreads) {
-      const int row = j >> 2, s = base + row;
-      if (s >= 0 && s < hw)
-        cp_async16(sRaw + row * kKP + (j & 3) * 8,
-                   xf + (long long)s * p.cin + k0 + (j & 3) * 8);
-    }
-  };
-  auto activate = [&](int k0) {  // sRaw -> sH through the prologue
-    for (int j = tid; j < R * 4; j += kThreads) {
-      const int row = j >> 2, s = base + row, c = (j & 3) * 8;
-      uint4* dst = reinterpret_cast<uint4*>(sH + row * kKP + c);
-      if (s >= 0 && s < hw) {
-        *dst = *reinterpret_cast<const uint4*>(sRaw + row * kKP + c);
-        prologue8<kRoundFirst>(sH + row * kKP + c, sAff + k0 + c,
-                        sAff + p.cin + k0 + c, p.silu);
-      } else {
-        *dst = make_uint4(0u, 0u, 0u, 0u);
-      }
-    }
-  };
-  const int ar = tid >> 2, ac = (tid & 3) * 8;
-  const int chunks = p.cin / kBK;
-  const int steps = 9 * chunks;
-  auto issue = [&](int s) {  // the weight chunk of step s (chunk, tap)
-    if (s < steps) {
-      const int c = s / 9, tap = s - c * 9;
-      copy_b<4>(sB + (s % S) * BN * kKP, p, 9, n0, tap, c * kBK, ar, ac);
-    }
-    cp_async_commit();
-  };
-
-  float acc[MT][4][4];
-  zero_acc(acc);
-  copy_raw(0);
-  for (int s = 0; s < S - 1; ++s) issue(s);
-  for (int s = 0, c = 0, tap = 0; s < steps; ++s) {
-    if (tap == 0) {
-      cp_async_wait<0>();  // this thread's halo copies of chunk c landed
-      __syncthreads();     // the previous chunk's taps are done with sH
-      activate(c * kBK);
-    } else {
-      cp_async_wait<S - 2>();  // this thread's copies of step s
-    }
-    __syncthreads();  // step s is in place for all; step s - 1 is consumed
-    if (tap == 0 && c + 1 < chunks) copy_raw((c + 1) * kBK);
-    issue(s + S - 1);
-    const int dy = tap / 3 - 1, dx = tap % 3 - 1;
-    uint32_t keep[MT][2];  // rows whose source lies off the image's edge
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const uint32_t e = edge >> (4 * (2 * mt + r));
-        const bool off = (dy < 0 && (e & 1)) || (dy > 0 && (e & 2)) ||
-                         (dx < 0 && (e & 4)) || (dx > 0 && (e & 8));
-        keep[mt][r] = off ? 0u : 0xffffffffu;
-      }
-    mma_step<MT, 4>(acc, sH, sB + (s % S) * BN * kKP,
-                    wm * (BM / 2) + W + 1 + dy * W + dx, wn, lane, keep);
-    if (++tap == 9) {
-      tap = 0;
-      ++c;
-    }
-  }
-  epilogue<BM, 4>(p, acc, sStat, m0, n0, f);
-}
-
-// the checks both launchers make (temporal_conv.cu, gn_silu_conv3x3.cu)
+// the checks of the launcher (temporal_conv.cu)
 inline bool bad_params(const Params& q) {
   return q.frames <= 0 || q.frames > 65535 || q.h <= 0 || q.wd <= 0 ||
          q.cin <= 0 || q.cin % kBK || q.cin > 8192 || q.cout <= 0 ||

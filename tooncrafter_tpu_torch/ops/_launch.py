@@ -73,10 +73,12 @@ def check(name: str, t: torch.Tensor, shape: Sequence[int],
 
 
 def pixel_tile(pixels: int) -> int:
-    """The pixel tile (BM) of the implicit-GEMM convolutions
-    (csrc/implicit_gemm.cuh) for images or frames of ``pixels`` pixels:
-    128 where it divides them or they are many, else 64 (less of a ragged
-    last tile at the UNet's 10x16 and 5x8 levels)."""
+    """The pixel tile (BM) of the implicit-GEMM convolutions for images or
+    frames of ``pixels`` pixels: 128 where it divides them or they are many,
+    else 64 (less of a ragged last tile at the UNet's 10x16 and 5x8
+    levels). The temporal conv (csrc/implicit_gemm.cuh) splits it over two
+    rows of warps, the 3x3 conv (csrc/gn_silu_conv3x3.cu) over BM / 64
+    wgmma warpgroups; both write their sums per tile of BM pixels."""
     return 128 if pixels % 128 == 0 or pixels >= 1024 else 64
 
 

@@ -222,36 +222,50 @@ def _plain_mh(q, k, v, heads: int, scale: float):
 
 def _plain_bh_ones(q, k, v, scale: float,
                    cdt: Optional[torch.dtype] = None,
-                   chunk: int = _PLAIN_CHUNK):
+                   chunk: int = _PLAIN_CHUNK, block: Optional[int] = None):
     """The ones-column kernels' function and rounding over (N, Sq, D) x
-    (N, Sk, D): one pass in the exp2 domain, p rounded to ``cdt`` (v's
-    dtype unless given) for the PV product AND for the normalizer l, fp32
-    otherwise, in chunks of query rows. Returns (out in q.dtype, lse fp32
-    (N, Sq) = (m + log2 l) ln 2 of that l)."""
+    (N, Sk, D): in the exp2 domain, p rounded to ``cdt`` (v's dtype unless
+    given) for the PV product AND for the normalizer l, fp32 otherwise, in
+    chunks of query rows. Returns (out in q.dtype, lse fp32 (N, Sq) =
+    (m + log2 l) ln 2 of that l).
+
+    p is rounded relative to the row max, which an online softmax only
+    knows as far as it has read: with ``block`` (keys a step) each key's p
+    is rounded at the running max of the blocks up to its own and rescaled
+    to the final max in fp32, as a kernel with that key tile rounds it;
+    without, at the max of all keys (the single-pass kernel). The two differ
+    by the rounding of p: ~1e-4 in the lse at a few thousand random keys."""
     cdt = v.dtype if cdt is None else cdt
-    chunk = max(64, min(chunk, _PLAIN_SCORES
-                        // max(1, q.shape[0] * k.shape[1])))
+    n, sk = k.shape[:2]
+    chunk = max(64, min(chunk, _PLAIN_SCORES // max(1, n * sk)))
+    block = sk if block is None else block
+    tiles = -(-sk // block)
+    pad = tiles * block - sk
     kt = k.float().transpose(1, 2)
-    vf = v.float()
+    vf = torch.nn.functional.pad(v.float(), (0, 0, 0, pad))
     outs, lses = [], []
     for i in range(0, q.shape[1], chunk):
         s = torch.matmul(q[:, i:i + chunk].float(), kt) * (scale * _LOG2E)
-        m = s.amax(-1, keepdim=True)
-        p = torch.exp2(s - m).to(cdt).float()
-        l = p.sum(-1, keepdim=True)
+        s = torch.nn.functional.pad(s, (0, pad), value=-float("inf")).view(
+            n, -1, tiles, block)
+        run = torch.cummax(s.amax(-1), -1).values  # (n, rows, tiles)
+        p = torch.exp2(s - run[..., None]).to(cdt).float()
+        w = torch.exp2(run - run[..., -1:])        # to the final max
+        l = (p.sum(-1) * w).sum(-1, keepdim=True)
+        p = (p * w[..., None]).flatten(2)
         outs.append(torch.matmul(p, vf) / l)
-        lses.append(((m + torch.log2(l)) * _LN2)[..., 0])
+        lses.append(((run[..., -1:] + torch.log2(l)) * _LN2)[..., 0])
     return torch.cat(outs, 1).to(q.dtype), torch.cat(lses, 1)
 
 
 def _plain_mh_ones(q, k, v, heads: int, scale: float,
                    cdt: Optional[torch.dtype] = None,
-                   chunk: int = _PLAIN_CHUNK):
+                   chunk: int = _PLAIN_CHUNK, block: Optional[int] = None):
     """``_flash_mh_ones``'s function and rounding (``_plain_bh_ones``),
     token-major (B, S, H*D) -> (B, Sq, H*D)."""
     b, sq, c = q.shape
     out, _ = _plain_bh_ones(_fold_heads(q, heads), _fold_heads(k, heads),
-                            _fold_heads(v, heads), scale, cdt, chunk)
+                            _fold_heads(v, heads), scale, cdt, chunk, block)
     return out.reshape(b, heads, sq, c // heads).transpose(1, 2).reshape(
         b, sq, c)
 
@@ -267,6 +281,9 @@ def _plain_mh_ones(q, k, v, heads: int, scale: float,
 MAX_ULPS = 2
 MEAN_FACTOR = 4
 LSE_MAX_ABS = 1e-4
+# keys a tile of the forward kernel at each head dim: where its running max
+# moves, so where #3, #4 and #5 round p (``_plain_bh_ones``'s ``block``)
+KEY_TILE = {64: 128, 512: 32}
 
 
 def error_bounds(ref: torch.Tensor, max_ulps: float = MAX_ULPS,

@@ -55,8 +55,8 @@ from tooncrafter_tpu_torch.ops import _launch
 LAUNCHES: Dict[str, int] = {"winograd_gn_silu_conv3x3": 0,
                              "winograd24_gn_silu_conv3x3": 0,
                              "_pallas_fused_conv": 0}
-_CIN_CHUNK = 32  # csrc/implicit_gemm.cuh kBK
-_MAX_WIDTH = 256  # csrc/implicit_gemm.cuh kMaxWidth (the halo staging)
+_CIN_CHUNK = 32  # the kernel's Cin step (csrc/gn_silu_conv3x3.cu)
+_MAX_WIDTH = 256  # csrc/gn_silu_conv3x3.cu kMaxWidth (the halo staging)
 
 # the keys (H, W, Cin, Cout) of the TPU package's F(2x4) allowlist
 # (tooncrafter_tpu/ops/winograd.py:366-369)
@@ -286,8 +286,7 @@ def _launch_conv(x, a, b, w9, bias, res, silu: bool, stats: bool,
                          f" == 0, Cout % 8 == 0 and W <= {_MAX_WIDTH}; got "
                          f"Cin={cin}, Cout={cout}, W={w}")
     out = torch.empty((n, h, w, cout), dtype=bf, device=dev)
-    bm = _launch.pixel_tile(h * w)
-    n_tiles = -(-(h * w) // bm)
+    bm, n_tiles = conv_tiles(h, w)
     sums = ([torch.empty((n, n_tiles, cout), dtype=f32, device=dev)
              for _ in range(2)] if stats else [None, None])
     err = _library().tc_gn_silu_conv3x3(
@@ -300,6 +299,14 @@ def _launch_conv(x, a, b, w9, bias, res, silu: bool, stats: bool,
     if stats:
         return out, sums[0].sum(1), sums[1].sum(1)
     return out
+
+
+def conv_tiles(h: int, w: int):
+    """(BM, tiles) of the conv kernel for (h, w) images: BM pixels a block
+    (BM / 64 wgmma warpgroups), so its sums come per tile as (N, tiles,
+    Cout), which the wrapper adds over the tiles."""
+    bm = _launch.pixel_tile(h * w)
+    return bm, -(-(h * w) // bm)
 
 
 def kernel_weight(weight):
