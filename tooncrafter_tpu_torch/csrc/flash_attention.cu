@@ -1,43 +1,54 @@
 // Flash-attention forward for Hopper (sm_90a), bf16 in and out, fp32 softmax.
 //
-// Replaces the four TPU forward kernels of
+// Replaces the five TPU forward kernels of
 // tooncrafter_tpu/ops/flash_attention.py:
 //   * _flash_mh_packed    UNet attn1 on a packed (B, S, 3C) projection
 //   * _flash_mh           the same on separate token-major (B, S, C) tensors
-//   * _flash_bh_with_lse  two-pass online softmax over (BH, S, 64), + lse
-//   * _flash_bh_single    whole-KV single pass, here at d = 512, + lse
-// One templated kernel serves all four: the caller passes element strides
-// for the batch, sequence and head axes of q, k, v and o, so the packed
-// projection and the token-major layouts are read in place, with no copy.
+//   * _flash_bh_with_lse  two-pass online softmax over (BH, S, D), + lse
+//   * _flash_bh_single    whole-KV single pass over (BH, S, D), + lse
+//   * _flash_mh_ones      _flash_mh with the ones-column normalizer
+// The caller passes element strides for the batch, sequence and head axes
+// of q, k, v and o, so the packed projection and the token-major layouts
+// are read in place, with no copy.
 //
-// Its ONES flag (the entry's `ones`) gives the normalizer of the TPU
-// kernels that append a block of ones to V outside the kernel: _flash_mh_ones
-// ((B, S, H * 2D)) and the two (BH, S, D) kernels, _flash_bh_with_lse and
-// _flash_bh_single ((BH, S, 2D)). Their l sums the bf16-rounded p that the
-// PV product consumes, and their lse is m + log(l) of that sum; _flash_mh
-// and _flash_mh_packed sum the unrounded p. Here the row sum is a register
-// add of the same rounded value, rescaled with the running max exactly as
-// the accumulator is, so no [v | ones] tensor is built.
+// The entry's `ones` flag gives the normalizer of the TPU kernels that
+// append a block of ones to V outside the kernel: _flash_mh_ones
+// ((B, S, H * 2D)) and the two (BH, S, D) kernels ((BH, S, 2D)). Their l
+// sums the bf16-rounded p that the PV product consumes, and their lse is
+// m + log(l) of that sum; _flash_mh and _flash_mh_packed sum the unrounded
+// p. Both are rescaled with the running max as the accumulator is.
 //
 // What bounds it on the H100: at d = 64 every score costs one 64-deep
 // product on the tensor cores but also an exp2, a max and a rescale on the
-// FP32 units, so the softmax work, not the tensor-core rate, sets the pace.
-// The design keeps that work minimal: scores stay in registers (they are
-// reused as the A operand of the PV product without a trip through shared
-// memory), the scale is folded into one multiply in the exp2 domain, the
-// row sum is kept per thread and reduced across the quad once at the end,
-// and the ragged edges are masked in the kernel instead of padding inputs.
-// This is the simple first version: mma.sync m16n8k16 from registers with
-// plain shared-memory staging; TMA, wgmma and warp specialisation are left
-// for later work.
+// FP32 units, about as many cycles as the products, so the two have to
+// overlap. Head dim 64 (namespace wg; #1, #2, #3, #5 and the models' every
+// d = 64 attention):
+//   * three consumer warpgroups of 64 query rows (192 a block) run S = Q K^T
+//     and O += P V on wgmma: Q and K from shared memory, P from registers
+//     (the S accumulator is already in the A-fragment order), V read in its
+//     key-major layout through wgmma's transpose of B, so nothing is
+//     transposed;
+//   * a producer thread fills a 3-stage ring of 128-key K and V tiles with
+//     TMA (128-byte swizzle) on mbarriers, the consumers free a stage when
+//     its products are done; setmaxnreg moves the producer warpgroup's
+//     registers to the consumers;
+//   * each warpgroup issues tile i's S, then tile i - 1's PV, and runs tile
+//     i's softmax while the PV runs (exp2 in the ex2.approx unit, the scale
+//     folded into one FMA);
+//   * with `ones` the normalizer is the PV product's extra 8 columns, whose
+//     B is a tile of ones beside each V tile (the descriptor's leading
+//     offset): the tensor cores sum the bf16 p they consume, as the TPU
+//     kernels' matrix unit does, and the FP32 units skip the row sum;
+//   * ragged Sq and Sk are masked in the kernel (TMA fills rows past the
+//     end with zeros; keys past Sk score -inf), and the output leaves
+//     through shared memory in 16-byte rows.
 //
-// d = 512 (the VAE mid attention, one head): a 64 x 512 fp32 accumulator
-// does not fit in one warpgroup's registers, so the value axis is split over
-// blockIdx.z in slices of 128 columns and each slice recomputes Q K^T over
-// the full 512-deep product (4x the QK work). The alternative, O in shared
-// memory, needs 128 KB for O alone and leaves one block per SM with a K
-// tile of at most 32 rows; the split keeps every block's state in registers
-// and reuses the d = 64 code path unchanged.
+// d = 512 (the VAE mid attention, one head; #3 and #4 there) keeps the
+// first version: mma.sync m16n8k16 from registers, plain shared-memory
+// staging, 64 query rows and 32 keys a tile. A 64 x 512 fp32 accumulator
+// does not fit in one warpgroup's registers, so the value axis is split
+// over blockIdx.z in slices of 128 columns and each slice recomputes
+// Q K^T over the full 512-deep product (4x the QK work).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -80,10 +91,8 @@ __device__ __forceinline__ float round_bf16(float v) {
   return __bfloat162float(__float2bfloat16(v));
 }
 
-// What the normalizer l adds for one p: with ONES (#3, #4, #5) the
-// bf16-rounded p that the PV product reads, else (#1, #2) p itself. (The
-// head-dim-64 kernel also hands this value on to the PV product, whose
-// packing to bf16 rounds it: exact where it is rounded already.)
+// What the d = 512 kernel's normalizer l adds for one p: with ONES the
+// bf16-rounded p that the PV product reads, else p itself.
 template <bool ONES>
 __device__ __forceinline__ float norm_term(float p) {
   return ONES ? round_bf16(p) : p;
@@ -112,7 +121,7 @@ __device__ __forceinline__ void mma_16816(float c[4], const uint32_t a[4],
 // D: q/k head dim. DV: value columns one block computes (blockIdx.z picks
 // the slice). BN: keys per tile. Shared rows are padded by 8 elements so
 // the quad-strided 32-bit fragment loads hit 32 distinct banks. ONES: the
-// row sum adds bf16(p), the value the PV product reads (_flash_mh_ones).
+// row sum adds bf16(p), the value the PV product reads. Built at d = 512.
 template <int D, int DV, int BN, bool ONES>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const Params p) {
@@ -298,12 +307,12 @@ int launch(const Params& p, int batch, cudaStream_t stream) {
 namespace wg {
 
 constexpr int kD = 64;
-constexpr int kBM = 128;              // query rows a block: two warpgroups
+constexpr int kBM = 192;              // query rows a block: 3 warpgroups
 constexpr int kBN = 128;              // keys a tile
 constexpr int kStages = 3;            // the K/V ring
 constexpr int kConsumers = kBM / 64;  // warpgroups running products
 constexpr int kThreads = (kConsumers + 1) * 128;
-constexpr int kTile = kBN * kD * 2;   // bytes of a K or V tile (= a Q tile)
+constexpr int kTile = kBN * kD * 2;   // bytes of a K or V tile
 
 struct Smem {  // 1024-byte aligned: every tile is a whole number of atoms
   bf16 q[kBM * kD];
@@ -354,7 +363,7 @@ flash_fwd_wgmma(const Params p, const __grid_constant__ CUtensorMap tm_q,
   constexpr int kDV = kOnesColumn ? kD + 8 : kD;  // accumulator columns
 
   if (wgi == kConsumers) {  // the producer
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 32;\n" ::: "memory");
     if (tid == kConsumers * 128) {
       sm90::mbar_expect_tx(&sm.q_full, kBM * kD * 2);
       sm90::tma_load_4d(sm.q, &tm_q, &sm.q_full, 0, h, m0, b);
@@ -370,7 +379,7 @@ flash_fwd_wgmma(const Params p, const __grid_constant__ CUtensorMap tm_q,
     }
     return;
   }
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 160;\n" ::: "memory");
 
   const int lane = tid & 31;
   const int warp = (tid >> 5) & 3;  // within the warpgroup

@@ -81,6 +81,10 @@ struct Params {
   int halo_rows;       // BM + 2 W + 2
 };
 
+__device__ __forceinline__ float2 bf2_to_f2(uint32_t v) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v));
+}
+
 // 16 bytes global -> shared, asynchronously (cp.async)
 __device__ __forceinline__ void cp_async16(bf16* dst, const bf16* src) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
@@ -315,35 +319,44 @@ conv_kernel(const Params p, const __grid_constant__ CUtensorMap tm_w) {
   }
 
   // epilogue: acc + bias + residual, one rounding, and the sums of the
-  // rounded y over this warp's rows (lanes g == 0 hold them)
+  // rounded y over this warp's rows (lanes g == 0 hold them). The bias and
+  // residual pairs are all loaded first: the stores to out would otherwise
+  // order every load after the store before it.
   float* st = reinterpret_cast<float*>(sm.halo);  // [2][NWG * 4][kBN]
   const bool sums = p.s1 != nullptr;
+  const int wid = wgi * 4 + warp;
+  uint32_t bias2[kBN / 8], res2[kBN / 8][2];
+#pragma unroll
+  for (int j = 0; j < kBN / 8; ++j) {
+    const int col = n0 + 8 * j + 2 * t4;
+    bias2[j] = col < p.cout ? ld32(p.bias + col) : 0u;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int pix = m0 + wrow + g + 8 * r;
+      res2[j][r] = p.res && col < p.cout && pix < hw
+                       ? ld32(p.res + ((long long)f * hw + pix) * p.cout + col)
+                       : 0u;
+    }
+  }
   if (sums)  // every consumer is done with the halo
     asm volatile("bar.sync 1, %0;\n" ::"n"(NWG * 128) : "memory");
-  const int wid = wgi * 4 + warp;
 #pragma unroll
   for (int j = 0; j < kBN / 8; ++j) {
     const int col = n0 + 8 * j + 2 * t4;
     float q1[2] = {0.f, 0.f}, q2[2] = {0.f, 0.f};
     if (col < p.cout) {
-      const float c0 = __bfloat162float(p.bias[col]);
-      const float c1 = __bfloat162float(p.bias[col + 1]);
+      const float2 c = bf2_to_f2(bias2[j]);
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
         const int pix = m0 + wrow + g + 8 * r;
         if (pix >= hw) continue;
         const long long o = ((long long)f * hw + pix) * p.cout + col;
-        float y0 = acc[4 * j + 2 * r] + c0;
-        float y1 = acc[4 * j + 2 * r + 1] + c1;
-        if (p.res) {
-          const float2 rv = ld_bf162(p.res + o);
-          y0 += rv.x;
-          y1 += rv.y;
-        }
+        const float2 rv = bf2_to_f2(res2[j][r]);
+        const float y0 = acc[4 * j + 2 * r] + c.x + rv.x;
+        const float y1 = acc[4 * j + 2 * r + 1] + c.y + rv.y;
         const uint32_t packed = pack_bf16(y0, y1);
         *reinterpret_cast<uint32_t*>(p.out + o) = packed;
-        const float2 yr = __bfloat1622float2(
-            *reinterpret_cast<const __nv_bfloat162*>(&packed));
+        const float2 yr = bf2_to_f2(packed);
         q1[0] += yr.x;
         q1[1] += yr.y;
         q2[0] += yr.x * yr.x;
