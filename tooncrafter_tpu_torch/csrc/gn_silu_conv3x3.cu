@@ -36,11 +36,13 @@
 //     thread, up to the ring's depth ahead of the products;
 //   * each 64-channel chunk's halo (BM + 2W + 2 source pixels, rows padded
 //     to 144 bytes so ldmatrix reads them conflict-free) is copied by seven
-//     helper warps with cp.async (all of a chunk's loads in flight at once)
-//     into a ring of three buffers (two at W > 128) and activated there in
-//     place, once, so the next chunks land and are activated while the
-//     current chunk's nine taps run; setmaxnreg moves the helpers'
-//     registers to the consumers;
+//     helper warps with cp.async (all of a chunk's loads in flight at once,
+//     two chunks ahead of the activation) into a ring of up to four
+//     buffers and activated there in place, once, with the image's affine
+//     staged in shared memory; so the next chunks land and are activated
+//     while the current chunk's nine taps run (the helpers' latency, not
+//     the products, set the pace with fewer buffers). setmaxnreg moves the
+//     helpers' registers to the consumers;
 //   * each tap reads the halo shifted by dy * W + dx with ldmatrix into
 //     the A fragments and zeroes the rows whose source lies past the
 //     image's left or right edge (in the linear pixel order those are
@@ -53,6 +55,8 @@
 // then over the warps in a fixed order: deterministic, no atomics.
 
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 #include "mma_bf16.cuh"
 #include "sm90.cuh"
@@ -77,7 +81,7 @@ struct Params {
   float* s2;
   int h, wd, cin, cout, silu, n_mtiles;
   int stages;          // the weight ring's depth
-  int bufs;            // halo buffers, 2 or 3
+  int bufs;            // halo buffers, 2-4
   int halo_rows;       // BM + 2 W + 2
 };
 
@@ -95,12 +99,28 @@ __device__ __forceinline__ void cp_async16(bf16* dst, const bf16* src) {
 
 // v * sigmoid(v) with the approximate exponential and reciprocal (a few
 // fp32 ulps, far below the bf16 rounding that follows; the IEEE-rounded
-// reciprocal costs a call per element, which made the prologue the
-// kernel's bottleneck)
+// reciprocal, or __expf's range fix-up, cost instructions the prologue,
+// which sets the kernel's pace, cannot spare)
 __device__ __forceinline__ float fast_silu(float v) {
-  float r;
-  asm("rcp.approx.ftz.f32 %0, %1;\n" : "=f"(r) : "f"(1.f + __expf(-v)));
+  float e, r;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(e) : "f"(v * -1.4426950408889634f));
+  asm("rcp.approx.ftz.f32 %0, %1;\n" : "=f"(r) : "f"(1.f + e));
   return v * r;
+}
+
+// 16 bytes from / to shared memory at a shared-window address
+__device__ __forceinline__ uint4 lds128(uint32_t a) {
+  uint4 v;
+  asm volatile("ld.shared.v4.b32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "r"(a));
+  return v;
+}
+
+__device__ __forceinline__ void sts128(uint32_t a, uint4 v) {
+  asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(a),
+               "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w)
+               : "memory");
 }
 
 // z for eight channels: the affine (fp32), for the "ref" cast point rounded
@@ -130,10 +150,12 @@ __device__ __forceinline__ uint4 activate8(uint4 v, const float (&as)[8],
 
 // Shared memory, from a 1024-byte aligned base: the weight ring
 // [stages][kBN][64] (swizzled by TMA), the halo buffers
-// [bufs][halo_rows][kHaloLd], then the barriers.
+// [bufs][halo_rows][kHaloLd], the image's affine [2][cin], then the
+// barriers.
 struct Smem {
   bf16* w;
   bf16* halo;
+  float* aff;
   uint64_t* w_full;
   uint64_t* w_empty;
   uint64_t* h_full;   // [bufs]
@@ -143,8 +165,8 @@ struct Smem {
         (reinterpret_cast<uintptr_t>(raw) + 1023) & ~uintptr_t(1023));
     w = reinterpret_cast<bf16*>(base);
     halo = w + p.stages * kBN * kKC;
-    w_full =
-        reinterpret_cast<uint64_t*>(halo + p.bufs * p.halo_rows * kHaloLd);
+    aff = reinterpret_cast<float*>(halo + p.bufs * p.halo_rows * kHaloLd);
+    w_full = reinterpret_cast<uint64_t*>(aff + 2 * p.cin);
     w_empty = w_full + p.stages;
     h_full = w_empty + p.stages;
     h_empty = h_full + p.bufs;
@@ -159,8 +181,10 @@ template <int NWG, bool kRoundFirst>
 __global__ void __launch_bounds__((NWG + 2) * 128, 1)
 conv_kernel(const Params p, const __grid_constant__ CUtensorMap tm_w) {
   constexpr int BM = 64 * NWG;
-  // the registers a consumer thread may hold once the helpers drop to 64
-  constexpr int kConsumerRegs = NWG == 2 ? 192 : 232;
+  // the registers a consumer thread may hold once the helpers drop to 80
+  // (the helpers' activation needs that many to keep several elements'
+  // exp2 / rcp chains in flight)
+  constexpr int kConsumerRegs = NWG == 2 ? 176 : 232;
   extern __shared__ unsigned char smem_raw[];
   const Smem sm(smem_raw, p);
   const int tid = threadIdx.x;
@@ -182,7 +206,7 @@ conv_kernel(const Params p, const __grid_constant__ CUtensorMap tm_w) {
   __syncthreads();
 
   if (tid >= NWG * 128) {  // the helpers
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 64;\n" ::: "memory");
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 80;\n" ::: "memory");
     if (tid == NWG * 128) {  // the weight producer
       const int steps = 9 * chunks;
       for (int s = 0; s < steps; ++s) {
@@ -198,37 +222,71 @@ conv_kernel(const Params p, const __grid_constant__ CUtensorMap tm_w) {
       const int cg = at & 7;  // this thread's 8-channel group
       const int base = m0 - W - 1;
       const bf16* xf = p.x + (long long)f * hw * p.cin;
-      for (int c = 0; c < chunks; ++c) {
-        const int buf = c % p.bufs;
-        const int ch = c * kKC + cg * 8;
-        const bool cv = ch < p.cin;
-        bf16* hb = sm.halo + buf * R * kHaloLd + cg * 8;
-        sm90::mbar_wait(&sm.h_empty[buf], ((c / p.bufs) & 1) ^ 1);
-        // every load of the chunk in flight at once, zeros where the
-        // source lies outside the image or past cin
-        for (int row = at >> 3; row < R; row += kActThreads / 8) {
-          const int src = base + row;
-          if (cv && src >= 0 && src < hw)
-            cp_async16(hb + row * kHaloLd, xf + (long long)src * p.cin + ch);
-          else
-            *reinterpret_cast<uint4*>(hb + row * kHaloLd) =
-                make_uint4(0u, 0u, 0u, 0u);
-        }
-        asm volatile("cp.async.commit_group;\n" ::: "memory");
-        float as[8], bs[8];
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          as[j] = cv ? p.a[(long long)f * p.cin + ch + j] : 0.f;
-          bs[j] = cv ? p.b[(long long)f * p.cin + ch + j] : 0.f;
-        }
-        asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-        if (cv) {
-#pragma unroll 4
+      // chunk c's loads, all in flight at once, into its buffer (once the
+      // consumers are done with the chunk that held it), zeros where the
+      // source lies outside the image or past cin; one cp.async group
+      auto copy = [&](int c) {
+        if (c < chunks) {
+          const int buf = c % p.bufs, ch = c * kKC + cg * 8;
+          bf16* hb = sm.halo + buf * R * kHaloLd + cg * 8;
+          sm90::mbar_wait(&sm.h_empty[buf], ((c / p.bufs) & 1) ^ 1);
           for (int row = at >> 3; row < R; row += kActThreads / 8) {
             const int src = base + row;
-            if (src >= 0 && src < hw) {
-              uint4* h = reinterpret_cast<uint4*>(hb + row * kHaloLd);
-              *h = activate8<kRoundFirst>(*h, as, bs, p.silu);
+            if (ch < p.cin && src >= 0 && src < hw)
+              cp_async16(hb + row * kHaloLd, xf + (long long)src * p.cin + ch);
+            else
+              *reinterpret_cast<uint4*>(hb + row * kHaloLd) =
+                  make_uint4(0u, 0u, 0u, 0u);
+          }
+        }
+        asm volatile("cp.async.commit_group;\n" ::: "memory");
+      };
+      // the loads run `ahead` chunks before the activation: as far as the
+      // ring allows without waiting for the chunk being computed
+      const int ahead = p.bufs - 2;
+      for (int c = 0; c < ahead; ++c) copy(c);
+      for (int i = at; i < 2 * p.cin; i += kActThreads)  // the affine
+        sm.aff[i] = (i < p.cin ? p.a : p.b)[(long long)f * p.cin +
+                                            i % p.cin];
+      asm volatile("bar.sync 2, %0;\n" ::"n"(kActThreads) : "memory");
+      for (int c = 0; c < chunks; ++c) {
+        copy(c + ahead);  // chunk c's group is then `ahead` from the last
+        if (ahead == 2)
+          asm volatile("cp.async.wait_group 2;\n" ::: "memory");
+        else if (ahead == 1)
+          asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+        else
+          asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+        const int buf = c % p.bufs, ch = c * kKC + cg * 8;
+        if (ch < p.cin) {
+          float as[8], bs[8];
+#pragma unroll
+          for (int j = 0; j < 8; j += 4) {
+            const uint4 a4 = lds128(sm90::smem_u32(sm.aff + ch + j));
+            const uint4 b4 = lds128(sm90::smem_u32(sm.aff + p.cin + ch + j));
+            as[j] = __uint_as_float(a4.x), as[j + 1] = __uint_as_float(a4.y);
+            as[j + 2] = __uint_as_float(a4.z), as[j + 3] = __uint_as_float(a4.w);
+            bs[j] = __uint_as_float(b4.x), bs[j + 1] = __uint_as_float(b4.y);
+            bs[j + 2] = __uint_as_float(b4.z), bs[j + 3] = __uint_as_float(b4.w);
+          }
+          const uint32_t hb =
+              sm90::smem_u32(sm.halo + buf * R * kHaloLd + cg * 8);
+          // four rows a pass, all loaded before any is stored back, so the
+          // rows' dependency chains overlap
+          constexpr int kStep = kActThreads / 8;
+          for (int row0 = at >> 3; row0 < R; row0 += 4 * kStep) {
+            uint4 v[4];
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              const int row = row0 + i * kStep;
+              if (row < R) v[i] = lds128(hb + row * kHaloLd * 2);
+            }
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              const int row = row0 + i * kStep, src = base + row;
+              if (row < R && src >= 0 && src < hw)
+                sts128(hb + row * kHaloLd * 2,
+                       activate8<kRoundFirst>(v[i], as, bs, p.silu));
             }
           }
         }
@@ -259,11 +317,12 @@ conv_kernel(const Params p, const __grid_constant__ CUtensorMap tm_w) {
   for (int i = 0; i < kBN / 2; ++i) acc[i] = 0.f;
   uint32_t af[2][4][4];
 
-  for (int c = 0; c < chunks; ++c) {
+  // one chunk's nine taps, KS k16 steps each (4, or 2 for a last chunk of
+  // 32 channels), in straight-line code: no branch between the products
+  auto run_chunk = [&](int c, auto ks) {
+    constexpr int KS = decltype(ks)::value;
     const int buf = c % p.bufs;
-    const int ksteps = min(kKC, p.cin - c * kKC) / 16;
     const bf16* hb = sm.halo + buf * R * kHaloLd;
-    sm90::mbar_wait(&sm.h_full[buf], (c / p.bufs) & 1);
     // A fragments of tap `tap` (rows shifted by dy * W + dx) into af[set]
     auto load_a = [&](int set, int tap) {
       const int dy = tap / 3 - 1, dx = tap % 3 - 1;
@@ -276,34 +335,32 @@ conv_kernel(const Params p, const __grid_constant__ CUtensorMap tm_w) {
                                                                 : 0xffffffffu;
       }
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        if (kk < ksteps) {
-          ldmatrix_x4(af[set][kk], src + kk * 16);
-          af[set][kk][0] &= keep[0];
-          af[set][kk][2] &= keep[0];
-          af[set][kk][1] &= keep[1];
-          af[set][kk][3] &= keep[1];
-        }
+      for (int kk = 0; kk < KS; ++kk) {
+        ldmatrix_x4(af[set][kk], src + kk * 16);
+        af[set][kk][0] &= keep[0];
+        af[set][kk][2] &= keep[0];
+        af[set][kk][1] &= keep[1];
+        af[set][kk][3] &= keep[1];
       }
     };
+    sm90::mbar_wait(&sm.h_full[buf], (c / p.bufs) & 1);
     load_a(0, 0);
 #pragma unroll
     for (int tap = 0; tap < 9; ++tap) {
       const int s = 9 * c + tap, st = s % p.stages;
-      sm90::mbar_wait(&sm.w_full[st], (s / p.stages) & 1);
       const uint64_t desc = sm90::desc_sw128(sm.w + st * kBN * kKC);
+      sm90::mbar_wait(&sm.w_full[st], (s / p.stages) & 1);
       sm90::fence_regs(acc);
       sm90::wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-        if (kk < ksteps)
-          sm90::wgmma_m64n160k16_rs<0>(acc, af[tap & 1][kk],
-                                       sm90::desc_add(desc, 32 * kk), 1);
+      for (int kk = 0; kk < KS; ++kk)
+        sm90::wgmma_m64n160k16_rs<0>(acc, af[tap & 1][kk],
+                                     sm90::desc_add(desc, 32 * kk), 1);
       sm90::wgmma_commit();
       if (tap > 0) {  // the previous tap's products are done
         sm90::wgmma_wait<1>();
 #pragma unroll
-        for (int kk = 0; kk < 4; ++kk) sm90::fence_regs(af[(tap - 1) & 1][kk]);
+        for (int kk = 0; kk < KS; ++kk) sm90::fence_regs(af[(tap - 1) & 1][kk]);
         if (lane == 0) sm90::mbar_arrive(&sm.w_empty[(s - 1) % p.stages]);
       }
       if (tap < 8) load_a((tap + 1) & 1, tap + 1);
@@ -311,11 +368,17 @@ conv_kernel(const Params p, const __grid_constant__ CUtensorMap tm_w) {
     sm90::wgmma_wait<0>();
     sm90::fence_regs(acc);
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) sm90::fence_regs(af[0][kk]);
+    for (int kk = 0; kk < KS; ++kk) sm90::fence_regs(af[0][kk]);
     if (lane == 0) {
       sm90::mbar_arrive(&sm.w_empty[(9 * c + 8) % p.stages]);
       sm90::mbar_arrive(&sm.h_empty[buf]);
     }
+  };
+  for (int c = 0; c < chunks; ++c) {
+    if (p.cin - c * kKC >= kKC)
+      run_chunk(c, std::integral_constant<int, 4>());
+    else
+      run_chunk(c, std::integral_constant<int, 2>());
   }
 
   // epilogue: acc + bias + residual, one rounding, and the sums of the
@@ -398,14 +461,15 @@ int launch(Params q, const bf16* w, int frames, cudaStream_t stream) {
   constexpr int BM = 64 * NWG;
   q.n_mtiles = (q.h * q.wd + BM - 1) / BM;
   q.halo_rows = BM + 2 * q.wd + 2;
-  // the deepest rings that fit: three halo buffers where they do (two
-  // chunks may land ahead of the products), then up to four weight stages
+  // the deepest rings that fit: four halo buffers where they do (the
+  // loads run two chunks ahead of the activation, which runs ahead of the
+  // products), then up to four weight stages
   auto bytes = [&](int bufs, int stages) {
     return 1024 + stages * kStageBytes + bufs * q.halo_rows * kHaloLd * 2 +
-           2 * (stages + bufs) * 8;
+           2 * q.cin * 4 + 2 * (stages + bufs) * 8;
   };
   q.bufs = 0;
-  for (int b = 3; b >= 2 && q.bufs == 0; --b)
+  for (int b = 4; b >= 2 && q.bufs == 0; --b)
     for (int st = 4; st >= 2 && q.bufs == 0; --st)
       if (bytes(b, st) <= kMaxSmem) {
         q.bufs = b;

@@ -62,9 +62,11 @@ __device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
       : "memory");
 }
 
-// wait for the completion of the phase of parity `parity`; a wait of more
-// than ~2^34 cycles (seconds) is a broken protocol: trap, so the launch
-// fails instead of hanging the card
+// wait for the completion of the phase of parity `parity`, the thread
+// suspended meanwhile (the time hint, in ns, lets it sleep until the phase
+// completes instead of spinning on issue slots the working warps need); a
+// wait of more than ~2^34 cycles (seconds) is a broken protocol: trap, so
+// the launch fails instead of hanging the card
 __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   const uint32_t a = smem_u32(bar);
   uint32_t done;
@@ -72,10 +74,10 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   for (;;) {
     asm volatile(
         "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2, %3;\n"
         "selp.u32 %0, 1, 0, p;\n}\n"
         : "=r"(done)
-        : "r"(a), "r"(parity)
+        : "r"(a), "r"(parity), "r"(10000000)
         : "memory");
     if (done) return;
     if (start == 0) {
