@@ -357,8 +357,11 @@ flash_fwd_wgmma(const Params p, const __grid_constant__ CUtensorMap tm_q,
 
   // the normalizer of ONES: the PV product's extra 8 columns, whose B is a
   // tile of ones kTile bytes past each V tile (the descriptor's leading
-  // offset), sum the bf16 p that the product reads and are rescaled with
-  // the accumulator; otherwise the threads sum the unrounded p
+  // offset), sum the bf16 p that the product reads, a tile at a time: each
+  // tile's sums go into l in fp32 (rescaled with the accumulator) and the
+  // columns restart from zero, since the tensor cores' sum into a large
+  // running total drops low bits (1e-4 of l over 576 tiles); otherwise the
+  // threads sum the unrounded p
   constexpr bool kOnesColumn = ONES;
   constexpr int kDV = kOnesColumn ? kD + 8 : kD;  // accumulator columns
 
@@ -403,7 +406,8 @@ flash_fwd_wgmma(const Params p, const __grid_constant__ CUtensorMap tm_q,
 #pragma unroll
   for (int i = 0; i < kDV / 2; ++i) o_acc[i] = 0.f;
   float m_r[2] = {neg_inf(), neg_inf()};  // running max of the raw scores
-  float l_r[2] = {0.f, 0.f};  // without the ones column: this thread's sums
+  float l_r[2] = {0.f, 0.f};  // the row sums (without the ones column, this
+                              // thread's share)
   float sc[kBN / 2];                      // S, then p, of the current tile
   uint32_t pa[kBN / 16][4];               // the previous tile's p, bf16
 
@@ -507,8 +511,15 @@ flash_fwd_wgmma(const Params p, const __grid_constant__ CUtensorMap tm_q,
     sm90::wgmma_wait<0>();
     sm90::fence_regs(o_acc);
     sm90::fence_regs(pa);
+    if constexpr (kOnesColumn) {  // tile it - 1's sums into l, then reset
 #pragma unroll
-    for (int j = 0; j < kDV / 8; ++j) {
+      for (int r = 0; r < 2; ++r)
+        l_r[r] = (l_r[r] + o_acc[kD / 2 + 2 * r]) * corr[r];
+#pragma unroll
+      for (int i = kD / 2; i < kDV / 2; ++i) o_acc[i] = 0.f;
+    }
+#pragma unroll
+    for (int j = 0; j < kD / 8; ++j) {
       o_acc[4 * j + 0] *= corr[0];
       o_acc[4 * j + 1] *= corr[0];
       o_acc[4 * j + 2] *= corr[1];
@@ -527,7 +538,7 @@ flash_fwd_wgmma(const Params p, const __grid_constant__ CUtensorMap tm_q,
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     if constexpr (kOnesColumn) {
-      l_r[r] = o_acc[kD / 2 + 2 * r];  // column kD + 2t of row g + 8r
+      l_r[r] += o_acc[kD / 2 + 2 * r];  // column kD + 2t of row g + 8r
     } else {
       l_r[r] += __shfl_xor_sync(0xffffffffu, l_r[r], 1);
       l_r[r] += __shfl_xor_sync(0xffffffffu, l_r[r], 2);
