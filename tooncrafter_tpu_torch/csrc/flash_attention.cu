@@ -317,7 +317,8 @@ constexpr int kTile = kBN * kD * 2;   // bytes of a K or V tile
 struct Smem {  // 1024-byte aligned: every tile is a whole number of atoms
   bf16 q[kBM * kD];
   bf16 k[kStages][kBN * kD];
-  bf16 v[kStages][2][kBN * kD];  // V, then a tile of ones (the ones column)
+  bf16 v[kStages][kBN * kD];
+  bf16 ones[kBN * kD];  // the B of the ones column (`ones`)
   uint64_t q_full;
   uint64_t k_full[kStages];
   uint64_t v_full[kStages];
@@ -355,15 +356,13 @@ flash_fwd_wgmma(const Params p, const __grid_constant__ CUtensorMap tm_q,
   }
   __syncthreads();
 
-  // the normalizer of ONES: the PV product's extra 8 columns, whose B is a
-  // tile of ones kTile bytes past each V tile (the descriptor's leading
-  // offset), sum the bf16 p that the product reads, a tile at a time: each
-  // tile's sums go into l in fp32 (rescaled with the accumulator) and the
-  // columns restart from zero, since the tensor cores' sum into a large
-  // running total drops low bits (1e-4 of l over 576 tiles); otherwise the
-  // threads sum the unrounded p
+  // the normalizer of ONES: a product of P with 8 columns of ones (the
+  // ones column), beside each tile's PV, sums the bf16 p that PV reads; it
+  // starts from zero every tile and its sums go into l in fp32, rescaled
+  // with the accumulator (summed on the tensor cores into a running total,
+  // l drifts by 1e-4 over 576 tiles); otherwise the threads sum the
+  // unrounded p
   constexpr bool kOnesColumn = ONES;
-  constexpr int kDV = kOnesColumn ? kD + 8 : kD;  // accumulator columns
 
   if (wgi == kConsumers) {  // the producer
     asm volatile("setmaxnreg.dec.sync.aligned.u32 32;\n" ::: "memory");
@@ -376,8 +375,7 @@ flash_fwd_wgmma(const Params p, const __grid_constant__ CUtensorMap tm_q,
         sm90::mbar_expect_tx(&sm.k_full[s], kTile);
         sm90::tma_load_4d(sm.k[s], &tm_k, &sm.k_full[s], 0, h, it * kBN, b);
         sm90::mbar_expect_tx(&sm.v_full[s], kTile);
-        sm90::tma_load_4d(sm.v[s][0], &tm_v, &sm.v_full[s], 0, h, it * kBN,
-                          b);
+        sm90::tma_load_4d(sm.v[s], &tm_v, &sm.v_full[s], 0, h, it * kBN, b);
       }
     }
     return;
@@ -391,20 +389,19 @@ flash_fwd_wgmma(const Params p, const __grid_constant__ CUtensorMap tm_q,
   const uint64_t desc_q = sm90::desc_sw128(q_tile);
   const float sl2 = p.scale_log2;
 
-  if constexpr (kOnesColumn) {  // the ones tiles, read by wgmma
-    for (int s = 0; s < kStages; ++s) {
-      uint4* ones = reinterpret_cast<uint4*>(sm.v[s][1]);
-      for (int i = tid; i < kTile / 16; i += kConsumers * 128)
-        ones[i] = make_uint4(0x3f803f80u, 0x3f803f80u, 0x3f803f80u,
-                             0x3f803f80u);  // bf16 1.0
-    }
+  if constexpr (kOnesColumn) {  // the ones tile, read by wgmma
+    uint4* ones = reinterpret_cast<uint4*>(sm.ones);
+    for (int i = tid; i < kTile / 16; i += kConsumers * 128)
+      ones[i] = make_uint4(0x3f803f80u, 0x3f803f80u, 0x3f803f80u,
+                           0x3f803f80u);  // bf16 1.0
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
     asm volatile("bar.sync 15, %0;\n" ::"n"(kConsumers * 128) : "memory");
   }
 
-  float o_acc[kDV / 2];
+  float o_acc[kD / 2];
 #pragma unroll
-  for (int i = 0; i < kDV / 2; ++i) o_acc[i] = 0.f;
+  for (int i = 0; i < kD / 2; ++i) o_acc[i] = 0.f;
+  float l_acc[4];  // the ones column's sums of a tile: rows g, g + 8
   float m_r[2] = {neg_inf(), neg_inf()};  // running max of the raw scores
   float l_r[2] = {0.f, 0.f};  // the row sums (without the ones column, this
                               // thread's share)
@@ -424,22 +421,23 @@ flash_fwd_wgmma(const Params p, const __grid_constant__ CUtensorMap tm_q,
                                    sm90::desc_add(desc_k, 32 * kk), kk > 0);
     sm90::wgmma_commit();
   };
-  // O (+ the ones column) += P V of tile `it` (pa): V's tile key-major,
+  // O += P V of tile `it` (pa), and the ones column: V's tile key-major,
   // read MN-major (the transpose flag)
   auto issue_pv = [&](int it) {
     const int s = it % kStages;
     sm90::mbar_wait(&sm.v_full[s], (it / kStages) & 1);
-    const uint64_t desc_v = sm90::desc_sw128(sm.v[s][0], 1024, kTile);
+    const uint64_t desc_v = sm90::desc_sw128(sm.v[s]);
+    const uint64_t desc_1 = sm90::desc_sw128(sm.ones);
     sm90::fence_regs(o_acc);
+    sm90::fence_regs(l_acc);
     sm90::wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < kBN / 16; ++kk) {
+      sm90::wgmma_m64n64k16_rs<1>(o_acc, pa[kk],
+                                  sm90::desc_add(desc_v, 2048 * kk), 1);
       if constexpr (kOnesColumn)
-        sm90::wgmma_m64n72k16_rs<1>(o_acc, pa[kk],
-                                    sm90::desc_add(desc_v, 2048 * kk), 1);
-      else
-        sm90::wgmma_m64n64k16_rs<1>(o_acc, pa[kk],
-                                    sm90::desc_add(desc_v, 2048 * kk), 1);
+        sm90::wgmma_m64n8k16_rs<1>(l_acc, pa[kk],
+                                   sm90::desc_add(desc_1, 2048 * kk), kk > 0);
     }
     sm90::wgmma_commit();
   };
@@ -510,13 +508,11 @@ flash_fwd_wgmma(const Params p, const __grid_constant__ CUtensorMap tm_q,
     softmax(it, corr);
     sm90::wgmma_wait<0>();
     sm90::fence_regs(o_acc);
+    sm90::fence_regs(l_acc);
     sm90::fence_regs(pa);
-    if constexpr (kOnesColumn) {  // tile it - 1's sums into l, then reset
+    if constexpr (kOnesColumn) {  // tile it - 1's sums into l
 #pragma unroll
-      for (int r = 0; r < 2; ++r)
-        l_r[r] = (l_r[r] + o_acc[kD / 2 + 2 * r]) * corr[r];
-#pragma unroll
-      for (int i = kD / 2; i < kDV / 2; ++i) o_acc[i] = 0.f;
+      for (int r = 0; r < 2; ++r) l_r[r] = (l_r[r] + l_acc[2 * r]) * corr[r];
     }
 #pragma unroll
     for (int j = 0; j < kD / 8; ++j) {
@@ -531,6 +527,7 @@ flash_fwd_wgmma(const Params p, const __grid_constant__ CUtensorMap tm_q,
   issue_pv(n_tiles - 1);
   sm90::wgmma_wait<0>();
   sm90::fence_regs(o_acc);
+  sm90::fence_regs(l_acc);
   sm90::fence_regs(pa);
   release(n_tiles - 1);
 
@@ -538,7 +535,7 @@ flash_fwd_wgmma(const Params p, const __grid_constant__ CUtensorMap tm_q,
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     if constexpr (kOnesColumn) {
-      l_r[r] += o_acc[kD / 2 + 2 * r];  // column kD + 2t of row g + 8r
+      l_r[r] += l_acc[2 * r];  // the last tile's
     } else {
       l_r[r] += __shfl_xor_sync(0xffffffffu, l_r[r], 1);
       l_r[r] += __shfl_xor_sync(0xffffffffu, l_r[r], 2);
@@ -554,7 +551,8 @@ flash_fwd_wgmma(const Params p, const __grid_constant__ CUtensorMap tm_q,
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const int row = row0 + 8 * r;
-      uint32_t* dst = reinterpret_cast<uint32_t*>(stage + row * 8 + (j ^ (row & 7)));
+      uint32_t* dst =
+          reinterpret_cast<uint32_t*>(stage + row * 8 + (j ^ (row & 7)));
       dst[t] = pack_bf16(o_acc[4 * j + 2 * r] * inv[r],
                          o_acc[4 * j + 2 * r + 1] * inv[r]);
     }
@@ -662,7 +660,8 @@ extern "C" int tc_flash_fwd(int head_dim, int ones, const void* q,
                                sq, sk, scale);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (head_dim == 64)
-    return ones ? wg::launch<true>(p, batch, s) : wg::launch<false>(p, batch, s);
+    return ones ? wg::launch<true>(p, batch, s)
+                : wg::launch<false>(p, batch, s);
   if (head_dim == 512)
     return ones ? launch<512, 128, 32, true>(p, batch, s)
                 : launch<512, 128, 32>(p, batch, s);

@@ -264,10 +264,13 @@ conv_kernel(const Params p, const __grid_constant__ CUtensorMap tm_w) {
           for (int j = 0; j < 8; j += 4) {
             const uint4 a4 = lds128(sm90::smem_u32(sm.aff + ch + j));
             const uint4 b4 = lds128(sm90::smem_u32(sm.aff + p.cin + ch + j));
-            as[j] = __uint_as_float(a4.x), as[j + 1] = __uint_as_float(a4.y);
-            as[j + 2] = __uint_as_float(a4.z), as[j + 3] = __uint_as_float(a4.w);
-            bs[j] = __uint_as_float(b4.x), bs[j + 1] = __uint_as_float(b4.y);
-            bs[j + 2] = __uint_as_float(b4.z), bs[j + 3] = __uint_as_float(b4.w);
+            const uint32_t av[4] = {a4.x, a4.y, a4.z, a4.w};
+            const uint32_t bv[4] = {b4.x, b4.y, b4.z, b4.w};
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              as[j + i] = __uint_as_float(av[i]);
+              bs[j + i] = __uint_as_float(bv[i]);
+            }
           }
           const uint32_t hb =
               sm90::smem_u32(sm.halo + buf * R * kHaloLd + cg * 8);
