@@ -31,11 +31,11 @@ from typing import Callable, Dict, List, Tuple
 import torch
 
 KINDS = (
-    ("flash attention (port kernel)", ("flash_fwd_kernel",)),
+    ("flash attention (port kernel)", ("flash_fwd_kernel", "flash_fwd_wgmma")),
     ("flash attention backward (port kernel)", ("flash_bwd_",)),
     ("fused FF (port kernel)", ("fused_ff_kernel",)),
     ("temporal conv (port kernel)", ("igemm::tconv_kernel",)),
-    ("GN+SiLU+3x3 conv (port kernel)", ("igemm::conv_kernel",)),
+    ("GN+SiLU+3x3 conv (port kernel)", ("::conv_kernel<",)),
     ("temporal attention pair / single stage (port kernel)",
      ("tpair_kernel",)),
     ("T-attention core (port kernel)", ("ptc_kernel",)),
