@@ -41,8 +41,11 @@
 //     buffers and activated there in place, once, with the image's affine
 //     staged in shared memory; so the next chunks land and are activated
 //     while the current chunk's nine taps run (the helpers' latency, not
-//     the products, set the pace with fewer buffers). setmaxnreg moves the
-//     helpers' registers to the consumers;
+//     the products, set the pace with fewer buffers). At 128-pixel tiles
+//     the two blocks of a cluster (two Cout tiles) split the halo's rows
+//     and write each activated row to both, halving the activation, the
+//     kernel's pace-setter. setmaxnreg moves the helpers' registers to
+//     the consumers;
 //   * each tap reads the halo shifted by dy * W + dx with ldmatrix into
 //     the A fragments and zeroes the rows whose source lies past the
 //     image's left or right edge (in the linear pixel order those are
@@ -176,10 +179,16 @@ struct Smem {
 constexpr int kStageBytes = kBN * kKC * 2;
 
 // NWG consumer warpgroups (BM = 64 NWG pixels), then two warpgroups of
-// helpers: warp 0 issues the weight TMA loads, warps 1-7 the halo's.
+// helpers: warp 0 issues the weight TMA loads, warps 1-7 the halo's. At
+// 128 pixels (kPair) the two blocks of a cluster (two Cout tiles of one
+// pixel tile) share the halo: each copies and activates half of its rows
+// and writes them to both. At 64 the halo is small, and the pair's
+// traffic and waits cost more than they save (PERF.md, PR 7).
 template <int NWG, bool kRoundFirst>
 __global__ void __launch_bounds__((NWG + 2) * 128, 1)
 conv_kernel(const Params p, const __grid_constant__ CUtensorMap tm_w) {
+  constexpr bool kPair = NWG == 2;
+  constexpr int kBlocks = kPair ? 2 : 1;  // blocks sharing the halo
   constexpr int BM = 64 * NWG;
   // the registers a consumer thread may hold once the helpers drop to 80
   // (the helpers' activation needs that many to keep several elements'
@@ -191,19 +200,20 @@ conv_kernel(const Params p, const __grid_constant__ CUtensorMap tm_w) {
   const int W = p.wd, hw = p.h * W, R = p.halo_rows;
   const int m0 = blockIdx.x * BM, n0 = blockIdx.y * kBN, f = blockIdx.z;
   const int chunks = (p.cin + kKC - 1) / kKC;
+  const uint32_t peer = sm90::cluster_rank() ^ 1;
 
   if (tid == 0) {
     for (int s = 0; s < p.stages; ++s) {
       sm90::mbar_init(&sm.w_full[s], 1);
       sm90::mbar_init(&sm.w_empty[s], NWG * 4);  // one per consumer warp
     }
-    for (int i = 0; i < p.bufs; ++i) {
-      sm90::mbar_init(&sm.h_full[i], kActThreads);
-      sm90::mbar_init(&sm.h_empty[i], NWG * 4);
+    for (int i = 0; i < p.bufs; ++i) {  // both blocks' helpers / consumers
+      sm90::mbar_init(&sm.h_full[i], kBlocks * kActThreads);
+      sm90::mbar_init(&sm.h_empty[i], kBlocks * NWG * 4);
     }
     sm90::mbar_fence_init();
   }
-  __syncthreads();
+  sm90::cluster_sync();  // the peer's barriers are set up too
 
   if (tid >= NWG * 128) {  // the helpers
     asm volatile("setmaxnreg.dec.sync.aligned.u32 80;\n" ::: "memory");
@@ -221,22 +231,22 @@ conv_kernel(const Params p, const __grid_constant__ CUtensorMap tm_w) {
       const int at = tid - (NWG * 128 + 32);
       const int cg = at & 7;  // this thread's 8-channel group
       const int base = m0 - W - 1;
+      // this block's share of the halo rows; the peer does the rest
+      const int share = (R + kBlocks - 1) / kBlocks;
+      const int r0 = kPair ? (peer ^ 1) * share : 0, r1 = min(R, r0 + share);
       const bf16* xf = p.x + (long long)f * hw * p.cin;
       // chunk c's loads, all in flight at once, into its buffer (once the
-      // consumers are done with the chunk that held it), zeros where the
-      // source lies outside the image or past cin; one cp.async group
+      // consumers of both blocks are done with the chunk that held it); one
+      // cp.async group
       auto copy = [&](int c) {
         if (c < chunks) {
           const int buf = c % p.bufs, ch = c * kKC + cg * 8;
           bf16* hb = sm.halo + buf * R * kHaloLd + cg * 8;
-          sm90::mbar_wait(&sm.h_empty[buf], ((c / p.bufs) & 1) ^ 1);
-          for (int row = at >> 3; row < R; row += kActThreads / 8) {
+          sm90::mbar_wait_cluster(&sm.h_empty[buf], ((c / p.bufs) & 1) ^ 1);
+          for (int row = r0 + (at >> 3); row < r1; row += kActThreads / 8) {
             const int src = base + row;
             if (ch < p.cin && src >= 0 && src < hw)
               cp_async16(hb + row * kHaloLd, xf + (long long)src * p.cin + ch);
-            else
-              *reinterpret_cast<uint4*>(hb + row * kHaloLd) =
-                  make_uint4(0u, 0u, 0u, 0u);
           }
         }
         asm volatile("cp.async.commit_group;\n" ::: "memory");
@@ -258,42 +268,50 @@ conv_kernel(const Params p, const __grid_constant__ CUtensorMap tm_w) {
         else
           asm volatile("cp.async.wait_group 0;\n" ::: "memory");
         const int buf = c % p.bufs, ch = c * kKC + cg * 8;
-        if (ch < p.cin) {
-          float as[8], bs[8];
+        const bool cv = ch < p.cin;
+        float as[8], bs[8];
 #pragma unroll
-          for (int j = 0; j < 8; j += 4) {
-            const uint4 a4 = lds128(sm90::smem_u32(sm.aff + ch + j));
-            const uint4 b4 = lds128(sm90::smem_u32(sm.aff + p.cin + ch + j));
-            const uint32_t av[4] = {a4.x, a4.y, a4.z, a4.w};
-            const uint32_t bv[4] = {b4.x, b4.y, b4.z, b4.w};
+        for (int j = 0; j < 8; j += 4) {
+          const uint4 a4 = lds128(sm90::smem_u32(sm.aff + ch + j));
+          const uint4 b4 = lds128(sm90::smem_u32(sm.aff + p.cin + ch + j));
+          const uint32_t av[4] = {a4.x, a4.y, a4.z, a4.w};
+          const uint32_t bv[4] = {b4.x, b4.y, b4.z, b4.w};
 #pragma unroll
-            for (int i = 0; i < 4; ++i) {
-              as[j + i] = __uint_as_float(av[i]);
-              bs[j + i] = __uint_as_float(bv[i]);
-            }
+          for (int i = 0; i < 4; ++i) {
+            as[j + i] = __uint_as_float(av[i]);
+            bs[j + i] = __uint_as_float(bv[i]);
           }
-          const uint32_t hb =
-              sm90::smem_u32(sm.halo + buf * R * kHaloLd + cg * 8);
-          // four rows a pass, all loaded before any is stored back, so the
-          // rows' dependency chains overlap
-          constexpr int kStep = kActThreads / 8;
-          for (int row0 = at >> 3; row0 < R; row0 += 4 * kStep) {
-            uint4 v[4];
+        }
+        bf16* hp = sm.halo + buf * R * kHaloLd + cg * 8;
+        const uint32_t hb = sm90::smem_u32(hp);
+        const uint32_t hr = kPair ? sm90::peer_addr(hp, peer) : 0;
+        // four rows a pass, all loaded before any is stored back, so the
+        // rows' dependency chains overlap; each activated row (zeros where
+        // the source lies outside the image or past cin) to both blocks
+        constexpr int kStep = kActThreads / 8;
+        for (int row0 = r0 + (at >> 3); row0 < r1; row0 += 4 * kStep) {
+          uint4 v[4];
 #pragma unroll
-            for (int i = 0; i < 4; ++i) {
-              const int row = row0 + i * kStep;
-              if (row < R) v[i] = lds128(hb + row * kHaloLd * 2);
-            }
+          for (int i = 0; i < 4; ++i) {
+            const int row = row0 + i * kStep, src = base + row;
+            v[i] = make_uint4(0u, 0u, 0u, 0u);
+            if (row < r1 && cv && src >= 0 && src < hw)
+              v[i] = lds128(hb + row * kHaloLd * 2);
+          }
 #pragma unroll
-            for (int i = 0; i < 4; ++i) {
-              const int row = row0 + i * kStep, src = base + row;
-              if (row < R && src >= 0 && src < hw)
-                sts128(hb + row * kHaloLd * 2,
-                       activate8<kRoundFirst>(v[i], as, bs, p.silu));
+          for (int i = 0; i < 4; ++i) {
+            const int row = row0 + i * kStep, src = base + row;
+            if (row < r1) {
+              if (cv && src >= 0 && src < hw)
+                v[i] = activate8<kRoundFirst>(v[i], as, bs, p.silu);
+              sts128(hb + row * kHaloLd * 2, v[i]);
+              if (kPair) sm90::st_peer128(hr + row * kHaloLd * 2, v[i]);
             }
           }
         }
         sm90::mbar_arrive(&sm.h_full[buf]);
+        if (kPair)
+          sm90::mbar_arrive_peer(sm90::peer_addr(&sm.h_full[buf], peer));
       }
     }
     return;
@@ -346,7 +364,7 @@ conv_kernel(const Params p, const __grid_constant__ CUtensorMap tm_w) {
         af[set][kk][3] &= keep[1];
       }
     };
-    sm90::mbar_wait(&sm.h_full[buf], (c / p.bufs) & 1);
+    sm90::mbar_wait_cluster(&sm.h_full[buf], (c / p.bufs) & 1);
     load_a(0, 0);
 #pragma unroll
     for (int tap = 0; tap < 9; ++tap) {
@@ -374,7 +392,13 @@ conv_kernel(const Params p, const __grid_constant__ CUtensorMap tm_w) {
     for (int kk = 0; kk < KS; ++kk) sm90::fence_regs(af[0][kk]);
     if (lane == 0) {
       sm90::mbar_arrive(&sm.w_empty[(9 * c + 8) % p.stages]);
-      sm90::mbar_arrive(&sm.h_empty[buf]);
+      // the chunk that will reuse the buffer, if any, waits for both blocks;
+      // past the last such chunk the peer may have exited: no arrivals
+      if (c + p.bufs < chunks) {
+        sm90::mbar_arrive(&sm.h_empty[buf]);
+        if (kPair)
+          sm90::mbar_arrive_peer(sm90::peer_addr(&sm.h_empty[buf], peer));
+      }
     }
   };
   for (int c = 0; c < chunks; ++c) {
@@ -492,9 +516,24 @@ int launch(Params q, const bf16* w, int frames, cudaStream_t stream) {
       conv_kernel<NWG, kRoundFirst>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
-  const dim3 grid(q.n_mtiles, (q.cout + kBN - 1) / kBN, frames);
-  conv_kernel<NWG, kRoundFirst><<<grid, (NWG + 2) * 128, smem, stream>>>(q,
-                                                                         tm);
+  // at 128 pixels, Cout tiles in pairs (a cluster); a tile past Cout
+  // computes nothing that is stored but shares its half of the halo
+  const int ntiles = (q.cout + kBN - 1) / kBN;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(q.n_mtiles, NWG == 2 ? (ntiles + 1) / 2 * 2 : ntiles,
+                     frames);
+  cfg.blockDim = dim3((NWG + 2) * 128);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute pair;
+  pair.id = cudaLaunchAttributeClusterDimension;
+  pair.val.clusterDim.x = 1;
+  pair.val.clusterDim.y = 2;
+  pair.val.clusterDim.z = 1;
+  cfg.attrs = &pair;
+  cfg.numAttrs = NWG == 2 ? 1 : 0;
+  e = cudaLaunchKernelEx(&cfg, conv_kernel<NWG, kRoundFirst>, q, tm);
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 
