@@ -52,8 +52,8 @@
 //     pixels of the neighbouring row; sources above or below the image are
 //     the halo's zero rows). A shared-memory descriptor cannot start a
 //     view at any row of a swizzled tile; a plain (unswizzled) tile can,
-//     but wgmma read it 1.5-2.5x slower than this (PERF.md, PR 7). The
-//     next tap's fragments load while the current tap's products run.
+//     but the products ran slower that way (PERF.md, PR 7). The next
+//     tap's fragments load while the current tap's products run.
 // The sums of the epilogue are reduced over each warp's rows by shuffles,
 // then over the warps in a fixed order: deterministic, no atomics.
 
@@ -242,7 +242,7 @@ conv_kernel(const Params p, const __grid_constant__ CUtensorMap tm_w) {
         if (c < chunks) {
           const int buf = c % p.bufs, ch = c * kKC + cg * 8;
           bf16* hb = sm.halo + buf * R * kHaloLd + cg * 8;
-          sm90::mbar_wait_cluster(&sm.h_empty[buf], ((c / p.bufs) & 1) ^ 1);
+          sm90::mbar_wait<true>(&sm.h_empty[buf], ((c / p.bufs) & 1) ^ 1);
           for (int row = r0 + (at >> 3); row < r1; row += kActThreads / 8) {
             const int src = base + row;
             if (ch < p.cin && src >= 0 && src < hw)
@@ -364,7 +364,7 @@ conv_kernel(const Params p, const __grid_constant__ CUtensorMap tm_w) {
         af[set][kk][3] &= keep[1];
       }
     };
-    sm90::mbar_wait_cluster(&sm.h_full[buf], (c / p.bufs) & 1);
+    sm90::mbar_wait<true>(&sm.h_full[buf], (c / p.bufs) & 1);
     load_a(0, 0);
 #pragma unroll
     for (int tap = 0; tap < 9; ++tap) {

@@ -64,46 +64,34 @@ __device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
 
 // wait for the completion of the phase of parity `parity`, the thread
 // suspended meanwhile (the time hint, in ns, lets it sleep until the phase
-// completes instead of spinning on issue slots the working warps need); a
-// wait of more than ~2^34 cycles (seconds) is a broken protocol: trap, so
-// the launch fails instead of hanging the card
+// completes instead of spinning on issue slots the working warps need);
+// kCluster: acquiring at cluster scope, for a phase completed by arrivals
+// (and the writes before them) from another block of the cluster. A wait
+// of more than ~2^34 cycles (seconds) is a broken protocol: trap, so the
+// launch fails instead of hanging the card
+template <bool kCluster = false>
 __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   const uint32_t a = smem_u32(bar);
   uint32_t done;
   long long start = 0;
   for (;;) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2, %3;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(a), "r"(parity), "r"(10000000)
-        : "memory");
-    if (done) return;
-    if (start == 0) {
-      start = clock64();
-    } else if (clock64() - start > (1ll << 34)) {
-      __trap();
-    }
-  }
-}
-
-// the same wait, acquiring at cluster scope: for a phase completed by
-// arrivals (and the writes before them) from another block of the cluster
-__device__ __forceinline__ void mbar_wait_cluster(uint64_t* bar,
-                                                  uint32_t parity) {
-  const uint32_t a = smem_u32(bar);
-  uint32_t done;
-  long long start = 0;
-  for (;;) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], "
-        "%2, %3;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(a), "r"(parity), "r"(10000000)
-        : "memory");
+    if constexpr (kCluster)
+      asm volatile(
+          "{\n.reg .pred p;\n"
+          "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], "
+          "%2, %3;\n"
+          "selp.u32 %0, 1, 0, p;\n}\n"
+          : "=r"(done)
+          : "r"(a), "r"(parity), "r"(10000000)
+          : "memory");
+    else
+      asm volatile(
+          "{\n.reg .pred p;\n"
+          "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2, %3;\n"
+          "selp.u32 %0, 1, 0, p;\n}\n"
+          : "=r"(done)
+          : "r"(a), "r"(parity), "r"(10000000)
+          : "memory");
     if (done) return;
     if (start == 0) {
       start = clock64();
