@@ -52,7 +52,7 @@
 //     pixels of the neighbouring row; sources above or below the image are
 //     the halo's zero rows). A shared-memory descriptor cannot start a
 //     view at any row of a swizzled tile; a plain (unswizzled) tile can,
-//     but the products ran slower that way (PERF.md, PR 7). The next
+//     but the products ran slower that way (PERF.md). The next
 //     tap's fragments load while the current tap's products run.
 // The sums of the epilogue are reduced over each warp's rows by shuffles,
 // then over the warps in a fixed order: deterministic, no atomics.
@@ -183,7 +183,7 @@ constexpr int kStageBytes = kBN * kKC * 2;
 // 128 pixels (kPair) the two blocks of a cluster (two Cout tiles of one
 // pixel tile) share the halo: each copies and activates half of its rows
 // and writes them to both. At 64 the halo is small, and the pair's
-// traffic and waits cost more than they save (PERF.md, PR 7).
+// traffic and waits cost more than they save (PERF.md).
 template <int NWG, bool kRoundFirst>
 __global__ void __launch_bounds__((NWG + 2) * 128, 1)
 conv_kernel(const Params p, const __grid_constant__ CUtensorMap tm_w) {
