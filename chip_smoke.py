@@ -223,7 +223,7 @@ def check_kernels(dev) -> dict:
              fold(rnd(1, sk, 512))),
             lambda q, k, v: fa._flash_bh_with_lse(q, k, v, 0.125),
             lambda q, k, v: fa._plain_bh_ones(q, k, v, 0.125, cdt=bf16,
-                                              block=fa.KEY_TILE[64]),
+                                              block=fa.key_tile(64)),
             lambda q, k, v: sdpa(q, k, v, 0.125),
             (torch.arange(0, sq, 41, device=dev)[:4096]
              if label == "level2" else None), reps, (8, sq, sk, 64)))
@@ -235,7 +235,7 @@ def check_kernels(dev) -> dict:
             lambda q, k, v: fa._flash_bh_with_lse(q, k, v, 512 ** -0.5),
             lambda q, k, v: fa._plain_bh_ones(q, k, v, 512 ** -0.5,
                                             cdt=bf16,
-                                            block=fa.KEY_TILE[512]),
+                                            block=fa.key_tile(512)),
             lambda q, k, v: sdpa(q, k, v, 512 ** -0.5), None, reps,
             (bh, 2560, 2560, 512)))
     # the 576x1024 path: attn1 at ds1 and ds2 (S=9216 > 4096, and 2304 %
@@ -264,7 +264,7 @@ def check_kernels(dev) -> dict:
                   lambda q, k, v: fa.flash_attention(
                       heads4(q), heads4(k), heads4(v), 0.125).flatten(2),
                   lambda q, k, v: fa._plain_mh_ones(
-                      q, k, v, 20, 0.125, cdt=bf16, block=fa.KEY_TILE[64]),
+                      q, k, v, 20, 0.125, cdt=bf16, block=fa.key_tile(64)),
                   lambda q, k, v: sdpa(q, k, v, 0.125, 20),
                   None, (50, 10), (32 * 20, 576, 576, 64)))
     for label, sq, sk, step, reps in (("level2", 589824, 73728, 149, (2, 1)),
@@ -275,7 +275,7 @@ def check_kernels(dev) -> dict:
              fold(rnd(1, sk, 512))),
             lambda q, k, v: fa._flash_bh_with_lse(q, k, v, 0.125),
             lambda q, k, v: fa._plain_bh_ones(q, k, v, 0.125, cdt=bf16,
-                                              block=fa.KEY_TILE[64]),
+                                              block=fa.key_tile(64)),
             lambda q, k, v: sdpa(q, k, v, 0.125),
             torch.arange(0, sq, step, device=dev)[:4096], reps,
             (8, sq, sk, 64)))
@@ -285,7 +285,7 @@ def check_kernels(dev) -> dict:
         lambda q, k, v: fa._flash_bh_with_lse(q, k, v, 512 ** -0.5),
         lambda q, k, v: fa._plain_bh_ones(q, k, v, 512 ** -0.5,
                                             cdt=bf16,
-                                            block=fa.KEY_TILE[512]),
+                                            block=fa.key_tile(512)),
         lambda q, k, v: sdpa(q, k, v, 512 ** -0.5), None, (3, 1),
         (16, 9216, 9216, 512)))
 

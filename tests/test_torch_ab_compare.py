@@ -29,3 +29,26 @@ def test_parse_reads_kernel_times_requests_and_peaks():
                                "inference_1024_v1.0.yaml": [48.37]}
     assert got["peak_gib"] == {"inference_512_v1.0.yaml": 13.29,
                                "inference_1024_v1.0.yaml": 35.01}
+
+
+def test_a_run_whose_kernels_fail_their_check_ends_non_zero(tmp_path):
+    """A checkout whose ``chip_smoke.check_kernels`` exits (a kernel off
+    its plain version) ends its run there: a non-zero code and no request
+    answered, so the comparison reports no times from it."""
+    utils = tmp_path / "tooncrafter_tpu_torch" / "utils"
+    utils.mkdir(parents=True)
+    for d in (utils.parent, utils):
+        (d / "__init__.py").write_text("")
+    (utils / "kernel_check.py").write_text("def build_all():\n    pass\n")
+    (tmp_path / "chip_smoke.py").write_text(
+        "KERNELS_512 = KERNELS_1024 = ()\n"
+        "def check_kernels(dev):\n"
+        "    print(LINE)\n"
+        "    raise SystemExit('kernels disagree with their plain versions')\n"
+        "def answer_requests(*a):\n"
+        "    print('request 0 (fs 24): 1.00 s')\n"
+        f"LINE = {LOG.splitlines()[1]!r}\n")
+    run = ab_compare.run_one(str(tmp_path), str(tmp_path / "run.log"))
+    assert run["rc"] != 0
+    assert run["requests"] == {}
+    assert "kernels disagree" in (tmp_path / "run.log").read_text()

@@ -103,7 +103,7 @@ def test_bh_kernels_with_lse(dev, d, sq, sk):
     sc = d ** -0.5
     out, lse = fa._flash_bh_with_lse(q, k, v, sc)
     ref, ref_lse = fa._plain_bh_ones(*_f(q, k, v), sc, cdt=torch.bfloat16,
-                                     block=fa.KEY_TILE[d])
+                                     block=fa.key_tile(d))
     _close(out, ref)
     torch.cuda.synchronize()
     assert (lse - ref_lse).abs().max().item() <= fa.LSE_MAX_ABS
@@ -137,7 +137,7 @@ def test_attn1_at_1024_ds2_and_ds4(dev, s, c, heads, name):
     else:
         out = attn.attention(q, k, v, heads=heads)
     plain = (fa._plain_mh if name == "_flash_mh" else functools.partial(
-        fa._plain_mh_ones, cdt=torch.bfloat16, block=fa.KEY_TILE[64]))
+        fa._plain_mh_ones, cdt=torch.bfloat16, block=fa.key_tile(64)))
     _close(out, plain(*_f(q, k, v), heads, 0.125))
     assert fa.LAUNCHES[name] == 1
     assert sum(fa.LAUNCHES.values()) == 1
@@ -149,7 +149,7 @@ def test_flash_attention_entry_counts_one_launch(dev):
     q3 = q[:, :, 0].float()
     _close(out[:, :, 0], fa._plain_bh_ones(q3, q3, q3, 512 ** -0.5,
                                            cdt=torch.bfloat16,
-                                           block=fa.KEY_TILE[512])[0])
+                                           block=fa.key_tile(512))[0])
     assert fa.LAUNCHES["_flash_bh_single"] == 1
 
 
@@ -178,14 +178,14 @@ def _flash64_checks(dev):
                  within(fa._flash_mh_ones(q, k2, v2, 5, 0.125),
                         fa._plain_mh_ones(*_f(q, k2, v2), 5, 0.125,
                                           cdt=torch.bfloat16,
-                                          block=fa.KEY_TILE[64]))))
+                                          block=fa.key_tile(64)))))
     for sq, sk in ((257, 1025), (130, 1000)):  # a last tile of one key
         qb, kb, vb = (_rand(dev, 153 + i, 4, s, 64)
                       for i, s in enumerate((sq, sk, sk)))
         out, lse = fa._flash_bh_with_lse(qb, kb, vb, 0.125)
         ref, ref_lse = fa._plain_bh_ones(*_f(qb, kb, vb), 0.125,
                                          cdt=torch.bfloat16,
-                                         block=fa.KEY_TILE[64])
+                                         block=fa.key_tile(64))
         ok = (within(out, ref)
               and (lse - ref_lse).abs().max().item() <= fa.LSE_MAX_ABS)
         rows.append((f"bh Sq={sq} Sk={sk} + lse", ok,
@@ -922,12 +922,13 @@ def test_ones_kernel_divides_by_the_sum_of_rounded_p(dev):
     assert (ones == 1.0).all() and (mh == 0.99609375).all()
 
 
-# where csrc/flash_attention.cu takes the rounded sum: the head-dim-64
-# kernel's ones column and the d = 512 kernel's row sum; a build that sums
-# the unrounded p for every flag takes neither
-_ROUNDED_SUM = (("constexpr bool kOnesColumn = ONES;",
-                 "constexpr bool kOnesColumn = ONES && false;"),
-                ("return ONES ? round_bf16(p) : p;", "return p;"))
+# a build of csrc/flash_attention.cu that sums the unrounded p for every
+# flag: the ones flag launches the head-dim-64 kernel's unrounded-sum
+# instantiation, and the d = 512 kernel's row sum drops its rounding
+_ROUNDED_SUM = (("return ones ? wg::launch<true>(p, batch, s)",
+                 "return ones ? wg::launch<false>(p, batch, s)"),
+                ("l_r[e >> 1] += ONES ? round_bf16(pv) : pv;",
+                 "l_r[e >> 1] += pv;"))
 
 
 def _unrounded_build(tmp_path, monkeypatch):
@@ -960,7 +961,7 @@ def _bh_pin(dev, d, monkeypatch):
     lse does not depend on which key is on top). Returns [(out, lse)] of
     each and asserts each counted its own launch."""
     q, k, v, heads, scale = kc.ones_pin_inputs()
-    top = min(64, fa.KEY_TILE[d])
+    top = min(64, fa.key_tile(d))
     q = np.tile(np.eye(64, dtype=np.float32)[np.arange(q.shape[1]) % top],
                 (q.shape[0], 1, heads))
     ts = []

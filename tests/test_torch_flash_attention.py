@@ -161,7 +161,7 @@ def test_rounded_reference_follows_the_kernels_running_max(sk, block):
     """``_plain_bh_ones`` with ``block``: each key's p rounded to bf16 at the
     running max of the key tiles read so far, l and the output rescaled to
     the final max, as an online-softmax loop over tiles of ``block`` keys
-    computes them (the kernels' key tiles, ``KEY_TILE``); at most a few fp32
+    computes them (the kernels' key tiles, ``key_tile``); at most a few fp32
     ulps apart. Without ``block``, p is rounded at the max of all keys."""
     q, k, v = (torch.from_numpy(_rand(30 + i, 2, n, 64)).bfloat16().float()
                for i, n in enumerate((77, sk, sk)))
@@ -184,7 +184,6 @@ def test_rounded_reference_follows_the_kernels_running_max(sk, block):
                                rtol=0, atol=2e-6)
     torch.testing.assert_close(out.float(), acc / l[..., None], rtol=0,
                                atol=2e-6)
-    assert fa.KEY_TILE == {64: 128, 512: 32}
     # one tile (or all keys at once): the global max
     whole = fa._plain_bh_ones(q, k, v, 0.125, cdt=torch.bfloat16)
     tiled = fa._plain_bh_ones(q, k, v, 0.125, cdt=torch.bfloat16, block=sk)

@@ -91,13 +91,6 @@ __device__ __forceinline__ float round_bf16(float v) {
   return __bfloat162float(__float2bfloat16(v));
 }
 
-// What the d = 512 kernel's normalizer l adds for one p: with ONES the
-// bf16-rounded p that the PV product reads, else p itself.
-template <bool ONES>
-__device__ __forceinline__ float norm_term(float p) {
-  return ONES ? round_bf16(p) : p;
-}
-
 __device__ __forceinline__ float ex2(float x) {  // 2^x, ex2.approx (ftz)
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
@@ -242,7 +235,8 @@ flash_fwd_kernel(const Params p) {
       for (int e = 0; e < 4; ++e) {
         const float pv = exp2f(s[j][e] - mu[e >> 1]);
         s[j][e] = pv;
-        l_r[e >> 1] += norm_term<ONES>(pv);
+        // with ONES, l sums the bf16-rounded p that the PV product reads
+        l_r[e >> 1] += ONES ? round_bf16(pv) : pv;
       }
     }
 
@@ -362,7 +356,6 @@ flash_fwd_wgmma(const Params p, const __grid_constant__ CUtensorMap tm_q,
   // with the accumulator (summed on the tensor cores into a running total,
   // l drifts by 1e-4 over 576 tiles); otherwise the threads sum the
   // unrounded p
-  constexpr bool kOnesColumn = ONES;
 
   if (wgi == kConsumers) {  // the producer
     asm volatile("setmaxnreg.dec.sync.aligned.u32 32;\n" ::: "memory");
@@ -389,7 +382,7 @@ flash_fwd_wgmma(const Params p, const __grid_constant__ CUtensorMap tm_q,
   const uint64_t desc_q = sm90::desc_sw128(q_tile);
   const float sl2 = p.scale_log2;
 
-  if constexpr (kOnesColumn) {  // the ones tile, read by wgmma
+  if constexpr (ONES) {  // the ones tile, read by wgmma
     uint4* ones = reinterpret_cast<uint4*>(sm.ones);
     for (int i = tid; i < kTile / 16; i += kConsumers * 128)
       ones[i] = make_uint4(0x3f803f80u, 0x3f803f80u, 0x3f803f80u,
@@ -435,7 +428,7 @@ flash_fwd_wgmma(const Params p, const __grid_constant__ CUtensorMap tm_q,
     for (int kk = 0; kk < kBN / 16; ++kk) {
       sm90::wgmma_m64n64k16_rs<1>(o_acc, pa[kk],
                                   sm90::desc_add(desc_v, 2048 * kk), 1);
-      if constexpr (kOnesColumn)
+      if constexpr (ONES)
         sm90::wgmma_m64n8k16_rs<1>(l_acc, pa[kk],
                                    sm90::desc_add(desc_1, 2048 * kk), kk > 0);
     }
@@ -467,7 +460,7 @@ flash_fwd_wgmma(const Params p, const __grid_constant__ CUtensorMap tm_q,
       corr[r] = ex2((m_r[r] - mx[r]) * sl2);  // 0 on the first tile
       m_r[r] = mx[r];
       ms[r] = mx[r] * sl2;
-      if constexpr (!kOnesColumn) l_r[r] *= corr[r];
+      if constexpr (!ONES) l_r[r] *= corr[r];
     }
 #pragma unroll
     for (int j = 0; j < kBN / 8; ++j)
@@ -475,7 +468,7 @@ flash_fwd_wgmma(const Params p, const __grid_constant__ CUtensorMap tm_q,
       for (int e = 0; e < 4; ++e) {
         const float pv = ex2(fmaf(sc[4 * j + e], sl2, -ms[e >> 1]));
         sc[4 * j + e] = pv;
-        if constexpr (!kOnesColumn) l_r[e >> 1] += pv;
+        if constexpr (!ONES) l_r[e >> 1] += pv;
       }
   };
   auto pack_p = [&]() {  // sc -> pa, in the A-fragment order of PV
@@ -510,7 +503,7 @@ flash_fwd_wgmma(const Params p, const __grid_constant__ CUtensorMap tm_q,
     sm90::fence_regs(o_acc);
     sm90::fence_regs(l_acc);
     sm90::fence_regs(pa);
-    if constexpr (kOnesColumn) {  // tile it - 1's sums into l
+    if constexpr (ONES) {  // tile it - 1's sums into l
 #pragma unroll
       for (int r = 0; r < 2; ++r) l_r[r] = (l_r[r] + l_acc[2 * r]) * corr[r];
     }
@@ -534,7 +527,7 @@ flash_fwd_wgmma(const Params p, const __grid_constant__ CUtensorMap tm_q,
   float inv[2];  // every row has a valid key 0: l >= 1
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    if constexpr (kOnesColumn) {
+    if constexpr (ONES) {
       l_r[r] += l_acc[2 * r];  // the last tile's
     } else {
       l_r[r] += __shfl_xor_sync(0xffffffffu, l_r[r], 1);
@@ -615,6 +608,8 @@ int launch(const Params& p, int batch, cudaStream_t stream) {
 
 }  // namespace wg
 
+constexpr int kBN512 = 32;  // keys a tile of the d = 512 kernel
+
 Params make_params(const void* q, const void* k, const void* v, void* o,
                    float* lse, long long q_sb, long long q_ss, long long q_sh,
                    long long k_sb, long long k_ss, long long k_sh,
@@ -663,7 +658,14 @@ extern "C" int tc_flash_fwd(int head_dim, int ones, const void* q,
     return ones ? wg::launch<true>(p, batch, s)
                 : wg::launch<false>(p, batch, s);
   if (head_dim == 512)
-    return ones ? launch<512, 128, 32, true>(p, batch, s)
-                : launch<512, 128, 32>(p, batch, s);
+    return ones ? launch<512, 128, kBN512, true>(p, batch, s)
+                : launch<512, 128, kBN512>(p, batch, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// Keys a tile of the forward kernel at head_dim, 0 for a head dim it does
+// not take: where its running max moves, so where the rounded-p normalizer
+// rounds p.
+extern "C" int tc_flash_key_tile(int head_dim) {
+  return head_dim == 64 ? wg::kBN : head_dim == 512 ? kBN512 : 0;
 }

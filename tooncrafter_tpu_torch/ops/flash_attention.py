@@ -281,9 +281,6 @@ def _plain_mh_ones(q, k, v, heads: int, scale: float,
 MAX_ULPS = 2
 MEAN_FACTOR = 4
 LSE_MAX_ABS = 1e-4
-# keys a tile of the forward kernel at each head dim: where its running max
-# moves, so where #3, #4 and #5 round p (``_plain_bh_ones``'s ``block``)
-KEY_TILE = {64: 128, 512: 32}
 
 
 def error_bounds(ref: torch.Tensor, max_ulps: float = MAX_ULPS,
@@ -332,6 +329,8 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         [ctypes.c_int] * 2 + [vp] * 5 + [ll] * 12
         + [ctypes.c_int] * 4 + [ctypes.c_float, vp])
     lib.tc_flash_fwd.restype = ctypes.c_int
+    lib.tc_flash_key_tile.argtypes = [ctypes.c_int]
+    lib.tc_flash_key_tile.restype = ctypes.c_int
     return lib
 
 
@@ -340,6 +339,16 @@ def _library() -> ctypes.CDLL:
     if _LIB is None:
         _LIB = bind(_build.load_library(*LIBRARY))
     return _LIB
+
+
+def key_tile(head_dim: int) -> int:
+    """Keys a tile of the forward kernel at ``head_dim``, as the kernel
+    library reports it: where its running max moves, so where #3, #4 and
+    #5 round p (``_plain_bh_ones``'s ``block``). Builds the library."""
+    tile = _library().tc_flash_key_tile(head_dim)
+    if tile <= 0:
+        raise ValueError(f"no forward kernel at head_dim {head_dim}")
+    return tile
 
 
 def bind_bwd(lib: ctypes.CDLL) -> ctypes.CDLL:

@@ -1,19 +1,22 @@
 """Two checkouts of the repository timed in turns on one card.
 
     python -m tooncrafter_tpu_torch.utils.ab_compare --a DIR_A --b DIR_B \
-        [--order abba] [--ddim_steps 50] [--out chiprun_out/ab]
+        [--out chiprun_out/ab]
 
 Each run is a fresh process in one checkout: it builds that checkout's
 kernels, runs its ``chip_smoke.check_kernels`` (phase 2: every kernel
 against its plain version at the path shapes, timed beside the library call
 and the bound) and answers its 3b and 3c requests (two 320x512 and one
-576x1024 DDIM clips, ``chip_smoke.answer_requests``), with the functions of
-that checkout's ``chip_smoke.py``. The runs go in the order given (``abba``:
-A, B, B, A, so a drift of the card's clock or temperature over the call
-falls on both alike). Each run's output goes to ``OUT/<i>_<a|b>.log``; the
-phase-2 times of every (kernel, shape), the request seconds and the peak
-memory of each run go to ``OUT/summary.json`` and are printed as a table.
-Needs a CUDA card; the checkouts' own code decides everything else.
+576x1024 DDIM-50 clips, ``chip_smoke.answer_requests``), with the
+functions of that checkout's ``chip_smoke.py``. The runs go A, B, B, A, so
+a drift of the card's clock or temperature over the call falls on both
+alike. A run whose kernels fail their check ends there with a non-zero
+code; the comparison stops at it and exits 1, so every time it reports
+comes from runs that passed phase 2. Each run's output goes to
+``OUT/<i>_<a|b>.log``; the phase-2 times of every (kernel, shape), the
+request seconds and the peak memory of each run go to ``OUT/summary.json``
+and are printed as a table. Needs a CUDA card; the checkouts' own code
+decides everything else.
 """
 
 from __future__ import annotations
@@ -27,6 +30,8 @@ import sys
 import time
 from typing import Dict, List
 
+ORDER = "abba"
+
 _RUN = r"""
 import gc, sys, time, torch
 sys.path.insert(0, ".")
@@ -38,15 +43,11 @@ torch.backends.cudnn.allow_tf32 = False
 t0 = time.perf_counter()
 kc.build_all()
 print(f"== build {time.perf_counter() - t0:.1f} s", flush=True)
-try:
-    cs.check_kernels(dev)
-except SystemExit as e:
-    print(f"== phase 2 failed: {e}", flush=True)
-steps = int(sys.argv[1])
+cs.check_kernels(dev)  # a failed check exits non-zero here
 for yaml, n, kernels in (("inference_512_v1.0.yaml", 2, cs.KERNELS_512),
                          ("inference_1024_v1.0.yaml", 1, cs.KERNELS_1024)):
     print(f"== requests {yaml}", flush=True)
-    cs.answer_requests(dev, steps, yaml, n, kernels)
+    cs.answer_requests(dev, 50, yaml, n, kernels)
     gc.collect()
     torch.cuda.empty_cache()
 """
@@ -82,12 +83,23 @@ def parse(log: str) -> dict:
     return {"kernels": kernels, "requests": requests, "peak_gib": peaks}
 
 
+def run_one(where: str, log_path: str) -> dict:
+    """One run in the checkout ``where``: its return code, seconds and what
+    ``parse`` reads from its output, which goes to ``log_path``."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", _RUN], cwd=where,
+                          capture_output=True, text=True)
+    log = proc.stdout + proc.stderr
+    with open(log_path, "w") as f:
+        f.write(log)
+    return {"dir": where, "rc": proc.returncode,
+            "seconds": time.perf_counter() - t0, **parse(log)}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--a", required=True, help="checkout A (e.g. the parent)")
     ap.add_argument("--b", required=True, help="checkout B (e.g. the change)")
-    ap.add_argument("--order", default="abba")
-    ap.add_argument("--ddim_steps", type=int, default=50)
     ap.add_argument("--out", default="chiprun_out/ab")
     args = ap.parse_args(argv)
     os.makedirs(args.out, exist_ok=True)
@@ -96,28 +108,26 @@ def main(argv=None) -> int:
                          text=True, check=True).stdout.strip()
     print(smi, flush=True)
     runs = []
-    for i, which in enumerate(args.order):
-        where = os.path.abspath(getattr(args, which))
-        t0 = time.perf_counter()
-        proc = subprocess.run([sys.executable, "-c", _RUN,
-                               str(args.ddim_steps)], cwd=where,
-                              capture_output=True, text=True)
-        log = proc.stdout + proc.stderr
-        with open(os.path.join(args.out, f"{i}_{which}.log"), "w") as f:
-            f.write(log)
-        run = {"which": which, "dir": where, "rc": proc.returncode,
-               "seconds": time.perf_counter() - t0, **parse(log)}
+    for i, which in enumerate(ORDER):
+        run = {"which": which, **run_one(
+            os.path.abspath(getattr(args, which)),
+            os.path.join(args.out, f"{i}_{which}.log"))}
         runs.append(run)
-        print(f"run {i} ({which}): rc {proc.returncode}, "
-              f"{run['seconds']:.0f} s, requests {run['requests']}, peak "
-              f"{run['peak_gib']}", flush=True)
+        print(f"run {i} ({which}): rc {run['rc']}, {run['seconds']:.0f} s, "
+              f"requests {run['requests']}, peak {run['peak_gib']}",
+              flush=True)
+        if run["rc"] != 0:
+            print(f"run {i} failed: see {i}_{which}.log; no times reported",
+                  flush=True)
+            break
     with open(os.path.join(args.out, "summary.json"), "w") as f:
-        json.dump({"card": smi, "order": args.order, "runs": runs}, f,
-                  indent=1)
+        json.dump({"card": smi, "order": ORDER, "runs": runs}, f, indent=1)
+    if runs[-1]["rc"] != 0:
+        return 1
     shapes = [k for k in runs[0]["kernels"]]
     for run in runs[1:]:
         shapes += [k for k in run["kernels"] if k not in shapes]
-    print("ms per run (" + ", ".join(args.order) + "), library_ms, bound_ms:")
+    print("ms per run (" + ", ".join(ORDER) + "), library_ms, bound_ms:")
     for k in shapes:
         got = [r["kernels"].get(k) for r in runs]
         ms = ", ".join("-" if g is None else f"{g['ms']:.4f}" for g in got)
@@ -125,7 +135,7 @@ def main(argv=None) -> int:
         lib = ref["library_ms"]
         print(f"{k}: {ms}; library {'none' if lib is None else lib}; "
               f"bound {ref['bound_ms']}")
-    return 0 if all(r["rc"] == 0 for r in runs) else 1
+    return 0
 
 
 if __name__ == "__main__":
