@@ -8,7 +8,9 @@ Phases, each printed on its own lines; any failure exits non-zero:
      library, all at once) and print each one's registers and spills;
   2. hold each kernel against its plain PyTorch version on the card at the
      shapes the 320x512 interpolation path gives it, then at the 576x1024
-     path's most-launched shapes, the switched path's, and the shapes the
+     path's most-launched shapes (the VAE mid attention at both its
+     decoder and per-frame encoder shapes), the switched path's, and the
+     shapes the
      op functions of the kernels no model reaches are driven with, with
      its time, the plain version's (fp32 products: a reference), the
      unfused module chain's in bf16 (chain_ms: what the port ran before the
@@ -279,15 +281,18 @@ def check_kernels(dev) -> dict:
             lambda q, k, v: sdpa(q, k, v, 0.125),
             torch.arange(0, sq, step, device=dev)[:4096], reps,
             (8, sq, sk, 64)))
-    cases.append((
-        "_flash_bh_with_lse", "1024 decoder mid BH=16 S=9216 D=512",
-        tuple(rnd(16, 9216, 512) for _ in range(3)),
-        lambda q, k, v: fa._flash_bh_with_lse(q, k, v, 512 ** -0.5),
-        lambda q, k, v: fa._plain_bh_ones(q, k, v, 512 ** -0.5,
-                                            cdt=bf16,
-                                            block=fa.key_tile(512)),
-        lambda q, k, v: sdpa(q, k, v, 512 ** -0.5), None, (3, 1),
-        (16, 9216, 9216, 512)))
+    # the 1024 VAE mid attention: decoder (16 frames), encoder (one frame a
+    # call, 16 calls a request)
+    for label, bh, reps in (("decoder", 16, (3, 1)), ("encoder", 1, (10, 3))):
+        cases.append((
+            "_flash_bh_with_lse", f"1024 {label} mid BH={bh} S=9216 D=512",
+            tuple(rnd(bh, 9216, 512) for _ in range(3)),
+            lambda q, k, v: fa._flash_bh_with_lse(q, k, v, 512 ** -0.5),
+            lambda q, k, v: fa._plain_bh_ones(q, k, v, 512 ** -0.5,
+                                              cdt=bf16,
+                                              block=fa.key_tile(512)),
+            lambda q, k, v: sdpa(q, k, v, 512 ** -0.5), None, reps,
+            (bh, 9216, 9216, 512)))
 
     rows, failed = {}, []
     for (name, label, args, kernel, plain, library, idx,

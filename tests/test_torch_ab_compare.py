@@ -52,3 +52,28 @@ def test_a_run_whose_kernels_fail_their_check_ends_non_zero(tmp_path):
     assert run["rc"] != 0
     assert run["requests"] == {}
     assert "kernels disagree" in (tmp_path / "run.log").read_text()
+
+
+def test_parse_reads_training_steps_and_their_peak():
+    """4b's lines (``chip_smoke.train_full_width``) go under 'training',
+    beside the requests; the request peaks stay each model's own. The
+    backward's phase-2 line, which names each gradient, is read too."""
+    log = LOG + (
+        "_flash_bwd_bh ds1 B=32 S=2560 C=320 heads=5: dq max_abs_err=2.8e-03 "
+        "(bound 1.6e-02) mean_abs_err=5.9e-05 (bound 1.5e-04, |ref| max "
+        "5.5e-01); dk max_abs_err=2.1e-03 (bound 1.6e-02); ms=1.9513 "
+        "plain_ms=37.3456 library_ms=1.9145 bound_ms=0.6786 (operations) ok\n"
+        "== training\n"
+        "train step 0: 2.98 s, loss 0.125000, grad_norm 1.0, t 500; "
+        "launches _flash_bwd_bh 15\n"
+        "train step 1: 1.62 s, loss 0.120000, grad_norm 1.0, t 400; "
+        "launches _flash_bwd_bh 15\n"
+        "training: peak memory allocated 43.73 GiB; 10 of 10 trainable "
+        "tensors got a non-zero gradient; EMA shadow moved on 10 of 10\n")
+    got = ab_compare.parse(log)
+    assert got["kernels"]["_flash_bwd_bh ds1 B=32 S=2560 C=320 heads=5"] == {
+        "ms": 1.9513, "bound_ms": 0.6786, "library_ms": 1.9145}
+    assert got["requests"]["training"] == [2.98, 1.62]
+    assert got["peak_gib"] == {"inference_512_v1.0.yaml": 13.29,
+                               "inference_1024_v1.0.yaml": 35.01,
+                               "training": 43.73}

@@ -7,18 +7,22 @@ chunk, wrong sums where the kernel has sums) must fail at every path shape
 of ``kernel_check`` (the conv's also at the 576x1024 F(2x4)-named shape).
 The 576x1024 path's new shapes: attn1 at S = 9216, 2304 and 576 (each at
 the UNet's 32 images, through the wrapper the UNet picks), the pair at
-P = 144 and 9216, and the F(2x4)-named conv (#14). The
-flash-attention backward (#6) is held to its
-gradient bounds at the training path's attn1 shapes, ragged and short
-lengths, and against two broken builds (dq x1.01, a query tile skipped in
-dk/dv); every wrapper given a tensor that requires grad either returns a
-result with a grad_fn or raises. The kernels of the JAX package's opt-in
-switches (#10 the single-stage temporal attention, #11 the T-attention
-core, #15 the im2col-named conv with its fp32 cast point, #16 the one-pass
-GroupNorm) at ragged shapes, and each against one broken build that must
-fail at every one of its ``kernel_check.switched_cases`` shapes; #15's
-cast point through an identity conv, and against a build that takes #13's. The CUDA
-kernels of the op functions no model reaches (#17 the dual cross-attention,
+P = 144 and 9216, and the F(2x4)-named conv (#14). The d = 512 forward
+(#4, and #3 past the single-pass cap) at the VAE mid attention's shapes
+(one head at 2560 and 9216 tokens, the encoder's one frame and the
+decoder's 16) and at ragged lengths, and against two broken builds (a K/V
+tile skipped, output x1.01). The flash-attention backward (#6) is held to
+its gradient bounds at the training path's attn1 shapes, ragged and short
+lengths, and against three broken builds (dq x1.01, a query tile skipped
+in dk/dv, the dq of one key block dropped); every wrapper given a tensor
+that requires grad either returns a result with a grad_fn or raises. The
+kernels of the JAX package's opt-in switches (#10 the single-stage
+temporal attention, #11 the T-attention core, #15 the im2col-named conv
+with its fp32 cast point, #16 the one-pass GroupNorm) at ragged shapes,
+and each against one broken build that must fail at every one of its
+``kernel_check.switched_cases`` shapes; #15's cast point through an
+identity conv, and against a build that takes #13's. The CUDA kernels of
+the op functions no model reaches (#17 the dual cross-attention,
 #18 the per-channel sums, #5 the ones-column flash) at ragged and strided
 shapes, at every ``kernel_check.op_cases`` shape, and each one's cast point
 against a build that takes the other rounding. The CUDA
@@ -217,6 +221,78 @@ def test_mutated_flash64_kernel_fails_at_every_shape(dev, tmp_path,
     monkeypatch.setattr(fa, "_LIB", fa.bind(
         _build.load_library(*fa.LIBRARY, csrc=src)))
     rows = _flash64_checks(dev)
+    print(what, rows)
+    assert not any(r[1] for r in rows), rows
+
+
+# the head-dim-512 kernel (#4, and #3 past the single-pass cap): wgmma,
+# 64 query rows and 64 keys a tile, query tiles in cluster pairs
+D512_PATH = (("encoder", 1, 2560, 2560), ("decoder", 16, 2560, 2560),
+             ("1024 encoder", 1, 9216, 9216),
+             ("1024 decoder", 16, 9216, 9216))
+# ragged at both ends; the lse is held to LSE_MAX_ABS where no key carries
+# more than a few percent of a row's weight: at Sk = 65 (16 x 129 rows) a p
+# that the kernel's exp2 and the reference's round to neighbouring bf16
+# values moves the lse past it (an mma.sync kernel with 32-key tiles too)
+D512_RAGGED = (("ragged", 1, 300, 700), ("ragged", 16, 129, 577),
+               ("one key", 1, 64, 1), ("odd tiles, two-pass", 3, 333, 4500))
+
+
+def _d512_checks(dev, shapes):
+    """[(label, ok, max err, lse err)] of the d = 512 kernel against
+    ``_plain_bh_ones`` rounding at its key tile, each through the wrapper
+    the TPU package's selector picks and counted there."""
+    rows = []
+    sc = 512 ** -0.5
+    for i, (label, bh, sq, sk) in enumerate(shapes):
+        q, k, v = (_rand(dev, 170 + 3 * i + j, bh, n, 512)
+                   for j, n in enumerate((sq, sk, sk)))
+        name = fa._bh_kernel_name(sq, sk, 512)
+        before = fa.LAUNCHES[name]
+        out, lse = fa._flash_bh_with_lse(q, k, v, sc)
+        torch.cuda.synchronize()
+        ref, ref_lse = fa._plain_bh_ones(*_f(q, k, v), sc, cdt=torch.bfloat16,
+                                         block=fa.key_tile(512))
+        err = (out.float() - ref).abs()
+        max_bound, mean_bound = fa.error_bounds(ref)
+        lerr = (lse - ref_lse).abs().max().item()
+        ok = (err.max().item() <= max_bound
+              and err.mean().item() <= mean_bound
+              and lerr <= fa.LSE_MAX_ABS
+              and fa.LAUNCHES[name] == before + 1)
+        rows.append((f"{label} BH={bh} Sq={sq} Sk={sk} ({name})", ok,
+                     err.max().item(), lerr))
+        del q, k, v, out, lse, ref, ref_lse
+    return rows
+
+
+def test_d512_kernel_at_path_and_ragged_shapes(dev):
+    rows = _d512_checks(dev, D512_PATH + D512_RAGGED)
+    print(rows)
+    assert all(r[1] for r in rows), rows
+
+
+D512_MUTATIONS = [
+    ("skipped K/V tile",
+     "      if (n0 + kBN > p.sk) {  // keys past sk",
+     "      if (it == 1)\n        for (int i = 0; i < kBN / 2; ++i) sc[i] = "
+     "neg_inf();\n      if (n0 + kBN > p.sk) {"),
+    ("output x1.01",
+     "      sm.inv[row0] = 1.f / l_r[0];\n      sm.inv[row0 + 8] = 1.f / l_r[1];",
+     "      sm.inv[row0] = 1.01f / l_r[0];\n"
+     "      sm.inv[row0 + 8] = 1.01f / l_r[1];"),
+]
+
+
+@pytest.mark.parametrize("what,old,new", D512_MUTATIONS,
+                         ids=[m[0] for m in D512_MUTATIONS])
+def test_mutated_d512_kernel_fails_at_every_path_shape(dev, tmp_path,
+                                                       monkeypatch, what,
+                                                       old, new):
+    src = _broken_copy(tmp_path, "flash_attention.cu", old, new)
+    monkeypatch.setattr(fa, "_LIB", fa.bind(
+        _build.load_library(*fa.LIBRARY, csrc=src)))
+    rows = _d512_checks(dev, D512_PATH)
     print(what, rows)
     assert not any(r[1] for r in rows), rows
 
@@ -657,12 +733,16 @@ def test_bwd_wrapper_cross_lengths(dev, sq, sk):
 
 
 BWD_MUTATIONS = [
-    ("dq x1.01", "             dq, p.scale, t);",
-     "             dq, 1.01f * p.scale, t);"),
+    ("dq x1.01", "  const float mul = p.scale;  // dq = scale * dS K",
+     "  const float mul = 1.01f * p.scale;"),
     ("query tile skipped in dk/dv",
-     "    __syncthreads();  // the previous Q/dO tile is consumed",
-     "    if (m0 == kTile) continue;\n"
-     "    __syncthreads();  // the previous Q/dO tile is consumed"),
+     "    // dV += P^T dO and dK += dS^T Q: the queries are the reduction axis,",
+     "    if (it == 1)\n      for (int i = 0; i < 16; ++i) pa[i / 4][i % 4] = "
+     "da[i / 4][i % 4] = 0u;\n"
+     "    // dV += P^T dO and dK += dS^T Q: the queries are the reduction axis,"),
+    ("dq of one key block dropped",
+     "      if (tw == 0) {\n        sm90::bulk_reduce_add(",
+     "      if (tw == 0 && blockIdx.x != 1) {\n        sm90::bulk_reduce_add("),
 ]
 
 
@@ -924,11 +1004,11 @@ def test_ones_kernel_divides_by_the_sum_of_rounded_p(dev):
 
 # a build of csrc/flash_attention.cu that sums the unrounded p for every
 # flag: the ones flag launches the head-dim-64 kernel's unrounded-sum
-# instantiation, and the d = 512 kernel's row sum drops its rounding
+# instantiation, and the d = 512 kernel's row sum (warpgroup 0's softmax in
+# namespace wg512) drops its rounding
 _ROUNDED_SUM = (("return ones ? wg::launch<true>(p, batch, s)",
                  "return ones ? wg::launch<false>(p, batch, s)"),
-                ("l_r[e >> 1] += ONES ? round_bf16(pv) : pv;",
-                 "l_r[e >> 1] += pv;"))
+                ("l_r[e >> 1] += round_bf16(pv);", "l_r[e >> 1] += pv;"))
 
 
 def _unrounded_build(tmp_path, monkeypatch):
@@ -954,8 +1034,8 @@ def _bh_pin(dev, d, monkeypatch):
     """``kernel_check.ones_pin_inputs`` folded to (B*H, S, 64), and at
     d = 512 padded (q, k with zeros, v with ones: the same scores), through
     #3 (the two-pass pick forced) and #4. Row r's top key is key r % 64, in
-    the kernel's first key tile at d = 64 (128 keys); at d = 512 (32-key
-    tiles) q is one-hot at r % 32 instead, so there too the running max is
+    the kernel's first key tile (128 keys at d = 64, 64 at d = 512; q is
+    one-hot at r % key_tile if that were smaller), so the running max is
     the row's max from the first tile on, as in the TPU kernels' one step
     over these 128 keys, and only the normalizer's cast point shows (the
     lse does not depend on which key is on top). Returns [(out, lse)] of

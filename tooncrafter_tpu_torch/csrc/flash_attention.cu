@@ -43,12 +43,36 @@
 //     end with zeros; keys past Sk score -inf), and the output leaves
 //     through shared memory in 16-byte rows.
 //
-// d = 512 (the VAE mid attention, one head; #3 and #4 there) keeps the
-// first version: mma.sync m16n8k16 from registers, plain shared-memory
-// staging, 64 query rows and 32 keys a tile. A 64 x 512 fp32 accumulator
-// does not fit in one warpgroup's registers, so the value axis is split
-// over blockIdx.z in slices of 128 columns and each slice recomputes
-// Q K^T over the full 512-deep product (4x the QK work).
+// Head dim 512 (namespace wg512; the VAE mid attention, one head: #4, and
+// #3 where K/V is past the single-pass cap). Each score costs a 512-deep
+// product (2048 tensor-core operations) against a handful of FP32 ones, so
+// the products bound it, and with them the K/V traffic: a block of 64
+// query rows does only ~64 operations per byte of K/V it reads, and a
+// 64 x 512 fp32 accumulator is half an SM's registers, so one block of 64
+// rows is all an SM holds. The design:
+//   * S = Q K^T of each 64-key tile is computed once, on wgmma, by
+//     consumer warpgroup 0: Q (64 KB) and K from shared memory, the depth
+//     as 8 swizzle atoms of 64 columns;
+//   * the online softmax (warpgroup 0) leaves bf16 P and the rows' rescale
+//     factor in shared memory on an mbarrier (two buffers); both consumer
+//     warpgroups add P V to their half of O (256 value columns, 128 fp32
+//     registers a thread), P the A operand from shared memory, V read
+//     key-major through wgmma's transpose of B (the leading offset steps
+//     from one atom of V to the next);
+//   * two producer threads keep K and V tiles coming by TMA on mbarriers,
+//     K as soon as S is done with the buffer, V once P V is;
+//   * the two blocks of a cluster are neighbouring query tiles of one head:
+//     each loads half of every K/V tile's atoms and multicasts it into
+//     both (128 query rows per K/V read from L2), and frees a buffer only
+//     once both blocks are done with it;
+//   * l sums the bf16 p (the `ones` normalizer, the only one it takes) at
+//     one running max per 64-key tile, the rounding point of
+//     _plain_bh_ones(block=64) (tc_flash_key_tile);
+//   * ragged Sq and Sk are masked as at d = 64; a block past Sq (an odd
+//     number of query tiles) loads its half of the pair's K/V and stores
+//     nothing; the output leaves through the consumed Q tile.
+// At one head (the per-frame encoder) the grid is ceil(Sq / 64) blocks:
+// 40 at S = 2560, 144 at S = 9216, where 132 SMs take one each.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -60,9 +84,6 @@ namespace {
 
 typedef __nv_bfloat16 bf16;
 
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
-constexpr int kBlockM = 16 * kWarps;  // query rows per block, 16 per warp
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
@@ -97,201 +118,17 @@ __device__ __forceinline__ float ex2(float x) {  // 2^x, ex2.approx (ftz)
   return y;
 }
 
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// D (16x8, fp32) += A (16x16, bf16, row) * B (16x8, bf16, col)
-__device__ __forceinline__ void mma_16816(float c[4], const uint32_t a[4],
-                                          uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// D: q/k head dim. DV: value columns one block computes (blockIdx.z picks
-// the slice). BN: keys per tile. Shared rows are padded by 8 elements so
-// the quad-strided 32-bit fragment loads hit 32 distinct banks. ONES: the
-// row sum adds bf16(p), the value the PV product reads. Built at d = 512.
-template <int D, int DV, int BN, bool ONES>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const Params p) {
-  constexpr int DP = D + 8;
-  constexpr int BNP = BN + 8;
-  constexpr int NT_S = BN / 8;   // score tiles (n = 8) per warp row block
-  constexpr int NT_O = DV / 8;   // output tiles per warp row block
-  constexpr int QCH = D / 8;     // 16-byte chunks per q/k row
-  constexpr int VCH = DV / 8;    // 16-byte chunks per v row slice
-
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);  // [kBlockM][DP]
-  bf16* sK = sQ + kBlockM * DP;                  // [BN][DP]
-  bf16* sVt = sK + BN * DP;                      // [DV][BNP], V transposed
-
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int g = lane >> 2;  // fragment row group
-  const int t = lane & 3;   // thread in group
-  const int m0 = blockIdx.x * kBlockM;
-  const int bh = blockIdx.y;
-  const int b = bh / p.heads;
-  const int h = bh % p.heads;
-  const int dv0 = blockIdx.z * DV;
-
-  const bf16* qb = p.q + b * p.q_sb + h * p.q_sh;
-  const bf16* kb = p.k + b * p.k_sb + h * p.k_sh;
-  const bf16* vb = p.v + b * p.v_sb + h * p.v_sh;
-  bf16* ob = p.o + b * p.o_sb + h * p.o_sh;
-  const uint4 zero4 = make_uint4(0u, 0u, 0u, 0u);
-
-  for (int i = tid; i < kBlockM * QCH; i += kThreads) {
-    const int r = i / QCH;
-    const int c = (i % QCH) * 8;
-    uint4 val = zero4;
-    if (m0 + r < p.sq)
-      val = *reinterpret_cast<const uint4*>(qb + (long long)(m0 + r) * p.q_ss + c);
-    *reinterpret_cast<uint4*>(sQ + r * DP + c) = val;
-  }
-
-  float o_acc[NT_O][4];
-#pragma unroll
-  for (int j = 0; j < NT_O; ++j)
-    o_acc[j][0] = o_acc[j][1] = o_acc[j][2] = o_acc[j][3] = 0.f;
-  float m_r[2] = {neg_inf(), neg_inf()};  // running max, log2 units
-  float l_r[2] = {0.f, 0.f};              // this thread's share of the row sum
-  const int qrow = warp * 16;
-
-  for (int n0 = 0; n0 < p.sk; n0 += BN) {
-    __syncthreads();  // the previous tile is consumed; sQ is written
-    for (int i = tid; i < BN * QCH; i += kThreads) {
-      const int r = i / QCH;
-      const int c = (i % QCH) * 8;
-      uint4 val = zero4;
-      if (n0 + r < p.sk)
-        val = *reinterpret_cast<const uint4*>(kb + (long long)(n0 + r) * p.k_ss + c);
-      *reinterpret_cast<uint4*>(sK + r * DP + c) = val;
-    }
-    for (int i = tid; i < BN * VCH; i += kThreads) {
-      const int r = i / VCH;
-      const int c = (i % VCH) * 8;
-      uint4 val = zero4;
-      if (n0 + r < p.sk)
-        val = *reinterpret_cast<const uint4*>(vb + (long long)(n0 + r) * p.v_ss + dv0 + c);
-      const bf16* e = reinterpret_cast<const bf16*>(&val);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) sVt[(c + j) * BNP + r] = e[j];
-    }
-    __syncthreads();
-
-    // S = Q K^T for this warp's 16 rows
-    float s[NT_S][4];
-#pragma unroll
-    for (int j = 0; j < NT_S; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-#pragma unroll 4
-    for (int kk = 0; kk < D / 16; ++kk) {
-      const bf16* q0 = sQ + (qrow + g) * DP + kk * 16 + 2 * t;
-      const bf16* q1 = q0 + 8 * DP;
-      uint32_t a[4] = {ld32(q0), ld32(q1), ld32(q0 + 8), ld32(q1 + 8)};
-#pragma unroll
-      for (int j = 0; j < NT_S; ++j) {
-        const bf16* k0 = sK + (j * 8 + g) * DP + kk * 16 + 2 * t;
-        mma_16816(s[j], a, ld32(k0), ld32(k0 + 8));
-      }
-    }
-
-    // online softmax in the exp2 domain; c0,c1 are row g, c2,c3 row g + 8
-    float mx[2] = {m_r[0], m_r[1]};
-#pragma unroll
-    for (int j = 0; j < NT_S; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = n0 + j * 8 + 2 * t + (e & 1);
-        const float x = key < p.sk ? s[j][e] * p.scale_log2 : neg_inf();
-        s[j][e] = x;
-        mx[e >> 1] = fmaxf(mx[e >> 1], x);
-      }
-    }
-    float mu[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      mu[r] = mx[r] == neg_inf() ? 0.f : mx[r];
-      const float corr = exp2f(m_r[r] - mu[r]);
-      m_r[r] = mx[r];
-      l_r[r] *= corr;
-#pragma unroll
-      for (int j = 0; j < NT_O; ++j) {
-        o_acc[j][2 * r] *= corr;
-        o_acc[j][2 * r + 1] *= corr;
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < NT_S; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float pv = exp2f(s[j][e] - mu[e >> 1]);
-        s[j][e] = pv;
-        // with ONES, l sums the bf16-rounded p that the PV product reads
-        l_r[e >> 1] += ONES ? round_bf16(pv) : pv;
-      }
-    }
-
-    // O += P V: the score accumulators are already in A-fragment order
-#pragma unroll
-    for (int kk = 0; kk < BN / 16; ++kk) {
-      uint32_t a[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                       pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                       pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                       pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-#pragma unroll
-      for (int j = 0; j < NT_O; ++j) {
-        const bf16* v0 = sVt + (j * 8 + g) * BNP + kk * 16 + 2 * t;
-        mma_16816(o_acc[j], a, ld32(v0), ld32(v0 + 8));
-      }
-    }
-  }
-
-  float inv[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    l_r[r] += __shfl_xor_sync(0xffffffffu, l_r[r], 1);
-    l_r[r] += __shfl_xor_sync(0xffffffffu, l_r[r], 2);
-    inv[r] = l_r[r] > 0.f ? 1.f / l_r[r] : 0.f;
-  }
-  const int row0 = m0 + qrow + g;
-  const int row1 = row0 + 8;
-#pragma unroll
-  for (int j = 0; j < NT_O; ++j) {
-    const int col = dv0 + j * 8 + 2 * t;
-    if (row0 < p.sq)
-      *reinterpret_cast<uint32_t*>(ob + (long long)row0 * p.o_ss + col) =
-          pack_bf16(o_acc[j][0] * inv[0], o_acc[j][1] * inv[0]);
-    if (row1 < p.sq)
-      *reinterpret_cast<uint32_t*>(ob + (long long)row1 * p.o_ss + col) =
-          pack_bf16(o_acc[j][2] * inv[1], o_acc[j][3] * inv[1]);
-  }
-  if (p.lse != nullptr && blockIdx.z == 0 && t == 0) {
-    float* lse = p.lse + (long long)bh * p.sq;
-    if (row0 < p.sq) lse[row0] = (m_r[0] + log2f(l_r[0])) * kLn2;
-    if (row1 < p.sq) lse[row1] = (m_r[1] + log2f(l_r[1])) * kLn2;
-  }
-}
-
-template <int D, int DV, int BN, bool ONES = false>
-int launch(const Params& p, int batch, cudaStream_t stream) {
-  const int smem = (kBlockM * (D + 8) + BN * (D + 8) + DV * (BN + 8)) *
-                   (int)sizeof(bf16);
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<D, DV, BN, ONES>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((p.sq + kBlockM - 1) / kBlockM, batch * p.heads, D / DV);
-  flash_fwd_kernel<D, DV, BN, ONES><<<grid, kThreads, smem, stream>>>(p);
-  return (int)cudaGetLastError();
+// tensor map of a (batch, seq, heads, d) view: dims innermost first
+// (d, heads, seq, batch), boxes of 64 columns of one head's `rows` rows
+int make_map(CUtensorMap* map, const bf16* base, int d, long long sb,
+             long long ss, long long sh, int heads, int seq, int batch,
+             int rows) {
+  const uint64_t dims[4] = {(uint64_t)d, (uint64_t)heads, (uint64_t)seq,
+                            (uint64_t)batch};
+  const uint64_t strides[3] = {(uint64_t)sh * 2, (uint64_t)ss * 2,
+                               (uint64_t)sb * 2};
+  const uint32_t box[4] = {64, 1, (uint32_t)rows, 1};
+  return sm90_host::make_map(map, base, 4, dims, strides, box);
 }
 
 // ---------------------------------------------------------------------------
@@ -387,8 +224,8 @@ flash_fwd_wgmma(const Params p, const __grid_constant__ CUtensorMap tm_q,
     for (int i = tid; i < kTile / 16; i += kConsumers * 128)
       ones[i] = make_uint4(0x3f803f80u, 0x3f803f80u, 0x3f803f80u,
                            0x3f803f80u);  // bf16 1.0
-    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-    asm volatile("bar.sync 15, %0;\n" ::"n"(kConsumers * 128) : "memory");
+    sm90::fence_async_smem();
+    sm90::bar_sync(15, kConsumers * 128);
   }
 
   float o_acc[kD / 2];
@@ -550,7 +387,7 @@ flash_fwd_wgmma(const Params p, const __grid_constant__ CUtensorMap tm_q,
                          o_acc[4 * j + 2 * r + 1] * inv[r]);
     }
   }
-  asm volatile("bar.sync %0, 128;\n" ::"r"(wgi + 1) : "memory");
+  sm90::bar_sync(wgi + 1, 128);
   bf16* ob = p.o + b * p.o_sb + h * p.o_sh;
   const int tw = tid & 127;
 #pragma unroll
@@ -572,29 +409,17 @@ flash_fwd_wgmma(const Params p, const __grid_constant__ CUtensorMap tm_q,
   }
 }
 
-// tensor maps of a (batch, seq, heads, 64) view: dims innermost first
-// (64, heads, seq, batch), boxes of one head's `rows` rows
-int make_map(CUtensorMap* map, const bf16* base, long long sb, long long ss,
-             long long sh, int heads, int seq, int batch, int rows) {
-  const uint64_t dims[4] = {(uint64_t)kD, (uint64_t)heads, (uint64_t)seq,
-                            (uint64_t)batch};
-  const uint64_t strides[3] = {(uint64_t)sh * 2, (uint64_t)ss * 2,
-                               (uint64_t)sb * 2};
-  const uint32_t box[4] = {kD, 1, (uint32_t)rows, 1};
-  return sm90_host::make_map(map, base, 4, dims, strides, box);
-}
-
 template <bool ONES>
 int launch(const Params& p, int batch, cudaStream_t stream) {
   CUtensorMap tq, tk, tv;
-  int err = make_map(&tq, p.q, p.q_sb, p.q_ss, p.q_sh, p.heads, p.sq, batch,
-                     kBM);
+  int err = make_map(&tq, p.q, kD, p.q_sb, p.q_ss, p.q_sh, p.heads, p.sq,
+                     batch, kBM);
   if (!err)
-    err = make_map(&tk, p.k, p.k_sb, p.k_ss, p.k_sh, p.heads, p.sk, batch,
-                   kBN);
+    err = make_map(&tk, p.k, kD, p.k_sb, p.k_ss, p.k_sh, p.heads, p.sk,
+                   batch, kBN);
   if (!err)
-    err = make_map(&tv, p.v, p.v_sb, p.v_ss, p.v_sh, p.heads, p.sk, batch,
-                   kBN);
+    err = make_map(&tv, p.v, kD, p.v_sb, p.v_ss, p.v_sh, p.heads, p.sk,
+                   batch, kBN);
   if (err) return err;
   cudaError_t e = cudaFuncSetAttribute(
       flash_fwd_wgmma<ONES>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -608,7 +433,363 @@ int launch(const Params& p, int batch, cudaStream_t stream) {
 
 }  // namespace wg
 
-constexpr int kBN512 = 32;  // keys a tile of the d = 512 kernel
+// ---------------------------------------------------------------------------
+// head dim 512: wgmma, a TMA-fed K/V ring multicast to a cluster pair
+// ---------------------------------------------------------------------------
+
+namespace wg512 {
+
+constexpr int kD = 512;
+constexpr int kBM = 64;             // query rows a block
+constexpr int kBN = 64;             // keys a tile
+constexpr int kPair = 2;            // blocks of a cluster: two query tiles
+constexpr int kAtoms = kD / 64;     // 64-column swizzle atoms of a row
+constexpr int kMine = kAtoms / kPair;  // atoms of a K/V tile a block loads
+constexpr int kHalf = kAtoms / 2;   // atoms of O (and of V) a warpgroup owns
+constexpr int kThreads = 3 * 128;   // two consumer warpgroups, the producer
+constexpr int kQBytes = kBM * kD * 2;
+constexpr int kTileBytes = kBN * kD * 2;  // a K or a V tile
+
+// Every operand tile is stored as its 64-column atoms one after another
+// ([atom][row][64]): rows of 128 bytes, 128-byte swizzle.
+struct Smem {  // 1024-byte aligned
+  bf16 q[kBM * kD];
+  bf16 k[kBN * kD];
+  bf16 v[kBN * kD];
+  bf16 p[2][kBM * kBN];  // the bf16 P of a tile, read by both warpgroups
+  float corr[2][kBM];    // the factor rescaling O to the tile's max
+  float inv[kBM];        // 1 / l
+  uint64_t q_full, k_full, v_full, k_empty, v_empty;
+  uint64_t p_full[2], p_empty[2];
+};
+constexpr int kSmemBytes = (int)sizeof(Smem) + 1024;
+
+// Block (query tile x, head y) of a cluster pair: x and x ^ 1 share every
+// K/V tile, each loading half of its atoms into both blocks (TMA
+// multicast). Warpgroup 0 computes S = Q K^T of each tile (once), the
+// online softmax and its bf16 P, which it leaves in shared memory; both
+// consumer warpgroups then add P V to their half of O (256 value columns,
+// 128 fp32 registers a thread). Two threads of the producer warpgroup
+// issue the loads.
+__global__ void __launch_bounds__(kThreads, 1)
+flash_fwd_d512(const Params p, const __grid_constant__ CUtensorMap tm_q,
+               const __grid_constant__ CUtensorMap tm_k,
+               const __grid_constant__ CUtensorMap tm_v) {
+  extern __shared__ unsigned char smem_raw[];
+  Smem& sm = *reinterpret_cast<Smem*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  const int tid = threadIdx.x;
+  const int wgi = tid / 128;
+  const int m0 = blockIdx.x * kBM;
+  const int bh = blockIdx.y;
+  const int b = bh / p.heads;
+  const int h = bh % p.heads;
+  const int n_tiles = (p.sk + kBN - 1) / kBN;
+  const int rank = (int)sm90::cluster_rank();
+  const uint32_t peer = rank ^ 1;
+
+  if (tid == 0) {
+    sm90::mbar_init(&sm.q_full, 1);
+    sm90::mbar_init(&sm.k_full, 1);
+    sm90::mbar_init(&sm.v_full, 1);
+    sm90::mbar_init(&sm.k_empty, kPair * 4);  // warpgroup 0's warps, both
+    sm90::mbar_init(&sm.v_empty, kPair * 8);  // every consumer warp, both
+    for (int i = 0; i < 2; ++i) {
+      sm90::mbar_init(&sm.p_full[i], 128);  // warpgroup 0's threads
+      sm90::mbar_init(&sm.p_empty[i], 8);   // this block's consumer warps
+    }
+    sm90::mbar_fence_init();
+  }
+  sm90::cluster_sync();  // the peer's barriers are set up too
+
+  if (wgi == 2) {  // the producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    // one thread fills the K ring (after Q), another the V ring, so that
+    // each tile is requested as soon as both blocks are done with the
+    // buffer, K (after S) well before V (after P V)
+    const bool k_side = tid == 256;
+    if (k_side || tid == 288) {
+      if (k_side) {
+        sm90::mbar_expect_tx(&sm.q_full, kQBytes);
+        for (int a = 0; a < kAtoms; ++a)
+          sm90::tma_load_4d(sm.q + a * kBM * 64, &tm_q, &sm.q_full, 64 * a,
+                            h, m0, b);
+      }
+      uint64_t* full = k_side ? &sm.k_full : &sm.v_full;
+      uint64_t* empty = k_side ? &sm.k_empty : &sm.v_empty;
+      bf16* tile = k_side ? sm.k : sm.v;
+      const CUtensorMap* map = k_side ? &tm_k : &tm_v;
+      for (int it = 0; it < n_tiles; ++it) {
+        // a buffer is refilled once both blocks are done with it
+        sm90::mbar_wait<true>(empty, (it & 1) ^ 1);
+        sm90::mbar_expect_tx(full, kTileBytes);
+        for (int a = rank * kMine; a < (rank + 1) * kMine; ++a)
+          sm90::tma_load_4d_mc(tile + a * kBN * 64, map, full, 64 * a, h,
+                               it * kBN, b, 0x3);
+      }
+    }
+    sm90::cluster_sync();  // the peer's arrivals and loads have landed
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+
+  const int lane = tid & 31;
+  const int warp = (tid >> 5) & 3;  // within the warpgroup
+  const int g = lane >> 2, t = lane & 3;
+  const int row0 = warp * 16 + g;   // this thread's rows: row0, row0 + 8
+  const float sl2 = p.scale_log2;
+  // one arrival on a barrier of this block and on its peer's
+  auto release = [&](uint64_t* bar) {
+    if (lane == 0) {
+      sm90::mbar_arrive(bar);
+      sm90::mbar_arrive_peer(sm90::peer_addr(bar, peer));
+    }
+  };
+
+  float o_acc[128];  // O of this warpgroup's 256 value columns
+#pragma unroll
+  for (int i = 0; i < 128; ++i) o_acc[i] = 0.f;
+  // O += P V of tile `it`: P (64 x 64 keys) K-major, V's tile key-major
+  // read MN-major (the transpose flag); the leading offset steps from one
+  // 64-column atom of V to the next
+  auto issue_pv = [&](int it) {
+    sm90::mbar_wait(&sm.v_full, it & 1);
+    const uint64_t desc_p = sm90::desc_sw128(sm.p[it & 1]);
+    const uint64_t desc_v = sm90::desc_sw128(
+        sm.v + wgi * (kHalf * kBN * 64), 1024, kBN * 128);
+    sm90::fence_regs(o_acc);
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kBN / 16; ++kk)
+      sm90::wgmma_m64n256k16_ss<0, 1>(o_acc, sm90::desc_add(desc_p, 32 * kk),
+                                      sm90::desc_add(desc_v, 2048 * kk), 1);
+    sm90::wgmma_commit();
+  };
+  auto scale_o = [&](const float (&c)[2]) {
+#pragma unroll
+    for (int j = 0; j < 32; ++j) {
+      o_acc[4 * j + 0] *= c[0];
+      o_acc[4 * j + 1] *= c[0];
+      o_acc[4 * j + 2] *= c[1];
+      o_acc[4 * j + 3] *= c[1];
+    }
+  };
+
+  float m_r[2] = {neg_inf(), neg_inf()};  // running max of the raw scores
+  float l_r[2] = {0.f, 0.f};  // this thread's share of the row sums
+  if (wgi == 0) {
+    float sc[kBN / 2];  // S, then p, of a tile
+    const uint64_t desc_q = sm90::desc_sw128(sm.q);
+    const uint64_t desc_k = sm90::desc_sw128(sm.k);
+    // S = Q K^T of tile `it`: 32 k16 steps, 4 in each 64-column atom
+    auto issue_s = [&](int it) {
+      sm90::mbar_wait(&sm.k_full, it & 1);
+      // the 64 descriptors are two adds each: made here, not kept in
+      // registers across the loop
+      uint64_t dq = desc_q, dk = desc_k;
+      asm volatile("" : "+l"(dq), "+l"(dk));
+      sm90::fence_regs(sc);
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kD / 16; ++kk) {
+        const uint32_t qo = (kk >> 2) * (kBM * 128) + 32 * (kk & 3);
+        const uint32_t ko = (kk >> 2) * (kBN * 128) + 32 * (kk & 3);
+        sm90::wgmma_m64n64k16_ss<0, 0>(sc, sm90::desc_add(dq, qo),
+                                       sm90::desc_add(dk, ko), kk > 0);
+      }
+      sm90::wgmma_commit();
+    };
+    // the online softmax of tile `it` in sc (sc[4j + e]: row row0 + 8 (e /
+    // 2), key 8j + 2t + (e % 2) of the tile), in the exp2 domain: p in
+    // place, l rescaled and added to; corr rescales O to the new max
+    auto softmax = [&](int it, float (&corr)[2]) {
+      const int n0 = it * kBN;
+      if (n0 + kBN > p.sk) {  // keys past sk
+#pragma unroll
+        for (int j = 0; j < kBN / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            if (n0 + 8 * j + 2 * t + (e & 1) >= p.sk) sc[4 * j + e] = neg_inf();
+      }
+      float mx[2] = {m_r[0], m_r[1]};
+#pragma unroll
+      for (int j = 0; j < kBN / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          mx[e >> 1] = fmaxf(mx[e >> 1], sc[4 * j + e]);
+      float ms[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        corr[r] = ex2((m_r[r] - mx[r]) * sl2);  // 0 on the first tile
+        m_r[r] = mx[r];
+        ms[r] = mx[r] * sl2;
+        l_r[r] *= corr[r];
+      }
+#pragma unroll
+      for (int j = 0; j < kBN / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float pv = ex2(fmaf(sc[4 * j + e], sl2, -ms[e >> 1]));
+          sc[4 * j + e] = pv;
+          // l sums the bf16-rounded p that the PV product reads
+          l_r[e >> 1] += round_bf16(pv);
+        }
+    };
+    // tile it's P into its buffer (128-byte swizzled rows of 64 keys) and
+    // its corr, for both warpgroups
+    auto write_p = [&](int it, const float (&corr)[2]) {
+      sm90::mbar_wait(&sm.p_empty[it & 1], ((it >> 1) & 1) ^ 1);
+      uint32_t* pt = reinterpret_cast<uint32_t*>(sm.p[it & 1]);
+#pragma unroll
+      for (int j = 0; j < kBN / 8; ++j)
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int row = row0 + 8 * r;
+          pt[row * 32 + ((j ^ (row & 7)) << 2) + t] =
+              pack_bf16(sc[4 * j + 2 * r], sc[4 * j + 2 * r + 1]);
+        }
+      if (t == 0) {
+        sm.corr[it & 1][row0] = corr[0];
+        sm.corr[it & 1][row0 + 8] = corr[1];
+      }
+      sm90::fence_async_smem();
+      sm90::mbar_arrive(&sm.p_full[it & 1]);
+    };
+
+    sm90::mbar_wait(&sm.q_full, 0);
+    float corr[2];
+    issue_s(0);
+    sm90::wgmma_wait<0>();
+    sm90::fence_regs(sc);
+    release(&sm.k_empty);
+    softmax(0, corr);
+    write_p(0, corr);
+    // tile it + 1's S runs on the tensor cores beside tile it's PV (both
+    // warpgroups'), and its softmax waits only for the S
+    for (int it = 0; it + 1 < n_tiles; ++it) {
+      sm90::mbar_wait(&sm.p_full[it & 1], (it >> 1) & 1);
+      issue_s(it + 1);
+      issue_pv(it);
+      sm90::wgmma_wait<1>();
+      sm90::fence_regs(sc);
+      release(&sm.k_empty);
+      softmax(it + 1, corr);
+      sm90::wgmma_wait<0>();
+      sm90::fence_regs(o_acc);
+      sm90::fence_regs(sc);
+      release(&sm.v_empty);
+      if (lane == 0) sm90::mbar_arrive(&sm.p_empty[it & 1]);
+      scale_o(corr);
+      write_p(it + 1, corr);
+    }
+    const int last = n_tiles - 1;
+    sm90::mbar_wait(&sm.p_full[last & 1], (last >> 1) & 1);
+    issue_pv(last);
+    sm90::wgmma_wait<0>();
+    sm90::fence_regs(o_acc);
+    release(&sm.v_empty);
+    if (lane == 0) sm90::mbar_arrive(&sm.p_empty[last & 1]);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l_r[r] += __shfl_xor_sync(0xffffffffu, l_r[r], 1);
+      l_r[r] += __shfl_xor_sync(0xffffffffu, l_r[r], 2);
+    }
+    if (t == 0) {  // every row has a valid key 0: l >= 1
+      sm.inv[row0] = 1.f / l_r[0];
+      sm.inv[row0 + 8] = 1.f / l_r[1];
+    }
+  } else {
+    for (int it = 0; it < n_tiles; ++it) {
+      sm90::mbar_wait(&sm.p_full[it & 1], (it >> 1) & 1);
+      const float c[2] = {sm.corr[it & 1][row0], sm.corr[it & 1][row0 + 8]};
+      scale_o(c);
+      issue_pv(it);
+      sm90::wgmma_wait<0>();
+      sm90::fence_regs(o_acc);
+      release(&sm.v_empty);
+      if (lane == 0) sm90::mbar_arrive(&sm.p_empty[it & 1]);
+    }
+  }
+  sm90::bar_sync(1, 256);  // 1 / l is in place; Q is consumed
+  const float inv[2] = {sm.inv[row0], sm.inv[row0 + 8]};
+  // this warpgroup's 256 columns through its half of the Q tile (4 atoms,
+  // the same swizzle), then out in 16-byte rows
+  uint32_t* stage =
+      reinterpret_cast<uint32_t*>(sm.q + wgi * (kHalf * kBM * 64));
+#pragma unroll
+  for (int j = 0; j < 32; ++j) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + 8 * r;
+      stage[(j >> 3) * (kBM * 32) + row * 32 + (((j & 7) ^ (row & 7)) << 2) +
+            t] = pack_bf16(o_acc[4 * j + 2 * r] * inv[r],
+                           o_acc[4 * j + 2 * r + 1] * inv[r]);
+    }
+  }
+  sm90::bar_sync(2 + wgi, 128);
+  bf16* ob = p.o + b * p.o_sb + h * p.o_sh + wgi * (kHalf * 64);
+  const uint4* st4 = reinterpret_cast<const uint4*>(stage);
+  const int tw = tid & 127;
+#pragma unroll
+  for (int i = 0; i < kHalf * kBM * 8 / 128; ++i) {
+    const int idx = tw + 128 * i;
+    const int a = idx / (kBM * 8), row = (idx / 8) % kBM, c = idx % 8;
+    if (m0 + row < p.sq)
+      *reinterpret_cast<uint4*>(ob + (long long)(m0 + row) * p.o_ss + 64 * a +
+                                8 * c) =
+          st4[a * (kBM * 8) + row * 8 + (c ^ (row & 7))];
+  }
+  if (wgi == 0 && p.lse != nullptr && t == 0) {
+    float* lse = p.lse + (long long)bh * p.sq;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int qrow = m0 + row0 + 8 * r;
+      if (qrow < p.sq)
+        lse[qrow] = (m_r[r] * sl2 + log2f(l_r[r])) * kLn2;
+    }
+  }
+  sm90::cluster_sync();  // the peer's arrivals on this block have landed
+}
+
+int launch(const Params& p, int batch, cudaStream_t stream) {
+  CUtensorMap tq, tk, tv;
+  int err = make_map(&tq, p.q, kD, p.q_sb, p.q_ss, p.q_sh, p.heads, p.sq,
+                     batch, kBM);
+  if (!err)
+    err = make_map(&tk, p.k, kD, p.k_sb, p.k_ss, p.k_sh, p.heads, p.sk,
+                   batch, kBN);
+  if (!err)
+    err = make_map(&tv, p.v, kD, p.v_sb, p.v_ss, p.v_sh, p.heads, p.sk,
+                   batch, kBN);
+  if (err) return err;
+  cudaError_t e = cudaFuncSetAttribute(
+      flash_fwd_d512, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kSmemBytes);
+  if (e != cudaSuccess) return (int)e;
+  // query tiles in pairs (a cluster); a tile past sq loads its half of
+  // the pair's K/V and stores nothing
+  const int tiles = (p.sq + kBM - 1) / kBM;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((tiles + kPair - 1) / kPair * kPair, batch * p.heads);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = kSmemBytes;
+  cfg.stream = stream;
+  cudaLaunchAttribute pair;
+  pair.id = cudaLaunchAttributeClusterDimension;
+  pair.val.clusterDim.x = kPair;
+  pair.val.clusterDim.y = 1;
+  pair.val.clusterDim.z = 1;
+  cfg.attrs = &pair;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, flash_fwd_d512, p, tq, tk, tv);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+}  // namespace wg512
+
 
 Params make_params(const void* q, const void* k, const void* v, void* o,
                    float* lse, long long q_sb, long long q_ss, long long q_sh,
@@ -638,8 +819,8 @@ Params make_params(const void* q, const void* k, const void* v, void* o,
 // q, k, v, o: bf16 (batch, seq, heads, head_dim) with unit stride on the
 // last axis and the given element strides on the other three; lse: fp32
 // (batch * heads, sq) or null. ones: the normalizer sums the bf16-rounded
-// p (#3, #4, #5), else the unrounded p (#1, #2). Returns a cudaError_t code
-// (0 on success).
+// p (#3, #4, #5), else the unrounded p (#1, #2); head dim 512 (#3, #4) takes
+// the rounded sum only. Returns a cudaError_t code (0 on success).
 extern "C" int tc_flash_fwd(int head_dim, int ones, const void* q,
                             const void* k, const void* v, void* o, float* lse,
                             long long q_sb, long long q_ss, long long q_sh,
@@ -658,8 +839,7 @@ extern "C" int tc_flash_fwd(int head_dim, int ones, const void* q,
     return ones ? wg::launch<true>(p, batch, s)
                 : wg::launch<false>(p, batch, s);
   if (head_dim == 512)
-    return ones ? launch<512, 128, kBN512, true>(p, batch, s)
-                : launch<512, 128, kBN512>(p, batch, s);
+    return ones ? wg512::launch(p, batch, s) : (int)cudaErrorInvalidValue;
   return (int)cudaErrorInvalidValue;
 }
 
@@ -667,5 +847,5 @@ extern "C" int tc_flash_fwd(int head_dim, int ones, const void* q,
 // not take: where its running max moves, so where the rounded-p normalizer
 // rounds p.
 extern "C" int tc_flash_key_tile(int head_dim) {
-  return head_dim == 64 ? wg::kBN : head_dim == 512 ? kBN512 : 0;
+  return head_dim == 64 ? wg::kBN : head_dim == 512 ? wg512::kBN : 0;
 }

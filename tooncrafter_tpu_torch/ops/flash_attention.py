@@ -3,8 +3,11 @@ autograd Function over them, and the dispatch rules of
 tooncrafter_tpu/ops/flash_attention.py.
 
 Four forward wrappers carry the names of the four TPU forward kernels they
-replace; all of them launch the one CUDA C++ kernel in
-``csrc/flash_attention.cu``:
+replace; all of them launch the CUDA C++ forward of
+``csrc/flash_attention.cu``, one kernel a head dim (64: 192 query rows a
+block; 512, the VAE mid attention: 64 query rows a block, query tiles in
+cluster pairs sharing each K/V tile, S computed once and O's value columns
+split between two warpgroups):
 
   * ``_flash_mh_packed(qkv, heads, scale)``: packed (B, S, 3C) -> (B, S, C).
     q, k and v are strided views of the packed projection; nothing is copied.
@@ -29,9 +32,14 @@ takes the choice as its ``ones`` flag, and the plain versions follow:
 the product and l, ``_plain_bh`` is the exact softmax. In fp32 the two
 agree.
 
-The backward, ``_flash_bwd_bh`` (the TPU kernel of the same name), is the
-CUDA C++ kernel pair of ``csrc/flash_attention_bwd.cu`` (dq over query
-tiles, dk/dv over key tiles; head dim 64 only). ``_FlashFunction`` puts it
+The backward, ``_flash_bwd_bh`` (the TPU kernel of the same name), is
+``csrc/flash_attention_bwd.cu`` (head dim 64 only), three launches counted
+as one: a pre-pass (D = rowsum(dout * out), lse * log2(e) and a cleared
+fp32 dq accumulator, scratch from ``bwd_scratch``), one pass over the
+query tiles per 128-key block with the five products (dk and dv in
+registers, dq added to the accumulator in L2 by bulk reductions, so not
+bit-reproducible from run to run), and a post-pass writing bf16 dq;
+``_plain_bwd_passes`` states the three passes. ``_FlashFunction`` puts it
 behind ``flash_attention_packed``, ``_flash_mh`` and ``flash_attention``
 whenever grad is enabled and an input requires grad: its forward launches
 the forward kernel with the lse and saves q, k, v, O and the lse, its
@@ -354,7 +362,7 @@ def key_tile(head_dim: int) -> int:
 def bind_bwd(lib: ctypes.CDLL) -> ctypes.CDLL:
     ll, vp = ctypes.c_longlong, ctypes.c_void_p
     lib.tc_flash_bwd.argtypes = (
-        [ctypes.c_int] + [vp] * 10 + [ll] * 24 + [ctypes.c_int] * 4
+        [ctypes.c_int] + [vp] * 12 + [ll] * 24 + [ctypes.c_int] * 4
         + [ctypes.c_float, vp])
     lib.tc_flash_bwd.restype = ctypes.c_int
     return lib
@@ -371,16 +379,20 @@ def _on_cpu(*ts: torch.Tensor) -> bool:
     return _checks.on_cpu("flash attention", *ts)
 
 
-def _check_operand(name: str, t: torch.Tensor, device) -> None:
+def _check_operand(name: str, t: torch.Tensor, device) -> Tuple[int, ...]:
+    """Raise unless ``t`` is a kernel operand; returns its strides (batch,
+    sequence, head), in elements."""
     if t.dtype != torch.bfloat16:
         raise TypeError(f"{name}: the CUDA kernel takes bfloat16, got {t.dtype}")
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.stride(-1) != 1 or any(s % 8 for s in t.stride()[:-1]):
+    sb, ss, sh, sd = t.stride()
+    if sd != 1 or sb % 8 or ss % 8 or sh % 8:
         raise ValueError(f"{name}: needs unit stride on the head dim and "
                          f"16-byte aligned rows, got strides {t.stride()}")
     if t.data_ptr() % 16:
         raise ValueError(f"{name}: data pointer is not 16-byte aligned")
+    return sb, ss, sh
 
 
 def _launch(q4, k4, v4, o4, lse, scale: float, ones: bool = False) -> None:
@@ -392,13 +404,17 @@ def _launch(q4, k4, v4, o4, lse, scale: float, ones: bool = False) -> None:
     if d not in _KERNEL_HEAD_DIMS:
         raise ValueError(f"head dim {d} has no kernel build "
                          f"({_KERNEL_HEAD_DIMS})")
+    if d == 512 and not ones:
+        raise ValueError("the head-dim-512 kernel (#3, #4) sums the "
+                         "bf16-rounded p only")
     if (k4.shape != (b, sk, h, d) or v4.shape != (b, sk, h, d)
             or o4.shape != (b, sq, h, d)):
         raise ValueError(f"shape mismatch q{tuple(q4.shape)} "
                          f"k{tuple(k4.shape)} v{tuple(v4.shape)} "
                          f"o{tuple(o4.shape)}")
+    strides = []
     for name, t in (("q", q4), ("k", k4), ("v", v4), ("out", o4)):
-        _check_operand(name, t, q4.device)
+        strides += _check_operand(name, t, q4.device)
     if lse is not None and (lse.dtype != torch.float32
                             or lse.shape != (b * h, sq)
                             or not lse.is_contiguous()
@@ -407,9 +423,6 @@ def _launch(q4, k4, v4, o4, lse, scale: float, ones: bool = False) -> None:
                          "on the same device")
     lib = _library()
     stream = torch.cuda.current_stream(q4.device).cuda_stream
-    strides = []
-    for t in (q4, k4, v4, o4):
-        strides += [t.stride(0), t.stride(1), t.stride(2)]
     err = lib.tc_flash_fwd(
         d, int(ones), q4.data_ptr(), k4.data_ptr(), v4.data_ptr(),
         o4.data_ptr(), None if lse is None else lse.data_ptr(), *strides,
@@ -420,36 +433,123 @@ def _launch(q4, k4, v4, o4, lse, scale: float, ones: bool = False) -> None:
                            f"k{tuple(k4.shape)})")
 
 
+# the backward's query tile and key block (csrc/flash_attention_bwd.cu)
+_BWD_QTILE = 64
+_BWD_KBLOCK = 128
+
+
+def bwd_scratch(bh: int, sq: int, device) -> Dict[str, torch.Tensor]:
+    """The backward kernel's fp32 scratch, its pre-pass fills all of it:
+    the dq accumulator (``dq_acc``: (BH, sq_pad, 64), each 64-row tile in
+    ``dq_tile_order``), D and lse * log2(e) (``dsum``, ``lse2``: (BH,
+    sq_pad)), sq_pad = Sq rounded up to whole query tiles; one allocation
+    (each piece starts a whole number of 256-byte query tiles in)."""
+    sq_pad = -(-sq // _BWD_QTILE) * _BWD_QTILE
+    n = bh * sq_pad
+    buf = torch.empty(n * (_BWD_HEAD_DIM + 2), dtype=torch.float32,
+                      device=device)
+    return {"dq_acc": buf[:n * _BWD_HEAD_DIM].view(bh, sq_pad, _BWD_HEAD_DIM),
+            "dsum": buf[n * _BWD_HEAD_DIM:-n].view(bh, sq_pad),
+            "lse2": buf[-n:].view(bh, sq_pad)}
+
+
+def dq_tile_order() -> torch.Tensor:
+    """(64, 64) int64: where element (row, column) of a dq tile lies in the
+    accumulator's 4096 floats. The main pass's warpgroup 0 holds row
+    16w + g + 8r, column 8j + 2t + e (its wgmma fragment) as element e of
+    pair 2j + r of thread 32w + 4g + t, and stores pair k of thread i at
+    floats 2 (128 k + i) + (0, 1)."""
+    row = torch.arange(64)[:, None]
+    col = torch.arange(64)[None, :]
+    w, g, r = row // 16, row % 8, (row // 8) % 2
+    j, t, e = col // 8, (col % 8) // 2, col % 2
+    return 2 * (128 * (2 * j + r) + 32 * w + 4 * g + t) + e
+
+
+def _plain_bwd_prep(out, dout, lse):
+    """The pre-pass: (dsum, lse2) over (N, Sq, 64) out and dout and the
+    (N, Sq) lse, padded to whole query tiles with 0 and +inf (p = 0 there)."""
+    n, sq = lse.shape
+    pad = -(-sq // _BWD_QTILE) * _BWD_QTILE - sq
+    dsum = (dout.float() * out.float()).sum(-1)
+    lse2 = lse.float() * _LOG2E
+    return (torch.nn.functional.pad(dsum, (0, pad)),
+            torch.nn.functional.pad(lse2, (0, pad), value=float("inf")))
+
+
+def _plain_bwd_post(dq_acc, scale: float, sq: int):
+    """The post-pass: (N, sq_pad, 64) accumulator in ``dq_tile_order`` ->
+    scale * dq (N, Sq, 64) in fp32."""
+    n, sq_pad, d = dq_acc.shape
+    tiles = dq_acc.reshape(n, sq_pad // _BWD_QTILE, _BWD_QTILE * d)
+    dq = tiles[..., dq_tile_order().flatten().to(dq_acc.device)]
+    return (dq.reshape(n, sq_pad, d) * scale)[:, :sq]
+
+
+def _plain_bwd_passes(q, k, v, dout, scale: float, out, lse):
+    """The backward kernel's three passes in fp32 on (N, S, 64) operands:
+    the pre-pass, one step of the main pass per (128-key block, 64-row
+    query tile) adding dS K into the accumulator in ``dq_tile_order``, and
+    the post-pass. Returns (dq, dk, dv) in fp32, the function of
+    ``_plain_bwd_bh`` (the kernel rounds p and ds to bf16 besides)."""
+    n, sq, d = q.shape
+    sk = k.shape[1]
+    dsum, lse2 = _plain_bwd_prep(out, dout, lse)
+    sq_pad = dsum.shape[1]
+    f32 = dict(dtype=torch.float32, device=q.device)
+    acc = torch.zeros((n, sq_pad // _BWD_QTILE, _BWD_QTILE * d), **f32)
+    order = dq_tile_order().flatten().to(q.device)
+    pad = (0, 0, 0, sq_pad - sq)
+    qf = torch.nn.functional.pad(q.float(), pad)
+    dof = torch.nn.functional.pad(dout.float(), pad)
+    dk = torch.zeros((n, sk, d), **f32)
+    dv = torch.zeros((n, sk, d), **f32)
+    for n0 in range(0, sk, _BWD_KBLOCK):
+        keys = slice(n0, n0 + _BWD_KBLOCK)
+        kb, vb = k[:, keys].float(), v[:, keys].float()
+        for i in range(sq_pad // _BWD_QTILE):
+            rows = slice(i * _BWD_QTILE, (i + 1) * _BWD_QTILE)
+            qi, doi = qf[:, rows], dof[:, rows]
+            p = torch.exp2(torch.matmul(qi, kb.transpose(1, 2))
+                           * (scale * _LOG2E) - lse2[:, rows, None])
+            ds = p * (torch.matmul(doi, vb.transpose(1, 2))
+                      - dsum[:, rows, None])
+            dv[:, keys] += torch.matmul(p.transpose(1, 2), doi)
+            dk[:, keys] += torch.matmul(ds.transpose(1, 2), qi)
+            acc[:, i, order] += torch.matmul(ds, kb).flatten(1)
+    dq = _plain_bwd_post(acc.reshape(n, sq_pad, d), scale, sq)
+    return dq, dk * scale, dv
+
+
 def _launch_bwd(q4, k4, v4, o4, do4, dq4, dk4, dv4, lse, scale: float) -> None:
-    """The backward kernel pair on (B, S, H, 64) bf16 views; lse: fp32
-    (B*H, Sq) from the forward. Writes dq4, dk4 and dv4."""
+    """The backward kernel's three passes (one launch count) on
+    (B, S, H, 64) bf16 views; lse: fp32 (B*H, Sq) from the forward. Writes
+    dq4, dk4 and dv4."""
     b, sq, h, d = q4.shape
     sk = k4.shape[1]
     if d != _BWD_HEAD_DIM:
         raise ValueError(f"the flash-attention backward kernel is built for "
                          f"head dim {_BWD_HEAD_DIM} only, got {d}")
-    want = {"q": (q4, sq), "k": (k4, sk), "v": (v4, sk), "out": (o4, sq),
-            "dout": (do4, sq), "dq": (dq4, sq), "dk": (dk4, sk),
-            "dv": (dv4, sk)}
-    for name, (t, s) in want.items():
+    strides = []
+    for name, t, s in (("q", q4, sq), ("k", k4, sk), ("v", v4, sk),
+                       ("out", o4, sq), ("dout", do4, sq), ("dq", dq4, sq),
+                       ("dk", dk4, sk), ("dv", dv4, sk)):
         if t.shape != (b, s, h, d):
             raise ValueError(f"{name}: expected shape {(b, s, h, d)}, got "
                              f"{tuple(t.shape)}")
-        _check_operand(name, t, q4.device)
+        strides += _check_operand(name, t, q4.device)
     if (lse.dtype != torch.float32 or lse.shape != (b * h, sq)
             or not lse.is_contiguous() or lse.device != q4.device):
         raise ValueError("lse must be a contiguous fp32 (B*H, Sq) tensor on "
                          "the same device")
     lib = _bwd_library()
-    dsum = torch.empty((b * h, sq), dtype=torch.float32, device=q4.device)
-    strides = []
-    for t in (q4, k4, v4, o4, do4, dq4, dk4, dv4):
-        strides += [t.stride(0), t.stride(1), t.stride(2)]
+    scratch = bwd_scratch(b * h, sq, q4.device)
     err = lib.tc_flash_bwd(
         d, q4.data_ptr(), k4.data_ptr(), v4.data_ptr(), o4.data_ptr(),
-        do4.data_ptr(), lse.data_ptr(), dsum.data_ptr(), dq4.data_ptr(),
-        dk4.data_ptr(), dv4.data_ptr(), *strides, b, h, sq, sk, float(scale),
-        torch.cuda.current_stream(q4.device).cuda_stream)
+        do4.data_ptr(), lse.data_ptr(), scratch["dsum"].data_ptr(),
+        scratch["lse2"].data_ptr(), scratch["dq_acc"].data_ptr(),
+        dq4.data_ptr(), dk4.data_ptr(), dv4.data_ptr(), *strides, b, h, sq,
+        sk, float(scale), torch.cuda.current_stream(q4.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"flash attention backward kernel launch failed "
                            f"with CUDA error {err} (q{tuple(q4.shape)}, "
@@ -482,9 +582,7 @@ def flash_bwd_packed(qkv, out, lse, dout, heads: int, scale: float):
 
 def _packed_views(qkv, heads: int):
     """(B, S, 3C) -> q, k, v as (B, S, H, D) views."""
-    c = qkv.shape[-1] // 3
-    return tuple(qkv[..., i * c:(i + 1) * c].unflatten(-1, (heads, -1))
-                 for i in range(3))
+    return qkv.unflatten(-1, (3, heads, -1)).unbind(-3)
 
 
 # ---------------------------------------------------------------------------

@@ -6,17 +6,20 @@
 Each run is a fresh process in one checkout: it builds that checkout's
 kernels, runs its ``chip_smoke.check_kernels`` (phase 2: every kernel
 against its plain version at the path shapes, timed beside the library call
-and the bound) and answers its 3b and 3c requests (two 320x512 and one
-576x1024 DDIM-50 clips, ``chip_smoke.answer_requests``), with the
-functions of that checkout's ``chip_smoke.py``. The runs go A, B, B, A, so
-a drift of the card's clock or temperature over the call falls on both
-alike. A run whose kernels fail their check ends there with a non-zero
+and the bound), times its d = 512 forward at the shapes a phase 2 may lack
+(one head at 9216 tokens, the 1024 encoder's), answers its 3b and 3c
+requests (two 320x512 and one 576x1024 DDIM-50 clips,
+``chip_smoke.answer_requests``) and takes its 4b training steps
+(``chip_smoke.train_full_width``, the 512 training model at full width),
+with the functions of that checkout's ``chip_smoke.py``. The runs go A, B,
+B, A, so a drift of the card's clock or temperature over the call falls on
+both alike. A run whose kernels fail their check ends there with a non-zero
 code; the comparison stops at it and exits 1, so every time it reports
 comes from runs that passed phase 2. Each run's output goes to
 ``OUT/<i>_<a|b>.log``; the phase-2 times of every (kernel, shape), the
-request seconds and the peak memory of each run go to ``OUT/summary.json``
-and are printed as a table. Needs a CUDA card; the checkouts' own code
-decides everything else.
+request and training-step seconds and the peak memory of each run go to
+``OUT/summary.json`` and are printed as a table. Needs a CUDA card; the
+checkouts' own code decides everything else.
 """
 
 from __future__ import annotations
@@ -44,23 +47,48 @@ t0 = time.perf_counter()
 kc.build_all()
 print(f"== build {time.perf_counter() - t0:.1f} s", flush=True)
 cs.check_kernels(dev)  # a failed check exits non-zero here
+# shapes a checkout's phase 2 may lack, timed the same way in every run
+from tooncrafter_tpu_torch.ops import flash_attention as fa
+for bh, s in ((1, 9216),):
+    g = torch.Generator(device=dev).manual_seed(s)
+    q, k, v = (torch.randn(bh, s, 512, device=dev, generator=g).bfloat16()
+               for _ in range(3))
+    run = lambda: fa._flash_bh_with_lse(q, k, v, 512 ** -0.5)
+    out, lse = run()
+    with kc.fp32_reference():
+        ref, _ = fa._plain_bh_ones(q.float(), k.float(), v.float(),
+                                   512 ** -0.5, cdt=torch.bfloat16,
+                                   block=fa.key_tile(512))
+    err = (out.float() - ref).abs().max().item()
+    ms = kc.cuda_ms(run, 10)
+    lib = kc.cuda_ms(lambda: cs.sdpa(q, k, v, 512 ** -0.5), 10)
+    bound, by = kc.bound(4.0 * bh * s * s * 512, 8.0 * bh * s * 512)
+    print(f"A/B d=512 BH={bh} S={s}: max_abs_err={err:.3e} ms={ms:.4f} "
+          f"library_ms={lib:.4f} bound_ms={bound:.4f} ({by})", flush=True)
+    del q, k, v, out, lse, ref
 for yaml, n, kernels in (("inference_512_v1.0.yaml", 2, cs.KERNELS_512),
                          ("inference_1024_v1.0.yaml", 1, cs.KERNELS_1024)):
     print(f"== requests {yaml}", flush=True)
     cs.answer_requests(dev, 50, yaml, n, kernels)
     gc.collect()
     torch.cuda.empty_cache()
+print("== training", flush=True)
+cs.train_full_width(dev)
 """
 
-# "name label: ... ms=1.2 plain_ms=... library_ms=... bound_ms=..."
-_LINE = re.compile(r"^(\S+) (.+?): max_abs_err=.*? ms=([\d.]+) .*?"
+# "name label: [dq ]max_abs_err=... ms=1.2 plain_ms=... library_ms=...
+# bound_ms=..." (the backward's lines name each gradient first)
+_LINE = re.compile(r"^(\S+) (.+?): .*?max_abs_err=.*? ms=([\d.]+) .*?"
                    r"library_ms=([\d.]+|none) bound_ms=([\d.]+)")
 _REQUEST = re.compile(r"^request (\d+) \(fs \d+\): ([\d.]+) s")
 _PEAK = re.compile(r"^peak memory allocated ([\d.]+) GiB")
+_STEP = re.compile(r"^train step \d+: ([\d.]+) s")
+_TRAIN_PEAK = re.compile(r"^training: peak memory allocated ([\d.]+) GiB")
 
 
 def parse(log: str) -> dict:
-    """Phase-2 ms per 'name label', request seconds and peaks per model."""
+    """Phase-2 ms per 'name label', request seconds and peaks per model,
+    training-step seconds and their peak (under 'training')."""
     kernels: Dict[str, dict] = {}
     requests: Dict[str, List[float]] = {}
     peaks: Dict[str, float] = {}
@@ -80,6 +108,12 @@ def parse(log: str) -> dict:
         m = _PEAK.match(line)
         if m and model:
             peaks[model] = float(m.group(1))
+        m = _STEP.match(line)
+        if m:
+            requests.setdefault("training", []).append(float(m.group(1)))
+        m = _TRAIN_PEAK.match(line)
+        if m:
+            peaks["training"] = float(m.group(1))
     return {"kernels": kernels, "requests": requests, "peak_gib": peaks}
 
 

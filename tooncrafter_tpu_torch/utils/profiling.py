@@ -31,7 +31,7 @@ from typing import Callable, Dict, List, Tuple
 import torch
 
 KINDS = (
-    ("flash attention (port kernel)", ("flash_fwd_kernel", "flash_fwd_wgmma")),
+    ("flash attention (port kernel)", ("flash_fwd_wgmma", "flash_fwd_d512")),
     ("flash attention backward (port kernel)", ("flash_bwd_",)),
     ("fused FF (port kernel)", ("fused_ff_kernel",)),
     ("temporal conv (port kernel)", ("igemm::tconv_kernel",)),
