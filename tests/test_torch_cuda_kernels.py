@@ -1,10 +1,12 @@
 """The port's CUDA kernels against their plain versions, on the card:
 small shapes with ragged edges (lengths and pixel counts that are not
 multiples of the kernels' tiles, odd token counts, Cin != Cout), the strided
-packed/token-major attention views, and a mutation check of the fused
-kernels' bounds: broken builds of each source (output x1.01, a skipped K
-chunk, wrong sums where the kernel has sums) must fail at every path shape
-of ``kernel_check`` (the conv's also at the 576x1024 F(2x4)-named shape).
+packed/token-major attention views, the FF without its LayerNorm or
+residual and at Cout != C, and a mutation check of the fused kernels'
+bounds: broken builds of each source (output x1.01, a skipped K chunk,
+wrong sums where the kernel has sums; the FF's gate without its erf and
+its LayerNorm without the mean) must fail at every path shape of
+``kernel_check`` (the conv's also at the 576x1024 F(2x4)-named shape).
 The 576x1024 path's new shapes: attn1 at S = 9216, 2304 and 576 (each at
 the UNet's 32 images, through the wrapper the UNet picks), the pair at
 P = 144 and 9216, and the F(2x4)-named conv (#14). The d = 512 forward
@@ -310,17 +312,23 @@ def _sums_close(y, s1, s2, axes):
     assert ok, err
 
 
-@pytest.mark.parametrize("n,c", [(77, 320), (333, 512), (45, 1280)])
-def test_ff_kernel_odd_token_counts(dev, n, c):
+@pytest.mark.parametrize("n,c,cout,ln,residual", [
+    (77, 320, 320, True, True), (333, 512, 512, True, True),
+    (45, 1280, 1280, True, True),
+    (77, 320, 320, False, False),   # no LayerNorm: the projection reads x
+    (129, 640, 640, True, False),   # no residual
+    (100, 320, 192, True, False)])  # Cout != C: a ragged output tile
+def test_ff_kernel_odd_token_counts(dev, n, c, cout, ln, residual):
     d = 4 * c
     x = _rand(dev, 10, n, c)
     w1, b1 = _rand(dev, 11, 2 * d, c) * c ** -0.5, _rand(dev, 12, 2 * d)
-    w2, b2 = _rand(dev, 13, c, d) * d ** -0.5, _rand(dev, 14, c)
-    lw = 1 + 0.1 * _rand(dev, 15, c).float()
-    lb = 0.1 * _rand(dev, 16, c).float()
-    out = ff.fused_geglu_ff(x, w1, b1, w2, b2, lw, lb, 1e-5, True)
-    ref = ff._plain_ff(*_f(x, w1, b1, w2, b2), lw, lb, 1e-5, True,
+    w2, b2 = _rand(dev, 13, cout, d) * d ** -0.5, _rand(dev, 14, cout)
+    lw = 1 + 0.1 * _rand(dev, 15, c).float() if ln else None
+    lb = 0.1 * _rand(dev, 16, c).float() if ln else None
+    out = ff.fused_geglu_ff(x, w1, b1, w2, b2, lw, lb, 1e-5, residual)
+    ref = ff._plain_ff(*_f(x, w1, b1, w2, b2), lw, lb, 1e-5, residual,
                        cdt=torch.bfloat16)
+    assert out.shape == (n, cout)
     _fused_close(out, ref)
     assert sum(ff.LAUNCHES.values()) == 1
 
@@ -448,11 +456,16 @@ def test_f24_named_conv_at_its_1024_shape(dev):
 #  replacement); the edited copy is built into the one library under test
 _IGEMM = "implicit_gemm.cuh"
 MUTATIONS = [
+    # the FF: the out-GEMM's epilogue, the mainloop both GEMMs share (one
+    # k16 step of K block 1), the projection's gate, the LayerNorm kernel
     ("output x1.01", "fused_ff.cu", "fused_ff.cu", "pack_bf16(y0, y1)",
      "pack_bf16(1.01f * y0, 1.01f * y1)"),
-    ("skipped K chunk", "fused_ff.cu", "fused_ff.cu",
-     "for (int j0 = 0; j0 < p.d; j0 += DK) {",
-     "for (int j0 = 0; j0 < p.d; j0 += DK) {\n    if (j0 == DK) continue;"),
+    ("skipped K chunk", "fused_ff.cu", "fused_ff.cu", "mma_ss<BN>(acc[mi],",
+     "if (kb != 1 || kk != 0) mma_ss<BN>(acc[mi],"),
+    ("gate without erf", "fused_ff.cu", "fused_ff.cu",
+     "erff(v * 0.70710678118654752f)", "0.f"),
+    ("LayerNorm without the mean", "fused_ff.cu", "fused_ff.cu",
+     "(xv[e] - mean) * rstd", "xv[e] * rstd"),
 ] + [
     ("output x1.01", "temporal_conv.cu", _IGEMM, "pack_bf16(y0, y1)",
      "pack_bf16(1.01f * y0, 1.01f * y1)"),

@@ -1,5 +1,7 @@
 """The port's fused GEGLU feed-forward (plain version, CPU) against the JAX
-package's Pallas kernels run in interpret mode, fp32, C = 64, D = 256.
+package's Pallas kernels run in interpret mode, fp32, C = 64, D = 256; and
+the CUDA wrapper's plan (tiles, grids, scratch) at the path's and the card
+tests' shapes, and its refusal of shapes outside the kernels' envelope.
 
 Bound. The TPU kernel's gate uses a degree-15 erf polynomial, |erf error|
 <= 8.1e-5 on [-3, 3], and clamps beyond (1 - erf(3) = 2.2e-5): ERF_ERR.
@@ -16,6 +18,7 @@ import torch
 
 from tooncrafter_tpu.ops import fused_ff as jff
 from tooncrafter_tpu_torch.ops import fused_ff as ff
+from tooncrafter_tpu_torch.utils import kernel_check as kc
 
 torch.set_num_threads(1)  # one thread a pytest worker: the suite runs six
 
@@ -114,3 +117,85 @@ def test_cuda_tensors_never_take_the_plain_version(monkeypatch):
                           torch.zeros(C, D, dtype=torch.bfloat16),
                           torch.zeros(C, dtype=torch.bfloat16))
     assert not called
+
+
+# the card tests' odd shapes (tests/test_torch_cuda_kernels.py): N, C,
+# Cout, LayerNorm
+ODD = [(77, 320, 320, True), (333, 512, 512, True), (45, 1280, 1280, True),
+       (77, 320, 320, False), (129, 640, 640, True), (100, 320, 192, True)]
+
+
+def _check_gemm(g, n, cols, width):
+    """A launchable tiling: every row and column covered, a persistent grid
+    of at most one block an SM and at most one a tile."""
+    assert g.rows in (64, 128) and g.width == width
+    assert g.tiles == -(-n // g.rows) * -(-cols // width)
+    assert g.grid == min(g.tiles, ff.H100_SMS) >= 1
+
+
+@pytest.mark.parametrize("label,n,c", kc.FF_512 + kc.FF_1024)
+def test_plan_fills_the_card_at_every_path_shape(label, n, c):
+    p = ff.plan(n, c, 4 * c, c, True)
+    _check_gemm(p.proj, n, 2 * 4 * c, 128)  # 64 h and 64 g columns a tile
+    _check_gemm(p.out, n, c, 160 if c % 160 == 0 else 128)
+    # every SM takes a tile: 128-row tiles unless they are fewer than SMs
+    for g in (p.proj, p.out):
+        assert g.tiles >= ff.H100_SMS and g.grid == ff.H100_SMS
+        col_tiles = g.tiles // -(-n // g.rows)
+        assert g.rows == 128 or -(-n // 128) * col_tiles < ff.H100_SMS
+
+
+@pytest.mark.parametrize("n,c,cout,ln", ODD)
+def test_plan_and_scratch_at_odd_shapes(n, c, cout, ln):
+    d = 4 * c
+    p = ff.plan(n, c, d, cout, ln)
+    _check_gemm(p.proj, n, 2 * d, 128)
+    _check_gemm(p.out, n, cout, 160 if cout % 160 == 0 else 128)
+    z, m = ff.scratch(p, "cpu")
+    assert m.shape == (n, d) and m.dtype == torch.bfloat16
+    if ln:
+        assert z.shape == (n, c) and z.dtype == torch.bfloat16
+    else:
+        assert z is None and p.z is None
+
+
+def test_the_mid_block_takes_64_row_out_tiles():
+    p = ff.plan(1280, 1280, 5120, 1280, True)
+    assert (p.proj.rows, p.proj.tiles) == (128, 10 * 80)
+    assert (p.out.rows, p.out.width, p.out.tiles) == (64, 160, 20 * 8)
+
+
+@pytest.mark.parametrize("c,d,cout", [(48, 256, 64), (64, 200, 64),
+                                      (64, 256, 36)])
+def test_shapes_outside_the_envelope_raise_before_a_launch(monkeypatch, c, d,
+                                                           cout):
+    monkeypatch.setattr(ff._launch, "on_cpu", lambda *a: False)
+    monkeypatch.setattr(ff, "_library", lambda: pytest.fail("launched"))
+    bf = torch.bfloat16
+    with pytest.raises(ValueError):
+        ff.fused_geglu_ff(torch.zeros(40, c, dtype=bf),
+                          torch.zeros(2 * d, c, dtype=bf),
+                          torch.zeros(2 * d, dtype=bf),
+                          torch.zeros(cout, d, dtype=bf),
+                          torch.zeros(cout, dtype=bf))
+    with pytest.raises(ValueError):
+        ff.plan(40, c, d, cout, False)
+    assert not any(ff.LAUNCHES.values())
+
+
+def test_the_out_gemm_is_bound_by_the_bytes_of_m_only_at_c320():
+    """``utils/ff_breakdown``'s bounds: the projection by its operations,
+    the out-GEMM by the bytes of m at C = 320 (C operations a byte of m),
+    by its operations at C = 640 and 1280."""
+    from tooncrafter_tpu_torch.utils import ff_breakdown as fb
+
+    for n, c in ((81920, 320), (20480, 640), (5120, 1280)):
+        b = fb.part_bounds(n, c, 4 * c)
+        ops = {"proj": 4.0 * n * c * 4 * c, "out": 2.0 * n * 4 * c * c}
+        assert b["proj"] == pytest.approx(ops["proj"] / kc.PEAK_BF16_FLOPS
+                                          * 1e3)
+        by_ops = b["out"] == pytest.approx(ops["out"] / kc.PEAK_BF16_FLOPS
+                                           * 1e3)
+        assert by_ops == (c > 320)
+        assert b["ln"] == pytest.approx(
+            (4.0 * n * c + 8 * c) / kc.PEAK_BYTES_PER_S * 1e3)

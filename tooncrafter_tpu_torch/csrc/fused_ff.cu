@@ -1,304 +1,560 @@
-// Fused GEGLU feed-forward for Hopper (sm_90a): [LayerNorm] -> x W1^T + b1
-// -> h * gelu(g) -> m W2^T + b2 [+ x], bf16 in and out, one kernel.
+// GEGLU feed-forward for Hopper (sm_90a), bf16 in and out, as three
+// kernels on one stream:
+//
+//   (a) z = LN(x)                                ln_kernel      (N x C)
+//   (b) m = (z W1h^T + b1h) gelu(z W1g^T + b1g)  gemm_kernel<kGate> (N x D)
+//   (c) y = m W2^T + b2 [+ x]                    gemm_kernel<kOut>  (N x Cout)
 //
 // Replaces the two TPU kernels of tooncrafter_tpu/ops/fused_ff.py:
 //   * _pallas_ff           weights resident in VMEM (C <= 640)
 //   * _pallas_ff_streamed  weight chunks streamed from HBM (C = 1280)
 // The TPU split them only because of VMEM; they compute one function, and
-// this one kernel serves both.
+// these kernels serve both (one call counts one launch of the TPU
+// kernel's name).
 //
-// What bounds it on the H100: at the UNet's widths the two products do
-// 6 * N * C * D operations (D = 4C) on 2 * N * C * 2 bytes of activations;
-// at C = 320 that is ~1900 operations per byte, far above the card's ~295,
-// so the tensor cores bound it. What the TPU kernel saved, and this one
-// keeps: the 2D-wide projection and the D-wide gated product never reach
-// device memory (at ds1 that is a 419 MB bf16 tensor per call written and
-// read back by the unfused form).
+// Why the split at z and m changes no number: the TPU kernel rounds the
+// LayerNorm output to bf16 before the projection (_ln_tile) and the gated
+// product m to bf16 before the out-GEMM (fused_ff.py:242, :310). Those
+// are the two tensors that pass through device memory here, in bf16, so
+// the products consume the values the TPU kernel's products consume. The
+// cost is bytes: z and m are written once and read once. Without LN (a)
+// is skipped and (b) reads x.
 //
-// Design. A block takes a tile of BM tokens (64 for Cout <= 320, else 32)
-// and walks D in chunks of DK = 8 * warps columns:
-//   1. stage z = LN(x) (fp32 statistics, E[x^2] - mean^2 clamped at 0, as
-//      the TPU's _ln_tile) for the token tile in shared memory, once;
-//   2. per D chunk, each warp computes one n8 tile of h and one of g
-//      (K = C, fp32 accumulators), adds b1 and applies the exact erf gate
-//      in fp32, rounds m = h * gelu(g) to bf16 into shared memory;
-//   3. all warps then accumulate acc += m W2^T over the chunk, each warp
-//      owning a slice of the output columns, in fp32 registers.
-// Epilogue: acc -> bf16, + b2 (rounded), + x (rounded), as the TPU kernel
-// (fused_ff.py:246-247).
+// What bounds each part on the H100:
+//   * (a) bytes: a row read and written, a few FP32 operations an element;
+//   * (b) operations: 4 N C D on the tensor cores against 2 (N C + N D)
+//     bytes (~380 operations a byte at C = 320, above the card's ~295),
+//     plus one exact erff an element of m on the FP32 units, about half
+//     the products' time at C = 320, so it has to run beside them;
+//   * (c) at C = 320 the bytes of m: 2 N D C operations on 2 N D bytes is
+//     C operations a byte, about the card's ratio; at C >= 640 the
+//     operations.
 //
-// The weights' fragments are read from global memory (L2) in torch's Linear
-// layout, 16 bytes a thread: both products visit each 32-deep K block in the
-// k32 order of mma_bf16.cuh, so one 16-byte load of a weight row gives a
-// thread its B fragments for two k16 steps, and the A fragments are two
-// 16-byte shared loads; the next step's loads are issued before the current
-// step's products.
-//
-// The C = 1280 trap: a token tile's fp32 output accumulator (tile x Cout x
-// 4 bytes) does not fit one warp's registers at a tile that feeds the
-// tensor cores. The choice here is a small token tile (32) with the
-// accumulator spread over all the block's registers: 16 warps (512
-// threads) each hold a 32 x 80 slice (80 floats a thread). Nothing is
-// recomputed; the cost is that every 32-token tile reads all of W1 and W2
-// (39 MB at C = 1280) again from L2: 160 tiles at the ds4 shape, ~6.3 GB
-// of L2 traffic for 0.2 TFLOP. Splitting Cout over blocks instead would
-// recompute the 2D-wide projection once per slice (7x the work at 10
-// slices). The same holds at C = 320 with 64-token tiles (1280 tiles at
-// ds1, ~3 GB of L2 reads).
-//
-// A simple first version: mma.sync m16n8k16, no shared-memory staging of
-// the weights; wgmma, TMA and a producer warp are left for later work.
+// Design of (b) and (c): one mainloop, two epilogues (template parameter
+// EPI); a persistent grid of one block an SM walking output tiles
+// blockIdx.x + i gridDim.x, column tiles fastest (a row tile of A is read
+// from L2 by consecutive tiles):
+//   * a producer thread brings each tile's A rows (z, x or m) and B rows
+//     (W1 or W2 in torch's Linear layout, K-major) in 64-column K blocks by
+//     TMA (128-byte swizzle) into a ring of stages on mbarriers;
+//   * two consumer warpgroups take the block's tiles in turns (ping-pong):
+//     each runs wgmma from shared memory into its own fp32 accumulator of
+//     BM x BN (BM = 64 or 128 rows, two m64 products at 128), and a named
+//     barrier hands the tensor cores to the other once its last product
+//     is issued, so one warpgroup's epilogue runs while the other's
+//     products do;
+//   * (b): a tile's B is 64 rows of W1's h half and the 64 rows of its
+//     gate half at the same index (rows D + j), one 128-row wgmma operand,
+//     so h and g of one (token, d) land in one thread's accumulator: the
+//     gate (fp32 biases, brought per tile by a bulk copy, exact erff) runs
+//     on registers and only m rounds;
+//   * (c): y = bf16(bf16(acc) + b2), then + x rounded (fused_ff.py:246-247,
+//     :317), the residual tile brought by TMA while the products run;
+//   * each epilogue writes its tile into shared memory (swizzled, no bank
+//     conflicts) and one thread stores it by TMA, which leaves rows past N
+//     and columns past Cout out; rows past N arrive as zeros.
+// Tiles (chosen by the wrapper, ops/fused_ff.py `plan`): 128 rows unless
+// that gives fewer tiles than SMs, then 64; (b) 64 + 64 columns, (c) 160
+// where Cout allows, else 128.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
-#include "mma_bf16.cuh"
+#include "sm90.cuh"
 
 namespace {
 
-struct Params {
-  const bf16* x;      // (n, c)
-  const bf16* w1;     // (2d, c): h rows, then gate rows
-  const bf16* b1;     // (2d)
-  const bf16* w2;     // (cout, d)
-  const bf16* b2;     // (cout)
-  const float* lnw;   // (c) or null: no LayerNorm prologue
-  const float* lnb;   // (c)
-  bf16* out;          // (n, cout)
-  int n, c, d, cout;
-  float eps;
-  int residual;
-};
+typedef __nv_bfloat16 bf16;
 
-__device__ __forceinline__ float gelu_exact(float g) {
-  return 0.5f * g * (1.f + erff(g * 0.70710678118654752f));
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (low half) = lo
+  return *reinterpret_cast<uint32_t*>(&v);
 }
 
-__device__ __forceinline__ uint4 ldg128(const bf16* p) {
-  return __ldg(reinterpret_cast<const uint4*>(p));
+__device__ __forceinline__ float round_bf16(float v) {
+  return __bfloat162float(__float2bfloat16(v));
 }
 
-// NW warps, MT m16 row tiles (BM = 16 MT tokens), up to NTO n8 output tiles
-// a warp. Shared rows are padded (k32_stride) so the 16-byte fragment loads
-// hit distinct banks.
-template <int NW, int MT, int NTO>
-__global__ void __launch_bounds__(NW * 32, 1) fused_ff_kernel(const Params p) {
-  constexpr int BM = 16 * MT;
-  constexpr int DK = 8 * NW;   // D columns per chunk
-  constexpr int DKP = k32_stride(DK);
-  const int cp = k32_stride(p.c);
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* sZ = reinterpret_cast<bf16*>(smem_raw);  // [BM][cp]
-  bf16* sM = sZ + BM * cp;                       // [BM][DKP]
+__device__ __forceinline__ float2 ld_bf162(const bf16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
 
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const int m0 = blockIdx.x * BM;
-
-  // 1. z = LN(x) (or x) for the token tile, one warp per row
-  for (int r = warp; r < BM; r += NW) {
-    const int row = m0 + r;
-    bf16* zr = sZ + r * cp;
-    const bf16* xr = p.x + (long long)row * p.c;
-    if (row >= p.n) {
-      for (int c = lane * 2; c < p.c; c += 64)
-        *reinterpret_cast<uint32_t*>(zr + c) = 0u;
-      continue;
-    }
-    if (p.lnw == nullptr) {
-      for (int c = lane * 2; c < p.c; c += 64)
-        *reinterpret_cast<uint32_t*>(zr + c) = ld32(xr + c);
-      continue;
-    }
-    float s = 0.f, s2 = 0.f;
-    for (int c = lane * 2; c < p.c; c += 64) {
-      const float2 v = ld_bf162(xr + c);
-      s += v.x + v.y;
-      s2 += v.x * v.x + v.y * v.y;
-    }
+// eight bf16 (16 bytes) as floats
+__device__ __forceinline__ void ld_bf16x8(const bf16* p, float (&v)[8]) {
+  const uint4 u = *reinterpret_cast<const uint4*>(p);
+  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
 #pragma unroll
-    for (int o = 16; o > 0; o >>= 1) {
-      s += __shfl_xor_sync(0xffffffffu, s, o);
-      s2 += __shfl_xor_sync(0xffffffffu, s2, o);
-    }
-    const float mean = s / p.c;
-    const float var = fmaxf(s2 / p.c - mean * mean, 0.f);
-    const float rstd = rsqrtf(var + p.eps);
-    for (int c = lane * 2; c < p.c; c += 64) {
-      const float2 v = ld_bf162(xr + c);
-      *reinterpret_cast<uint32_t*>(zr + c) =
-          pack_bf16((v.x - mean) * rstd * p.lnw[c] + p.lnb[c],
-                    (v.y - mean) * rstd * p.lnw[c + 1] + p.lnb[c + 1]);
-    }
-  }
-  __syncthreads();
-
-  // output columns: warp w owns n8 tiles [w * tpw, (w + 1) * tpw)
-  const int ntiles = p.cout / 8;
-  const int tpw = (ntiles + NW - 1) / NW;
-  const int tile0 = warp * tpw;
-  float acc[MT][NTO][4];
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-    for (int j = 0; j < NTO; ++j)
-      acc[mt][j][0] = acc[mt][j][1] = acc[mt][j][2] = acc[mt][j][3] = 0.f;
-
-  for (int j0 = 0; j0 < p.d; j0 += DK) {
-    // 2. this warp's n8 tiles of h and g over K = C, 32 deep a load
-    float hacc[MT][4], gacc[MT][4];
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) hacc[mt][e] = gacc[mt][e] = 0.f;
-    const bf16* wh = p.w1 + (long long)(j0 + warp * 8 + g) * p.c + 8 * t;
-    const bf16* wg = wh + (long long)p.d * p.c;
-    uint4 bh = ldg128(wh), bg = ldg128(wg);
-    for (int k = 0; k < p.c; k += 32) {
-      uint4 nh = bh, ng = bg;
-      if (k + 32 < p.c) {
-        nh = ldg128(wh + k + 32);
-        ng = ldg128(wg + k + 32);
-      }
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt) {
-        uint32_t a[2][4];
-        load_a_k32(a, sZ, cp, mt * 16, k, lane);
-        mma_16816(hacc[mt], a[0], bh.x, bh.y);
-        mma_16816(gacc[mt], a[0], bg.x, bg.y);
-        mma_16816(hacc[mt], a[1], bh.z, bh.w);
-        mma_16816(gacc[mt], a[1], bg.z, bg.w);
-      }
-      bh = nh;
-      bg = ng;
-    }
-    // fp32 bias and gate; only m rounds to bf16 (m's columns are in their
-    // natural order, which the out-GEMM's k32 loads of sM and W2 share)
-    const int col = warp * 8 + 2 * t;
-    const float bhv[2] = {__bfloat162float(p.b1[j0 + col]),
-                          __bfloat162float(p.b1[j0 + col + 1])};
-    const float bgv[2] = {__bfloat162float(p.b1[p.d + j0 + col]),
-                          __bfloat162float(p.b1[p.d + j0 + col + 1])};
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const float m_lo = (hacc[mt][2 * r] + bhv[0]) *
-                           gelu_exact(gacc[mt][2 * r] + bgv[0]);
-        const float m_hi = (hacc[mt][2 * r + 1] + bhv[1]) *
-                           gelu_exact(gacc[mt][2 * r + 1] + bgv[1]);
-        *reinterpret_cast<uint32_t*>(sM + (mt * 16 + g + 8 * r) * DKP + col) =
-            pack_bf16(m_lo, m_hi);
-      }
-    __syncthreads();
-
-    // 3. acc += m W2[:, j0:j0+DK]^T over this warp's output tiles, five
-    // tiles' 16-byte loads in flight at a time
-#pragma unroll
-    for (int kk = 0; kk < DK; kk += 32) {
-      uint32_t a[MT][2][4];
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt)
-        load_a_k32(a[mt], sM, DKP, mt * 16, kk, lane);
-#pragma unroll
-      for (int jg = 0; jg < NTO; jg += 5) {
-        uint4 bw[5];
-#pragma unroll
-        for (int j = 0; j < 5; ++j) {
-          const int tile = tile0 + jg + j;
-          if (jg + j < NTO && jg + j < tpw && tile < ntiles)
-            bw[j] = ldg128(p.w2 + (long long)(tile * 8 + g) * p.d + j0 + kk + 8 * t);
-        }
-#pragma unroll
-        for (int j = 0; j < 5; ++j) {
-          const int tile = tile0 + jg + j;
-          if (jg + j < NTO && jg + j < tpw && tile < ntiles) {
-#pragma unroll
-            for (int mt = 0; mt < MT; ++mt) {
-              mma_16816(acc[mt][jg + j], a[mt][0], bw[j].x, bw[j].y);
-              mma_16816(acc[mt][jg + j], a[mt][1], bw[j].z, bw[j].w);
-            }
-          }
-        }
-      }
-    }
-    __syncthreads();  // sM is consumed before the next chunk writes it
-  }
-
-  // epilogue: acc -> bf16, + b2, + x, each add rounded to bf16
-#pragma unroll
-  for (int j = 0; j < NTO; ++j) {
-    const int tile = tile0 + j;
-    if (j >= tpw || tile >= ntiles) continue;
-    const int col = tile * 8 + 2 * t;
-    const float c0 = __bfloat162float(p.b2[col]);
-    const float c1 = __bfloat162float(p.b2[col + 1]);
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const int row = m0 + mt * 16 + g + 8 * r;
-        if (row >= p.n) continue;
-        float y0 = round_bf16(round_bf16(acc[mt][j][2 * r]) + c0);
-        float y1 = round_bf16(round_bf16(acc[mt][j][2 * r + 1]) + c1);
-        if (p.residual) {
-          const float2 xv = ld_bf162(p.x + (long long)row * p.c + col);
-          y0 += xv.x;
-          y1 += xv.y;
-        }
-        *reinterpret_cast<uint32_t*>(p.out + (long long)row * p.cout + col) =
-            pack_bf16(y0, y1);
-      }
+  for (int i = 0; i < 4; ++i) {
+    const float2 f =
+        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[i]));
+    v[2 * i] = f.x;
+    v[2 * i + 1] = f.y;
   }
 }
 
-template <int NW, int MT, int NTO>
-int launch(const Params& p, cudaStream_t stream) {
-  constexpr int BM = 16 * MT;
-  const int smem =
-      (BM * k32_stride(p.c) + BM * k32_stride(8 * NW)) * (int)sizeof(bf16);
-  cudaError_t err = cudaFuncSetAttribute(
-      fused_ff_kernel<NW, MT, NTO>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((p.n + BM - 1) / BM);
-  fused_ff_kernel<NW, MT, NTO><<<grid, NW * 32, smem, stream>>>(p);
+namespace fused_ff {
+
+// ---------------------------------------------------------------------------
+// (a) the LayerNorm: one warp a row, 16-byte loads and stores
+// ---------------------------------------------------------------------------
+
+constexpr int kLnRows = 8;  // rows (warps) a block
+
+// z for the 8 columns of x from k: the fp32 affine, one rounding to bf16
+__device__ __forceinline__ uint4 ln8(const float (&xv)[8], float mean,
+                                    float rstd, const float* lnw,
+                                    const float* lnb, int k) {
+  const float4 w0 = *reinterpret_cast<const float4*>(lnw + k);
+  const float4 w1 = *reinterpret_cast<const float4*>(lnw + k + 4);
+  const float4 b0 = *reinterpret_cast<const float4*>(lnb + k);
+  const float4 b1 = *reinterpret_cast<const float4*>(lnb + k + 4);
+  const float wv[8] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};
+  const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+  float zf[8];
+#pragma unroll
+  for (int e = 0; e < 8; ++e) zf[e] = (xv[e] - mean) * rstd * wv[e] + bv[e];
+  return make_uint4(pack_bf16(zf[0], zf[1]), pack_bf16(zf[2], zf[3]),
+                    pack_bf16(zf[4], zf[5]), pack_bf16(zf[6], zf[7]));
+}
+
+// fp32 statistics, variance E[x^2] - mean^2 clamped at 0 (the TPU's
+// _ln_tile). A lane takes the row's 16-byte chunks lane, lane + 32, ...;
+// NCH > 0: at most NCH of them, kept in registers between the statistics
+// and the affine (C <= 256 NCH); NCH = 0: any C, the row read twice.
+template <int NCH>
+__global__ void __launch_bounds__(kLnRows * 32)
+ln_kernel(const bf16* __restrict__ x, const float* __restrict__ lnw,
+          const float* __restrict__ lnb, bf16* __restrict__ z, int n, int c,
+          float eps) {
+  const int lane = threadIdx.x & 31;
+  const long long row = (long long)blockIdx.x * kLnRows + (threadIdx.x >> 5);
+  if (row >= n) return;
+  const bf16* xr = x + row * c;
+  bf16* zr = z + row * c;
+  float v[NCH > 0 ? NCH : 1][8];
+  float s = 0.f, s2 = 0.f;
+  auto add = [&](const float (&u)[8]) {
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      s += u[e];
+      s2 += u[e] * u[e];
+    }
+  };
+  if constexpr (NCH > 0) {
+#pragma unroll
+    for (int i = 0; i < NCH; ++i) {
+      const int k = lane * 8 + 256 * i;
+      if (k < c) {
+        ld_bf16x8(xr + k, v[i]);
+        add(v[i]);
+      }
+    }
+  } else {
+    for (int k = lane * 8; k < c; k += 256) {
+      ld_bf16x8(xr + k, v[0]);
+      add(v[0]);
+    }
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    s += __shfl_xor_sync(0xffffffffu, s, o);
+    s2 += __shfl_xor_sync(0xffffffffu, s2, o);
+  }
+  const float mean = s / c;
+  const float var = fmaxf(s2 / c - mean * mean, 0.f);
+  const float rstd = rsqrtf(var + eps);
+  if constexpr (NCH > 0) {
+#pragma unroll
+    for (int i = 0; i < NCH; ++i) {
+      const int k = lane * 8 + 256 * i;
+      if (k < c)
+        *reinterpret_cast<uint4*>(zr + k) =
+            ln8(v[i], mean, rstd, lnw, lnb, k);
+    }
+  } else {
+    for (int k = lane * 8; k < c; k += 256) {
+      ld_bf16x8(xr + k, v[0]);
+      *reinterpret_cast<uint4*>(zr + k) = ln8(v[0], mean, rstd, lnw, lnb, k);
+    }
+  }
+}
+
+template <int NCH>
+int launch_ln(const void* x, const float* lnw, const float* lnb, void* z,
+              int n, int c, float eps, cudaStream_t stream) {
+  ln_kernel<NCH><<<(n + kLnRows - 1) / kLnRows, kLnRows * 32, 0, stream>>>(
+      static_cast<const bf16*>(x), lnw, lnb, static_cast<bf16*>(z), n, c,
+      eps);
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// (b), (c): the wgmma GEMM, D (N x cols) = A (N x K) B (rows x K)^T
+// ---------------------------------------------------------------------------
+
+constexpr int kGate = 0;  // (b): m = (h + b1h) gelu(g + b1g), rounded
+constexpr int kOut = 1;   // (c): y = bf16(bf16(acc) + b2) [+ x]
+constexpr int kBK = 64;   // K columns a stage: one 128-byte swizzle row
+constexpr int kThreads = 384;  // two consumer warpgroups, one producer
+constexpr int kOrderBar = 1;   // named barriers 1, 2: whose turn on the
+                               // tensor cores (0 is __syncthreads)
+constexpr int kEpiBar = 3;     // 3, 4: each consumer warpgroup's epilogue
+
+// Shared memory: the ring's stages of [A: BM x 64][B: BN x 64] (every tile
+// a whole number of 1024-byte swizzle atoms, as many stages as fit, at most
+// 8), each consumer warpgroup's output tile on its way out (kGate: BM x 64
+// of m, one 128-byte-swizzled box; kOut: BM x BN of y, which first takes
+// in the residual, BN / 32 boxes of 32 columns in the 64-byte swizzle),
+// (kGate) each consumer warpgroup's 64 + 64 biases, then the barriers.
+template <int EPI, int BM, int BN>
+struct Ring {
+  static constexpr int kA = BM * kBK * 2;
+  static constexpr int kB = BN * kBK * 2;
+  static constexpr int kStage = kA + kB;
+  static constexpr int kStaging = BM * (EPI == kGate ? kBK : BN) * 2;
+  static constexpr int kBias = EPI == kGate ? 2 * kBK * 2 : 0;
+  static constexpr int kFit =
+      (227 * 1024 - 2048 - 2 * (kStaging + kBias)) / kStage;
+  static constexpr int kStages = kFit < 8 ? kFit : 8;
+  static constexpr int kBarOffset = kStages * kStage + 2 * (kStaging + kBias);
+  static constexpr int kBytes = kBarOffset + (2 * kStages + 2) * 8 + 1024;
+};
+
+struct GemmParams {
+  const bf16* bias;  // b1 (2d) or b2 (cols)
+  const bf16* res;   // (kOut) x (n, cols), or null: no residual
+  bf16* out;         // m (n, cols = d) or y (n, cols = cout)
+  int n;             // token rows
+  int cols;          // output columns
+  int d;             // (kGate) the gate rows' offset in W1
+  int kblocks;       // ceil(K / 64)
+  int ntiles;        // column tiles
+  int tiles;         // row tiles x column tiles
+};
+
+__device__ __forceinline__ float gelu_exact(float v) {
+  return 0.5f * v * (1.f + erff(v * 0.70710678118654752f));
+}
+
+// one m64 x BN x k16 product from shared memory, both operands K-major
+template <int BN>
+__device__ __forceinline__ void mma_ss(float (&d)[BN / 2], uint64_t da,
+                                       uint64_t db, int scale_d) {
+  if constexpr (BN == 128)
+    sm90::wgmma_m64n128k16_ss<0>(d, da, db, scale_d);
+  else
+    sm90::wgmma_m64n160k16_ss(d, da, db, scale_d);
+}
+
+// BM rows x BN accumulator columns a warpgroup tile. kGate: BN = 128, the
+// output tile is 64 columns of m (accumulator columns 0-63 h, 64-127 g);
+// kOut: the output tile is BN columns of y. tm_c: the output as the stores
+// see it; tm_x (kOut with a residual): x as its loads see it.
+template <int EPI, int BM, int BN>
+__global__ void __launch_bounds__(kThreads, 1)
+gemm_kernel(const GemmParams p, const __grid_constant__ CUtensorMap tm_a,
+            const __grid_constant__ CUtensorMap tm_b,
+            const __grid_constant__ CUtensorMap tm_c,
+            const __grid_constant__ CUtensorMap tm_x) {
+  using R = Ring<EPI, BM, BN>;
+  constexpr int kMT = BM / 64;                        // m64 products
+  constexpr int kCols = EPI == kGate ? BN / 2 : BN;   // output columns
+  static_assert(EPI == kOut || BN == 128, "the gate tile is 64 + 64");
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint64_t* full = reinterpret_cast<uint64_t*>(base + R::kBarOffset);
+  uint64_t* empty = full + R::kStages;
+  uint64_t* xbar = empty + R::kStages;  // each warpgroup's bias / residual
+  const int tid = threadIdx.x;
+  const int wgi = tid / 128;
+  const int my_tiles =
+      (p.tiles - (int)blockIdx.x + (int)gridDim.x - 1) / (int)gridDim.x;
+
+  if (tid == 0) {
+    for (int s = 0; s < R::kStages; ++s) {
+      sm90::mbar_init(&full[s], 1);
+      sm90::mbar_init(&empty[s], 4);  // one arrival per consumer warp
+    }
+    sm90::mbar_init(&xbar[0], 1);
+    sm90::mbar_init(&xbar[1], 1);
+    sm90::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wgi == 2) {  // the producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (tid == 256) {
+      int it = 0;
+      for (int i = 0; i < my_tiles; ++i) {
+        const int t = blockIdx.x + i * gridDim.x;
+        const int m0 = (t / p.ntiles) * BM;
+        const int r0 = (t % p.ntiles) * kCols;
+        const int r1 = EPI == kGate ? p.d + r0 : r0 + BN / 2;
+        for (int kb = 0; kb < p.kblocks; ++kb, ++it) {
+          const int s = it % R::kStages;
+          sm90::mbar_wait(&empty[s], ((it / R::kStages) & 1) ^ 1);
+          unsigned char* st = base + s * R::kStage;
+          sm90::mbar_expect_tx(&full[s], R::kStage);
+          sm90::tma_load_2d(st, &tm_a, &full[s], kb * kBK, m0);
+          sm90::tma_load_2d(st + R::kA, &tm_b, &full[s], kb * kBK, r0);
+          sm90::tma_load_2d(st + R::kA + R::kB / 2, &tm_b, &full[s],
+                            kb * kBK, r1);
+        }
+      }
+    }
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+
+  const int lane = tid & 31;
+  const int warp = (tid >> 5) & 3;  // within the warpgroup
+  const int g = lane >> 2, t4 = lane & 3;
+  const bool leader = (tid & 127) == 0;
+  float acc[kMT][BN / 2];
+#pragma unroll
+  for (int mi = 0; mi < kMT; ++mi)
+#pragma unroll
+    for (int e = 0; e < BN / 2; ++e) acc[mi][e] = 0.f;
+
+  // the products of K block `kb` of the ring's step `it`
+  auto issue = [&](int it, int kb) {
+    const int s = it % R::kStages;
+    sm90::mbar_wait(&full[s], (it / R::kStages) & 1);
+    const uint64_t da = sm90::desc_sw128(base + s * R::kStage);
+    const uint64_t db = sm90::desc_sw128(base + s * R::kStage + R::kA);
+#pragma unroll
+    for (int mi = 0; mi < kMT; ++mi) sm90::fence_regs(acc[mi]);
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kBK / 16; ++kk)
+#pragma unroll
+      for (int mi = 0; mi < kMT; ++mi)
+        mma_ss<BN>(acc[mi], sm90::desc_add(da, mi * 64 * 128 + 32 * kk),
+                   sm90::desc_add(db, 32 * kk), kb > 0 || kk > 0);
+    sm90::wgmma_commit();
+  };
+  auto release = [&](int it) {
+    if (lane == 0) sm90::mbar_arrive(&empty[it % R::kStages]);
+  };
+
+  unsigned char* stage = base + R::kStages * R::kStage + wgi * R::kStaging;
+  const bf16* bias_s = reinterpret_cast<const bf16*>(
+      base + R::kStages * R::kStage + 2 * R::kStaging + wgi * R::kBias);
+  const bool res = EPI == kOut && p.res != nullptr;
+  for (int i = wgi, lt = 0; i < my_tiles; i += 2, ++lt) {
+    const int t = blockIdx.x + i * gridDim.x;
+    const int m0 = (t / p.ntiles) * BM;
+    const int n0 = (t % p.ntiles) * kCols;
+    // this warpgroup's turn on the tensor cores: the other has issued the
+    // products of the block's previous tile
+    if (i > 0) sm90::bar_sync(kOrderBar + wgi, 256);
+    if (EPI == kGate && leader) {  // the tile's h and g biases
+      sm90::mbar_expect_tx(&xbar[wgi], R::kBias);
+      sm90::bulk_load(const_cast<bf16*>(bias_s), p.bias + n0, 2 * kBK,
+                      &xbar[wgi]);
+      sm90::bulk_load(const_cast<bf16*>(bias_s) + kBK, p.bias + p.d + n0,
+                      2 * kBK, &xbar[wgi]);
+    }
+    if (res && leader) {  // the residual tile, once the last store read it
+      sm90::bulk_wait_read<0>();
+      sm90::mbar_expect_tx(&xbar[wgi], R::kStaging);
+      for (int b = 0; b < BN / 32; ++b)
+        sm90::tma_load_2d(stage + b * BM * 64, &tm_x, &xbar[wgi],
+                          n0 + 32 * b, m0);
+    }
+    int it = i * p.kblocks;
+    issue(it, 0);
+    for (int kb = 1; kb < p.kblocks; ++kb) {
+      issue(++it, kb);
+      sm90::wgmma_wait<1>();
+      release(it - 1);
+    }
+    if (i + 1 < my_tiles) sm90::bar_arrive(kOrderBar + (wgi ^ 1), 256);
+    sm90::wgmma_wait<0>();
+#pragma unroll
+    for (int mi = 0; mi < kMT; ++mi) sm90::fence_regs(acc[mi]);
+    release(it);
+
+    // The epilogue: thread (warp, g, t4) holds rows 16 warp + g + 8 r of
+    // each m64 product, accumulator columns 8 j + 2 t4 + (0, 1). It writes
+    // its outputs into the staging tile, and one thread stores the tile by
+    // TMA, which leaves rows and columns past the tensor's end out.
+    if (EPI == kGate || res) sm90::mbar_wait(&xbar[wgi], lt & 1);
+    if (!res) {  // the previous tile's store has read the staging tile
+      if (leader) sm90::bulk_wait_read<0>();
+      sm90::bar_sync(kEpiBar + wgi, 128);
+    }
+    if constexpr (EPI == kGate) {
+      // 16-byte chunk c of row r at chunk c ^ (r % 8): conflict-free
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {  // h at column 8 j, g at 64 + 8 j
+        const float2 bh = ld_bf162(bias_s + 8 * j + 2 * t4);
+        const float2 bg = ld_bf162(bias_s + kBK + 8 * j + 2 * t4);
+#pragma unroll
+        for (int mi = 0; mi < kMT; ++mi)
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const int row = 64 * mi + 16 * warp + g + 8 * r;
+            const float mlo = (acc[mi][4 * j + 2 * r] + bh.x) *
+                              gelu_exact(acc[mi][4 * j + 32 + 2 * r] + bg.x);
+            const float mhi =
+                (acc[mi][4 * j + 2 * r + 1] + bh.y) *
+                gelu_exact(acc[mi][4 * j + 32 + 2 * r + 1] + bg.y);
+            *reinterpret_cast<uint32_t*>(stage + row * 128 + ((j ^ g) << 4) +
+                                         4 * t4) = pack_bf16(mlo, mhi);
+          }
+      }
+    } else {
+      // y = bf16(bf16(acc) + b2), then + x rounded; box j / 4 of 32
+      // columns, its 16-byte chunk c of row r at c ^ ((r / 2) % 4):
+      // conflict-free
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        const int col = n0 + 8 * j + 2 * t4;
+        const float2 c2 =
+            col < p.cols ? ld_bf162(p.bias + col) : make_float2(0.f, 0.f);
+#pragma unroll
+        for (int mi = 0; mi < kMT; ++mi)
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const int row = 64 * mi + 16 * warp + g + 8 * r;
+            uint32_t* px = reinterpret_cast<uint32_t*>(
+                stage + (j / 4) * BM * 64 + row * 64 +
+                (((j & 3) ^ ((row >> 1) & 3)) << 4) + 4 * t4);
+            float y0 = round_bf16(round_bf16(acc[mi][4 * j + 2 * r]) + c2.x);
+            float y1 =
+                round_bf16(round_bf16(acc[mi][4 * j + 2 * r + 1]) + c2.y);
+            if (res) {
+              const float2 xv = __bfloat1622float2(
+                  *reinterpret_cast<const __nv_bfloat162*>(px));
+              y0 += xv.x;
+              y1 += xv.y;
+            }
+            *px = pack_bf16(y0, y1);
+          }
+      }
+    }
+    sm90::fence_async_smem();
+    sm90::bar_sync(kEpiBar + wgi, 128);
+    if (leader) {
+      if constexpr (EPI == kGate) {
+        sm90::tma_store_2d(&tm_c, stage, n0, m0);
+      } else {
+        for (int b = 0; b < BN / 32; ++b)
+          sm90::tma_store_2d(&tm_c, stage + b * BM * 64, n0 + 32 * b, m0);
+      }
+      sm90::bulk_commit();
+    }
+  }
+  if (leader) sm90::bulk_wait<0>();  // the last store is out
+}
+
+// a (rows x k) bf16 row-major tensor, boxes of 64 columns x `box_rows` in
+// the 128-byte swizzle, or of 32 columns in the 64-byte one
+int make_map(CUtensorMap* map, const void* base, int k, int rows,
+             int box_rows, int box_cols = kBK) {
+  const uint64_t dims[2] = {(uint64_t)k, (uint64_t)rows};
+  const uint64_t strides[1] = {(uint64_t)k * 2};
+  const uint32_t box[2] = {(uint32_t)box_cols, (uint32_t)box_rows};
+  return sm90_host::make_map(map, base, 2, dims, strides, box,
+                             box_cols == kBK ? CU_TENSOR_MAP_SWIZZLE_128B
+                                             : CU_TENSOR_MAP_SWIZZLE_64B);
+}
+
+// A (p.n x k), B (brows x k); `grid` persistent blocks
+template <int EPI, int BM, int BN>
+int launch_gemm(GemmParams p, const void* a, const void* b, int k, int brows,
+                int grid, cudaStream_t stream) {
+  using R = Ring<EPI, BM, BN>;
+  constexpr int kCols = EPI == kGate ? BN / 2 : BN;
+  p.kblocks = (k + kBK - 1) / kBK;
+  p.ntiles = (p.cols + kCols - 1) / kCols;
+  p.tiles = ((p.n + BM - 1) / BM) * p.ntiles;
+  if (grid < 1 || grid > p.tiles) return (int)cudaErrorInvalidValue;
+  CUtensorMap ta, tb, tc, tx;  // A, B, the output, the residual
+  int err = make_map(&ta, a, k, p.n, BM);
+  if (!err) err = make_map(&tb, b, k, brows, BN / 2);
+  if (!err)
+    err = make_map(&tc, p.out, p.cols, p.n, BM, EPI == kGate ? kBK : 32);
+  if (err) return err;
+  if (p.res != nullptr)
+    err = make_map(&tx, p.res, p.cols, p.n, BM, 32);
+  else
+    tx = tc;
+  if (err) return err;
+  cudaError_t e = cudaFuncSetAttribute(
+      gemm_kernel<EPI, BM, BN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      R::kBytes);
+  if (e != cudaSuccess) return (int)e;
+  gemm_kernel<EPI, BM, BN><<<grid, kThreads, R::kBytes, stream>>>(p, ta, tb,
+                                                                 tc, tx);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace fused_ff
 }  // namespace
 
 // x (n, c), w1 (2d, c), b1 (2d), w2 (cout, d), b2 (cout), out (n, cout):
-// contiguous bf16 (torch's Linear layout); lnw/lnb: fp32 (c)
-// or both null. c % 32 == 0, cout % 8 == 0; cout <= 640 needs d % 64 == 0,
-// cout <= 1280 d % 128 == 0. Returns a cudaError_t code (0 on success).
+// contiguous bf16 (torch's Linear layout); lnw, lnb: fp32 (c), or both null
+// (no LayerNorm: the projection reads x). Scratch from the caller: z (n, c)
+// bf16 when there is a LayerNorm (else null), m (n, d) bf16. The tiles: the
+// projection's rows per warpgroup tile bm1 (64 or 128) on grid1 blocks, the
+// out-GEMM's bm2 x bn2 (bn2 128 or 160) on grid2 (each at most its tiles).
+// c % 32 == 0, d % 64 == 0, cout % 8 == 0; the residual needs cout == c and
+// the LayerNorm. Returns a cudaError_t code (0 on success).
 extern "C" int tc_fused_ff(const void* x, const void* w1, const void* b1,
                            const void* w2, const void* b2, const float* lnw,
-                           const float* lnb, void* out, int n, int c, int d,
-                           int cout, float eps, int residual, void* stream) {
-  Params p;
-  p.x = static_cast<const bf16*>(x);
-  p.w1 = static_cast<const bf16*>(w1);
-  p.b1 = static_cast<const bf16*>(b1);
-  p.w2 = static_cast<const bf16*>(w2);
-  p.b2 = static_cast<const bf16*>(b2);
-  p.lnw = lnw;
-  p.lnb = lnb;
-  p.out = static_cast<bf16*>(out);
-  p.n = n;
-  p.c = c;
-  p.d = d;
-  p.cout = cout;
-  p.eps = eps;
-  p.residual = residual;
+                           const float* lnb, void* z, void* m, void* out,
+                           int n, int c, int d, int cout, float eps,
+                           int residual, int bm1, int grid1, int bm2, int bn2,
+                           int grid2, void* stream) {
+  using namespace fused_ff;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (n <= 0 || c <= 0 || c % 32 || d % 32 || cout % 8 ||
-      (residual && cout != c))
+  if (n <= 0 || c <= 0 || d <= 0 || cout <= 0 || c % 32 || d % 64 ||
+      cout % 8 || (residual && (cout != c || lnw == nullptr)) ||
+      (lnw != nullptr && (lnb == nullptr || z == nullptr)))
     return (int)cudaErrorInvalidValue;
-  if (cout <= 8 * 8 * 5 && d % 64 == 0) return launch<8, 4, 5>(p, s);
-  if (cout <= 8 * 8 * 10 && d % 64 == 0) return launch<8, 2, 10>(p, s);
-  if (cout <= 16 * 8 * 10 && d % 128 == 0) return launch<16, 2, 10>(p, s);
+  const void* a1 = x;
+  if (lnw != nullptr) {
+    // rows of up to 768 columns stay in registers; at C = 1280 reading
+    // the row twice was faster (fewer registers, more rows in flight)
+    const int nch = (c + 255) / 256;
+    const int e = nch == 1   ? launch_ln<1>(x, lnw, lnb, z, n, c, eps, s)
+                  : nch == 2 ? launch_ln<2>(x, lnw, lnb, z, n, c, eps, s)
+                  : nch == 3 ? launch_ln<3>(x, lnw, lnb, z, n, c, eps, s)
+                             : launch_ln<0>(x, lnw, lnb, z, n, c, eps, s);
+    if (e) return e;
+    a1 = z;
+  }
+  GemmParams p1{};
+  p1.bias = static_cast<const bf16*>(b1);
+  p1.out = static_cast<bf16*>(m);
+  p1.n = n;
+  p1.cols = d;
+  p1.d = d;
+  int err;
+  if (bm1 == 128)
+    err = launch_gemm<kGate, 128, 128>(p1, a1, w1, c, 2 * d, grid1, s);
+  else if (bm1 == 64)
+    err = launch_gemm<kGate, 64, 128>(p1, a1, w1, c, 2 * d, grid1, s);
+  else
+    err = (int)cudaErrorInvalidValue;
+  if (err) return err;
+  GemmParams p2{};
+  p2.bias = static_cast<const bf16*>(b2);
+  p2.res = residual ? static_cast<const bf16*>(x) : nullptr;
+  p2.out = static_cast<bf16*>(out);
+  p2.n = n;
+  p2.cols = cout;
+  if (bm2 == 128 && bn2 == 160)
+    return launch_gemm<kOut, 128, 160>(p2, m, w2, d, cout, grid2, s);
+  if (bm2 == 128 && bn2 == 128)
+    return launch_gemm<kOut, 128, 128>(p2, m, w2, d, cout, grid2, s);
+  if (bm2 == 64 && bn2 == 160)
+    return launch_gemm<kOut, 64, 160>(p2, m, w2, d, cout, grid2, s);
+  if (bm2 == 64 && bn2 == 128)
+    return launch_gemm<kOut, 64, 128>(p2, m, w2, d, cout, grid2, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -27,16 +27,26 @@ parameters stay fp32), so fp32 master weights get fp32 gradients.
 
 The TPU package has two kernels, ``_pallas_ff`` (weights resident in VMEM,
 C <= 640) and ``_pallas_ff_streamed`` (weight chunks streamed, C = 1280),
-split only by the TPU's VMEM. They compute one function, so one CUDA
-kernel serves both; ``_mode`` (the TPU package's rule, copied) decides
-which name counts a launch: "streamed" where the TPU would stream, the
-resident name everywhere else.
+split only by the TPU's VMEM. They compute one function, so one set of
+CUDA kernels serves both; ``_mode`` (the TPU package's rule, copied)
+decides which name counts a launch: "streamed" where the TPU would stream,
+the resident name everywhere else. One call counts one launch, whatever
+number of CUDA kernels it runs.
+
+On the card a call runs three kernels (``csrc/fused_ff.cu``): the LayerNorm
+into z, the projection with the gate into m, the out-GEMM with the bias and
+residual into y; z and m are the tensors the TPU kernel rounds to bf16, so
+they pass through device memory in bf16 and no number changes. ``plan``
+picks the two GEMMs' tiles and persistent grids and the scratch shapes; the
+wrapper allocates z and m with ``torch.empty`` on the caller's stream.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional
+import dataclasses
+import functools
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -45,13 +55,6 @@ from tooncrafter_tpu_torch.ops import _launch
 from tooncrafter_tpu_torch.ops.norms import layer_norm_ex2
 
 LAUNCHES: Dict[str, int] = {"_pallas_ff": 0, "_pallas_ff_streamed": 0}
-
-# the kernel's limits (csrc/fused_ff.cu): C a multiple of 32 (k32 loads),
-# D a multiple of the D chunk (64 with 8 warps, 128 with 16), Cout a
-# multiple of 8 and at most 1280 (16 warps x 10 n8 tiles x 8)
-_MAX_COUT = 1280
-_WIDE_COUT = 640  # above this the 16-warp build runs
-
 
 def reset_launch_counts() -> None:
     for name in LAUNCHES:
@@ -186,10 +189,71 @@ class _FusedFFFunction(torch.autograd.Function):
 LIBRARY = ("fused_ff", ("fused_ff.cu",))
 _LIB: Optional[ctypes.CDLL] = None
 
+H100_SMS = 132
+
+
+@dataclasses.dataclass(frozen=True)
+class GemmPlan:
+    """One GEMM's tiling: ``rows`` tokens by ``width`` accumulator columns a
+    warpgroup tile (the projection: 64 columns of h and the 64 gate columns
+    at the same index; the out-GEMM: ``width`` output columns), ``tiles``
+    such tiles, walked by ``grid`` persistent blocks of two warpgroups."""
+    rows: int
+    width: int
+    tiles: int
+    grid: int
+
+
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    z: Optional[Tuple[int, int]]  # the LayerNorm's output, bf16, if any
+    m: Tuple[int, int]            # the gated product, bf16
+    proj: GemmPlan
+    out: GemmPlan
+
+
+def _gemm_plan(n: int, width: int, col_tiles: int, sms: int) -> GemmPlan:
+    """128-row tiles unless they give fewer tiles than SMs, then 64."""
+    for rows in (128, 64):
+        tiles = -(-n // rows) * col_tiles
+        if tiles >= sms:
+            break
+    return GemmPlan(rows, width, tiles, min(tiles, sms))
+
+
+def plan(n: int, c: int, d: int, cout: int, ln: bool,
+         sms: int = H100_SMS) -> Plan:
+    """The kernels' tiles, grids and scratch for an (n, c) input, D = d,
+    Cout = cout, with or without the LayerNorm. Raises ValueError outside
+    the kernels' envelope: C % 32 == 0 (the LayerNorm's 16-byte rows), D %
+    64 == 0 (the projection's 64-column tiles of h and of g), Cout % 8 ==
+    0; TMA fills the ragged edges of N, C and Cout."""
+    if n < 0 or c <= 0 or d <= 0 or cout <= 0 or c % 32 or d % 64 or cout % 8:
+        raise ValueError(f"fused FF kernels: need C % 32 == 0, D % 64 == 0 "
+                         f"and Cout % 8 == 0; got N={n}, C={c}, D={d}, "
+                         f"Cout={cout}")
+    width = 160 if cout % 160 == 0 else 128
+    return Plan(z=(n, c) if ln else None, m=(n, d),
+                proj=_gemm_plan(n, 128, d // 64, sms),
+                out=_gemm_plan(n, width, -(-cout // width), sms))
+
+
+def scratch(p: Plan, device) -> Tuple[Optional[torch.Tensor], torch.Tensor]:
+    """z (when there is a LayerNorm) and m, uninitialised, in bf16."""
+    z = (None if p.z is None
+         else torch.empty(p.z, dtype=torch.bfloat16, device=device))
+    return z, torch.empty(p.m, dtype=torch.bfloat16, device=device)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
 
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     vp, i = ctypes.c_void_p, ctypes.c_int
-    lib.tc_fused_ff.argtypes = [vp] * 8 + [i] * 4 + [ctypes.c_float, i, vp]
+    lib.tc_fused_ff.argtypes = ([vp] * 10 + [i] * 4 + [ctypes.c_float]
+                                + [i] * 6 + [vp])
     lib.tc_fused_ff.restype = ctypes.c_int
     return lib
 
@@ -215,20 +279,19 @@ def _launch_ff(x2, w1, b1, w2, b2, ln_w, ln_b, eps: float, residual: bool):
     if ln_w is not None:
         _launch.check("ln_w", ln_w, (c,), torch.float32, dev)
         _launch.check("ln_b", ln_b, (c,), torch.float32, dev)
-    dchunk = 64 if cout <= _WIDE_COUT else 128
-    if c % 32 or d % dchunk or cout % 8 or cout > _MAX_COUT:
-        raise ValueError(f"fused FF kernel: needs C % 32 == 0, D % {dchunk}"
-                         f" == 0, Cout % 8 == 0 and Cout <= {_MAX_COUT}; got "
-                         f"C={c}, D={d}, Cout={cout}")
     if residual and cout != c:
         raise ValueError("fused FF: the residual needs Cout == C")
+    p = plan(n, c, d, cout, ln_w is not None,
+             _sm_count(dev.index) if dev.type == "cuda" else H100_SMS)
     out = torch.empty((n, cout), dtype=bf, device=dev)
     if n:
+        z, m = scratch(p, dev)
         err = _library().tc_fused_ff(
             x2.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
             b2.data_ptr(), _launch.ptr(ln_w), _launch.ptr(ln_b),
-            out.data_ptr(), n, c, d, cout, float(eps), int(residual),
-            _launch.stream(x2))
+            _launch.ptr(z), m.data_ptr(), out.data_ptr(), n, c, d, cout,
+            float(eps), int(residual), p.proj.rows, p.proj.grid,
+            p.out.rows, p.out.width, p.out.grid, _launch.stream(x2))
         _launch.raise_on_error(err, f"fused FF (N={n}, C={c}, D={d})")
     return out
 
@@ -236,7 +299,7 @@ def _launch_ff(x2, w1, b1, w2, b2, ln_w, ln_b, eps: float, residual: bool):
 def fused_geglu_ff(x, w1, b1, w2, b2, ln_w=None, ln_b=None,
                    ln_eps: float = 1e-5, residual: bool = False):
     """x: (..., C) -> (..., Cout). CPU tensors take the plain version; CUDA
-    tensors launch the kernel, counted under the TPU kernel's name."""
+    tensors launch the kernels, counted under the TPU kernel's name."""
     if residual and ln_w is None:
         raise ValueError("residual=True needs the LayerNorm prologue")
     c = x.shape[-1]
@@ -253,7 +316,7 @@ def fused_geglu_ff(x, w1, b1, w2, b2, ln_w=None, ln_b=None,
 
 
 def _dispatch(x2, w1, b1, w2, b2, ln_w, ln_b, eps: float, residual: bool):
-    """The plain version for CPU tensors, the kernel for CUDA tensors."""
+    """The plain version for CPU tensors, the kernels for CUDA tensors."""
     if _launch.on_cpu("fused FF", x2, w1, b1, w2, b2, ln_w, ln_b):
         return _plain_ff(x2, w1, b1, w2, b2, ln_w, ln_b, eps, residual)
     y = _launch_ff(x2, w1, b1, w2, b2, ln_w, ln_b, eps, residual)

@@ -7,7 +7,8 @@ Each run is a fresh process in one checkout: it builds that checkout's
 kernels, runs its ``chip_smoke.check_kernels`` (phase 2: every kernel
 against its plain version at the path shapes, timed beside the library call
 and the bound), times its d = 512 forward at the shapes a phase 2 may lack
-(one head at 9216 tokens, the 1024 encoder's), answers its 3b and 3c
+(one head at 9216 tokens, the 1024 encoder's) and its FF at the mid
+blocks' shapes where its phase 2 lacks them, answers its 3b and 3c
 requests (two 320x512 and one 576x1024 DDIM-50 clips,
 ``chip_smoke.answer_requests``) and takes its 4b training steps
 (``chip_smoke.train_full_width``, the 512 training model at full width),
@@ -66,6 +67,12 @@ for bh, s in ((1, 9216),):
     print(f"A/B d=512 BH={bh} S={s}: max_abs_err={err:.3e} ms={ms:.4f} "
           f"library_ms={lib:.4f} bound_ms={bound:.4f} ({by})", flush=True)
     del q, k, v, out, lse, ref
+# the FF at the mid block's shapes, where a checkout's phase 2 lacks them
+have = {label for label, _, _ in kc.FF_512 + kc.FF_1024}
+mids = (("mid", 1280, 1280), ("1024 mid", 4608, 1280))
+gen = torch.Generator(device=dev).manual_seed(1)
+for case in kc.ff_cases(dev, gen, tuple(s for s in mids if s[0] not in have)):
+    print(kc.line(case, kc.run_case(case)), flush=True)
 for yaml, n, kernels in (("inference_512_v1.0.yaml", 2, cs.KERNELS_512),
                          ("inference_1024_v1.0.yaml", 1, cs.KERNELS_1024)):
     print(f"== requests {yaml}", flush=True)

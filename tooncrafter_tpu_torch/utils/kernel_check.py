@@ -314,11 +314,12 @@ def _chain_tpair(x, stages, heads):
     return x
 
 
-# (label, N tokens, C): the transformer blocks' FF at each UNet level
+# (label, N tokens, C): the transformer blocks' FF at each UNet level; the
+# mid block's is the streamed kernel's call with the fewest tokens
 FF_512 = (("ds1", 81920, 320), ("ds2", 20480, 640), ("ds4", 5120, 1280),
-          ("init_attn", 81920, 512))
+          ("init_attn", 81920, 512), ("mid", 1280, 1280))
 FF_1024 = (("1024 ds1", 294912, 320), ("1024 ds2", 73728, 640),
-           ("1024 ds4", 18432, 1280))
+           ("1024 ds4", 18432, 1280), ("1024 mid", 4608, 1280))
 
 
 def ff_cases(dev, gen, shapes=FF_512) -> List[Case]:
@@ -655,9 +656,9 @@ def fused_cases_1024(dev, seed: int = 0
                      ) -> List[Tuple[Case, Optional[tuple]]]:
     """The fused kernels at the 576x1024 path's most-launched shapes (2 CFG
     branches x 16 frames of a 72x128 latent): the F(2x4)-named conv (#14)
-    first, then #13, the FF at each UNet level (streamed at C = 1280), the
-    temporal conv (UNet and decoder level 0) and the pair at each level and
-    the 9x16 mid block."""
+    first, then #13, the FF at each UNet level and the 9x16 mid block
+    (streamed at C = 1280), the temporal conv (UNet and decoder level 0) and
+    the pair at each level and the mid block."""
     return fused_cases(dev, seed, FF_1024, TCONV_1024, CONV_1024, TPAIR_1024)
 
 

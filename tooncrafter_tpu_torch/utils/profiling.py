@@ -33,7 +33,7 @@ import torch
 KINDS = (
     ("flash attention (port kernel)", ("flash_fwd_wgmma", "flash_fwd_d512")),
     ("flash attention backward (port kernel)", ("flash_bwd_",)),
-    ("fused FF (port kernel)", ("fused_ff_kernel",)),
+    ("fused FF (port kernel)", ("fused_ff::",)),
     ("temporal conv (port kernel)", ("igemm::tconv_kernel",)),
     ("GN+SiLU+3x3 conv (port kernel)", ("::conv_kernel<",)),
     ("temporal attention pair / single stage (port kernel)",
