@@ -536,9 +536,10 @@ def reduced_config(base):
     attention pair over T=4 frames (whole pixels per m16 tile, masked) at
     320, 512, 640 and the mid block's 1280 channels, a ds4 level at
     c=1280 whose 8x12 frames are a ragged 96-pixel tile for the convs and
-    the temporal convs (its mid-block FF streamed), the decoder's fusion at
-    64x96 (Sk=12288, two-pass) and 32x48, its TimeStacks (temporal conv at
-    32-512 channels) and a 512-channel VAE mid attention (d=512)."""
+    straddle the temporal convs' row tiles (its mid-block FF streamed),
+    the decoder's fusion at 64x96 (Sk=12288, two-pass) and 32x48, its
+    TimeStacks (temporal conv at 32-512 channels) and a 512-channel VAE mid
+    attention (d=512)."""
     return base.tiny(
         latent_h=32, latent_w=48, model_channels=320, num_res_blocks=1,
         channel_mult=(1, 2, 4), attention_resolutions=(1, 2),
@@ -547,7 +548,8 @@ def reduced_config(base):
 
 @contextlib.contextmanager
 def record_pixels():
-    """The pixel count per image of every conv and temporal-conv launch."""
+    """The pixel count per image of every conv launch, and (T, P) of every
+    temporal-conv launch."""
     from tooncrafter_tpu_torch.ops import spatial_conv as sc
     from tooncrafter_tpu_torch.ops import temporal_conv as tc
 
@@ -558,9 +560,9 @@ def record_pixels():
         seen["winograd_gn_silu_conv3x3"].append(x.shape[1] * x.shape[2])
         return conv(x, *args, **kw)
 
-    def tconv_rec(x, *args, **kw):
-        seen["_pallas_tconv"].append(x.shape[2])
-        return tconv(x, *args, **kw)
+    def tconv_rec(x, w3, *args, **kw):
+        seen["_pallas_tconv"].append(tuple(x.shape) + (w3.shape[0],))
+        return tconv(x, w3, *args, **kw)
 
     sc._launch_conv, tc._launch_tconv = conv_rec, tconv_rec
     try:
@@ -587,14 +589,15 @@ def small_inputs(cfg, seed, device):
 def check_reduced_model(dev, kernels=KERNELS_512) -> dict:
     """The same reduced model and inputs through the Pipeline on the card
     (bf16, CUDA kernels) and on the CPU (fp32, plain versions); every
-    kernel of ``kernels`` must launch. Returns, per conv kernel, the pixel
-    counts it was launched at with a ragged last tile."""
+    kernel of ``kernels`` must launch. Returns, per conv kernel, the shapes
+    it was launched at with a ragged tile."""
     import copy
     import dataclasses
 
     from tooncrafter_tpu_torch.config import ModelConfig
     from tooncrafter_tpu_torch.models.diffusion import Pipeline, ToonCrafter
     from tooncrafter_tpu_torch.ops import _launch
+    from tooncrafter_tpu_torch.ops import temporal_conv as tc
     from tooncrafter_tpu_torch.utils import kernel_check as kc
     from tooncrafter_tpu_torch.utils.weights import init_random_
 
@@ -621,9 +624,16 @@ def check_reduced_model(dev, kernels=KERNELS_512) -> dict:
           f", max_abs_err {err.max().item():.4e}, output range "
           f"[{outs['cpu'].min().item():.3f}, {outs['cpu'].max().item():.3f}]"
           f", kernel launches {hit}", flush=True)
-    ragged = {k: sorted({p for p in v if p % _launch.pixel_tile(p)})
-              for k, v in pixels.items()}
-    print(f"reduced model: pixel counts with a ragged last tile {ragged}",
+    # the 3x3 conv: an image's pixels end in a part tile; the temporal
+    # conv's GEMM: a row tile spans two frames
+    ragged = {"winograd_gn_silu_conv3x3": sorted(
+        {p for p in pixels["winograd_gn_silu_conv3x3"]
+         if p % _launch.pixel_tile(p)})}
+    ragged["_pallas_tconv"] = sorted(
+        {(t, p) for b, t, p, cin, cout in pixels["_pallas_tconv"]
+         if p % tc.plan(b, t, p, cin, cout).rows})
+    print(f"reduced model: pixel counts with a ragged last tile (conv) or "
+          f"(T, P) with tiles across frames (temporal conv) {ragged}",
           flush=True)
     if not (db >= REDUCED_MIN_PSNR and all(hit[k] for k in kernels)):
         raise SystemExit("reduced model: the card disagrees with the CPU or "

@@ -5,8 +5,13 @@ packed/token-major attention views, the FF without its LayerNorm or
 residual and at Cout != C, and a mutation check of the fused kernels'
 bounds: broken builds of each source (output x1.01, a skipped K chunk,
 wrong sums where the kernel has sums; the FF's gate without its erf and
-its LayerNorm without the mean) must fail at every path shape of
-``kernel_check`` (the conv's also at the 576x1024 F(2x4)-named shape).
+its LayerNorm without the mean; the temporal conv's last tap skipped, its
+z pass without the SiLU, its zero frames written as silu(B), and the sums
+of a row tile that straddles frames credited to the tile's first frame)
+must fail at every path shape of ``kernel_check`` (the conv's also at the
+576x1024 F(2x4)-named shape). The temporal conv at ragged pixel counts,
+T P not a multiple of its row tile and Cin = 32, and its autograd
+Function against plain autograd.
 The 576x1024 path's new shapes: attn1 at S = 9216, 2304 and 576 (each at
 the UNet's 32 images, through the wrapper the UNet picks), the pair at
 P = 144 and 9216, and the F(2x4)-named conv (#14). The d = 512 forward
@@ -34,6 +39,7 @@ kernels have no CPU mode, so without a card these tests skip.
 """
 
 import functools
+import re
 import shutil
 
 import numpy as np
@@ -333,11 +339,16 @@ def test_ff_kernel_odd_token_counts(dev, n, c, cout, ln, residual):
     assert sum(ff.LAUNCHES.values()) == 1
 
 
-@pytest.mark.parametrize("p,c", [(100, 64), (37, 320)])
-def test_tconv_kernel_ragged_pixels(dev, p, c):
-    x = _rand(dev, 20, 2, 3, p, c)
+@pytest.mark.parametrize("t,p,c", [(3, 100, 64), (3, 37, 320),
+                                   (5, 33, 32), (3, 1, 128)])
+def test_tconv_kernel_ragged_pixels(dev, t, p, c):
+    """Pixel counts whose frames straddle the GEMM's row tiles, T P not a
+    multiple of the row tile (a ragged last tile of each sample; at P = 1
+    every frame shares one tile), Cin = 32 (half a 64-channel K block)."""
+    assert (t * p) % tc.plan(2, t, p, c, c).rows
+    x = _rand(dev, 20, 2, t, p, c)
     w3 = _rand(dev, 21, c, 3, c) * (3 * c) ** -0.5
-    bias, res = _rand(dev, 22, c), _rand(dev, 23, 2, 3, p, c)
+    bias, res = _rand(dev, 22, c), _rand(dev, 23, 2, t, p, c)
     a = 1 + 0.2 * _rand(dev, 24, 2, c).float()
     b = 0.1 * _rand(dev, 25, 2, c).float()
     scale = torch.tensor(0.3, device=dev)
@@ -347,6 +358,53 @@ def test_tconv_kernel_ragged_pixels(dev, p, c):
     _fused_close(y, ref)
     _sums_close(y, s1, s2, (2,))
     assert tc.LAUNCHES["_pallas_tconv"] == 1
+
+
+@pytest.mark.parametrize("prologue,res_on,scale_on,stats", [
+    (True, False, False, True),    # the UNet's conv1-3
+    (True, True, True, True),      # every epilogue input
+    (False, True, True, False)])   # no prologue: z = x
+def test_tconv_function_grads_match_plain_autograd(dev, prologue, res_on,
+                                                   scale_on, stats):
+    """#12 under autograd (the kernels forward, ``_TconvFunction``'s
+    backward) against autograd through ``_plain_tconv`` on the same card
+    and operands, with the same cotangents of y and the sums: both
+    differentiate one formula, so only summation order may separate them
+    (1e-3 of each gradient's largest magnitude)."""
+    bsz, t, p, cin, cout = 2, 4, 40, 64, 96
+    x, w3, bias = _grad_inputs(dev, (bsz, t, p, cin), (cout, 3, cin),
+                               (cout,))
+    ops = {"x": x, "w3": w3, "bias": bias}
+    if prologue:
+        ops["a"], ops["b"] = _grad_inputs(dev, (bsz, cin), (bsz, cin),
+                                          dtype=torch.float32)
+    if res_on:
+        ops["res"], = _grad_inputs(dev, (bsz, t, p, cout))
+    if scale_on:
+        ops["scale"] = torch.tensor(0.7, device=dev, requires_grad=True)
+    gy = _rand(dev, 90, bsz, t, p, cout)
+    g1, g2 = (_rand(dev, 91 + i, bsz, t, cout).float() for i in range(2))
+
+    def grads(fn):
+        leaves = {k: v.detach().clone().requires_grad_() for k, v in
+                  ops.items()}
+        args = [leaves.get(k) for k in ("x", "w3", "bias", "a", "b", "res",
+                                        "scale")]
+        out = fn(*args, prologue, stats)
+        y, s1, s2 = out if stats else (out, None, None)
+        loss = (y.float() * gy.float()).sum()
+        if stats:
+            loss = loss + (s1 * g1).sum() + (s2 * g2).sum()
+        loss.backward()
+        return {k: v.grad.float() for k, v in leaves.items()}
+
+    got = grads(tc._pallas_tconv)
+    assert tc.LAUNCHES["_pallas_tconv"] == 1
+    want = grads(tc._plain_tconv)
+    torch.cuda.synchronize()
+    for k in ops:
+        err = (got[k] - want[k]).abs().max().item()
+        assert err <= 1e-3 * want[k].abs().max().item(), (k, err)
 
 
 @pytest.mark.parametrize("h,w,cin,cout", [(7, 9, 96, 40), (5, 8, 64, 136)])
@@ -454,26 +512,32 @@ def test_f24_named_conv_at_its_1024_shape(dev):
 
 # (what is broken, the library's source, the file edited, text replaced,
 #  replacement); the edited copy is built into the one library under test
-_IGEMM = "implicit_gemm.cuh"
+_TC = "temporal_conv.cu"
 MUTATIONS = [
     # the FF: the out-GEMM's epilogue, the mainloop both GEMMs share (one
-    # k16 step of K block 1), the projection's gate, the LayerNorm kernel
+    # k16 step of K block 1; persistent_gemm.cuh), the projection's gate,
+    # the LayerNorm kernel
     ("output x1.01", "fused_ff.cu", "fused_ff.cu", "pack_bf16(y0, y1)",
      "pack_bf16(1.01f * y0, 1.01f * y1)"),
-    ("skipped K chunk", "fused_ff.cu", "fused_ff.cu", "mma_ss<BN>(acc[mi],",
-     "if (kb != 1 || kk != 0) mma_ss<BN>(acc[mi],"),
+    ("skipped K chunk", "fused_ff.cu", "persistent_gemm.cuh",
+     "mma_ss<BN>(acc[mi],", "if (kb != 1 || kk != 0) mma_ss<BN>(acc[mi],"),
     ("gate without erf", "fused_ff.cu", "fused_ff.cu",
      "erff(v * 0.70710678118654752f)", "0.f"),
     ("LayerNorm without the mean", "fused_ff.cu", "fused_ff.cu",
      "(xv[e] - mean) * rstd", "xv[e] * rstd"),
 ] + [
-    ("output x1.01", "temporal_conv.cu", _IGEMM, "pack_bf16(y0, y1)",
+    # the temporal conv: the GEMM's epilogue, its K loop (the last tap's K
+    # blocks), the z pass's SiLU and its zero frames, the per-frame sums of
+    # a row tile that straddles frames
+    ("output x1.01", _TC, _TC, "pack_bf16(y0, y1)",
      "pack_bf16(1.01f * y0, 1.01f * y1)"),
-    ("skipped K chunk", "temporal_conv.cu", _IGEMM,
-     "const bool ok = n < p.cout;",
-     "const bool ok = n < p.cout && !(tap == 1 && k0 == kBK);"),
-    ("wrong stats", "temporal_conv.cu", _IGEMM, "p.s2[o] = sStat[2 * BN + c]",
-     "p.s2[o] = sStat[0 * BN + c]"),
+    ("skipped tap", _TC, _TC, "return 3 * p.kc;", "return 2 * p.kc;"),
+    ("z pass without the SiLU", _TC, _TC, "if (silu_on) {", "if (false) {"),
+    ("zero frame written as silu(B)", _TC, _TC,
+     "if (pad) v[j] = make_uint4(0u, 0u, 0u, 0u);", ""),
+    ("straddling sums credited to the wrong frame", _TC, _TC,
+     "(((long long)smp * p.t + f) * p.slots",
+     "(((long long)smp * p.t + m0 / p.p) * p.slots"),
     # the 3x3 conv: its own source since the wgmma redesign
     ("output x1.01", "gn_silu_conv3x3.cu", "gn_silu_conv3x3.cu",
      "pack_bf16(y0, y1)", "pack_bf16(1.01f * y0, 1.01f * y1)"),
@@ -496,14 +560,24 @@ MODULE_OF = {"fused_ff.cu": ff, "temporal_conv.cu": tc,
              "gn_silu_conv3x3.cu": sc, "temporal_attention.cu": ta}
 
 
+def _tiles_straddle_frames(label: str) -> bool:
+    """Does a row tile of the temporal conv's GEMM span two frames at the
+    case's shape (its label's B, T, P, C)?"""
+    shape = dict(re.findall(r"([BTPC])=(\d+)", label))
+    bsz, t, p, c = (int(shape[k]) for k in "BTPC")
+    return p % tc.plan(bsz, t, p, c, c).rows != 0
+
+
 @pytest.mark.parametrize("what,src,edited,old,new", MUTATIONS,
                          ids=[f"{m[0]}-{m[1]}" for m in MUTATIONS])
 def test_mutated_kernel_fails_at_every_path_shape(dev, tmp_path, monkeypatch,
                                                   what, src, edited, old, new):
     """A broken copy of the source, built outside the package, must fail
     the check of chip_smoke.py phase 2 at every path shape of its kernel
-    (for wrong sums: every shape that has sums), and the conv's copies also
-    at the F(2x4)-named 576x1024 shape."""
+    (for wrong sums: every shape that has sums; for the temporal conv's
+    straddling sums: every shape with sums whose row tiles straddle
+    frames), and the conv's copies also at the F(2x4)-named 576x1024
+    shape."""
     for f in _build.CSRC.iterdir():
         if f.suffix in (".cu", ".cuh"):
             shutil.copy(f, tmp_path / f.name)
@@ -519,6 +593,9 @@ def test_mutated_kernel_fails_at_every_path_shape(dev, tmp_path, monkeypatch,
         if case.name not in mod.LAUNCHES:
             continue
         if what == "wrong stats" and axes is None:
+            continue
+        if what.startswith("straddling") and not (
+                axes and _tiles_straddle_frames(case.label)):
             continue
         row = kc.run_case(case, axes, timed=False)
         print(f"{what} in {src}: {kc.line(case, row)}")
@@ -829,8 +906,8 @@ def test_no_wrapper_returns_a_detached_result(dev):
     _attached(lambda x, *w: ta._fused_tpair_call(x, w[:7], w[7:], 2, 0.125),
               x, *stages[0], *stages[1])
     x, w3, bias = _grad_inputs(dev, (2, 3, 37, 64), (64, 3, 64), (64,))
-    with pytest.raises(RuntimeError, match="no backward"):
-        tc._pallas_tconv(x, w3, bias, silu=True)
+    _attached(lambda *t: tc._pallas_tconv(*t, silu=True), x, w3, bias)
+    assert tc.LAUNCHES["_pallas_tconv"] == 1
     x, w, bias = _grad_inputs(dev, (2, 5, 8, 64), (64, 64, 3, 3), (64,))
     a = torch.ones(2, 64, device=dev)
     with pytest.raises(RuntimeError, match="no backward"):

@@ -184,13 +184,13 @@ def test_shapes_outside_the_envelope_raise_before_a_launch(monkeypatch, c, d,
 
 
 def test_the_out_gemm_is_bound_by_the_bytes_of_m_only_at_c320():
-    """``utils/ff_breakdown``'s bounds: the projection by its operations,
+    """``utils/breakdown``'s FF bounds: the projection by its operations,
     the out-GEMM by the bytes of m at C = 320 (C operations a byte of m),
     by its operations at C = 640 and 1280."""
-    from tooncrafter_tpu_torch.utils import ff_breakdown as fb
+    from tooncrafter_tpu_torch.utils import breakdown as bd
 
     for n, c in ((81920, 320), (20480, 640), (5120, 1280)):
-        b = fb.part_bounds(n, c, 4 * c)
+        b = bd.ff_bounds(n, c, 4 * c)
         ops = {"proj": 4.0 * n * c * 4 * c, "out": 2.0 * n * 4 * c * c}
         assert b["proj"] == pytest.approx(ops["proj"] / kc.PEAK_BF16_FLOPS
                                           * 1e3)

@@ -294,6 +294,23 @@ def test_conv_names_f24_exactly_where_jax_takes_it(sites, on_tpu):
             assert port == "winograd_gn_silu_conv3x3", key
 
 
+# #12's launches by (P, C) in one UNet call and one decode of the 576x1024
+# model (a request runs 50 UNet calls and 2 decodes)
+TCONV_BY_SHAPE_1024 = {
+    "unet": {(9216, 320): 20, (2304, 640): 20, (576, 1280): 20,
+             (144, 1280): 28},
+    "vae": {(9216, 512): 10, (36864, 512): 6, (147456, 256): 6,
+            (589824, 128): 6}}
+
+
+def test_tconv_launches_by_shape(sites):
+    for part, want in TCONV_BY_SHAPE_1024.items():
+        got = collections.Counter((key[1], key[2]) for key, port
+                                  in _by_kind(sites[part], "tconv")
+                                  if port == "_pallas_tconv")
+        assert dict(got) == want, part
+
+
 def test_tconv_differs_only_at_the_1280_wide_levels(sites, on_tpu):
     rows = _by_kind(sites["unet"] + sites["vae"], "tconv")
     assert all(port == "_pallas_tconv" for _, port in rows)

@@ -201,6 +201,25 @@ def test_convs_take_15_exactly_where_jax_does(sites, jax_switched):
     assert {k for k, m in vae if m} == {(40, 64, 512, 512)}
 
 
+# #12's launches by (P, C) in one UNet call and one decode of the 512 model
+# (a request runs 50 UNet calls and 2 decodes; the switches leave the
+# temporal conv's sites as they are): ResBlocks 5, 5, 5 and 7 a level, four
+# convs each; the decoder's 14 TimeStacks, two convs each
+TCONV_BY_SHAPE_512 = {
+    "unet": {(2560, 320): 20, (640, 640): 20, (160, 1280): 20,
+             (40, 1280): 28},
+    "vae": {(2560, 512): 10, (10240, 512): 6, (40960, 256): 6,
+            (163840, 128): 6}}
+
+
+def test_tconv_launches_by_shape(sites):
+    for part, want in TCONV_BY_SHAPE_512.items():
+        got = collections.Counter((key[1], key[2]) for k, key, moved
+                                  in sites[part] if k == "tconv"
+                                  and moved == "_pallas_tconv")
+        assert dict(got) == want, part
+
+
 def test_group_norm_sites(sites):
     """#16 exactly where the JAX package applies a GroupNormAct without
     producer sums and a sample fits 4 MiB."""

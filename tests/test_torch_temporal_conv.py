@@ -122,3 +122,110 @@ def test_module_fused_matches_its_plain_forward():
     torch.testing.assert_close(s1, want.sum((2, 3)), rtol=1e-5, atol=1e-4)
     torch.testing.assert_close(s2, want.square().sum((2, 3)), rtol=1e-5,
                                atol=1e-4)
+
+
+# (B, T, P, Cin, Cout): (rows, width, tiles, grid, slots) of ``tc.plan`` on
+# the H100's 132 SMs, at every shape a 320x512 or 576x1024 request
+# launches #12 at (``kernel_check.TCONV_512``, ``TCONV_1024``)
+PLANS = {
+    (2, 16, 2560, 320, 320): (128, 160, 1280, 132, 20),
+    (2, 16, 640, 640, 640): (128, 160, 640, 132, 5),
+    (2, 16, 160, 1280, 1280): (128, 160, 320, 132, 2),
+    (2, 16, 40, 1280, 1280): (64, 160, 160, 132, 2),
+    (1, 16, 163840, 128, 128): (128, 128, 20480, 132, 1280),
+    (1, 16, 40960, 256, 256): (128, 128, 10240, 132, 320),
+    (1, 16, 10240, 512, 512): (128, 128, 5120, 132, 80),
+    (1, 16, 2560, 512, 512): (128, 128, 1280, 132, 20),
+    (2, 16, 9216, 320, 320): (128, 160, 4608, 132, 72),
+    (2, 16, 2304, 640, 640): (128, 160, 2304, 132, 18),
+    (2, 16, 576, 1280, 1280): (128, 160, 1152, 132, 5),
+    (2, 16, 144, 1280, 1280): (128, 160, 288, 132, 2),
+    (1, 16, 589824, 128, 128): (128, 128, 73728, 132, 4608),
+}
+
+
+@pytest.mark.parametrize("shape", sorted(PLANS))
+def test_plan_tiles_grid_and_scratch(shape):
+    """128-row tiles unless they give fewer tiles than SMs (ds8: 80), then
+    64; 160 output channels where Cout allows; the framed z (B, T + 2, P,
+    Cin); the sums' slots: the most row tiles one frame touches."""
+    bsz, t, p, cin, cout = shape
+    pl = tc.plan(*shape)
+    assert (pl.rows, pl.width, pl.tiles, pl.grid, pl.sums[2]) == PLANS[shape]
+    assert pl.z == (bsz, t + 2, p, cin)
+    assert pl.sums == (bsz, t, PLANS[shape][-1], cout)
+    assert pl.tiles == bsz * -(-(t * p) // pl.rows) * -(-cout // pl.width)
+
+
+def test_plans_cover_every_kernel_check_shape():
+    from tooncrafter_tpu_torch.utils import kernel_check as kc
+
+    shapes = {(b, t, p, c, c) for _, (b, t, p, c), *_ in
+              kc.TCONV_512 + kc.TCONV_1024}
+    assert shapes == set(PLANS)
+
+
+def _kernel_sums_writes(t, p, rows, slots):
+    """Which (frame, slot) each row tile of one sample writes in the
+    kernel's epilogue (csrc/temporal_conv.cu ``frame_sums``): its sums of
+    each frame it holds rows of at slot tile - first(frame), and, in the
+    tile that holds a frame's last row, zeros in the slots past its own."""
+    writes = []
+    for mt in range(-(-(t * p) // rows)):
+        m0 = mt * rows
+        n = min(rows, t * p - m0)
+        f, r = m0 // p, 0
+        while r < n:
+            fend = (f + 1) * p - m0
+            slot = mt - f * p // rows
+            writes.append((f, slot))
+            if fend <= n:
+                writes += [(f, s) for s in range(slot + 1, slots)]
+            r, f = min(n, fend), f + 1
+    return writes
+
+
+@pytest.mark.parametrize("t,p", [(16, 2560), (16, 40), (16, 160), (3, 37),
+                                 (3, 1), (5, 33), (16, 144), (2, 64),
+                                 (4, 96)])
+def test_every_sums_slot_is_written_exactly_once(t, p):
+    """The caller sums (B, T, slots, Cout) over the slots of an
+    uninitialised buffer: every (frame, slot) must be written by exactly
+    one tile, at any P (frames that straddle tiles, tiles that hold many
+    frames, a ragged last tile)."""
+    pl = tc.plan(1, t, p, 64, 64)
+    writes = _kernel_sums_writes(t, p, pl.rows, pl.sums[2])
+    assert sorted(writes) == [(f, s) for f in range(t)
+                              for s in range(pl.sums[2])]
+
+
+def test_plan_refuses_what_the_kernels_do_not_take():
+    for shape in ((2, 16, 40, 36, 64), (2, 16, 40, 64, 36),
+                  (2, 16, 40, 16384, 64), (3000, 20, 40, 64, 64),
+                  (2, 0, 40, 64, 64)):
+        with pytest.raises(ValueError, match="temporal conv kernels"):
+            tc.plan(*shape)
+
+
+def test_breakdown_bounds_of_the_two_kernels():
+    """``utils/breakdown``'s #12 bounds: the z pass by its bytes (x read,
+    the framed z written); the GEMM by its operations, but by its bytes
+    (the framed z read once, y written, the residual read) at the
+    decoder's level 0 and in the C = 320 residual call (294 operations a
+    byte there, the card's ratio 295); their sum above the call's bound."""
+    from tooncrafter_tpu_torch.utils import breakdown as bd
+    from tooncrafter_tpu_torch.utils import kernel_check as kc
+
+    for label, (b, t, p, c), res, _, stats in kc.TCONV_512 + kc.TCONV_1024:
+        got = bd.tconv_bounds(b, t, p, c, res, stats)
+        framed = 2.0 * b * (t + 2) * p * c
+        assert got["zpass"] == pytest.approx(
+            (2.0 * b * t * p * c + framed + 8.0 * b * c)
+            / kc.PEAK_BYTES_PER_S * 1e3)
+        by_ops = got["gemm"] == pytest.approx(
+            kc.tconv_flops(b, t, p, c) / kc.PEAK_BF16_FLOPS * 1e3)
+        assert by_ops == ("level 0" not in label and label !=
+                          "UNet ds1 affine+SiLU+residual"), label
+        call = kc.bound(kc.tconv_flops(b, t, p, c),
+                        kc.tconv_bytes(b, t, p, c, res, stats))[0]
+        assert got["zpass"] + got["gemm"] > call

@@ -30,19 +30,11 @@
 //     C operations a byte, about the card's ratio; at C >= 640 the
 //     operations.
 //
-// Design of (b) and (c): one mainloop, two epilogues (template parameter
-// EPI); a persistent grid of one block an SM walking output tiles
-// blockIdx.x + i gridDim.x, column tiles fastest (a row tile of A is read
-// from L2 by consecutive tiles):
-//   * a producer thread brings each tile's A rows (z, x or m) and B rows
-//     (W1 or W2 in torch's Linear layout, K-major) in 64-column K blocks by
-//     TMA (128-byte swizzle) into a ring of stages on mbarriers;
-//   * two consumer warpgroups take the block's tiles in turns (ping-pong):
-//     each runs wgmma from shared memory into its own fp32 accumulator of
-//     BM x BN (BM = 64 or 128 rows, two m64 products at 128), and a named
-//     barrier hands the tensor cores to the other once its last product
-//     is issued, so one warpgroup's epilogue runs while the other's
-//     products do;
+// Design of (b) and (c): the persistent mainloop of persistent_gemm.cuh
+// (a TMA ring fed by a producer thread, two consumer warpgroups in
+// ping-pong on the tensor cores, column tiles fastest) with two epilogues
+// (template parameter EPI):
+//   * A is z, x or m, B is W1 or W2 in torch's Linear layout, K-major;
 //   * (b): a tile's B is 64 rows of W1's h half and the 64 rows of its
 //     gate half at the same index (rows D + j), one 128-row wgmma operand,
 //     so h and g of one (token, d) land in one thread's accumulator: the
@@ -61,6 +53,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "persistent_gemm.cuh"
 #include "sm90.cuh"
 
 namespace {
@@ -195,31 +188,7 @@ int launch_ln(const void* x, const float* lnw, const float* lnb, void* z,
 
 constexpr int kGate = 0;  // (b): m = (h + b1h) gelu(g + b1g), rounded
 constexpr int kOut = 1;   // (c): y = bf16(bf16(acc) + b2) [+ x]
-constexpr int kBK = 64;   // K columns a stage: one 128-byte swizzle row
-constexpr int kThreads = 384;  // two consumer warpgroups, one producer
-constexpr int kOrderBar = 1;   // named barriers 1, 2: whose turn on the
-                               // tensor cores (0 is __syncthreads)
-constexpr int kEpiBar = 3;     // 3, 4: each consumer warpgroup's epilogue
-
-// Shared memory: the ring's stages of [A: BM x 64][B: BN x 64] (every tile
-// a whole number of 1024-byte swizzle atoms, as many stages as fit, at most
-// 8), each consumer warpgroup's output tile on its way out (kGate: BM x 64
-// of m, one 128-byte-swizzled box; kOut: BM x BN of y, which first takes
-// in the residual, BN / 32 boxes of 32 columns in the 64-byte swizzle),
-// (kGate) each consumer warpgroup's 64 + 64 biases, then the barriers.
-template <int EPI, int BM, int BN>
-struct Ring {
-  static constexpr int kA = BM * kBK * 2;
-  static constexpr int kB = BN * kBK * 2;
-  static constexpr int kStage = kA + kB;
-  static constexpr int kStaging = BM * (EPI == kGate ? kBK : BN) * 2;
-  static constexpr int kBias = EPI == kGate ? 2 * kBK * 2 : 0;
-  static constexpr int kFit =
-      (227 * 1024 - 2048 - 2 * (kStaging + kBias)) / kStage;
-  static constexpr int kStages = kFit < 8 ? kFit : 8;
-  static constexpr int kBarOffset = kStages * kStage + 2 * (kStaging + kBias);
-  static constexpr int kBytes = kBarOffset + (2 * kStages + 2) * 8 + 1024;
-};
+using pgemm::kBK;
 
 struct GemmParams {
   const bf16* bias;  // b1 (2d) or b2 (cols)
@@ -237,156 +206,88 @@ __device__ __forceinline__ float gelu_exact(float v) {
   return 0.5f * v * (1.f + erff(v * 0.70710678118654752f));
 }
 
-// one m64 x BN x k16 product from shared memory, both operands K-major
-template <int BN>
-__device__ __forceinline__ void mma_ss(float (&d)[BN / 2], uint64_t da,
-                                       uint64_t db, int scale_d) {
-  if constexpr (BN == 128)
-    sm90::wgmma_m64n128k16_ss<0>(d, da, db, scale_d);
-  else
-    sm90::wgmma_m64n160k16_ss(d, da, db, scale_d);
-}
-
-// BM rows x BN accumulator columns a warpgroup tile. kGate: BN = 128, the
+// The two GEMMs as ops of the shared mainloop (persistent_gemm.cuh): BM
+// rows x BN accumulator columns a warpgroup tile. kGate: BN = 128, the
 // output tile is 64 columns of m (accumulator columns 0-63 h, 64-127 g);
-// kOut: the output tile is BN columns of y. tm_c: the output as the stores
-// see it; tm_x (kOut with a residual): x as its loads see it.
+// kOut: the output tile is BN columns of y. The staging area holds the
+// output tile (kGate: BM x 64 of m, one 128-byte-swizzled box; kOut: BM x
+// BN of y, which first takes in the residual, BN / 32 boxes of 32 columns
+// in the 64-byte swizzle); kGate's extra area its 64 + 64 biases. tm_c:
+// the output as the stores see it; tm_x (kOut with a residual): x as its
+// loads see it.
 template <int EPI, int BM, int BN>
-__global__ void __launch_bounds__(kThreads, 1)
-gemm_kernel(const GemmParams p, const __grid_constant__ CUtensorMap tm_a,
-            const __grid_constant__ CUtensorMap tm_b,
-            const __grid_constant__ CUtensorMap tm_c,
-            const __grid_constant__ CUtensorMap tm_x) {
-  using R = Ring<EPI, BM, BN>;
-  constexpr int kMT = BM / 64;                        // m64 products
-  constexpr int kCols = EPI == kGate ? BN / 2 : BN;   // output columns
+struct GemmOp {
+  static constexpr int kBM = BM, kBN = BN;
+  static constexpr int kCols = EPI == kGate ? BN / 2 : BN;  // output cols
+  static constexpr int kStaging = BM * kCols * 2;
+  static constexpr int kExtra = EPI == kGate ? 2 * kBK * 2 : 0;
   static_assert(EPI == kOut || BN == 128, "the gate tile is 64 + 64");
-  extern __shared__ unsigned char smem_raw[];
-  unsigned char* base = reinterpret_cast<unsigned char*>(
-      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
-  uint64_t* full = reinterpret_cast<uint64_t*>(base + R::kBarOffset);
-  uint64_t* empty = full + R::kStages;
-  uint64_t* xbar = empty + R::kStages;  // each warpgroup's bias / residual
-  const int tid = threadIdx.x;
-  const int wgi = tid / 128;
-  const int my_tiles =
-      (p.tiles - (int)blockIdx.x + (int)gridDim.x - 1) / (int)gridDim.x;
+  GemmParams p;
+  const CUtensorMap* tm_a;
+  const CUtensorMap* tm_b;
+  const CUtensorMap* tm_c;
+  const CUtensorMap* tm_x;
 
-  if (tid == 0) {
-    for (int s = 0; s < R::kStages; ++s) {
-      sm90::mbar_init(&full[s], 1);
-      sm90::mbar_init(&empty[s], 4);  // one arrival per consumer warp
-    }
-    sm90::mbar_init(&xbar[0], 1);
-    sm90::mbar_init(&xbar[1], 1);
-    sm90::mbar_fence_init();
-  }
-  __syncthreads();
-
-  if (wgi == 2) {  // the producer
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
-    if (tid == 256) {
-      int it = 0;
-      for (int i = 0; i < my_tiles; ++i) {
-        const int t = blockIdx.x + i * gridDim.x;
-        const int m0 = (t / p.ntiles) * BM;
-        const int r0 = (t % p.ntiles) * kCols;
-        const int r1 = EPI == kGate ? p.d + r0 : r0 + BN / 2;
-        for (int kb = 0; kb < p.kblocks; ++kb, ++it) {
-          const int s = it % R::kStages;
-          sm90::mbar_wait(&empty[s], ((it / R::kStages) & 1) ^ 1);
-          unsigned char* st = base + s * R::kStage;
-          sm90::mbar_expect_tx(&full[s], R::kStage);
-          sm90::tma_load_2d(st, &tm_a, &full[s], kb * kBK, m0);
-          sm90::tma_load_2d(st + R::kA, &tm_b, &full[s], kb * kBK, r0);
-          sm90::tma_load_2d(st + R::kA + R::kB / 2, &tm_b, &full[s],
-                            kb * kBK, r1);
-        }
-      }
-    }
-    return;
-  }
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
-
-  const int lane = tid & 31;
-  const int warp = (tid >> 5) & 3;  // within the warpgroup
-  const int g = lane >> 2, t4 = lane & 3;
-  const bool leader = (tid & 127) == 0;
-  float acc[kMT][BN / 2];
-#pragma unroll
-  for (int mi = 0; mi < kMT; ++mi)
-#pragma unroll
-    for (int e = 0; e < BN / 2; ++e) acc[mi][e] = 0.f;
-
-  // the products of K block `kb` of the ring's step `it`
-  auto issue = [&](int it, int kb) {
-    const int s = it % R::kStages;
-    sm90::mbar_wait(&full[s], (it / R::kStages) & 1);
-    const uint64_t da = sm90::desc_sw128(base + s * R::kStage);
-    const uint64_t db = sm90::desc_sw128(base + s * R::kStage + R::kA);
-#pragma unroll
-    for (int mi = 0; mi < kMT; ++mi) sm90::fence_regs(acc[mi]);
-    sm90::wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < kBK / 16; ++kk)
-#pragma unroll
-      for (int mi = 0; mi < kMT; ++mi)
-        mma_ss<BN>(acc[mi], sm90::desc_add(da, mi * 64 * 128 + 32 * kk),
-                   sm90::desc_add(db, 32 * kk), kb > 0 || kk > 0);
-    sm90::wgmma_commit();
-  };
-  auto release = [&](int it) {
-    if (lane == 0) sm90::mbar_arrive(&empty[it % R::kStages]);
+  // the tile's first row and first output column (kGate: of m; the h rows
+  // of W1 there, the gate rows D further)
+  struct Tile {
+    int m0, n0;
   };
 
-  unsigned char* stage = base + R::kStages * R::kStage + wgi * R::kStaging;
-  const bf16* bias_s = reinterpret_cast<const bf16*>(
-      base + R::kStages * R::kStage + 2 * R::kStaging + wgi * R::kBias);
-  const bool res = EPI == kOut && p.res != nullptr;
-  for (int i = wgi, lt = 0; i < my_tiles; i += 2, ++lt) {
-    const int t = blockIdx.x + i * gridDim.x;
-    const int m0 = (t / p.ntiles) * BM;
-    const int n0 = (t % p.ntiles) * kCols;
-    // this warpgroup's turn on the tensor cores: the other has issued the
-    // products of the block's previous tile
-    if (i > 0) sm90::bar_sync(kOrderBar + wgi, 256);
-    if (EPI == kGate && leader) {  // the tile's h and g biases
-      sm90::mbar_expect_tx(&xbar[wgi], R::kBias);
-      sm90::bulk_load(const_cast<bf16*>(bias_s), p.bias + n0, 2 * kBK,
-                      &xbar[wgi]);
-      sm90::bulk_load(const_cast<bf16*>(bias_s) + kBK, p.bias + p.d + n0,
-                      2 * kBK, &xbar[wgi]);
-    }
-    if (res && leader) {  // the residual tile, once the last store read it
-      sm90::bulk_wait_read<0>();
-      sm90::mbar_expect_tx(&xbar[wgi], R::kStaging);
-      for (int b = 0; b < BN / 32; ++b)
-        sm90::tma_load_2d(stage + b * BM * 64, &tm_x, &xbar[wgi],
-                          n0 + 32 * b, m0);
-    }
-    int it = i * p.kblocks;
-    issue(it, 0);
-    for (int kb = 1; kb < p.kblocks; ++kb) {
-      issue(++it, kb);
-      sm90::wgmma_wait<1>();
-      release(it - 1);
-    }
-    if (i + 1 < my_tiles) sm90::bar_arrive(kOrderBar + (wgi ^ 1), 256);
-    sm90::wgmma_wait<0>();
-#pragma unroll
-    for (int mi = 0; mi < kMT; ++mi) sm90::fence_regs(acc[mi]);
-    release(it);
+  __device__ __forceinline__ Tile tile(int t) const {
+    return {(t / p.ntiles) * BM, (t % p.ntiles) * kCols};
+  }
+  __device__ __forceinline__ int tiles() const { return p.tiles; }
+  __device__ __forceinline__ int kblocks() const { return p.kblocks; }
 
-    // The epilogue: thread (warp, g, t4) holds rows 16 warp + g + 8 r of
-    // each m64 product, accumulator columns 8 j + 2 t4 + (0, 1). It writes
-    // its outputs into the staging tile, and one thread stores the tile by
-    // TMA, which leaves rows and columns past the tensor's end out.
-    if (EPI == kGate || res) sm90::mbar_wait(&xbar[wgi], lt & 1);
-    if (!res) {  // the previous tile's store has read the staging tile
-      if (leader) sm90::bulk_wait_read<0>();
-      sm90::bar_sync(kEpiBar + wgi, 128);
-    }
+  // A's rows m0..; B's BN rows as two halves: kGate the h rows n0.. and the
+  // gate rows D + n0.., kOut consecutive rows
+  __device__ __forceinline__ void load(void* a, void* b, uint64_t* bar,
+                                       const Tile& c, int kb) const {
+    const int r1 = EPI == kGate ? p.d + c.n0 : c.n0 + BN / 2;
+    unsigned char* sb = static_cast<unsigned char*>(b);
+    sm90::tma_load_2d(a, tm_a, bar, kb * kBK, c.m0);
+    sm90::tma_load_2d(sb, tm_b, bar, kb * kBK, c.n0);
+    sm90::tma_load_2d(sb + BN * kBK, tm_b, bar, kb * kBK, r1);
+  }
+
+  // kGate: the tile's h and g biases; kOut with a residual: the residual
+  // tile, once the last store read the staging area
+  __device__ __forceinline__ void before(const Tile& c, unsigned char* stage,
+                                         unsigned char* extra,
+                                         uint64_t* xbar) const {
+    const int m0 = c.m0, n0 = c.n0;
     if constexpr (EPI == kGate) {
+      bf16* bias_s = reinterpret_cast<bf16*>(extra);
+      sm90::mbar_expect_tx(xbar, kExtra);
+      sm90::bulk_load(bias_s, p.bias + n0, 2 * kBK, xbar);
+      sm90::bulk_load(bias_s + kBK, p.bias + p.d + n0, 2 * kBK, xbar);
+    } else if (p.res != nullptr) {
+      sm90::bulk_wait_read<0>();
+      sm90::mbar_expect_tx(xbar, kStaging);
+      for (int b = 0; b < BN / 32; ++b)
+        sm90::tma_load_2d(stage + b * BM * 64, tm_x, xbar, n0 + 32 * b, m0);
+    }
+  }
+
+  // The epilogue writes the tile's outputs into the staging area, and one
+  // thread stores it by TMA, which leaves rows and columns past the
+  // tensor's end out.
+  __device__ __forceinline__ void epilogue(float (&acc)[BM / 64][BN / 2],
+                                           const Tile& c, int parity,
+                                           int wgi, unsigned char* stage,
+                                           unsigned char* extra,
+                                           uint64_t* xbar) const {
+    constexpr int kMT = BM / 64;
+    const int m0 = c.m0, n0 = c.n0;
+    const int lane = threadIdx.x & 31;
+    const int warp = (threadIdx.x >> 5) & 3;  // within the warpgroup
+    const int g = lane >> 2, t4 = lane & 3;
+    const bool res = EPI == kOut && p.res != nullptr;
+    if (EPI == kGate || res) sm90::mbar_wait(xbar, parity);
+    if (!res) pgemm::epi_wait_staging(wgi);
+    if constexpr (EPI == kGate) {
+      const bf16* bias_s = reinterpret_cast<const bf16*>(extra);
       // 16-byte chunk c of row r at chunk c ^ (r % 8): conflict-free
 #pragma unroll
       for (int j = 0; j < 8; ++j) {  // h at column 8 j, g at 64 + 8 j
@@ -436,19 +337,28 @@ gemm_kernel(const GemmParams p, const __grid_constant__ CUtensorMap tm_a,
           }
       }
     }
-    sm90::fence_async_smem();
-    sm90::bar_sync(kEpiBar + wgi, 128);
-    if (leader) {
+    pgemm::epi_publish(wgi);
+    if ((threadIdx.x & 127) == 0) {
       if constexpr (EPI == kGate) {
-        sm90::tma_store_2d(&tm_c, stage, n0, m0);
+        sm90::tma_store_2d(tm_c, stage, n0, m0);
       } else {
         for (int b = 0; b < BN / 32; ++b)
-          sm90::tma_store_2d(&tm_c, stage + b * BM * 64, n0 + 32 * b, m0);
+          sm90::tma_store_2d(tm_c, stage + b * BM * 64, n0 + 32 * b, m0);
       }
       sm90::bulk_commit();
     }
   }
-  if (leader) sm90::bulk_wait<0>();  // the last store is out
+};
+
+template <int EPI, int BM, int BN>
+__global__ void __launch_bounds__(pgemm::kThreads, 1)
+gemm_kernel(const GemmParams p, const __grid_constant__ CUtensorMap tm_a,
+            const __grid_constant__ CUtensorMap tm_b,
+            const __grid_constant__ CUtensorMap tm_c,
+            const __grid_constant__ CUtensorMap tm_x) {
+  extern __shared__ unsigned char smem_raw[];
+  const GemmOp<EPI, BM, BN> op{p, &tm_a, &tm_b, &tm_c, &tm_x};
+  pgemm::run(op, smem_raw);
 }
 
 // a (rows x k) bf16 row-major tensor, boxes of 64 columns x `box_rows` in
@@ -467,8 +377,8 @@ int make_map(CUtensorMap* map, const void* base, int k, int rows,
 template <int EPI, int BM, int BN>
 int launch_gemm(GemmParams p, const void* a, const void* b, int k, int brows,
                 int grid, cudaStream_t stream) {
-  using R = Ring<EPI, BM, BN>;
-  constexpr int kCols = EPI == kGate ? BN / 2 : BN;
+  using R = pgemm::RingOf<GemmOp<EPI, BM, BN>>;
+  constexpr int kCols = GemmOp<EPI, BM, BN>::kCols;
   p.kblocks = (k + kBK - 1) / kBK;
   p.ntiles = (p.cols + kCols - 1) / kCols;
   p.tiles = ((p.n + BM - 1) / BM) * p.ntiles;
@@ -488,8 +398,8 @@ int launch_gemm(GemmParams p, const void* a, const void* b, int k, int brows,
       gemm_kernel<EPI, BM, BN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       R::kBytes);
   if (e != cudaSuccess) return (int)e;
-  gemm_kernel<EPI, BM, BN><<<grid, kThreads, R::kBytes, stream>>>(p, ta, tb,
-                                                                 tc, tx);
+  gemm_kernel<EPI, BM, BN><<<grid, pgemm::kThreads, R::kBytes, stream>>>(
+      p, ta, tb, tc, tx);
   return (int)cudaGetLastError();
 }
 

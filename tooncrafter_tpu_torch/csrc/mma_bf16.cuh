@@ -1,7 +1,7 @@
-// Small device helpers shared by the fused kernels (temporal_attention.cu
-// and implicit_gemm.cuh, the core of temporal_conv.cu, and
-// gn_silu_conv3x3.cu): bf16 packing and rounding, fragment loads, and the
-// m16n8k16 bf16 tensor-core product.
+// Small device helpers shared by the fused kernels (temporal_attention.cu,
+// temporal_ptc.cu, dual_cross_attention.cu, group_norm_silu.cu,
+// gn_silu_conv3x3.cu; temporal_conv.cu for the bf16 packing): bf16 packing
+// and rounding, fragment loads, and the m16n8k16 bf16 tensor-core product.
 //
 // Fragment layouts of mma.sync.m16n8k16 (g = lane / 4, t = lane % 4):
 //   A (16x16, row): a0 (row g, cols 2t..2t+1), a1 (row g+8, same cols),

@@ -1,6 +1,6 @@
 // Hopper (sm_90a) building blocks shared by the wgmma kernels
 // (flash_attention.cu, flash_attention_bwd.cu, gn_silu_conv3x3.cu,
-// fused_ff.cu):
+// fused_ff.cu and temporal_conv.cu through persistent_gemm.cuh):
 // mbarriers, TMA tile loads described by a tensor map (multicast to a
 // cluster too), bulk copies and reductions, named barriers, wgmma
 // descriptors and the wgmma products they run, and the host side that
@@ -195,6 +195,16 @@ __device__ __forceinline__ void tma_store_2d(const CUtensorMap* map,
       "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], "
       "[%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
       "r"(smem_u32(src)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map,
+                                             const void* src, int c0, int c1,
+                                             int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, "
+      "%4}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2)
       : "memory");
 }
 

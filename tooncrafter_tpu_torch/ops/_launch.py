@@ -5,9 +5,12 @@ CUDA tensors it launches its kernel or raises."""
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Sequence
 
 import torch
+
+H100_SMS = 132  # the persistent GEMMs' plans off the card (tests, meta)
 
 
 def is_cuda(t: torch.Tensor) -> bool:
@@ -73,13 +76,23 @@ def check(name: str, t: torch.Tensor, shape: Sequence[int],
 
 
 def pixel_tile(pixels: int) -> int:
-    """The pixel tile (BM) of the implicit-GEMM convolutions for images or
-    frames of ``pixels`` pixels: 128 where it divides them or they are many,
-    else 64 (less of a ragged last tile at the UNet's 10x16 and 5x8
-    levels). The temporal conv (csrc/implicit_gemm.cuh) splits it over two
-    rows of warps, the 3x3 conv (csrc/gn_silu_conv3x3.cu) over BM / 64
-    wgmma warpgroups; both write their sums per tile of BM pixels."""
+    """The pixel tile (BM) of the 3x3 conv (csrc/gn_silu_conv3x3.cu) for
+    images of ``pixels`` pixels: 128 where it divides them or they are
+    many, else 64 (less of a ragged last tile at the UNet's 10x16 and 5x8
+    levels), split over BM / 64 wgmma warpgroups; it writes its sums per
+    tile of BM pixels."""
     return 128 if pixels % 128 == 0 or pixels >= 1024 else 64
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def sm_count(device: torch.device) -> int:
+    """The SMs a persistent grid fills: the card's, read once per device;
+    H100_SMS for a tensor that is not on a CUDA device."""
+    return _sm_count(device.index) if device.type == "cuda" else H100_SMS
 
 
 def ptr(t: Optional[torch.Tensor]):

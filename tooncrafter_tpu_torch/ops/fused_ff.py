@@ -45,7 +45,6 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
-import functools
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -189,7 +188,7 @@ class _FusedFFFunction(torch.autograd.Function):
 LIBRARY = ("fused_ff", ("fused_ff.cu",))
 _LIB: Optional[ctypes.CDLL] = None
 
-H100_SMS = 132
+H100_SMS = _launch.H100_SMS
 
 
 @dataclasses.dataclass(frozen=True)
@@ -245,11 +244,6 @@ def scratch(p: Plan, device) -> Tuple[Optional[torch.Tensor], torch.Tensor]:
     return z, torch.empty(p.m, dtype=torch.bfloat16, device=device)
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     vp, i = ctypes.c_void_p, ctypes.c_int
     lib.tc_fused_ff.argtypes = ([vp] * 10 + [i] * 4 + [ctypes.c_float]
@@ -282,7 +276,7 @@ def _launch_ff(x2, w1, b1, w2, b2, ln_w, ln_b, eps: float, residual: bool):
     if residual and cout != c:
         raise ValueError("fused FF: the residual needs Cout == C")
     p = plan(n, c, d, cout, ln_w is not None,
-             _sm_count(dev.index) if dev.type == "cuda" else H100_SMS)
+             _launch.sm_count(dev))
     out = torch.empty((n, cout), dtype=bf, device=dev)
     if n:
         z, m = scratch(p, dev)

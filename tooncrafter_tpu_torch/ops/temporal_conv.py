@@ -16,12 +16,22 @@ the parameter itself, no copy. Its ``forward`` is the unfused plain form
 (three dense products over the channel axis), used by the training branch
 and by the decoder's 3 -> 3 ``time_mix_conv``, which the TPU package also
 leaves outside its kernel.
+
+On the card a call runs two kernels (``csrc/temporal_conv.cu``): the z pass
+writes z, the tensor the TPU kernel rounds to bf16, into a zero-framed bf16
+buffer (B, T + 2, P, Cin), and a persistent three-tap wgmma GEMM reads
+each tap as a shifted box of it; ``plan`` picks the GEMM's tiles and grid
+and the scratch shapes, and the wrapper allocates them with ``torch.empty``
+on the caller's stream. One call counts one launch of the TPU kernel's
+name. Under autograd the wrapper runs ``_TconvFunction``: the kernels (the
+plain version on the CPU) forward, the gradient of ``_plain_tconv`` back.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional
+import dataclasses
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -31,7 +41,6 @@ from tooncrafter_tpu_torch.ops import _build
 from tooncrafter_tpu_torch.ops import _launch
 
 LAUNCHES: Dict[str, int] = {"_pallas_tconv": 0}
-_CIN_CHUNK = 32  # csrc/implicit_gemm.cuh kBK
 
 
 def reset_launch_counts() -> None:
@@ -70,13 +79,98 @@ def _plain_tconv(x, w3, bias, a, b, res, scale, silu: bool, stats: bool,
     return (y,) + _frame_sums(y) if stats else y
 
 
+class _TconvFunction(torch.autograd.Function):
+    """The kernels' forward with the gradient of the unfused formula
+    ``_plain_tconv``, as the JAX package's custom_vjp recomputes through
+    ``_xla_tconv`` (tooncrafter_tpu/ops/temporal_conv.py:226-263): x, the
+    taps, the bias, A, B, the residual and the scale, through y and (with
+    stats) the per-frame sums."""
+
+    @staticmethod
+    def forward(ctx, silu, stats, x, w3, bias, a, b, res, scale):
+        ops = (x, w3, bias, a, b, res, scale)
+        ctx.save_for_backward(*ops)
+        ctx.silu, ctx.stats = silu, stats
+        ctx.set_materialize_grads(False)
+        return _dispatch(*ops, silu, stats)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        ops = ctx.saved_tensors
+        want = ctx.needs_input_grad[2:]
+        with torch.enable_grad(), torch.autocast("cuda", enabled=False):
+            leaves = [None if t is None else t.detach().requires_grad_(w)
+                      for t, w in zip(ops, want)]
+            outs = _plain_tconv(*leaves, ctx.silu, ctx.stats)
+            outs = outs if ctx.stats else (outs,)
+            used = [(o, g.to(o.dtype)) for o, g in zip(outs, grads)
+                    if g is not None]
+            wrt = [t for t, w in zip(leaves, want) if w]
+            got = iter(torch.autograd.grad(
+                [o for o, _ in used], wrt, [g for _, g in used]))
+        return (None, None) + tuple(next(got) if w else None for w in want)
+
+
+# ---------------------------------------------------------------------------
+# the kernel launch
+# ---------------------------------------------------------------------------
+
 LIBRARY = ("temporal_conv", ("temporal_conv.cu",))
 _LIB: Optional[ctypes.CDLL] = None
 
 
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    """A call's two kernels: the z pass into ``z``, the zero-framed bf16
+    (B, T + 2, P, Cin); the three-tap GEMM over ``tiles`` tiles of ``rows``
+    rows (of one sample's T P) by ``width`` output channels, walked by
+    ``grid`` persistent blocks; ``sums``, the fp32 (B, T, slots, Cout)
+    partial sums each of s1 and s2 (slots: the most row tiles one frame
+    touches), which the caller sums over the slots."""
+    z: Tuple[int, int, int, int]
+    rows: int
+    width: int
+    tiles: int
+    grid: int
+    sums: Tuple[int, int, int, int]
+
+
+def _slots(t: int, p: int, rows: int) -> int:
+    """The most row tiles of ``rows`` rows that one frame of p rows
+    touches, at the frames' offsets 0, p, ..., (t - 1) p."""
+    return max(((f + 1) * p - 1) // rows - f * p // rows + 1
+               for f in range(t))
+
+
+def plan(bsz: int, t: int, p: int, cin: int, cout: int,
+         sms: int = _launch.H100_SMS) -> Plan:
+    """The kernels' tiles, grid and scratch for x (B, T, P, Cin) and Cout:
+    128-row tiles unless they give fewer tiles than SMs, then 64; 160
+    output channels where Cout allows, else 128. Raises ValueError outside
+    the kernels' envelope: Cin % 8 == 0 and at most 8192 (the z pass's
+    16-byte rows, one thread a channel group), Cout % 8 == 0, B (T + 2) <=
+    65535 (the z pass's grid), T P <= 2^30; TMA zero-fills each tap's
+    ragged last K block, Cout's last tile and a sample's last row tile."""
+    if (min(bsz, t, p, cin, cout) <= 0 or cin % 8 or cin > 8192 or cout % 8
+            or bsz * (t + 2) > 65535 or t * p > 2 ** 30):
+        raise ValueError(f"temporal conv kernels: need Cin % 8 == 0 (at "
+                         f"most 8192), Cout % 8 == 0, B (T + 2) <= 65535 "
+                         f"and T P <= 2^30; got B={bsz}, T={t}, P={p}, "
+                         f"Cin={cin}, Cout={cout}")
+    width = 160 if cout % 160 == 0 else 128
+    col_tiles = -(-cout // width)
+    for rows in (128, 64):
+        tiles = bsz * -(-(t * p) // rows) * col_tiles
+        if tiles >= sms:
+            break
+    return Plan(z=(bsz, t + 2, p, cin), rows=rows, width=width, tiles=tiles,
+                grid=min(tiles, sms),
+                sums=(bsz, t, _slots(t, p, rows), cout))
+
+
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     vp, i = ctypes.c_void_p, ctypes.c_int
-    lib.tc_temporal_conv.argtypes = [vp] * 10 + [i] * 8 + [vp]
+    lib.tc_temporal_conv.argtypes = [vp] * 11 + [i] * 10 + [vp]
     lib.tc_temporal_conv.restype = ctypes.c_int
     return lib
 
@@ -102,45 +196,53 @@ def _launch_tconv(x, w3, bias, a, b, res, scale, silu: bool, stats: bool):
         _launch.check("residual", res, (bsz, t, p, cout), bf, dev)
     if scale is not None:
         _launch.check("out_scale", scale, (), f32, dev)
-    if cin % _CIN_CHUNK or cout % 8:
-        raise ValueError(f"temporal conv kernel: needs Cin % {_CIN_CHUNK} "
-                         f"== 0 and Cout % 8 == 0; got {cin}, {cout}")
+    pl = plan(bsz, t, p, cin, cout, _launch.sm_count(dev))
+    lib = _library()
     out = torch.empty((bsz, t, p, cout), dtype=bf, device=dev)
-    # the UNet's widths (multiples of 320) take a 320-wide Cout tile, with 64
-    # pixels: each source element is activated once per tap, not once per
-    # 128-wide tile (csrc/implicit_gemm.cuh)
-    bm, bn = (64, 320) if cout % 320 == 0 else (_launch.pixel_tile(p), 128)
-    n_tiles = -(-p // bm)
-    sums = ([torch.empty((bsz, t, n_tiles, cout), dtype=f32, device=dev)
-             for _ in range(2)] if stats else [None, None])
-    err = _library().tc_temporal_conv(
+    zf = torch.empty(pl.z, dtype=bf, device=dev)
+    # s1's and s2's partial sums in one buffer: one reduction over the slots
+    sums = (torch.empty((2,) + pl.sums, dtype=f32, device=dev) if stats
+            else None)
+    err = lib.tc_temporal_conv(
         x.data_ptr(), w3.data_ptr(), bias.data_ptr(), _launch.ptr(a),
-        _launch.ptr(b), _launch.ptr(res), _launch.ptr(scale), out.data_ptr(),
-        _launch.ptr(sums[0]), _launch.ptr(sums[1]), bsz, t, p, cin, cout,
-        int(silu), bm, bn, _launch.stream(x))
+        _launch.ptr(b), _launch.ptr(res), _launch.ptr(scale), zf.data_ptr(),
+        out.data_ptr(), *((sums[0].data_ptr(), sums[1].data_ptr()) if stats
+                          else (None, None)), bsz, t,
+        p, cin, cout, int(silu), pl.rows, pl.width, pl.grid, pl.sums[2],
+        _launch.stream(x))
     _launch.raise_on_error(err, f"temporal conv (B={bsz}, T={t}, P={p}, "
                                 f"C={cin}->{cout})")
     if stats:
-        return out, sums[0].sum(2), sums[1].sum(2)
+        s1, s2 = sums.sum(3)
+        return out, s1, s2
+    return out
+
+
+def _dispatch(x, w3, bias, a, b, res, scale, silu: bool, stats: bool):
+    """The plain version for CPU tensors, the kernels for CUDA tensors (one
+    call counts one launch of the TPU kernel's name)."""
+    if _launch.on_cpu("temporal conv", x, w3, bias, a, b, res, scale):
+        return _plain_tconv(x, w3, bias, a, b, res, scale, silu, stats)
+    out = _launch_tconv(x, w3, bias, a, b, res, scale, silu, stats)
+    LAUNCHES["_pallas_tconv"] += 1
     return out
 
 
 def _pallas_tconv(x, w3, bias, a=None, b=None, res=None, scale=None,
                   silu: bool = False, stats: bool = False):
     """The wrapper named after the TPU kernel it replaces. x: (B, T, P,
-    Cin); CPU tensors take the plain version, CUDA tensors the kernel."""
+    Cin); CPU tensors take the plain version, CUDA tensors the kernels;
+    under autograd ``_TconvFunction``."""
     if silu and a is None:
         a = torch.ones(x.shape[0], x.shape[-1], device=x.device)
         b = torch.zeros_like(a)
     cdt = _launch.compute_dtype(x)  # CUDA autocast's dtype while it is on
     x, w3, bias = x.to(cdt), w3.to(cdt), bias.to(cdt)
     res = None if res is None else res.to(cdt)
-    if _launch.on_cpu("temporal conv", x, w3, bias, a, b, res, scale):
-        return _plain_tconv(x, w3, bias, a, b, res, scale, silu, stats)
-    _launch.refuse_grad("temporal conv", x, w3, bias, a, b, res, scale)
-    out = _launch_tconv(x, w3, bias, a, b, res, scale, silu, stats)
-    LAUNCHES["_pallas_tconv"] += 1
-    return out
+    ops = (x, w3, bias, a, b, res, scale)
+    if _launch.needs_grad(*ops):
+        return _TconvFunction.apply(silu, stats, *ops)
+    return _dispatch(*ops, silu, stats)
 
 
 def taps(weight):

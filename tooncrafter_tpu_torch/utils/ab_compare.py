@@ -7,8 +7,10 @@ Each run is a fresh process in one checkout: it builds that checkout's
 kernels, runs its ``chip_smoke.check_kernels`` (phase 2: every kernel
 against its plain version at the path shapes, timed beside the library call
 and the bound), times its d = 512 forward at the shapes a phase 2 may lack
-(one head at 9216 tokens, the 1024 encoder's) and its FF at the mid
-blocks' shapes where its phase 2 lacks them, answers its 3b and 3c
+(one head at 9216 tokens, the 1024 encoder's), its FF at the mid
+blocks' shapes and its temporal conv at the request shapes of this
+checkout's ``kernel_check`` (``TCONV_512``, ``TCONV_1024``) where its phase
+2 lacks them, answers its 3b and 3c
 requests (two 320x512 and one 576x1024 DDIM-50 clips,
 ``chip_smoke.answer_requests``) and takes its 4b training steps
 (``chip_smoke.train_full_width``, the 512 training model at full width),
@@ -33,6 +35,8 @@ import subprocess
 import sys
 import time
 from typing import Dict, List
+
+from tooncrafter_tpu_torch.utils import kernel_check as kc
 
 ORDER = "abba"
 
@@ -73,6 +77,13 @@ mids = (("mid", 1280, 1280), ("1024 mid", 4608, 1280))
 gen = torch.Generator(device=dev).manual_seed(1)
 for case in kc.ff_cases(dev, gen, tuple(s for s in mids if s[0] not in have)):
     print(kc.line(case, kc.run_case(case)), flush=True)
+# the temporal conv at every request shape, where a checkout's phase 2
+# lacks it: (label, (B, T, P, C), residual, out_scale, stats)
+have = {row[0] for row in kc.TCONV_512 + kc.TCONV_1024}
+for case in kc.tconv_cases(dev, gen, tuple(s for s in TCONV_SHAPES
+                                            if s[0] not in have)):
+    axes = (2,) if "stats" in case.label else None
+    print(kc.line(case, kc.run_case(case, axes)), flush=True)
 for yaml, n, kernels in (("inference_512_v1.0.yaml", 2, cs.KERNELS_512),
                          ("inference_1024_v1.0.yaml", 1, cs.KERNELS_1024)):
     print(f"== requests {yaml}", flush=True)
@@ -128,8 +139,9 @@ def run_one(where: str, log_path: str) -> dict:
     """One run in the checkout ``where``: its return code, seconds and what
     ``parse`` reads from its output, which goes to ``log_path``."""
     t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-c", _RUN], cwd=where,
-                          capture_output=True, text=True)
+    proc = subprocess.run([sys.executable, "-c", _RUN.replace(
+        "TCONV_SHAPES", repr(kc.TCONV_512 + kc.TCONV_1024))], cwd=where,
+        capture_output=True, text=True)
     log = proc.stdout + proc.stderr
     with open(log_path, "w") as f:
         f.write(log)

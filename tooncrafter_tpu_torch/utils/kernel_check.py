@@ -352,27 +352,64 @@ def ff_cases(dev, gen, shapes=FF_512) -> List[Case]:
     return cases
 
 
-# (label, (B, T, P, C), residual, out_scale, stats)
+# (label, (B, T, P, C), residual, out_scale, stats): every shape a request
+# launches #12 at. The UNet's TemporalConvBlocks (2 CFG branches): conv1-3
+# with the next norm's sums, conv4 with the block residual; the decoder's
+# TimeStacks: in_layers with sums, out_layers with the alpha merge as
+# out_scale + residual
 TCONV_512 = (
     ("UNet ds1 affine+SiLU+stats", (2, 16, 2560, 320), False, False, True),
     ("UNet ds1 affine+SiLU+residual", (2, 16, 2560, 320), True, False,
      False),
+    ("UNet ds2 affine+SiLU+stats", (2, 16, 640, 640), False, False, True),
+    ("UNet ds4 affine+SiLU+stats (tiles straddle frames)",
+     (2, 16, 160, 1280), False, False, True),
+    ("UNet ds4 affine+SiLU+residual", (2, 16, 160, 1280), True, False,
+     False),
     ("UNet ds8 affine+SiLU+stats (ragged P)", (2, 16, 40, 1280), False,
      False, True),
     ("decoder level 0 out_scale+residual", (1, 16, 163840, 128), True, True,
-     False))
-# the decoder's level-0 TimeStack at 576x1024: 1.2e9 elements
+     False),
+    ("decoder level 1 affine+SiLU+stats", (1, 16, 40960, 256), False, False,
+     True),
+    ("decoder level 2 affine+SiLU+stats", (1, 16, 10240, 512), False, False,
+     True),
+    ("decoder level 3 affine+SiLU+stats", (1, 16, 2560, 512), False, False,
+     True))
+# the 576x1024 path: the UNet's four levels and the decoder's level-0
+# TimeStack (1.2e9 elements)
 TCONV_1024 = (
     ("1024 UNet ds1 affine+SiLU+stats", (2, 16, 9216, 320), False, False,
      True),
+    ("1024 UNet ds2 affine+SiLU+stats", (2, 16, 2304, 640), False, False,
+     True),
+    ("1024 UNet ds4 affine+SiLU+stats", (2, 16, 576, 1280), False, False,
+     True),
+    ("1024 UNet ds8 affine+SiLU+stats (tiles straddle frames)",
+     (2, 16, 144, 1280), False, False, True),
     ("1024 decoder level 0 out_scale+residual", (1, 16, 589824, 128), True,
      True, False))
 
 
+def tconv_bytes(bsz: int, t: int, p: int, c: int, res: bool,
+                stats: bool) -> float:
+    """Bytes #12 must move: x read and y written (and the residual read)
+    in bf16, the taps and the bias, the affine, the per-frame sums."""
+    n = bsz * t * p * c
+    return (2.0 * (n * (2 + res) + 3 * c * c + c) + 8.0 * bsz * c
+            + (8.0 * bsz * t * c if stats else 0))
+
+
+def tconv_flops(bsz: int, t: int, p: int, c: int) -> float:
+    """The products z taps need: three taps but at the clip's two ends."""
+    return 2.0 * bsz * p * c * c * (3 * t - 2)
+
+
 def tconv_cases(dev, gen, shapes=TCONV_512) -> List[Case]:
     """(B, T, P, C): the UNet TemporalConvBlock's convs (GN+SiLU prologue,
-    stats, the block residual on conv4) and the decoder's TimeStack out_conv
-    at level 0 (alpha merge as out_scale + residual)."""
+    stats, the block residual on conv4) and the decoder's TimeStack convs
+    (in_layers with stats, out_layers with the alpha merge as out_scale +
+    residual)."""
     cases = []
     for label, (bsz, t, p, c), res_on, scale_on, stats in shapes:
         x = _rnd(gen, dev, bsz, t, p, c)
@@ -380,7 +417,9 @@ def tconv_cases(dev, gen, shapes=TCONV_512) -> List[Case]:
         bias = _rnd(gen, dev, c, scale=0.1)
         a = _rnd(gen, dev, bsz, c, scale=0.2, offset=1.0,
                  dtype=torch.float32)
-        b = _rnd(gen, dev, bsz, c, scale=0.1, dtype=torch.float32)
+        # the folded shift B = beta - mean A at a GroupNorm's size: what a
+        # zero frame of z must not be (silu(B) != 0)
+        b = _rnd(gen, dev, bsz, c, scale=0.5, dtype=torch.float32)
         res = _rnd(gen, dev, bsz, t, p, c) if res_on else None
         scale = (torch.tensor(0.3, device=dev) if scale_on else None)
         ops = (x, w3, bias, a, b, res, scale)
@@ -393,7 +432,6 @@ def tconv_cases(dev, gen, shapes=TCONV_512) -> List[Case]:
             z5 = o[0].permute(0, 3, 1, 2).unsqueeze(-1)
             return F.conv3d(z5, w5, o[2], padding=(1, 0, 0))
 
-        n_out = bsz * t * p * c
         cases.append(Case(
             "_pallas_tconv", f"{label} B={bsz} T={t} P={p} C={c}",
             kernel=lambda o=ops, s=stats: tc._pallas_tconv(
@@ -406,9 +444,8 @@ def tconv_cases(dev, gen, shapes=TCONV_512) -> List[Case]:
             plain=lambda o=ops, s=stats: tc._plain_tconv(*o, True, s),
             chain=lambda o=ops, s=stats: _chain_tconv(*o, s),
             library=library,
-            flops=2.0 * bsz * p * c * c * (3 * t - 2),
-            nbytes=(2.0 * (n_out * (2 + res_on) + 3 * c * c + c)
-                    + 8.0 * bsz * c + (8.0 * bsz * t * c if stats else 0)),
+            flops=tconv_flops(bsz, t, p, c),
+            nbytes=tconv_bytes(bsz, t, p, c, res_on, stats),
             reps=(10, 3)))
     return cases
 

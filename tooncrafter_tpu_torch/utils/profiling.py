@@ -34,7 +34,7 @@ KINDS = (
     ("flash attention (port kernel)", ("flash_fwd_wgmma", "flash_fwd_d512")),
     ("flash attention backward (port kernel)", ("flash_bwd_",)),
     ("fused FF (port kernel)", ("fused_ff::",)),
-    ("temporal conv (port kernel)", ("igemm::tconv_kernel",)),
+    ("temporal conv (port kernel)", ("tconv::",)),
     ("GN+SiLU+3x3 conv (port kernel)", ("::conv_kernel<",)),
     ("temporal attention pair / single stage (port kernel)",
      ("tpair_kernel",)),
