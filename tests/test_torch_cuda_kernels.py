@@ -527,14 +527,16 @@ MUTATIONS = [
      "(xv[e] - mean) * rstd", "xv[e] * rstd"),
 ] + [
     # the temporal conv: the GEMM's epilogue, its K loop (the last tap's K
-    # blocks), the z pass's SiLU and its zero frames, the per-frame sums of
-    # a row tile that straddles frames
+    # blocks), the z pass's SiLU and its zero frames, the per-frame sums
+    # (y instead of y^2 in s2's even columns; a row tile that straddles
+    # frames)
     ("output x1.01", _TC, _TC, "pack_bf16(y0, y1)",
      "pack_bf16(1.01f * y0, 1.01f * y1)"),
     ("skipped tap", _TC, _TC, "return 3 * p.kc;", "return 2 * p.kc;"),
     ("z pass without the SiLU", _TC, _TC, "if (silu_on) {", "if (false) {"),
     ("zero frame written as silu(B)", _TC, _TC,
      "if (pad) v[j] = make_uint4(0u, 0u, 0u, 0u);", ""),
+    ("wrong stats", _TC, _TC, "q0 += y.x * y.x;", "q0 += y.x;"),
     ("straddling sums credited to the wrong frame", _TC, _TC,
      "(((long long)smp * p.t + f) * p.slots",
      "(((long long)smp * p.t + m0 / p.p) * p.slots"),
@@ -574,7 +576,7 @@ def test_mutated_kernel_fails_at_every_path_shape(dev, tmp_path, monkeypatch,
                                                   what, src, edited, old, new):
     """A broken copy of the source, built outside the package, must fail
     the check of chip_smoke.py phase 2 at every path shape of its kernel
-    (for wrong sums: every shape that has sums; for the temporal conv's
+    (for wrong stats: every shape that has sums; for the temporal conv's
     straddling sums: every shape with sums whose row tiles straddle
     frames), and the conv's copies also at the F(2x4)-named 576x1024
     shape."""

@@ -26,6 +26,7 @@ Where the two differ, it is by design and asserted as such:
 """
 
 import collections
+import inspect
 import os
 
 import pytest
@@ -114,13 +115,24 @@ def _pixels(x):
     return p
 
 
+_TCONV_SIG = inspect.signature(tc.temporal_conv3)
+
+
+def _tconv_key(*args, **kwargs):
+    """(T, P, Cin, Cout, residual, out_scale, sums): the JAX selector's
+    arguments, then the call's epilogue."""
+    a = _TCONV_SIG.bind(*args, **kwargs).arguments
+    x, weight = a["x"], a["weight"]
+    return (x.shape[1], _pixels(x), x.shape[-1], weight.shape[0],
+            a.get("residual") is not None, a.get("out_scale") is not None,
+            bool(a.get("return_stats", False)))
+
+
 def _spies(mp, log):
     _spy(mp, unet_mod, "gn_silu_conv3x3", "conv",
          lambda x, affine, conv, *a, **k: tuple(x.shape[1:]) + (
              conv.weight.shape[0],), log)
-    _spy(mp, tc, "temporal_conv3", "tconv",
-         lambda x, weight, *a, **k: (x.shape[1], _pixels(x), x.shape[-1],
-                                     weight.shape[0]), log)
+    _spy(mp, tc, "temporal_conv3", "tconv", _tconv_key, log)
     _spy(mp, unet_mod, "fused_geglu_ff", "ff",
          lambda x, w1, b1, w2, *a, **k: (x.numel() // x.shape[-1],
                                          x.shape[-1], w1.shape[0] // 2,
@@ -201,7 +213,7 @@ def jax_choice(kind, key):
             return "winograd_gn_silu_conv3x3"
         return "_pallas_fused_conv" if jsc._use_kernel(*key) else "plain"
     if kind == "tconv":
-        return "_pallas_tconv" if jtc._use_kernel(*key) else "plain"
+        return "_pallas_tconv" if jtc._use_kernel(*key[:4]) else "plain"
     if kind == "ff":
         if not jff.use_kernel(*key):
             return "plain"
@@ -294,27 +306,47 @@ def test_conv_names_f24_exactly_where_jax_takes_it(sites, on_tpu):
             assert port == "winograd_gn_silu_conv3x3", key
 
 
-# #12's launches by (P, C) in one UNet call and one decode of the 576x1024
-# model (a request runs 50 UNet calls and 2 decodes)
-TCONV_BY_SHAPE_1024 = {
-    "unet": {(9216, 320): 20, (2304, 640): 20, (576, 1280): 20,
-             (144, 1280): 28},
-    "vae": {(9216, 512): 10, (36864, 512): 6, (147456, 256): 6,
-            (589824, 128): 6}}
+# #12's epilogues: (residual, out_scale, sums)
+SUMS, RESIDUAL, MERGE = (False, False, True), (True, False, False), (
+    True, True, False)
+
+
+def tconv_table(unet, vae):
+    """Launches by (P, C, residual, out_scale, sums) in one UNet call and
+    one decode: the UNet's TemporalConvBlocks (conv1-3 with sums, conv4
+    with the block residual) from {(P, C): blocks}, the decoder's
+    TimeStacks (in_layers with sums, out_layers with the alpha merge) from
+    {(P, C): stacks}."""
+    return {"unet": {k + e: n * blocks for k, blocks in unet.items()
+                     for e, n in ((SUMS, 3), (RESIDUAL, 1))},
+            "vae": {k + e: stacks for k, stacks in vae.items()
+                    for e in (SUMS, MERGE)}}
+
+
+# in the 576x1024 model (a request runs 50 UNet calls and 2 decodes; one
+# UNet call holds both CFG branches): ResBlocks 5, 5, 5 and 7 a level; the
+# decoder's 14 TimeStacks: 2 in the mid block, 3 a level
+TCONV_BY_SHAPE_1024 = tconv_table(
+    {(9216, 320): 5, (2304, 640): 5, (576, 1280): 5, (144, 1280): 7},
+    {(9216, 512): 5, (36864, 512): 3, (147456, 256): 3, (589824, 128): 3})
+
+
+def tconv_by_shape(log):
+    return dict(collections.Counter(
+        key[1:3] + key[4:] for kind, key, moved in log
+        if kind == "tconv" and moved in ("_pallas_tconv",
+                                         ["_pallas_tconv"])))
 
 
 def test_tconv_launches_by_shape(sites):
     for part, want in TCONV_BY_SHAPE_1024.items():
-        got = collections.Counter((key[1], key[2]) for key, port
-                                  in _by_kind(sites[part], "tconv")
-                                  if port == "_pallas_tconv")
-        assert dict(got) == want, part
+        assert tconv_by_shape(sites[part]) == want, part
 
 
 def test_tconv_differs_only_at_the_1280_wide_levels(sites, on_tpu):
     rows = _by_kind(sites["unet"] + sites["vae"], "tconv")
     assert all(port == "_pallas_tconv" for _, port in rows)
     plain = {key for key, _ in rows if jax_choice("tconv", key) == "plain"}
-    assert {(p, c) for _, p, c, _ in plain} == {(576, 1280), (144, 1280)}
+    assert {key[1:3] for key in plain} == {(576, 1280), (144, 1280)}
     assert {key[1] for key, _ in _by_kind(sites["vae"], "tconv")} == {
         9216, 36864, 147456, 589824}

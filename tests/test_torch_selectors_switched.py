@@ -26,7 +26,8 @@ import os
 import pytest
 import torch
 
-from test_torch_selectors_1024 import _spies, _stub_launches
+from test_torch_selectors_1024 import (_spies, _stub_launches, tconv_by_shape,
+                                       tconv_table)
 from tooncrafter_tpu.ops import _dispatch
 from tooncrafter_tpu.ops import fused_norms as jfn
 from tooncrafter_tpu.ops import spatial_conv as jsc
@@ -201,23 +202,18 @@ def test_convs_take_15_exactly_where_jax_does(sites, jax_switched):
     assert {k for k, m in vae if m} == {(40, 64, 512, 512)}
 
 
-# #12's launches by (P, C) in one UNet call and one decode of the 512 model
-# (a request runs 50 UNet calls and 2 decodes; the switches leave the
-# temporal conv's sites as they are): ResBlocks 5, 5, 5 and 7 a level, four
-# convs each; the decoder's 14 TimeStacks, two convs each
-TCONV_BY_SHAPE_512 = {
-    "unet": {(2560, 320): 20, (640, 640): 20, (160, 1280): 20,
-             (40, 1280): 28},
-    "vae": {(2560, 512): 10, (10240, 512): 6, (40960, 256): 6,
-            (163840, 128): 6}}
+# #12's launches by (P, C, residual, out_scale, sums) in one UNet call and
+# one decode of the 512 model (a request runs 50 UNet calls and 2 decodes;
+# the switches leave the temporal conv's sites as they are): ResBlocks 5,
+# 5, 5 and 7 a level; the decoder's 14 TimeStacks
+TCONV_BY_SHAPE_512 = tconv_table(
+    {(2560, 320): 5, (640, 640): 5, (160, 1280): 5, (40, 1280): 7},
+    {(2560, 512): 5, (10240, 512): 3, (40960, 256): 3, (163840, 128): 3})
 
 
 def test_tconv_launches_by_shape(sites):
     for part, want in TCONV_BY_SHAPE_512.items():
-        got = collections.Counter((key[1], key[2]) for k, key, moved
-                                  in sites[part] if k == "tconv"
-                                  and moved == "_pallas_tconv")
-        assert dict(got) == want, part
+        assert tconv_by_shape(sites[part]) == want, part
 
 
 def test_group_norm_sites(sites):

@@ -141,6 +141,9 @@ PLANS = {
     (2, 16, 576, 1280, 1280): (128, 160, 1152, 132, 5),
     (2, 16, 144, 1280, 1280): (128, 160, 288, 132, 2),
     (1, 16, 589824, 128, 128): (128, 128, 73728, 132, 4608),
+    (1, 16, 147456, 256, 256): (128, 128, 36864, 132, 1152),
+    (1, 16, 36864, 512, 512): (128, 128, 18432, 132, 288),
+    (1, 16, 9216, 512, 512): (128, 128, 4608, 132, 72),
 }
 
 
@@ -158,10 +161,25 @@ def test_plan_tiles_grid_and_scratch(shape):
 
 
 def test_plans_cover_every_kernel_check_shape():
+    """The shapes and epilogues phase 2 checks #12 at (``kernel_check``)
+    are those the models launch it with (the launch tables of the
+    selector tests, which hold them to the models), and each shape has its
+    pinned plan here."""
+    from test_torch_selectors_1024 import TCONV_BY_SHAPE_1024
+    from test_torch_selectors_switched import TCONV_BY_SHAPE_512
     from tooncrafter_tpu_torch.utils import kernel_check as kc
 
-    shapes = {(b, t, p, c, c) for _, (b, t, p, c), *_ in
-              kc.TCONV_512 + kc.TCONV_1024}
+    shapes = set()
+    for rows, table in ((kc.TCONV_512, TCONV_BY_SHAPE_512),
+                        (kc.TCONV_1024, TCONV_BY_SHAPE_1024)):
+        checked = [(b, t, p, c, res, scale, stats)
+                   for _, (b, t, p, c), res, scale, stats in rows]
+        launched = {(bsz, 16) + key for part, bsz in (("unet", 2),
+                                                      ("vae", 1))
+                    for key in table[part]}
+        assert len(checked) == len(set(checked))
+        assert set(checked) == launched
+        shapes |= {k[:4] + k[3:4] for k in checked}
     assert shapes == set(PLANS)
 
 
@@ -211,8 +229,9 @@ def test_breakdown_bounds_of_the_two_kernels():
     """``utils/breakdown``'s #12 bounds: the z pass by its bytes (x read,
     the framed z written); the GEMM by its operations, but by its bytes
     (the framed z read once, y written, the residual read) at the
-    decoder's level 0 and in the C = 320 residual call (294 operations a
-    byte there, the card's ratio 295); their sum above the call's bound."""
+    decoder's level 0 (C = 128) and in the residual calls at C = 256 and
+    320 (294 operations a byte at C = 320, the card's ratio 295); their
+    sum above the call's bound."""
     from tooncrafter_tpu_torch.utils import breakdown as bd
     from tooncrafter_tpu_torch.utils import kernel_check as kc
 
@@ -224,8 +243,7 @@ def test_breakdown_bounds_of_the_two_kernels():
             / kc.PEAK_BYTES_PER_S * 1e3)
         by_ops = got["gemm"] == pytest.approx(
             kc.tconv_flops(b, t, p, c) / kc.PEAK_BF16_FLOPS * 1e3)
-        assert by_ops == ("level 0" not in label and label !=
-                          "UNet ds1 affine+SiLU+residual"), label
+        assert by_ops == (c > 128 and not (res and c <= 320)), label
         call = kc.bound(kc.tconv_flops(b, t, p, c),
                         kc.tconv_bytes(b, t, p, c, res, stats))[0]
         assert got["zpass"] + got["gemm"] > call

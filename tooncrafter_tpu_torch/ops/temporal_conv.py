@@ -31,6 +31,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -142,6 +143,7 @@ def _slots(t: int, p: int, rows: int) -> int:
                for f in range(t))
 
 
+@functools.lru_cache(maxsize=None)
 def plan(bsz: int, t: int, p: int, cin: int, cout: int,
          sms: int = _launch.H100_SMS) -> Plan:
     """The kernels' tiles, grid and scratch for x (B, T, P, Cin) and Cout:
@@ -150,7 +152,8 @@ def plan(bsz: int, t: int, p: int, cin: int, cout: int,
     the kernels' envelope: Cin % 8 == 0 and at most 8192 (the z pass's
     16-byte rows, one thread a channel group), Cout % 8 == 0, B (T + 2) <=
     65535 (the z pass's grid), T P <= 2^30; TMA zero-fills each tap's
-    ragged last K block, Cout's last tile and a sample's last row tile."""
+    ragged last K block, Cout's last tile and a sample's last row tile.
+    Cached: a request calls it thousands of times at a dozen shapes."""
     if (min(bsz, t, p, cin, cout) <= 0 or cin % 8 or cin > 8192 or cout % 8
             or bsz * (t + 2) > 65535 or t * p > 2 ** 30):
         raise ValueError(f"temporal conv kernels: need Cin % 8 == 0 (at "

@@ -352,43 +352,40 @@ def ff_cases(dev, gen, shapes=FF_512) -> List[Case]:
     return cases
 
 
-# (label, (B, T, P, C), residual, out_scale, stats): every shape a request
-# launches #12 at. The UNet's TemporalConvBlocks (2 CFG branches): conv1-3
-# with the next norm's sums, conv4 with the block residual; the decoder's
-# TimeStacks: in_layers with sums, out_layers with the alpha merge as
-# out_scale + residual
-TCONV_512 = (
-    ("UNet ds1 affine+SiLU+stats", (2, 16, 2560, 320), False, False, True),
-    ("UNet ds1 affine+SiLU+residual", (2, 16, 2560, 320), True, False,
-     False),
-    ("UNet ds2 affine+SiLU+stats", (2, 16, 640, 640), False, False, True),
-    ("UNet ds4 affine+SiLU+stats (tiles straddle frames)",
-     (2, 16, 160, 1280), False, False, True),
-    ("UNet ds4 affine+SiLU+residual", (2, 16, 160, 1280), True, False,
-     False),
-    ("UNet ds8 affine+SiLU+stats (ragged P)", (2, 16, 40, 1280), False,
-     False, True),
-    ("decoder level 0 out_scale+residual", (1, 16, 163840, 128), True, True,
-     False),
-    ("decoder level 1 affine+SiLU+stats", (1, 16, 40960, 256), False, False,
-     True),
-    ("decoder level 2 affine+SiLU+stats", (1, 16, 10240, 512), False, False,
-     True),
-    ("decoder level 3 affine+SiLU+stats", (1, 16, 2560, 512), False, False,
-     True))
-# the 576x1024 path: the UNet's four levels and the decoder's level-0
-# TimeStack (1.2e9 elements)
-TCONV_1024 = (
-    ("1024 UNet ds1 affine+SiLU+stats", (2, 16, 9216, 320), False, False,
-     True),
-    ("1024 UNet ds2 affine+SiLU+stats", (2, 16, 2304, 640), False, False,
-     True),
-    ("1024 UNet ds4 affine+SiLU+stats", (2, 16, 576, 1280), False, False,
-     True),
-    ("1024 UNet ds8 affine+SiLU+stats (tiles straddle frames)",
-     (2, 16, 144, 1280), False, False, True),
-    ("1024 decoder level 0 out_scale+residual", (1, 16, 589824, 128), True,
-     True, False))
+# (label, (B, T, P, C), residual, out_scale, stats): every shape and
+# epilogue a request launches #12 with (the launches by shape and epilogue
+# are in tests/test_torch_selectors_switched.py and _1024.py, which
+# tests/test_torch_temporal_conv.py holds these rows to). The UNet's
+# TemporalConvBlocks (2 CFG branches): conv1-3 with the next norm's sums,
+# conv4 with the block residual; the decoder's TimeStacks: in_layers with
+# sums, out_layers with the alpha merge as out_scale + residual
+def _tconv_rows(prefix, unet, decoder):
+    """The rows of one model: ``unet`` (level, P, C, a note on its stats
+    row), ``decoder`` (P, C) from level 0 up."""
+    rows = []
+    for level, p, c, note in unet:
+        rows += [(f"{prefix}UNet {level} affine+SiLU+stats{note}",
+                  (2, 16, p, c), False, False, True),
+                 (f"{prefix}UNet {level} affine+SiLU+residual",
+                  (2, 16, p, c), True, False, False)]
+    for level, (p, c) in enumerate(decoder):
+        rows += [(f"{prefix}decoder level {level} affine+SiLU+stats",
+                  (1, 16, p, c), False, False, True),
+                 (f"{prefix}decoder level {level} out_scale+residual",
+                  (1, 16, p, c), True, True, False)]
+    return tuple(rows)
+
+
+_STRADDLE = " (tiles straddle frames)"
+TCONV_512 = _tconv_rows(
+    "", (("ds1", 2560, 320, ""), ("ds2", 640, 640, ""),
+         ("ds4", 160, 1280, _STRADDLE), ("ds8", 40, 1280, " (ragged P)")),
+    ((163840, 128), (40960, 256), (10240, 512), (2560, 512)))
+# the 576x1024 path (the decoder's level 0: 1.2e9 elements)
+TCONV_1024 = _tconv_rows(
+    "1024 ", (("ds1", 9216, 320, ""), ("ds2", 2304, 640, ""),
+              ("ds4", 576, 1280, ""), ("ds8", 144, 1280, _STRADDLE)),
+    ((589824, 128), (147456, 256), (36864, 512), (9216, 512)))
 
 
 def tconv_bytes(bsz: int, t: int, p: int, c: int, res: bool,
@@ -694,8 +691,9 @@ def fused_cases_1024(dev, seed: int = 0
     """The fused kernels at the 576x1024 path's most-launched shapes (2 CFG
     branches x 16 frames of a 72x128 latent): the F(2x4)-named conv (#14)
     first, then #13, the FF at each UNet level and the 9x16 mid block
-    (streamed at C = 1280), the temporal conv (UNet and decoder level 0) and
-    the pair at each level and the mid block."""
+    (streamed at C = 1280), the temporal conv (every shape and epilogue a
+    request launches it with) and the pair at each level and the mid
+    block."""
     return fused_cases(dev, seed, FF_1024, TCONV_1024, CONV_1024, TPAIR_1024)
 
 
