@@ -52,6 +52,7 @@ from tooncrafter_tpu_torch.ops import cross_attention as ca
 from tooncrafter_tpu_torch.ops import flash_attention as fa
 from tooncrafter_tpu_torch.ops import fused_ff as ff
 from tooncrafter_tpu_torch.ops import fused_norms as fn
+from tooncrafter_tpu_torch.ops import norms
 from tooncrafter_tpu_torch.ops import spatial_conv as sc
 from tooncrafter_tpu_torch.ops import stats as st
 from tooncrafter_tpu_torch.ops import temporal_attention as ta
@@ -513,17 +514,20 @@ def test_f24_named_conv_at_its_1024_shape(dev):
 # (what is broken, the library's source, the file edited, text replaced,
 #  replacement); the edited copy is built into the one library under test
 _TC = "temporal_conv.cu"
+_LO = "ln_and_out.cuh"
 MUTATIONS = [
-    # the FF: the out-GEMM's epilogue, the mainloop both GEMMs share (one
-    # k16 step of K block 1; persistent_gemm.cuh), the projection's gate,
-    # the LayerNorm kernel
-    ("output x1.01", "fused_ff.cu", "fused_ff.cu", "pack_bf16(y0, y1)",
+    # the FF: the out-GEMM's epilogue (ln_and_out.cuh, shared with the
+    # temporal attention; only the FF's library is built from the broken
+    # copy), the mainloop both GEMMs share (one k16 step of K block 1;
+    # persistent_gemm.cuh), the projection's gate, the LayerNorm kernel
+    # (ln_and_out.cuh)
+    ("output x1.01", "fused_ff.cu", _LO, "pack_bf16(y0, y1)",
      "pack_bf16(1.01f * y0, 1.01f * y1)"),
     ("skipped K chunk", "fused_ff.cu", "persistent_gemm.cuh",
      "mma_ss<BN>(acc[mi],", "if (kb != 1 || kk != 0) mma_ss<BN>(acc[mi],"),
     ("gate without erf", "fused_ff.cu", "fused_ff.cu",
      "erff(v * 0.70710678118654752f)", "0.f"),
-    ("LayerNorm without the mean", "fused_ff.cu", "fused_ff.cu",
+    ("LayerNorm without the mean", "fused_ff.cu", _LO,
      "(xv[e] - mean) * rstd", "xv[e] * rstd"),
 ] + [
     # the temporal conv: the GEMM's epilogue, its K loop (the last tap's K
@@ -548,18 +552,9 @@ MUTATIONS = [
      "if (!(c == 1 && tap == 1)) sm90::wgmma_m64n160k16_rs<0>(acc,"),
     ("wrong stats", "gn_silu_conv3x3.cu", "gn_silu_conv3x3.cu",
      "p.s2[o] = r2;", "p.s2[o] = r1;"),
-] + [
-    ("output x1.01", "temporal_attention.cu", "temporal_attention.cu",
-     "p.out + row * p.c + col) =\n                  pack_bf16(y0, y1);",
-     "p.out + row * p.c + col) =\n                  "
-     "pack_bf16(1.01f * y0, 1.01f * y1);"),
-    ("skipped K chunk", "temporal_attention.cu", "temporal_attention.cu",
-     "load_a_k32(a, sZ, cp, mt * 16, k, lane);",
-     "load_a_k32(a, sZ, cp, mt * 16, k, lane);\n            "
-     "if (k == 32) continue;"),
 ]
 MODULE_OF = {"fused_ff.cu": ff, "temporal_conv.cu": tc,
-             "gn_silu_conv3x3.cu": sc, "temporal_attention.cu": ta}
+             "gn_silu_conv3x3.cu": sc}
 
 
 def _tiles_straddle_frames(label: str) -> bool:
@@ -602,6 +597,123 @@ def test_mutated_kernel_fails_at_every_path_shape(dev, tmp_path, monkeypatch,
         row = kc.run_case(case, axes, timed=False)
         print(f"{what} in {src}: {kc.line(case, row)}")
         assert not row["ok"], f"{what} passed at {case.label}"
+        checked += 1
+    assert checked >= 2
+
+
+# the temporal attention pair's broken builds: (what is broken, the file
+# edited, text replaced, replacement, the check that must fail: "phase 2"
+# (kernel_check's bounds) or "rounding" (``rounding_errors``: nearer the
+# plain version with p unrounded than the plain version itself), the
+# frames it must fail at: "all" or "short" (T < 16 only: at T = 16 a
+# warp's 16 rows are one pixel and nothing is masked))
+_TA = "temporal_attention.cu"
+TPAIR_MUTATIONS = [
+    ("output x1.01", _LO, "pack_bf16(y0, y1)",
+     "pack_bf16(1.01f * y0, 1.01f * y1)", "phase 2", "all"),
+    # the last K block of the 192-wide (q|k|v) GEMM only
+    ("skipped K block of the q|k|v GEMM", "persistent_gemm.cuh",
+     "mma_ss<BN>(acc[mi],",
+     "if (BN != 192 || kb + 1 < kblocks) mma_ss<BN>(acc[mi],", "phase 2",
+     "all"),
+    # p v with p = hi + lo in two bf16 products: p unrounded to ~16 bits
+    ("probabilities unrounded", _TA, "mma_16816(o, pa, b0, b1);",
+     "mma_16816(o, pa, b0, b1);\n      { uint32_t lo[4]; for (int i = 0; "
+     "i < 4; ++i) lo[i] = pack_bf16(pr[2 * i] - round_bf16(pr[2 * i]), "
+     "pr[2 * i + 1] - round_bf16(pr[2 * i + 1])); "
+     "mma_16816(o, lo, b0, b1); }", "rounding", "all"),
+    ("cross-pixel mask dropped", _TA, "qi / p.t == key / p.t", "true",
+     "phase 2", "short"),
+    ("o stored at the next head's columns", _TA,
+     "sm90::tma_store_4d(tm_o, stage, c.h * kD,",
+     "sm90::tma_store_4d(tm_o, stage, (c.h + 1) * kD,", "phase 2", "all"),
+]
+# the card test's short clips, as phase-2 cases: (label, P, C) at T
+TPAIR_SHORT = ((8, (("T=8 ragged", 5, 64),)), (4, (("T=4 ragged", 21, 512),)))
+
+
+def tpair_mutation_cases(dev):
+    """Phase 2's #9 cases at the 512 shapes, then the short clips."""
+    gen = torch.Generator(device=dev).manual_seed(0)
+    cases = kc.tpair_cases(dev, gen)
+    for t, shapes in TPAIR_SHORT:
+        cases += kc.tpair_cases(dev, gen, shapes, t=t)
+    return cases
+
+
+def _plain_stage_p32(x, stage, heads, scale, eps):
+    """``ta._plain_stage`` on a bf16 x with one change: the probabilities
+    are left unrounded (the rounding point the kernel must not take)."""
+    ln_w, ln_b, wq, wk, wv, wo, bo = stage
+    bsz, t, p, c = x.shape
+    z = norms.layer_norm_ex2(x, ln_w, ln_b, eps, x.dtype).float()
+
+    def heads_of(w):  # -> (B, P, heads, T, d)
+        y = torch.matmul(z, w.float().t()).to(x.dtype).float()
+        return y.reshape(bsz, t, p, heads, -1).permute(0, 2, 3, 1, 4)
+
+    q, k, v = heads_of(wq), heads_of(wk), heads_of(wv)
+    probs = torch.softmax(torch.matmul(q, k.transpose(-1, -2)) * scale, -1)
+    o = torch.matmul(probs, v).to(x.dtype).float()
+    o = o.permute(0, 3, 1, 2, 4).reshape(bsz, t, p, c)
+    return x + (torch.matmul(o, wo.float().t()).to(x.dtype) + bo)
+
+
+def rounding_errors(case):
+    """(mean |out - plain|, mean |out - plain with p unrounded|): a pair
+    case's output against its plain version run in bf16 on the card (the
+    kernel's rounding points, torch's fp32 products) and against the same
+    with the probabilities left unrounded. Summation order moves the
+    output by as much from both; the rounding of p moves it towards the
+    one that takes it."""
+    out = case.kernel()[0].float()
+    x, stages, heads = case.plain.__defaults__
+    with kc.fp32_reference():
+        right = case.plain().float()
+        wrong = x
+        for stage in stages:
+            wrong = _plain_stage_p32(wrong, stage, heads, 0.125, 1e-5)
+    torch.cuda.synchronize()
+    return ((out - right).abs().mean().item(),
+            (out - wrong.float()).abs().mean().item())
+
+
+def test_tpair_kernel_rounds_p_where_its_plain_version_does(dev):
+    """At every 512 #9 shape and the short clips the kernel's output is
+    nearer its plain version (p rounded to bf16 before p v) than the same
+    with p unrounded."""
+    for case in tpair_mutation_cases(dev):
+        right, wrong = rounding_errors(case)
+        print(f"{case.label}: mean |out - plain| {right:.4e}, with p "
+              f"unrounded {wrong:.4e}")
+        assert right < wrong, (case.label, right, wrong)
+
+
+@pytest.mark.parametrize("what,edited,old,new,check,frames", TPAIR_MUTATIONS,
+                         ids=[m[0] for m in TPAIR_MUTATIONS])
+def test_mutated_tpair_kernel_fails(dev, tmp_path, monkeypatch, what, edited,
+                                    old, new, check, frames):
+    """A broken copy of the pair's sources, built outside the package, must
+    fail its check at every 512 #9 shape of phase 2 and at the short clips
+    (the cross-pixel mask at the short clips only)."""
+    _broken_copy(tmp_path, edited, old, new)
+    name, sources = ta.LIBRARY
+    monkeypatch.setattr(ta, "_LIB", ta.bind(
+        _build.load_library(name, sources, csrc=tmp_path)))
+    checked = 0
+    for case in tpair_mutation_cases(dev):
+        if frames == "short" and " T=16 " in case.label:
+            continue
+        if check == "rounding":
+            right, wrong = rounding_errors(case)
+            print(f"{what}: {case.label}: mean |out - plain| {right:.4e}, "
+                  f"with p unrounded {wrong:.4e}; phase 2: "
+                  f"{kc.line(case, kc.run_case(case, None, timed=False))}")
+            assert wrong < right, f"{what} passed at {case.label}"
+        else:
+            row = kc.run_case(case, None, timed=False)
+            print(f"{what}: {kc.line(case, row)}")
+            assert not row["ok"], f"{what} passed at {case.label}"
         checked += 1
     assert checked >= 2
 
@@ -720,9 +832,10 @@ def test_gn_kernel_ragged_rows(dev, shape, silu):
 # (the kernel, its library's module and (name, sources), the file edited,
 #  the text replaced, the replacement)
 SWITCHED_MUTATIONS = [
-    ("_fused_tattn_call", "temporal_attention.cu",
-     "  if (c <= 640) return launch<4, 5, 1>(q, s);",
-     "  q.eps = 0.5f;\n  if (c <= 640) return launch<4, 5, 1>(q, s);"),
+    # the LayerNorm's eps, in the LayerNorm the FF shares (only the temporal
+    # attention's library is built from the broken copy)
+    ("_fused_tattn_call", _LO, "const float rstd = rsqrtf(var + eps);",
+     "const float rstd = rsqrtf(var + 0.5f);"),
     ("_ptc_kernel_call", "temporal_ptc.cu",
      "l[j] = round_bf16(l[j] / den);",
      "l[j] = round_bf16(1.01f * l[j] / den);"),

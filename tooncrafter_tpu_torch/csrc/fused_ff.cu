@@ -1,9 +1,9 @@
 // GEGLU feed-forward for Hopper (sm_90a), bf16 in and out, as three
 // kernels on one stream:
 //
-//   (a) z = LN(x)                                ln_kernel      (N x C)
-//   (b) m = (z W1h^T + b1h) gelu(z W1g^T + b1g)  gemm_kernel<kGate> (N x D)
-//   (c) y = m W2^T + b2 [+ x]                    gemm_kernel<kOut>  (N x Cout)
+//   (a) z = LN(x)                                ln_kernel    (N x C)
+//   (b) m = (z W1h^T + b1h) gelu(z W1g^T + b1g)  proj_kernel  (N x D)
+//   (c) y = m W2^T + b2 [+ x]                    out_kernel   (N x Cout)
 //
 // Replaces the two TPU kernels of tooncrafter_tpu/ops/fused_ff.py:
 //   * _pallas_ff           weights resident in VMEM (C <= 640)
@@ -30,21 +30,20 @@
 //     C operations a byte, about the card's ratio; at C >= 640 the
 //     operations.
 //
-// Design of (b) and (c): the persistent mainloop of persistent_gemm.cuh
-// (a TMA ring fed by a producer thread, two consumer warpgroups in
-// ping-pong on the tensor cores, column tiles fastest) with two epilogues
-// (template parameter EPI):
-//   * A is z, x or m, B is W1 or W2 in torch's Linear layout, K-major;
+// (a) and (c) are the LayerNorm and the out-GEMM of ln_and_out.cuh, which
+// the temporal attention shares. Design of (b) and (c): the persistent
+// mainloop of persistent_gemm.cuh (a TMA ring fed by a producer thread, two
+// consumer warpgroups in ping-pong on the tensor cores, column tiles
+// fastest), A z, x or m, B W1 or W2 in torch's Linear layout, K-major:
 //   * (b): a tile's B is 64 rows of W1's h half and the 64 rows of its
 //     gate half at the same index (rows D + j), one 128-row wgmma operand,
 //     so h and g of one (token, d) land in one thread's accumulator: the
 //     gate (fp32 biases, brought per tile by a bulk copy, exact erff) runs
-//     on registers and only m rounds;
+//     on registers and only m rounds; the tile goes out through shared
+//     memory (swizzled, no bank conflicts) by one thread's TMA store, which
+//     leaves rows past N out; rows past N arrive as zeros;
 //   * (c): y = bf16(bf16(acc) + b2), then + x rounded (fused_ff.py:246-247,
-//     :317), the residual tile brought by TMA while the products run;
-//   * each epilogue writes its tile into shared memory (swizzled, no bank
-//     conflicts) and one thread stores it by TMA, which leaves rows past N
-//     and columns past Cout out; rows past N arrive as zeros.
+//     :317), the residual tile brought by TMA while the products run.
 // Tiles (chosen by the wrapper, ops/fused_ff.py `plan`): 128 rows unless
 // that gives fewer tiles than SMs, then 64; (b) 64 + 64 columns, (c) 160
 // where Cout allows, else 128.
@@ -53,151 +52,26 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "ln_and_out.cuh"
 #include "persistent_gemm.cuh"
 #include "sm90.cuh"
 
 namespace {
-
-typedef __nv_bfloat16 bf16;
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (low half) = lo
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ float round_bf16(float v) {
-  return __bfloat162float(__float2bfloat16(v));
-}
-
-__device__ __forceinline__ float2 ld_bf162(const bf16* p) {
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
-}
-
-// eight bf16 (16 bytes) as floats
-__device__ __forceinline__ void ld_bf16x8(const bf16* p, float (&v)[8]) {
-  const uint4 u = *reinterpret_cast<const uint4*>(p);
-  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f =
-        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[i]));
-    v[2 * i] = f.x;
-    v[2 * i + 1] = f.y;
-  }
-}
-
 namespace fused_ff {
 
-// ---------------------------------------------------------------------------
-// (a) the LayerNorm: one warp a row, 16-byte loads and stores
-// ---------------------------------------------------------------------------
-
-constexpr int kLnRows = 8;  // rows (warps) a block
-
-// z for the 8 columns of x from k: the fp32 affine, one rounding to bf16
-__device__ __forceinline__ uint4 ln8(const float (&xv)[8], float mean,
-                                    float rstd, const float* lnw,
-                                    const float* lnb, int k) {
-  const float4 w0 = *reinterpret_cast<const float4*>(lnw + k);
-  const float4 w1 = *reinterpret_cast<const float4*>(lnw + k + 4);
-  const float4 b0 = *reinterpret_cast<const float4*>(lnb + k);
-  const float4 b1 = *reinterpret_cast<const float4*>(lnb + k + 4);
-  const float wv[8] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};
-  const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-  float zf[8];
-#pragma unroll
-  for (int e = 0; e < 8; ++e) zf[e] = (xv[e] - mean) * rstd * wv[e] + bv[e];
-  return make_uint4(pack_bf16(zf[0], zf[1]), pack_bf16(zf[2], zf[3]),
-                    pack_bf16(zf[4], zf[5]), pack_bf16(zf[6], zf[7]));
-}
-
-// fp32 statistics, variance E[x^2] - mean^2 clamped at 0 (the TPU's
-// _ln_tile). A lane takes the row's 16-byte chunks lane, lane + 32, ...;
-// NCH > 0: at most NCH of them, kept in registers between the statistics
-// and the affine (C <= 256 NCH); NCH = 0: any C, the row read twice.
-template <int NCH>
-__global__ void __launch_bounds__(kLnRows * 32)
-ln_kernel(const bf16* __restrict__ x, const float* __restrict__ lnw,
-          const float* __restrict__ lnb, bf16* __restrict__ z, int n, int c,
-          float eps) {
-  const int lane = threadIdx.x & 31;
-  const long long row = (long long)blockIdx.x * kLnRows + (threadIdx.x >> 5);
-  if (row >= n) return;
-  const bf16* xr = x + row * c;
-  bf16* zr = z + row * c;
-  float v[NCH > 0 ? NCH : 1][8];
-  float s = 0.f, s2 = 0.f;
-  auto add = [&](const float (&u)[8]) {
-#pragma unroll
-    for (int e = 0; e < 8; ++e) {
-      s += u[e];
-      s2 += u[e] * u[e];
-    }
-  };
-  if constexpr (NCH > 0) {
-#pragma unroll
-    for (int i = 0; i < NCH; ++i) {
-      const int k = lane * 8 + 256 * i;
-      if (k < c) {
-        ld_bf16x8(xr + k, v[i]);
-        add(v[i]);
-      }
-    }
-  } else {
-    for (int k = lane * 8; k < c; k += 256) {
-      ld_bf16x8(xr + k, v[0]);
-      add(v[0]);
-    }
-  }
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) {
-    s += __shfl_xor_sync(0xffffffffu, s, o);
-    s2 += __shfl_xor_sync(0xffffffffu, s2, o);
-  }
-  const float mean = s / c;
-  const float var = fmaxf(s2 / c - mean * mean, 0.f);
-  const float rstd = rsqrtf(var + eps);
-  if constexpr (NCH > 0) {
-#pragma unroll
-    for (int i = 0; i < NCH; ++i) {
-      const int k = lane * 8 + 256 * i;
-      if (k < c)
-        *reinterpret_cast<uint4*>(zr + k) =
-            ln8(v[i], mean, rstd, lnw, lnb, k);
-    }
-  } else {
-    for (int k = lane * 8; k < c; k += 256) {
-      ld_bf16x8(xr + k, v[0]);
-      *reinterpret_cast<uint4*>(zr + k) = ln8(v[0], mean, rstd, lnw, lnb, k);
-    }
-  }
-}
-
-template <int NCH>
-int launch_ln(const void* x, const float* lnw, const float* lnb, void* z,
-              int n, int c, float eps, cudaStream_t stream) {
-  ln_kernel<NCH><<<(n + kLnRows - 1) / kLnRows, kLnRows * 32, 0, stream>>>(
-      static_cast<const bf16*>(x), lnw, lnb, static_cast<bf16*>(z), n, c,
-      eps);
-  return (int)cudaGetLastError();
-}
-
-// ---------------------------------------------------------------------------
-// (b), (c): the wgmma GEMM, D (N x cols) = A (N x K) B (rows x K)^T
-// ---------------------------------------------------------------------------
-
-constexpr int kGate = 0;  // (b): m = (h + b1h) gelu(g + b1g), rounded
-constexpr int kOut = 1;   // (c): y = bf16(bf16(acc) + b2) [+ x]
+struct Tag;  // names this library's kernels in a trace
 using pgemm::kBK;
 
-struct GemmParams {
-  const bf16* bias;  // b1 (2d) or b2 (cols)
-  const bf16* res;   // (kOut) x (n, cols), or null: no residual
-  bf16* out;         // m (n, cols = d) or y (n, cols = cout)
+// ---------------------------------------------------------------------------
+// (b) the projection with the gate, m (N x D) = (h + b1h) gelu(g + b1g)
+// ---------------------------------------------------------------------------
+
+struct GateParams {
+  const bf16* bias;  // b1 (2d)
+  bf16* out;         // m (n, d)
   int n;             // token rows
-  int cols;          // output columns
-  int d;             // (kGate) the gate rows' offset in W1
-  int kblocks;       // ceil(K / 64)
+  int d;             // m's columns; the gate rows' offset in W1
+  int kblocks;       // ceil(C / 64)
   int ntiles;        // column tiles
   int tiles;         // row tiles x column tiles
 };
@@ -206,200 +80,120 @@ __device__ __forceinline__ float gelu_exact(float v) {
   return 0.5f * v * (1.f + erff(v * 0.70710678118654752f));
 }
 
-// The two GEMMs as ops of the shared mainloop (persistent_gemm.cuh): BM
-// rows x BN accumulator columns a warpgroup tile. kGate: BN = 128, the
-// output tile is 64 columns of m (accumulator columns 0-63 h, 64-127 g);
-// kOut: the output tile is BN columns of y. The staging area holds the
-// output tile (kGate: BM x 64 of m, one 128-byte-swizzled box; kOut: BM x
-// BN of y, which first takes in the residual, BN / 32 boxes of 32 columns
-// in the 64-byte swizzle); kGate's extra area its 64 + 64 biases. tm_c:
-// the output as the stores see it; tm_x (kOut with a residual): x as its
-// loads see it.
-template <int EPI, int BM, int BN>
-struct GemmOp {
-  static constexpr int kBM = BM, kBN = BN;
-  static constexpr int kCols = EPI == kGate ? BN / 2 : BN;  // output cols
-  static constexpr int kStaging = BM * kCols * 2;
-  static constexpr int kExtra = EPI == kGate ? 2 * kBK * 2 : 0;
-  static_assert(EPI == kOut || BN == 128, "the gate tile is 64 + 64");
-  GemmParams p;
+// BM rows x 128 accumulator columns a warpgroup tile: the output tile is 64
+// columns of m (accumulator columns 0-63 h, 64-127 g). The staging area
+// holds it (BM x 64 of m, one 128-byte-swizzled box), the extra area its
+// 64 + 64 biases. tm_c: m as the stores see it.
+template <int BM>
+struct GateOp {
+  static constexpr int kBM = BM, kBN = 128;
+  static constexpr int kStaging = BM * kBK * 2;
+  static constexpr int kExtra = 2 * kBK * 2;
+  GateParams p;
   const CUtensorMap* tm_a;
   const CUtensorMap* tm_b;
   const CUtensorMap* tm_c;
-  const CUtensorMap* tm_x;
 
-  // the tile's first row and first output column (kGate: of m; the h rows
-  // of W1 there, the gate rows D further)
+  // the tile's first row and first column of m (the h rows of W1 there,
+  // the gate rows D further)
   struct Tile {
     int m0, n0;
   };
 
   __device__ __forceinline__ Tile tile(int t) const {
-    return {(t / p.ntiles) * BM, (t % p.ntiles) * kCols};
+    return {(t / p.ntiles) * BM, (t % p.ntiles) * kBK};
   }
   __device__ __forceinline__ int tiles() const { return p.tiles; }
   __device__ __forceinline__ int kblocks() const { return p.kblocks; }
 
-  // A's rows m0..; B's BN rows as two halves: kGate the h rows n0.. and the
-  // gate rows D + n0.., kOut consecutive rows
+  // A's rows m0..; B's 128 rows as the h rows n0.. and the gate rows D + n0..
   __device__ __forceinline__ void load(void* a, void* b, uint64_t* bar,
                                        const Tile& c, int kb) const {
-    const int r1 = EPI == kGate ? p.d + c.n0 : c.n0 + BN / 2;
     unsigned char* sb = static_cast<unsigned char*>(b);
     sm90::tma_load_2d(a, tm_a, bar, kb * kBK, c.m0);
     sm90::tma_load_2d(sb, tm_b, bar, kb * kBK, c.n0);
-    sm90::tma_load_2d(sb + BN * kBK, tm_b, bar, kb * kBK, r1);
+    sm90::tma_load_2d(sb + kBN * kBK, tm_b, bar, kb * kBK, p.d + c.n0);
   }
 
-  // kGate: the tile's h and g biases; kOut with a residual: the residual
-  // tile, once the last store read the staging area
-  __device__ __forceinline__ void before(const Tile& c, unsigned char* stage,
+  // the tile's h and g biases
+  __device__ __forceinline__ void before(const Tile& c, unsigned char*,
                                          unsigned char* extra,
                                          uint64_t* xbar) const {
-    const int m0 = c.m0, n0 = c.n0;
-    if constexpr (EPI == kGate) {
-      bf16* bias_s = reinterpret_cast<bf16*>(extra);
-      sm90::mbar_expect_tx(xbar, kExtra);
-      sm90::bulk_load(bias_s, p.bias + n0, 2 * kBK, xbar);
-      sm90::bulk_load(bias_s + kBK, p.bias + p.d + n0, 2 * kBK, xbar);
-    } else if (p.res != nullptr) {
-      sm90::bulk_wait_read<0>();
-      sm90::mbar_expect_tx(xbar, kStaging);
-      for (int b = 0; b < BN / 32; ++b)
-        sm90::tma_load_2d(stage + b * BM * 64, tm_x, xbar, n0 + 32 * b, m0);
-    }
+    bf16* bias_s = reinterpret_cast<bf16*>(extra);
+    sm90::mbar_expect_tx(xbar, kExtra);
+    sm90::bulk_load(bias_s, p.bias + c.n0, 2 * kBK, xbar);
+    sm90::bulk_load(bias_s + kBK, p.bias + p.d + c.n0, 2 * kBK, xbar);
   }
 
-  // The epilogue writes the tile's outputs into the staging area, and one
-  // thread stores it by TMA, which leaves rows and columns past the
-  // tensor's end out.
-  __device__ __forceinline__ void epilogue(float (&acc)[BM / 64][BN / 2],
+  // m into the staging area (16-byte chunk c of row r at chunk c ^ (r % 8):
+  // conflict-free); one thread stores it by TMA
+  __device__ __forceinline__ void epilogue(float (&acc)[BM / 64][kBN / 2],
                                            const Tile& c, int parity,
                                            int wgi, unsigned char* stage,
                                            unsigned char* extra,
                                            uint64_t* xbar) const {
     constexpr int kMT = BM / 64;
-    const int m0 = c.m0, n0 = c.n0;
     const int lane = threadIdx.x & 31;
     const int warp = (threadIdx.x >> 5) & 3;  // within the warpgroup
     const int g = lane >> 2, t4 = lane & 3;
-    const bool res = EPI == kOut && p.res != nullptr;
-    if (EPI == kGate || res) sm90::mbar_wait(xbar, parity);
-    if (!res) pgemm::epi_wait_staging(wgi);
-    if constexpr (EPI == kGate) {
-      const bf16* bias_s = reinterpret_cast<const bf16*>(extra);
-      // 16-byte chunk c of row r at chunk c ^ (r % 8): conflict-free
+    sm90::mbar_wait(xbar, parity);
+    pgemm::epi_wait_staging(wgi);
+    const bf16* bias_s = reinterpret_cast<const bf16*>(extra);
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {  // h at column 8 j, g at 64 + 8 j
-        const float2 bh = ld_bf162(bias_s + 8 * j + 2 * t4);
-        const float2 bg = ld_bf162(bias_s + kBK + 8 * j + 2 * t4);
+    for (int j = 0; j < 8; ++j) {  // h at column 8 j, g at 64 + 8 j
+      const float2 bh = ld_bf162(bias_s + 8 * j + 2 * t4);
+      const float2 bg = ld_bf162(bias_s + kBK + 8 * j + 2 * t4);
 #pragma unroll
-        for (int mi = 0; mi < kMT; ++mi)
+      for (int mi = 0; mi < kMT; ++mi)
 #pragma unroll
-          for (int r = 0; r < 2; ++r) {
-            const int row = 64 * mi + 16 * warp + g + 8 * r;
-            const float mlo = (acc[mi][4 * j + 2 * r] + bh.x) *
-                              gelu_exact(acc[mi][4 * j + 32 + 2 * r] + bg.x);
-            const float mhi =
-                (acc[mi][4 * j + 2 * r + 1] + bh.y) *
-                gelu_exact(acc[mi][4 * j + 32 + 2 * r + 1] + bg.y);
-            *reinterpret_cast<uint32_t*>(stage + row * 128 + ((j ^ g) << 4) +
-                                         4 * t4) = pack_bf16(mlo, mhi);
-          }
-      }
-    } else {
-      // y = bf16(bf16(acc) + b2), then + x rounded; box j / 4 of 32
-      // columns, its 16-byte chunk c of row r at c ^ ((r / 2) % 4):
-      // conflict-free
-#pragma unroll
-      for (int j = 0; j < BN / 8; ++j) {
-        const int col = n0 + 8 * j + 2 * t4;
-        const float2 c2 =
-            col < p.cols ? ld_bf162(p.bias + col) : make_float2(0.f, 0.f);
-#pragma unroll
-        for (int mi = 0; mi < kMT; ++mi)
-#pragma unroll
-          for (int r = 0; r < 2; ++r) {
-            const int row = 64 * mi + 16 * warp + g + 8 * r;
-            uint32_t* px = reinterpret_cast<uint32_t*>(
-                stage + (j / 4) * BM * 64 + row * 64 +
-                (((j & 3) ^ ((row >> 1) & 3)) << 4) + 4 * t4);
-            float y0 = round_bf16(round_bf16(acc[mi][4 * j + 2 * r]) + c2.x);
-            float y1 =
-                round_bf16(round_bf16(acc[mi][4 * j + 2 * r + 1]) + c2.y);
-            if (res) {
-              const float2 xv = __bfloat1622float2(
-                  *reinterpret_cast<const __nv_bfloat162*>(px));
-              y0 += xv.x;
-              y1 += xv.y;
-            }
-            *px = pack_bf16(y0, y1);
-          }
-      }
+        for (int r = 0; r < 2; ++r) {
+          const int row = 64 * mi + 16 * warp + g + 8 * r;
+          const float mlo = (acc[mi][4 * j + 2 * r] + bh.x) *
+                            gelu_exact(acc[mi][4 * j + 32 + 2 * r] + bg.x);
+          const float mhi = (acc[mi][4 * j + 2 * r + 1] + bh.y) *
+                            gelu_exact(acc[mi][4 * j + 32 + 2 * r + 1] + bg.y);
+          *reinterpret_cast<uint32_t*>(stage + row * 128 + ((j ^ g) << 4) +
+                                       4 * t4) = pack_bf16(mlo, mhi);
+        }
     }
     pgemm::epi_publish(wgi);
     if ((threadIdx.x & 127) == 0) {
-      if constexpr (EPI == kGate) {
-        sm90::tma_store_2d(tm_c, stage, n0, m0);
-      } else {
-        for (int b = 0; b < BN / 32; ++b)
-          sm90::tma_store_2d(tm_c, stage + b * BM * 64, n0 + 32 * b, m0);
-      }
+      sm90::tma_store_2d(tm_c, stage, c.n0, c.m0);
       sm90::bulk_commit();
     }
   }
 };
 
-template <int EPI, int BM, int BN>
+template <int BM>
 __global__ void __launch_bounds__(pgemm::kThreads, 1)
-gemm_kernel(const GemmParams p, const __grid_constant__ CUtensorMap tm_a,
+proj_kernel(const GateParams p, const __grid_constant__ CUtensorMap tm_a,
             const __grid_constant__ CUtensorMap tm_b,
-            const __grid_constant__ CUtensorMap tm_c,
-            const __grid_constant__ CUtensorMap tm_x) {
+            const __grid_constant__ CUtensorMap tm_c) {
   extern __shared__ unsigned char smem_raw[];
-  const GemmOp<EPI, BM, BN> op{p, &tm_a, &tm_b, &tm_c, &tm_x};
+  const GateOp<BM> op{p, &tm_a, &tm_b, &tm_c};
   pgemm::run(op, smem_raw);
 }
 
-// a (rows x k) bf16 row-major tensor, boxes of 64 columns x `box_rows` in
-// the 128-byte swizzle, or of 32 columns in the 64-byte one
-int make_map(CUtensorMap* map, const void* base, int k, int rows,
-             int box_rows, int box_cols = kBK) {
-  const uint64_t dims[2] = {(uint64_t)k, (uint64_t)rows};
-  const uint64_t strides[1] = {(uint64_t)k * 2};
-  const uint32_t box[2] = {(uint32_t)box_cols, (uint32_t)box_rows};
-  return sm90_host::make_map(map, base, 2, dims, strides, box,
-                             box_cols == kBK ? CU_TENSOR_MAP_SWIZZLE_128B
-                                             : CU_TENSOR_MAP_SWIZZLE_64B);
-}
-
-// A (p.n x k), B (brows x k); `grid` persistent blocks
-template <int EPI, int BM, int BN>
-int launch_gemm(GemmParams p, const void* a, const void* b, int k, int brows,
-                int grid, cudaStream_t stream) {
-  using R = pgemm::RingOf<GemmOp<EPI, BM, BN>>;
-  constexpr int kCols = GemmOp<EPI, BM, BN>::kCols;
-  p.kblocks = (k + kBK - 1) / kBK;
-  p.ntiles = (p.cols + kCols - 1) / kCols;
+// A (n x c), W1 (2d x c); `grid` persistent blocks
+template <int BM>
+int launch_proj(GateParams p, const void* a, const void* w1, int c, int grid,
+                cudaStream_t stream) {
+  using R = pgemm::RingOf<GateOp<BM>>;
+  p.kblocks = (c + kBK - 1) / kBK;
+  p.ntiles = p.d / kBK;
   p.tiles = ((p.n + BM - 1) / BM) * p.ntiles;
   if (grid < 1 || grid > p.tiles) return (int)cudaErrorInvalidValue;
-  CUtensorMap ta, tb, tc, tx;  // A, B, the output, the residual
-  int err = make_map(&ta, a, k, p.n, BM);
-  if (!err) err = make_map(&tb, b, k, brows, BN / 2);
-  if (!err)
-    err = make_map(&tc, p.out, p.cols, p.n, BM, EPI == kGate ? kBK : 32);
-  if (err) return err;
-  if (p.res != nullptr)
-    err = make_map(&tx, p.res, p.cols, p.n, BM, 32);
-  else
-    tx = tc;
+  CUtensorMap ta, tb, tc;  // A, W1, m
+  int err = lnout::make_map(&ta, a, c, p.n, BM);
+  if (!err) err = lnout::make_map(&tb, w1, c, 2 * p.d, kBK);
+  if (!err) err = lnout::make_map(&tc, p.out, p.d, p.n, BM);
   if (err) return err;
   cudaError_t e = cudaFuncSetAttribute(
-      gemm_kernel<EPI, BM, BN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      proj_kernel<BM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       R::kBytes);
   if (e != cudaSuccess) return (int)e;
-  gemm_kernel<EPI, BM, BN><<<grid, pgemm::kThreads, R::kBytes, stream>>>(
-      p, ta, tb, tc, tx);
+  proj_kernel<BM><<<grid, pgemm::kThreads, R::kBytes, stream>>>(p, ta, tb,
+                                                                 tc);
   return (int)cudaGetLastError();
 }
 
@@ -428,43 +222,23 @@ extern "C" int tc_fused_ff(const void* x, const void* w1, const void* b1,
     return (int)cudaErrorInvalidValue;
   const void* a1 = x;
   if (lnw != nullptr) {
-    // rows of up to 768 columns stay in registers; at C = 1280 reading
-    // the row twice was faster (fewer registers, more rows in flight)
-    const int nch = (c + 255) / 256;
-    const int e = nch == 1   ? launch_ln<1>(x, lnw, lnb, z, n, c, eps, s)
-                  : nch == 2 ? launch_ln<2>(x, lnw, lnb, z, n, c, eps, s)
-                  : nch == 3 ? launch_ln<3>(x, lnw, lnb, z, n, c, eps, s)
-                             : launch_ln<0>(x, lnw, lnb, z, n, c, eps, s);
+    const int e = lnout::launch_ln<Tag>(x, lnw, lnb, z, n, c, eps, s);
     if (e) return e;
     a1 = z;
   }
-  GemmParams p1{};
+  GateParams p1{};
   p1.bias = static_cast<const bf16*>(b1);
   p1.out = static_cast<bf16*>(m);
   p1.n = n;
-  p1.cols = d;
   p1.d = d;
   int err;
   if (bm1 == 128)
-    err = launch_gemm<kGate, 128, 128>(p1, a1, w1, c, 2 * d, grid1, s);
+    err = launch_proj<128>(p1, a1, w1, c, grid1, s);
   else if (bm1 == 64)
-    err = launch_gemm<kGate, 64, 128>(p1, a1, w1, c, 2 * d, grid1, s);
+    err = launch_proj<64>(p1, a1, w1, c, grid1, s);
   else
     err = (int)cudaErrorInvalidValue;
   if (err) return err;
-  GemmParams p2{};
-  p2.bias = static_cast<const bf16*>(b2);
-  p2.res = residual ? static_cast<const bf16*>(x) : nullptr;
-  p2.out = static_cast<bf16*>(out);
-  p2.n = n;
-  p2.cols = cout;
-  if (bm2 == 128 && bn2 == 160)
-    return launch_gemm<kOut, 128, 160>(p2, m, w2, d, cout, grid2, s);
-  if (bm2 == 128 && bn2 == 128)
-    return launch_gemm<kOut, 128, 128>(p2, m, w2, d, cout, grid2, s);
-  if (bm2 == 64 && bn2 == 160)
-    return launch_gemm<kOut, 64, 160>(p2, m, w2, d, cout, grid2, s);
-  if (bm2 == 64 && bn2 == 128)
-    return launch_gemm<kOut, 64, 128>(p2, m, w2, d, cout, grid2, s);
-  return (int)cudaErrorInvalidValue;
+  return lnout::launch_out<Tag>(m, w2, b2, residual ? x : nullptr, out, n, d,
+                                cout, bm2, bn2, grid2, s);
 }

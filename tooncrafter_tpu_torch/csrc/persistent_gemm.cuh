@@ -1,7 +1,8 @@
 // The persistent, warp-specialised wgmma GEMM mainloop for Hopper
-// (sm_90a) that the GEMM kernels share (fused_ff.cu's projection and
-// out-GEMM, temporal_conv.cu's three-tap GEMM): D (BM x BN tiles) = A (rows
-// x K) B (cols x K)^T, bf16 operands, fp32 accumulators.
+// (sm_90a) that the GEMM kernels share (fused_ff.cu's projection,
+// ln_and_out.cuh's out-GEMM, temporal_conv.cu's three-tap GEMM,
+// temporal_attention.cu's q|k|v GEMM): D (BM x BN tiles) = A (rows x K) B
+// (cols x K)^T, bf16 operands, fp32 accumulators.
 //
 // A persistent grid of one block an SM walks output tiles blockIdx.x + i
 // gridDim.x (the order of the tile index is the caller's: column tiles
@@ -81,11 +82,14 @@ using RingOf = Ring<Op::kBM, Op::kBN, Op::kStaging, Op::kExtra>;
 template <int BN>
 __device__ __forceinline__ void mma_ss(float (&d)[BN / 2], uint64_t da,
                                        uint64_t db, int scale_d) {
-  static_assert(BN == 128 || BN == 160, "wgmma widths of the GEMMs");
+  static_assert(BN == 128 || BN == 160 || BN == 192,
+                "wgmma widths of the GEMMs");
   if constexpr (BN == 128)
     sm90::wgmma_m64n128k16_ss<0>(d, da, db, scale_d);
-  else
+  else if constexpr (BN == 160)
     sm90::wgmma_m64n160k16_ss(d, da, db, scale_d);
+  else
+    sm90::wgmma_m64n192k16_ss(d, da, db, scale_d);
 }
 
 // the staging area is free: the previous tile's TMA store has read it, and

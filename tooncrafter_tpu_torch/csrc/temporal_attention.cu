@@ -1,400 +1,336 @@
-// Temporal attention pair for Hopper (sm_90a): both self-attention
-// sub-blocks of the UNet's temporal BasicTransformerBlock in one kernel,
+// Temporal attention for Hopper (sm_90a): the self-attention sub-blocks of
+// the UNet's temporal BasicTransformerBlock, one stage
 //
-//   y   = x + to_out1(attn_T(qkv1(LN1(x))))
-//   out = y + to_out2(attn_T(qkv2(LN2(y))))
+//   y = x + to_out(attn_T(qkv(LN(x))))
 //
-// attn_T is softmax attention over the T frames of each pixel, per 64-wide
-// head. Replaces tooncrafter_tpu/ops/temporal_attention.py::_fused_tpair_call
-// and, run for one stage (NS = 1), its single sub-block kernel
-// _fused_tattn_call.
+// at a time, bf16 in and out. attn_T is softmax attention over the T frames
+// of each pixel, per 64-wide head. Replaces
+// tooncrafter_tpu/ops/temporal_attention.py::_fused_tpair_call (both
+// stages, stage 1's output stage 2's input) and ::_fused_tattn_call (one
+// stage).
 //
-// Layout. x and out are (B, T, P, C) bf16, the UNet's own layout (frames
-// outer, pixels inner): the kernel gathers each pixel's T frames by stride,
-// so the (B, P, T, C) transposes around the TPU kernel do not exist here. A
-// block takes BM = 16 MT tokens, BM / T whole pixels (T divides 16): row r
-// of the tile is frame r % T of pixel r / T, so each m16 row tile holds
-// 16 / T whole pixels and a pixel's attention never leaves its m16 tile.
+// A stage is three kernels on one stream, split at z and at o, the tensors
+// the TPU kernel itself rounds to bf16 (_attn_stage), so passing them
+// through device memory in bf16 changes no number:
+//   (a) z = LN(x)                 ln_and_out.cuh's ln_kernel (the FF's)
+//   (b) o = attn_T(q, k, v)       qkv_kernel: the q|k|v GEMM with the
+//                                 attention in its epilogue
+//   (c) y = bf16(bf16(o Wo^T) + bo) + x   ln_and_out.cuh's out_kernel
+// x, z, o and y are (B, T, P, C), the UNet's own layout (frames outer,
+// pixels inner). Stage 2's out-GEMM writes over stage 1's output in place
+// (ln_and_out.cuh: each tile reads its residual before it stores it).
 //
-// Per stage, with the TPU kernel's rounding (_attn_stage):
-//   1. z = LN(input): fp32 statistics, E[x^2] - mean^2 clamped at 0, rounded
-//      to bf16 into shared memory;
-//   2. per head h (64 of the C = heads * 64 columns):
-//      a. q, k, v = z W{q,k,v}[h]^T, fp32 accumulators rounded to bf16 into
-//         shared memory (warp w computes columns 8w..8w+7 of each);
-//      b. per m16 tile: logits = (q k^T) * scale in fp32, -inf outside the
-//         pixel where T < 16, fp32 softmax (max, exp, sum, divide), the
-//         probabilities rounded to bf16 as the A fragment of p v, whose fp32
-//         result rounds to bf16 into o[:, h] in shared memory. A tile's
-//         warps split o's eight n8 column tiles; each recomputes the
-//         16 x 16 logits (8 products);
-//   3. out-projection, y = o Wout^T over K = C, in column chunks of 8 NTW
-//      n8 tiles (NTW a warp, interleaved), fp32 registers per chunk; then
-//      bf16(bf16(y) + bout) + input, rounded to bf16. Stage 1's result goes
-//      to shared memory as stage 2's LayerNorm input (over z, which is dead
-//      by then) and to device memory as stage 2's residual (each thread
-//      reads back only what it wrote); stage 2's is the output.
-// Step b is ~2 % of the products: 2 x 16 x 16 x 64 per pixel and head,
-// against 16 x 4 C x 64 for the projections of its 16 tokens.
+// (b) on the persistent mainloop of persistent_gemm.cuh (a TMA ring fed by a
+// producer thread, two consumer warpgroups in ping-pong on the tensor
+// cores). A tile is 64 tokens by one head's q | k | v (192 columns, K = C):
+//   * A = z gathered pixel-major by a 4-D tensor map over z viewed as (C,
+//     T, P, B) with boxes of {64 channels, T frames, 64 / T pixels, 1}: row
+//     r of the tile is frame r % T of pixel r / T (T divides 16). Its inner
+//     dimension stays 128 bytes, so the swizzle and the wgmma descriptors
+//     are those of a 2-D box; pixels past P arrive as zeros;
+//   * B = rows h 64.. of Wq, Wk and Wv (torch's Linear layout, three TMA
+//     boxes making one 192-row operand, no concatenated copy); head tiles
+//     run fastest, so the heads of one z tile read it from L2;
+//   * the epilogue: warp w of the warpgroup holds rows 16 w .. 16 w + 15 of
+//     the accumulator (whole pixels: 16 / T of them), so the attention is
+//     warp-local, in registers, on mma.sync m16n8k16. q's accumulator
+//     packed to bf16 is the A fragment of q k^T and k's is its B fragment;
+//     the logits are fp32, x scale, -inf across pixels where T < 16; an
+//     fp32 softmax over the keys; p rounded to bf16 is the A fragment of p
+//     v; v's fragments reach p v's B layout by movmatrix.trans; o (fp32)
+//     rounds to bf16 into the warpgroup's staging tile, which one thread
+//     stores by TMA through the same 4-D map into the head's 64 columns of
+//     o (rows past P are clipped). The attention is ~2 % of the products
+//     and runs while the other warpgroup's products do.
 //
-// Weights keep torch's Linear layout (out, in) and are read from L2 by
-// 16-byte loads in the k32 order of mma_bf16.cuh (no permuted copy). Every
-// token tile reads all of a pair's weights (16 C^2 bytes) from L2, so the
-// tile should be as large as shared memory allows: z and o (BM x C bf16
-// each) set it, 64 tokens at C <= 640 and 32 at C = 1280 (~180-200 KB).
-// Keeping o in shared memory frees the tile from the output accumulator:
-// accumulating the out-projection head by head in registers (BM x C fp32
-// over the block's 8 warps) would cap it at 16 tokens at C = 1280.
-//
-// A first version: mma.sync m16n8k16, one block of 8 warps per token tile;
-// wgmma, TMA and a persistent schedule are later work.
+// What bounds a stage on the H100: 8 N C^2 operations on 14 N C bytes
+// (x and z; z and o; o, x and y), the bytes at C = 320 (~0.11 ms a stage at
+// N = 81920) and the operations at C >= 640. (b) reads 64 + 192 rows for
+// 2 x 64 x 192 products a K column: 48 operations a byte from L2.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
+#include "ln_and_out.cuh"
 #include "mma_bf16.cuh"
+#include "persistent_gemm.cuh"
+#include "sm90.cuh"
 
 namespace {
+namespace tattn {
 
-constexpr int kD = 64;                     // head width
-constexpr int kNW = 8;                     // warps a block
-constexpr int kQP = k32_stride(3 * kD);    // shared row of q | k | v
+struct Tag;  // names this library's kernels in a trace
+using pgemm::kBK;
+constexpr int kD = 64;  // head width
 
-struct Stage {
-  const float* lnw;  // (c) fp32
-  const float* lnb;
-  const bf16* wq;    // (c, c), torch's Linear layout (out, in)
-  const bf16* wk;
-  const bf16* wv;
-  const bf16* wo;    // (c, c)
-  const bf16* bo;    // (c)
-};
-
-struct Params {
-  const bf16* x;     // (b, t, p, c)
-  bf16* out;         // (b, t, p, c)
-  Stage st[2];
-  int b, t, p, c;
-  float scale, eps;
-};
-
-__device__ __forceinline__ uint4 ldg128(const bf16* p) {
-  return __ldg(reinterpret_cast<const uint4*>(p));
+// the 8x8 b16 matrix of a warp's fragments (lane l: row l / 4, columns
+// 2 (l % 4), +1), transposed: lane l receives elements (2 (l % 4), l / 4)
+// and (2 (l % 4) + 1, l / 4)
+__device__ __forceinline__ uint32_t movmatrix_trans(uint32_t x) {
+  uint32_t y;
+  asm volatile("movmatrix.sync.aligned.m8n8.trans.b16 %0, %1;\n"
+               : "=r"(y)
+               : "r"(x));
+  return y;
 }
 
-// NS = 2: the pair (tc_temporal_attn_pair); NS = 1: one sub-block, the single-
-// stage kernel tooncrafter_tpu/ops/temporal_attention.py::_fused_tattn_call
-// (tc_temporal_attn_single), whose st[0] is the stage
-template <int MT, int NTW, int NS>
-__global__ void __launch_bounds__(kNW * 32, 1) tpair_kernel(const Params p) {
-  constexpr int BM = 16 * MT;
-  constexpr int WPM = kNW / MT;  // warps per m16 tile in step b
-  constexpr int NPV = 8 / WPM;   // n8 tiles of o per warp in step b
-  const int cp = k32_stride(p.c);
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* sZ = reinterpret_cast<bf16*>(smem_raw);  // [BM][cp] z, then stage 1's output
-  bf16* sO = sZ + BM * cp;                       // [BM][cp] o of every head
-  bf16* sQKV = sO + BM * cp;                     // [BM][kQP] one head's q | k | v
+struct QkvParams {
+  int t;        // frames
+  int heads;    // C / 64
+  int ppt;      // pixels a tile: 64 / T
+  int ptiles;   // pixel tiles a sample: ceil(P / ppt)
+  int kblocks;  // C / 64
+  int tiles;    // B ptiles heads
+  float scale;
+};
 
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;
-  const int t4 = lane & 3;
-  const int ppt = BM / p.t;  // pixels a tile
-  const int tiles_p = (p.p + ppt - 1) / ppt;
-  const int bi = blockIdx.x / tiles_p;
-  const int p0 = (blockIdx.x % tiles_p) * ppt;
-  // token row r of the tile -> its row of x / out, or -1 past the last pixel
-  auto grow = [&](int r) -> long long {
-    const int px = p0 + r / p.t;
-    return px < p.p ? ((long long)bi * p.t + r % p.t) * p.p + px : -1;
+// 64 rows x 192 accumulator columns (q, k, v of one head) a warpgroup tile;
+// the staging area holds the tile's o (64 x 64, one 128-byte-swizzled box).
+struct QkvOp {
+  static constexpr int kBM = 64, kBN = 3 * kD;
+  static constexpr int kStaging = kBM * kD * 2;
+  static constexpr int kExtra = 0;
+  QkvParams p;
+  const CUtensorMap* tm_z;  // z as (C, T, P, B), boxes {64, T, ppt, 1}
+  const CUtensorMap* tm_wq;
+  const CUtensorMap* tm_wk;
+  const CUtensorMap* tm_wv;
+  const CUtensorMap* tm_o;  // o as tm_z
+
+  // the tile's sample, first pixel and head
+  struct Tile {
+    int b, px0, h;
   };
-  const int ntiles = p.c / 8;
-  const int heads = p.c / kD;
 
-  for (int s = 0; s < NS; ++s) {
-    const Stage st = s == 0 ? p.st[0] : p.st[1];
-
-    // 1. z = LN(input) for the token tile, one warp per row (stage 2 reads
-    // its input from sZ and overwrites it in place, row by row)
-    for (int r = warp; r < BM; r += kNW) {
-      bf16* zr = sZ + r * cp;
-      const long long row = grow(r);
-      if (s == 0 && row < 0) {
-        for (int c = lane * 2; c < p.c; c += 64)
-          *reinterpret_cast<uint32_t*>(zr + c) = 0u;
-        continue;
-      }
-      const bf16* xr = s == 0 ? p.x + row * p.c : zr;
-      float sum = 0.f, sq = 0.f;
-      for (int c = lane * 2; c < p.c; c += 64) {
-        const float2 v = ld_bf162(xr + c);
-        sum += v.x + v.y;
-        sq += v.x * v.x + v.y * v.y;
-      }
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1) {
-        sum += __shfl_xor_sync(0xffffffffu, sum, o);
-        sq += __shfl_xor_sync(0xffffffffu, sq, o);
-      }
-      const float mean = sum / p.c;
-      const float rstd = rsqrtf(fmaxf(sq / p.c - mean * mean, 0.f) + p.eps);
-      for (int c = lane * 2; c < p.c; c += 64) {
-        const float2 v = ld_bf162(xr + c);
-        *reinterpret_cast<uint32_t*>(zr + c) =
-            pack_bf16((v.x - mean) * rstd * st.lnw[c] + st.lnb[c],
-                      (v.y - mean) * rstd * st.lnw[c + 1] + st.lnb[c + 1]);
-      }
-    }
-    __syncthreads();
-
-    for (int h = 0; h < heads; ++h) {
-      // a. columns 8 warp .. 8 warp + 7 of this head's q, k and v, K = C
-      {
-        float qa[MT][3][4];
-#pragma unroll
-        for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-          for (int j = 0; j < 3; ++j)
-            qa[mt][j][0] = qa[mt][j][1] = qa[mt][j][2] = qa[mt][j][3] = 0.f;
-        const long long wrow = (long long)(h * kD + warp * 8 + g) * p.c + 8 * t4;
-        const bf16* wp[3] = {st.wq + wrow, st.wk + wrow, st.wv + wrow};
-        uint4 bw[3];
-#pragma unroll
-        for (int j = 0; j < 3; ++j) bw[j] = ldg128(wp[j]);
-        for (int k = 0; k < p.c; k += 32) {
-          uint4 nb[3];
-#pragma unroll
-          for (int j = 0; j < 3; ++j)
-            nb[j] = k + 32 < p.c ? ldg128(wp[j] + k + 32) : bw[j];
-#pragma unroll
-          for (int mt = 0; mt < MT; ++mt) {
-            uint32_t a[2][4];
-            load_a_k32(a, sZ, cp, mt * 16, k, lane);
-#pragma unroll
-            for (int j = 0; j < 3; ++j) {
-              mma_16816(qa[mt][j], a[0], bw[j].x, bw[j].y);
-              mma_16816(qa[mt][j], a[1], bw[j].z, bw[j].w);
-            }
-          }
-#pragma unroll
-          for (int j = 0; j < 3; ++j) bw[j] = nb[j];
-        }
-#pragma unroll
-        for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-          for (int j = 0; j < 3; ++j)
-#pragma unroll
-            for (int hr = 0; hr < 2; ++hr)
-              *reinterpret_cast<uint32_t*>(
-                  sQKV + (mt * 16 + g + 8 * hr) * kQP + j * kD + warp * 8 +
-                  2 * t4) = pack_bf16(qa[mt][j][2 * hr], qa[mt][j][2 * hr + 1]);
-      }
-      __syncthreads();
-
-      // b. attention over the frames of each pixel of m16 tile mt -> o[:, h]
-      {
-        const int r0 = (warp / WPM) * 16;
-        float sc[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
-#pragma unroll
-        for (int kk = 0; kk < kD; kk += 32) {
-          uint32_t a[2][4];
-          load_a_k32(a, sQKV, kQP, r0, kk, lane);
-#pragma unroll
-          for (int j = 0; j < 2; ++j) {
-            const uint4 kb = lds128(sQKV + (r0 + 8 * j + g) * kQP + kD + kk + 8 * t4);
-            mma_16816(sc[j], a[0], kb.x, kb.y);
-            mma_16816(sc[j], a[1], kb.z, kb.w);
-          }
-        }
-        float pr[2][4];
-#pragma unroll
-        for (int hr = 0; hr < 2; ++hr) {  // query row g + 8 hr of the tile
-          const int qrow = g + 8 * hr;
-          float l[4];
-#pragma unroll
-          for (int j = 0; j < 2; ++j)
-#pragma unroll
-            for (int e = 0; e < 2; ++e) {
-              const int key = 8 * j + 2 * t4 + e;
-              l[2 * j + e] = qrow / p.t == key / p.t
-                                 ? sc[j][2 * hr + e] * p.scale : -INFINITY;
-            }
-          float m = fmaxf(fmaxf(l[0], l[1]), fmaxf(l[2], l[3]));
-          m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
-          m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 2));
-          float ex[4], den = 0.f;
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            ex[i] = expf(l[i] - m);
-            den += ex[i];
-          }
-          den += __shfl_xor_sync(0xffffffffu, den, 1);
-          den += __shfl_xor_sync(0xffffffffu, den, 2);
-#pragma unroll
-          for (int j = 0; j < 2; ++j)
-#pragma unroll
-            for (int e = 0; e < 2; ++e) pr[j][2 * hr + e] = ex[2 * j + e] / den;
-        }
-        // the logits' C fragments are p's A fragment (keys as k)
-        const uint32_t pa[4] = {pack_bf16(pr[0][0], pr[0][1]),
-                                pack_bf16(pr[0][2], pr[0][3]),
-                                pack_bf16(pr[1][0], pr[1][1]),
-                                pack_bf16(pr[1][2], pr[1][3])};
-#pragma unroll
-        for (int i = 0; i < NPV; ++i) {
-          const int nt = (warp % WPM) * NPV + i;
-          uint32_t vb[2];
-          ldmatrix_x2_trans(vb, sQKV + (r0 + (lane & 15)) * kQP + 2 * kD + nt * 8);
-          float o[4] = {0.f, 0.f, 0.f, 0.f};
-          mma_16816(o, pa, vb[0], vb[1]);
-          bf16* orow = sO + (r0 + g) * cp + h * kD + nt * 8 + 2 * t4;
-          *reinterpret_cast<uint32_t*>(orow) = pack_bf16(o[0], o[1]);
-          *reinterpret_cast<uint32_t*>(orow + 8 * cp) = pack_bf16(o[2], o[3]);
-        }
-      }
-      __syncthreads();  // sQKV is free for the next head; o[:, h] is whole
-    }
-
-    // 3. y = o Wout^T in column chunks: warp w owns n8 tiles base + j kNW
-    for (int base = warp; base < ntiles + warp; base += kNW * NTW) {
-      float acc[MT][NTW][4];
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-        for (int j = 0; j < NTW; ++j)
-          acc[mt][j][0] = acc[mt][j][1] = acc[mt][j][2] = acc[mt][j][3] = 0.f;
-      for (int k = 0; k < p.c; k += 32) {
-        uint32_t a[MT][2][4];
-#pragma unroll
-        for (int mt = 0; mt < MT; ++mt) load_a_k32(a[mt], sO, cp, mt * 16, k, lane);
-#pragma unroll
-        for (int jg = 0; jg < NTW; jg += 5) {
-          uint4 bw[5];
-#pragma unroll
-          for (int j = 0; j < 5; ++j) {
-            const int tile = base + (jg + j) * kNW;
-            if (jg + j < NTW && tile < ntiles)
-              bw[j] = ldg128(st.wo + (long long)(tile * 8 + g) * p.c + k + 8 * t4);
-          }
-#pragma unroll
-          for (int j = 0; j < 5; ++j) {
-            const int tile = base + (jg + j) * kNW;
-            if (jg + j < NTW && tile < ntiles) {
-#pragma unroll
-              for (int mt = 0; mt < MT; ++mt) {
-                mma_16816(acc[mt][jg + j], a[mt][0], bw[j].x, bw[j].y);
-                mma_16816(acc[mt][jg + j], a[mt][1], bw[j].z, bw[j].w);
-              }
-            }
-          }
-        }
-      }
-      // epilogue: y -> bf16, + bout, + input, each add rounded to bf16
-#pragma unroll
-      for (int j = 0; j < NTW; ++j) {
-        const int tile = base + j * kNW;
-        if (tile >= ntiles) continue;
-        const int col = tile * 8 + 2 * t4;
-        const float c0 = __bfloat162float(st.bo[col]);
-        const float c1 = __bfloat162float(st.bo[col + 1]);
-#pragma unroll
-        for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-          for (int hr = 0; hr < 2; ++hr) {
-            const int r = mt * 16 + g + 8 * hr;
-            const long long row = grow(r);
-            float y0 = round_bf16(round_bf16(acc[mt][j][2 * hr]) + c0);
-            float y1 = round_bf16(round_bf16(acc[mt][j][2 * hr + 1]) + c1);
-            if (row >= 0) {  // stage 1: + x; stage 2: + stage 1's output
-              const float2 xv = ld_bf162((s == 0 ? p.x : p.out) + row * p.c + col);
-              y0 += xv.x;
-              y1 += xv.y;
-              *reinterpret_cast<uint32_t*>(p.out + row * p.c + col) =
-                  pack_bf16(y0, y1);
-            }
-            if (s + 1 < NS)
-              *reinterpret_cast<uint32_t*>(sZ + r * cp + col) = pack_bf16(y0, y1);
-          }
-      }
-    }
-    __syncthreads();  // stage 1's output is whole in sZ before stage 2's LN
+  __device__ __forceinline__ Tile tile(int t) const {
+    const int r = t / p.heads;
+    return {r / p.ptiles, (r % p.ptiles) * p.ppt, t % p.heads};
   }
+  __device__ __forceinline__ int tiles() const { return p.tiles; }
+  __device__ __forceinline__ int kblocks() const { return p.kblocks; }
+
+  // K block kb: channels kb 64.. of the tile's T frames x ppt pixels; rows
+  // h 64.. of Wq, Wk and Wv
+  __device__ __forceinline__ void load(void* a, void* b, uint64_t* bar,
+                                       const Tile& c, int kb) const {
+    unsigned char* sb = static_cast<unsigned char*>(b);
+    const int k0 = kb * kBK, r0 = c.h * kD;
+    sm90::tma_load_4d(a, tm_z, bar, k0, 0, c.px0, c.b);
+    sm90::tma_load_2d(sb, tm_wq, bar, k0, r0);
+    sm90::tma_load_2d(sb + kD * kBK * 2, tm_wk, bar, k0, r0);
+    sm90::tma_load_2d(sb + 2 * kD * kBK * 2, tm_wv, bar, k0, r0);
+  }
+
+  __device__ __forceinline__ void before(const Tile&, unsigned char*,
+                                         unsigned char*, uint64_t*) const {}
+
+  // The attention of the warp's 16 rows, with the TPU kernel's rounding.
+  // Thread (g = lane / 4, t4 = lane % 4) holds acc[4 j + e] at row g + 8 (e
+  // / 2), column 8 j + 2 t4 + (e % 2): q in j 0-7, k in 8-15, v in 16-23.
+  __device__ __forceinline__ void epilogue(float (&acc)[1][kBN / 2],
+                                           const Tile& c, int, int wgi,
+                                           unsigned char* stage,
+                                           unsigned char*, uint64_t*) const {
+    const float(&a)[kBN / 2] = acc[0];
+    const int lane = threadIdx.x & 31;
+    const int warp = (threadIdx.x >> 5) & 3;  // within the warpgroup
+    const int g = lane >> 2, t4 = lane & 3;
+    // logits = q k^T (16 queries x 16 keys, K = 64 in four k16 steps): q's
+    // registers are the A fragment, k's (keys as rows) the B fragment
+    float s[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint32_t qa[4] = {
+          pack_bf16(a[8 * kk], a[8 * kk + 1]),
+          pack_bf16(a[8 * kk + 2], a[8 * kk + 3]),
+          pack_bf16(a[8 * kk + 4], a[8 * kk + 5]),
+          pack_bf16(a[8 * kk + 6], a[8 * kk + 7])};
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)  // keys 8 nt .. 8 nt + 7
+        mma_16816(s[nt], qa,
+                  pack_bf16(a[32 + 8 * kk + 2 * nt], a[33 + 8 * kk + 2 * nt]),
+                  pack_bf16(a[36 + 8 * kk + 2 * nt], a[37 + 8 * kk + 2 * nt]));
+    }
+    // fp32 softmax over the keys of each query's pixel; pr[4 nt + e] is the
+    // probability of s[nt][e], in p v's A-fragment order
+    float pr[8];
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int qi = g + 8 * hr;  // the query's row among the warp's 16
+      float l[4];
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int key = 8 * nt + 2 * t4 + e;
+          l[2 * nt + e] = qi / p.t == key / p.t
+                              ? s[nt][2 * hr + e] * p.scale : -INFINITY;
+        }
+      float m = fmaxf(fmaxf(l[0], l[1]), fmaxf(l[2], l[3]));
+      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
+      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 2));
+      float ex[4], den = 0.f;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        ex[i] = expf(l[i] - m);
+        den += ex[i];
+      }
+      den += __shfl_xor_sync(0xffffffffu, den, 1);
+      den += __shfl_xor_sync(0xffffffffu, den, 2);
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          pr[4 * nt + 2 * hr + e] = ex[2 * nt + e] / den;
+    }
+    const uint32_t pa[4] = {pack_bf16(pr[0], pr[1]), pack_bf16(pr[2], pr[3]),
+                            pack_bf16(pr[4], pr[5]), pack_bf16(pr[6], pr[7])};
+    // o = p v, eight n8 tiles of d, each rounded into the staging tile (16-
+    // byte chunk c of row r at chunk c ^ (r % 8): conflict-free)
+    pgemm::epi_wait_staging(wgi);
+    unsigned char* srow = stage + (16 * warp + g) * 128 + 4 * t4;
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+      const uint32_t b0 =
+          movmatrix_trans(pack_bf16(a[64 + 4 * nt], a[65 + 4 * nt]));
+      const uint32_t b1 =
+          movmatrix_trans(pack_bf16(a[66 + 4 * nt], a[67 + 4 * nt]));
+      float o[4] = {0.f, 0.f, 0.f, 0.f};
+      mma_16816(o, pa, b0, b1);
+      unsigned char* px = srow + ((nt ^ g) << 4);
+      *reinterpret_cast<uint32_t*>(px) = pack_bf16(o[0], o[1]);
+      *reinterpret_cast<uint32_t*>(px + 8 * 128) = pack_bf16(o[2], o[3]);
+    }
+    pgemm::epi_publish(wgi);
+    if ((threadIdx.x & 127) == 0) {
+      sm90::tma_store_4d(tm_o, stage, c.h * kD, 0, c.px0, c.b);
+      sm90::bulk_commit();
+    }
+  }
+};
+
+__global__ void __launch_bounds__(pgemm::kThreads, 1)
+qkv_kernel(const QkvParams p, const __grid_constant__ CUtensorMap tm_z,
+           const __grid_constant__ CUtensorMap tm_wq,
+           const __grid_constant__ CUtensorMap tm_wk,
+           const __grid_constant__ CUtensorMap tm_wv,
+           const __grid_constant__ CUtensorMap tm_o) {
+  extern __shared__ unsigned char smem_raw[];
+  const QkvOp op{p, &tm_z, &tm_wq, &tm_wk, &tm_wv, &tm_o};
+  pgemm::run(op, smem_raw);
 }
 
-template <int MT, int NTW, int NS>
-int launch(const Params& p, cudaStream_t stream) {
-  constexpr int BM = 16 * MT;
-  const int smem = (2 * BM * k32_stride(p.c) + BM * kQP) * (int)sizeof(bf16);
-  cudaError_t err = cudaFuncSetAttribute(
-      tpair_kernel<MT, NTW, NS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
-  if (err != cudaSuccess) return (int)err;
-  const int ppt = BM / p.t;
-  const long long blocks = (long long)p.b * ((p.p + ppt - 1) / ppt);
-  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  tpair_kernel<MT, NTW, NS><<<(unsigned)blocks, kNW * 32, smem, stream>>>(p);
+// a (B, T, P, C) bf16 tensor viewed as (C, T, P, B), in boxes of {64, T,
+// 64 / T, 1}
+int make_map_tokens(CUtensorMap* map, const void* base, int b, int t, int p,
+                    int c) {
+  const uint64_t dims[4] = {(uint64_t)c, (uint64_t)t, (uint64_t)p,
+                            (uint64_t)b};
+  const uint64_t strides[3] = {(uint64_t)p * c * 2, (uint64_t)c * 2,
+                               (uint64_t)t * p * c * 2};
+  const uint32_t box[4] = {(uint32_t)kBK, (uint32_t)t, (uint32_t)(64 / t),
+                           1u};
+  return sm90_host::make_map(map, base, 4, dims, strides, box);
+}
+
+int launch_qkv(const void* z, const void* wq, const void* wk, const void* wv,
+               void* o, int b, int t, int p, int c, float scale, int grid,
+               cudaStream_t stream) {
+  using R = pgemm::RingOf<QkvOp>;
+  QkvParams q{};
+  q.t = t;
+  q.heads = c / kD;
+  q.ppt = 64 / t;
+  q.ptiles = (p + q.ppt - 1) / q.ppt;
+  q.kblocks = c / kBK;
+  q.tiles = b * q.ptiles * q.heads;
+  q.scale = scale;
+  if (grid < 1 || grid > q.tiles) return (int)cudaErrorInvalidValue;
+  CUtensorMap tz, tq, tk, tv, to;
+  int err = make_map_tokens(&tz, z, b, t, p, c);
+  if (!err) err = lnout::make_map(&tq, wq, c, c, kD);
+  if (!err) err = lnout::make_map(&tk, wk, c, c, kD);
+  if (!err) err = lnout::make_map(&tv, wv, c, c, kD);
+  if (!err) err = make_map_tokens(&to, o, b, t, p, c);
+  if (err) return err;
+  cudaError_t e = cudaFuncSetAttribute(
+      qkv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, R::kBytes);
+  if (e != cudaSuccess) return (int)e;
+  qkv_kernel<<<grid, pgemm::kThreads, R::kBytes, stream>>>(q, tz, tq, tk, tv,
+                                                           to);
   return (int)cudaGetLastError();
 }
 
+// the tiles of (b) and (c), chosen by the wrapper
+struct Tiles {
+  int qkv_grid;               // (b)'s persistent blocks
+  int out_bm, out_bn, out_grid;  // (c)'s tile and blocks
+};
+
+// one stage: x -> out through the scratch z and o; w = {wq, wk, wv, wo, bo}
+int run_stage(const void* x, const float* lnw, const float* lnb,
+              const void* const (&w)[5], void* z, void* o, void* out, int b,
+              int t, int p, int c, float scale, float eps, const Tiles& tl,
+              cudaStream_t s) {
+  const int n = b * t * p;
+  int err = lnout::launch_ln<Tag>(x, lnw, lnb, z, n, c, eps, s);
+  if (!err)
+    err = launch_qkv(z, w[0], w[1], w[2], o, b, t, p, c, scale, tl.qkv_grid,
+                     s);
+  if (!err)
+    err = lnout::launch_out<Tag>(o, w[3], w[4], x, out, n, c, c, tl.out_bm,
+                                 tl.out_bn, tl.out_grid, s);
+  return err;
+}
+
+bool valid(int b, int t, int p, int c) {
+  return b > 0 && p > 0 && t > 0 && 16 % t == 0 && c > 0 && c % kD == 0 &&
+         b <= 65535 && (long long)b * t * p < (1ll << 31);
+}
+
+}  // namespace tattn
 }  // namespace
 
 // x, out (b, t, p, c) contiguous bf16; per stage: lnw, lnb fp32 (c); wq, wk,
-// wv, wo (c, c) and bo (c) bf16, torch's Linear layout. c = heads * 64,
-// c <= 1280; t divides 16. Returns a cudaError_t code (0 on success).
+// wv, wo (c, c) and bo (c) bf16, torch's Linear layout. Scratch from the
+// caller: z and o (b, t, p, c) bf16. c = heads * 64; t divides 16. The
+// tiles: the q|k|v GEMM's qkv_grid persistent blocks (at most B ceil(P /
+// (64 / T)) heads), the out-GEMM's out_bm (64 or 128) x out_bn (128 or 160)
+// tiles on out_grid blocks. Stage 2 runs on out in place. Returns a
+// cudaError_t code (0 on success).
 extern "C" int tc_temporal_attn_pair(
     const void* x, const float* ln1w, const float* ln1b, const void* wq1,
     const void* wk1, const void* wv1, const void* wo1, const void* bo1,
     const float* ln2w, const float* ln2b, const void* wq2, const void* wk2,
-    const void* wv2, const void* wo2, const void* bo2, void* out, int b, int t,
-    int p, int c, float scale, float eps, void* stream) {
-  if (b <= 0 || p <= 0 || t <= 0 || 16 % t || c <= 0 || c % kD || c > 1280)
-    return (int)cudaErrorInvalidValue;
-  Params q;
-  q.x = static_cast<const bf16*>(x);
-  q.out = static_cast<bf16*>(out);
-  q.st[0] = {ln1w, ln1b, static_cast<const bf16*>(wq1),
-             static_cast<const bf16*>(wk1), static_cast<const bf16*>(wv1),
-             static_cast<const bf16*>(wo1), static_cast<const bf16*>(bo1)};
-  q.st[1] = {ln2w, ln2b, static_cast<const bf16*>(wq2),
-             static_cast<const bf16*>(wk2), static_cast<const bf16*>(wv2),
-             static_cast<const bf16*>(wo2), static_cast<const bf16*>(bo2)};
-  q.b = b;
-  q.t = t;
-  q.p = p;
-  q.c = c;
-  q.scale = scale;
-  q.eps = eps;
+    const void* wv2, const void* wo2, const void* bo2, void* z, void* o,
+    void* out, int b, int t, int p, int c, float scale, float eps,
+    int qkv_grid, int out_bm, int out_bn, int out_grid, void* stream) {
+  using namespace tattn;
+  if (!valid(b, t, p, c)) return (int)cudaErrorInvalidValue;
+  const Tiles tl{qkv_grid, out_bm, out_bn, out_grid};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  // 64 tokens a tile where z and o fit in shared memory beside one head's
-  // q | k | v, else 32; the out-projection's chunk keeps 80 accumulators a
-  // thread
-  if (c <= 640) return launch<4, 5, 2>(q, s);
-  return launch<2, 10, 2>(q, s);
+  const void* const w1[5] = {wq1, wk1, wv1, wo1, bo1};
+  const void* const w2[5] = {wq2, wk2, wv2, wo2, bo2};
+  const int err = run_stage(x, ln1w, ln1b, w1, z, o, out, b, t, p, c, scale,
+                            eps, tl, s);
+  if (err) return err;
+  return run_stage(out, ln2w, ln2b, w2, z, o, out, b, t, p, c, scale, eps,
+                   tl, s);
 }
 
-// One sub-block, y = x + to_out(attn_T(qkv(LN(x)))), with the pair's limits
-// and layouts.
+// One sub-block, y = x + to_out(attn_T(qkv(LN(x)))), with the pair's
+// limits, layouts and tiles.
 extern "C" int tc_temporal_attn_single(
     const void* x, const float* lnw, const float* lnb, const void* wq,
-    const void* wk, const void* wv, const void* wo, const void* bo, void* out,
-    int b, int t, int p, int c, float scale, float eps, void* stream) {
-  if (b <= 0 || p <= 0 || t <= 0 || 16 % t || c <= 0 || c % kD || c > 1280)
-    return (int)cudaErrorInvalidValue;
-  Params q;
-  q.x = static_cast<const bf16*>(x);
-  q.out = static_cast<bf16*>(out);
-  q.st[0] = {lnw, lnb, static_cast<const bf16*>(wq),
-             static_cast<const bf16*>(wk), static_cast<const bf16*>(wv),
-             static_cast<const bf16*>(wo), static_cast<const bf16*>(bo)};
-  q.st[1] = q.st[0];
-  q.b = b;
-  q.t = t;
-  q.p = p;
-  q.c = c;
-  q.scale = scale;
-  q.eps = eps;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (c <= 640) return launch<4, 5, 1>(q, s);
-  return launch<2, 10, 1>(q, s);
+    const void* wk, const void* wv, const void* wo, const void* bo, void* z,
+    void* o, void* out, int b, int t, int p, int c, float scale, float eps,
+    int qkv_grid, int out_bm, int out_bn, int out_grid, void* stream) {
+  using namespace tattn;
+  if (!valid(b, t, p, c)) return (int)cudaErrorInvalidValue;
+  const Tiles tl{qkv_grid, out_bm, out_bn, out_grid};
+  const void* const w[5] = {wq, wk, wv, wo, bo};
+  return run_stage(x, lnw, lnb, w, z, o, out, b, t, p, c, scale, eps, tl,
+                   static_cast<cudaStream_t>(stream));
 }

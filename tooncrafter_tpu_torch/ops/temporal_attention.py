@@ -1,12 +1,12 @@
-"""Both self-attention sub-blocks of the UNet's temporal transformer block
-in one CUDA kernel (``csrc/temporal_attention.cu``, replacing the TPU
-kernel tooncrafter_tpu/ops/temporal_attention.py::_fused_tpair_call), and
-its plain version; the same kernel run for one sub-block
-(``_fused_tattn_call``, #10); the per-pixel attention core alone
-(``temporal_attention_ptc`` over ``_ptc_kernel_call``, #11,
-``csrc/temporal_ptc.cu``); and the JAX package's coverage rules that pick
-among them (``use_pair_kernel``, ``use_fused_kernel``, ``use_kernel``), with
-``TC_TATTN_PAIR`` read once at import into ``_PAIR`` as it reads it.
+"""The self-attention sub-blocks of the UNet's temporal transformer block
+on the card (``csrc/temporal_attention.cu``): both stages (``_fused_tpair_call``,
+replacing the TPU kernel tooncrafter_tpu/ops/temporal_attention.py::
+_fused_tpair_call, #9) or one (``_fused_tattn_call``, #10), and their plain
+version; the per-pixel attention core alone (``temporal_attention_ptc`` over
+``_ptc_kernel_call``, #11, ``csrc/temporal_ptc.cu``); and the JAX package's
+coverage rules that pick among them (``use_pair_kernel``,
+``use_fused_kernel``, ``use_kernel``), with ``TC_TATTN_PAIR`` read once at
+import into ``_PAIR`` as it reads it.
 
     y   = x + to_out1(attn_T(qkv1(LN1(x))))
     out = y + to_out2(attn_T(qkv2(LN2(y))))
@@ -31,29 +31,44 @@ round after fp32 products; logits and softmax in fp32, the probabilities
 round before the product with v, whose result (o) rounds; the out-GEMM
 accumulates in fp32 and rounds; + bo and + x each round. Stage 1's output
 is stage 2's input, in the compute dtype.
+
+On the card a stage runs three kernels: the LayerNorm into z (the FF's
+kernel), a persistent wgmma q|k|v GEMM over 64-token tiles of whole pixels
+with the attention in its epilogue into o, and the FF's out-GEMM with the
+bias and residual; z and o are the tensors the TPU kernel rounds to bf16,
+so they pass through device memory in bf16 and no number changes. ``plan``
+picks the tiles and grids and the scratch shapes; the wrapper allocates z
+and o with ``torch.empty`` on the caller's stream, stage 2 reuses them and
+runs on the output in place. One call counts one launch of the TPU
+kernel's name, whatever number of CUDA kernels it runs.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 import os
-from typing import Dict, Optional, Sequence
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
 from tooncrafter_tpu_torch.ops import _build
 from tooncrafter_tpu_torch.ops import _launch
+from tooncrafter_tpu_torch.ops import fused_ff as ff
 from tooncrafter_tpu_torch.ops.norms import layer_norm_ex2
 
 LAUNCHES: Dict[str, int] = {"_fused_tpair_call": 0, "_fused_tattn_call": 0,
                              "_ptc_kernel_call": 0}
 _PAIR = os.environ.get("TC_TATTN_PAIR", "1") == "1"
 
-# the kernel's limits (csrc/temporal_attention.cu): 64-wide heads, at most
-# 1280 channels (z and o of a 32-token tile in shared memory), T dividing 16
-# (whole pixels in each m16 row tile)
+# the kernels' limits (csrc/temporal_attention.cu): 64-wide heads, T
+# dividing 16 (whole pixels in each warp's 16 rows of a 64-token tile); C up
+# to 1280, the UNet's widest level and the widest the card checks hold the
+# kernels to
 HEAD_DIM = 64
 _MAX_C = 1280
+_TILE = 64  # tokens a tile of the q|k|v GEMM
 
 
 def reset_launch_counts() -> None:
@@ -212,11 +227,50 @@ LIBRARY = ("temporal_attention", ("temporal_attention.cu",))
 _LIB: Optional[ctypes.CDLL] = None
 
 
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    """A stage's three kernels (the pair runs them twice): the LayerNorm
+    into ``z``; the q|k|v GEMM with the attention in its epilogue into
+    ``o``, over ``qkv.tiles`` tiles of 64 tokens (``pixels`` whole pixels of
+    T frames) by one head's q | k | v (192 columns), head tiles fastest,
+    walked by ``qkv.grid`` persistent blocks; the out-GEMM with the bias and
+    residual, tiled as the FF's (``fused_ff.plan``) for N = B T P and Cout =
+    C. z and o are bf16 (B, T, P, C), reused by stage 2."""
+    z: Tuple[int, int, int, int]
+    o: Tuple[int, int, int, int]
+    pixels: int
+    qkv: ff.GemmPlan
+    out: ff.GemmPlan
+
+
+@functools.lru_cache(maxsize=None)
+def plan(bsz: int, t: int, p: int, c: int,
+         sms: int = _launch.H100_SMS) -> Plan:
+    """The kernels' tiles, grids and scratch for x (B, T, P, C). Raises
+    ValueError outside their envelope: T dividing 16, C a positive multiple
+    of 64, B T P < 2^31; TMA zero-fills the pixels past P of a sample's last
+    tile, and its stores leave them out. Cached: a request calls it
+    thousands of times at a few shapes."""
+    if (min(bsz, t, p, c) <= 0 or 16 % t or c % HEAD_DIM
+            or bsz * t * p >= 2 ** 31):
+        raise ValueError(f"temporal attention kernels: need T dividing 16, "
+                         f"C a multiple of {HEAD_DIM} and B T P < 2^31; got "
+                         f"B={bsz}, T={t}, P={p}, C={c}")
+    pixels = _TILE // t
+    tiles = bsz * -(-p // pixels) * (c // HEAD_DIM)
+    n = bsz * t * p
+    return Plan(z=(bsz, t, p, c), o=(bsz, t, p, c), pixels=pixels,
+                qkv=ff.GemmPlan(_TILE, 3 * HEAD_DIM, tiles, min(tiles, sms)),
+                out=ff.plan(n, c, c, c, False, sms).out)
+
+
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.tc_temporal_attn_pair.argtypes = [vp] * 16 + [i] * 4 + [f, f, vp]
+    lib.tc_temporal_attn_pair.argtypes = ([vp] * 18 + [i] * 4 + [f, f]
+                                          + [i] * 4 + [vp])
     lib.tc_temporal_attn_pair.restype = ctypes.c_int
-    lib.tc_temporal_attn_single.argtypes = [vp] * 9 + [i] * 4 + [f, f, vp]
+    lib.tc_temporal_attn_single.argtypes = ([vp] * 11 + [i] * 4 + [f, f]
+                                            + [i] * 4 + [vp])
     lib.tc_temporal_attn_single.restype = ctypes.c_int
     return lib
 
@@ -229,22 +283,23 @@ def _library() -> ctypes.CDLL:
 
 
 def covers(t: int, d: int, c: int) -> bool:
-    """Shapes the CUDA kernel takes: T frames dividing 16, 64-wide heads,
+    """Shapes the CUDA kernels take: T frames dividing 16, 64-wide heads,
     C = heads * 64 <= 1280."""
     return (t >= 1 and 16 % t == 0 and d == HEAD_DIM and c % HEAD_DIM == 0
             and c <= _MAX_C)
 
 
-def _launch_tpair(x, stage1, stage2, heads: int, scale: float, eps: float):
+def _launch_stages(x, stages, heads: int, scale: float, eps: float):
+    """Both stages (the pair) or one on the card, into a new tensor."""
     bsz, t, p, c = x.shape
     dev, bf, f32 = x.device, torch.bfloat16, torch.float32
     if not covers(t, c // heads, c) or c % heads:
-        raise ValueError(f"temporal attention pair kernel: needs T dividing "
-                         f"16, heads of {HEAD_DIM} and C <= {_MAX_C}; got "
-                         f"T={t}, C={c}, heads={heads}")
+        raise ValueError(f"temporal attention kernels: need T dividing 16, "
+                         f"heads of {HEAD_DIM} and C <= {_MAX_C}; got T={t},"
+                         f" C={c}, heads={heads}")
     _launch.check("x", x, (bsz, t, p, c), bf, dev)
     ptrs = []
-    for i, stage in enumerate((stage1, stage2), 1):
+    for i, stage in enumerate(stages, 1):
         for name, ten, shape, dt in zip(
                 ("ln_w", "ln_b", "wq", "wk", "wv", "wo", "bo"), stage,
                 ((c,), (c,), (c, c), (c, c), (c, c), (c, c), (c,)),
@@ -253,19 +308,31 @@ def _launch_tpair(x, stage1, stage2, heads: int, scale: float, eps: float):
             ptrs.append(ten.data_ptr())
     out = torch.empty_like(x)
     if x.numel():
-        err = _library().tc_temporal_attn_pair(
-            x.data_ptr(), *ptrs, out.data_ptr(), bsz, t, p, c, float(scale),
-            float(eps), _launch.stream(x))
-        _launch.raise_on_error(err, f"temporal attention pair (B={bsz}, "
-                                    f"T={t}, P={p}, C={c})")
+        pl = plan(bsz, t, p, c, _launch.sm_count(dev))
+        z = torch.empty(pl.z, dtype=bf, device=dev)
+        o = torch.empty(pl.o, dtype=bf, device=dev)
+        lib = _library()
+        call = (lib.tc_temporal_attn_pair if len(stages) == 2
+                else lib.tc_temporal_attn_single)
+        err = call(x.data_ptr(), *ptrs, z.data_ptr(), o.data_ptr(),
+                   out.data_ptr(), bsz, t, p, c, float(scale), float(eps),
+                   pl.qkv.grid, pl.out.rows, pl.out.width, pl.out.grid,
+                   _launch.stream(x))
+        _launch.raise_on_error(err, f"temporal attention, {len(stages)} "
+                                    f"stage(s) (B={bsz}, T={t}, P={p}, "
+                                    f"C={c})")
     return out
+
+
+def _launch_tpair(x, stage1, stage2, heads: int, scale: float, eps: float):
+    return _launch_stages(x, (stage1, stage2), heads, scale, eps)
 
 
 def _fused_tpair_call(x, stage1: Sequence[torch.Tensor],
                       stage2: Sequence[torch.Tensor], heads: int,
                       scale: float, eps: float = 1e-5):
     """The wrapper named after the TPU kernel it replaces. x: (B, T, P, C);
-    CPU tensors take the plain version, CUDA tensors the kernel."""
+    CPU tensors take the plain version, CUDA tensors the kernels."""
     cdt = _launch.compute_dtype(x)
     x = x.to(cdt)
     stage1, stage2 = ((s[0], s[1], *(w.to(cdt) for w in s[2:]))
@@ -276,7 +343,7 @@ def _fused_tpair_call(x, stage1: Sequence[torch.Tensor],
 
 
 def _dispatch(x, stage1, stage2, heads: int, scale: float, eps: float):
-    """The plain version for CPU tensors, the kernel for CUDA tensors."""
+    """The plain version for CPU tensors, the kernels for CUDA tensors."""
     if _launch.on_cpu("temporal attention pair", x, *stage1, *stage2):
         return _plain_tpair(x, stage1, stage2, heads, scale, eps)
     out = _launch_tpair(x, stage1, stage2, heads, scale, eps)
@@ -285,7 +352,7 @@ def _dispatch(x, stage1, stage2, heads: int, scale: float, eps: float):
 
 
 # ---------------------------------------------------------------------------
-# one sub-block (#10): the pair kernel run for one stage
+# one sub-block (#10): the pair's kernels run for one stage
 # ---------------------------------------------------------------------------
 
 class _TAttnFunction(torch.autograd.Function):
@@ -311,26 +378,7 @@ class _TAttnFunction(torch.autograd.Function):
 
 
 def _launch_single(x, stage, heads: int, scale: float, eps: float):
-    bsz, t, p, c = x.shape
-    dev, bf, f32 = x.device, torch.bfloat16, torch.float32
-    if not covers(t, c // heads, c) or c % heads:
-        raise ValueError(f"temporal attention kernel: needs T dividing 16, "
-                         f"heads of {HEAD_DIM} and C <= {_MAX_C}; got T={t},"
-                         f" C={c}, heads={heads}")
-    _launch.check("x", x, (bsz, t, p, c), bf, dev)
-    for name, ten, shape, dt in zip(
-            ("ln_w", "ln_b", "wq", "wk", "wv", "wo", "bo"), stage,
-            ((c,), (c,), (c, c), (c, c), (c, c), (c, c), (c,)),
-            (f32, f32, bf, bf, bf, bf, bf)):
-        _launch.check(name, ten, shape, dt, dev)
-    out = torch.empty_like(x)
-    if x.numel():
-        err = _library().tc_temporal_attn_single(
-            x.data_ptr(), *(w.data_ptr() for w in stage), out.data_ptr(),
-            bsz, t, p, c, float(scale), float(eps), _launch.stream(x))
-        _launch.raise_on_error(err, f"temporal attention (B={bsz}, T={t}, "
-                                    f"P={p}, C={c})")
-    return out
+    return _launch_stages(x, (stage,), heads, scale, eps)
 
 
 def _fused_tattn_call(x, stage: Sequence[torch.Tensor], heads: int,
@@ -338,7 +386,7 @@ def _fused_tattn_call(x, stage: Sequence[torch.Tensor], heads: int,
     """x + to_out(attn_T(qkv(LN(x)))) on x (B, T, P, C); ``stage`` is
     (ln_w, ln_b, wq, wk, wv, wo, bo) as a stage of the pair. The wrapper
     named after the TPU kernel; CPU tensors take the plain version, CUDA
-    tensors the kernel."""
+    tensors the kernels."""
     cdt = _launch.compute_dtype(x)
     x = x.to(cdt)
     stage = (stage[0], stage[1], *(w.to(cdt) for w in stage[2:]))

@@ -5,14 +5,20 @@ take for its part, and the whole call's time from CUDA events.
 
     python -m tooncrafter_tpu_torch.utils.breakdown --kernel ff
     python -m tooncrafter_tpu_torch.utils.breakdown --kernel tconv
+    python -m tooncrafter_tpu_torch.utils.breakdown --kernel tpair
 
 ``ff``: the FF's three kernels (``csrc/fused_ff.cu``: the LayerNorm, the
 projection with the gate, the out-GEMM with the bias and residual) at
 ``FF_512`` and ``FF_1024``. ``tconv``: the temporal conv's two kernels
 (``csrc/temporal_conv.cu``: the z pass into the zero-framed buffer, the
 three-tap GEMM with its epilogue) at ``TCONV_512`` and ``TCONV_1024``.
-Needs a CUDA device. Prints the card's name and power limit first, then
-one line per shape.
+``tpair``: the temporal attention pair's kernels (``csrc/temporal_attention.cu``:
+the LayerNorm, the q|k|v GEMM with the attention in its epilogue, the
+out-GEMM with the bias and residual, each twice a call) at ``TPAIR_512``
+and ``TPAIR_1024``. Each line also gives the wrapper's host time per call
+(``host_us``: the enqueue of a few calls in a row, no synchronisation
+between them). Needs a CUDA device. Prints the card's name and power limit
+first, then one line per shape.
 """
 
 from __future__ import annotations
@@ -24,14 +30,21 @@ from typing import Dict, Tuple
 
 import torch
 
-# per kernel: its parts, each (name, the kernel's name in a trace)
+# per kernel: its parts, each (name, the substrings of its kernels' names
+# in a trace, all present; the shared LayerNorm and out-GEMM carry their
+# library's Tag)
 PARTS = {
-    "ff": (("ln", "fused_ff::ln_kernel"), ("proj", "fused_ff::gemm_kernel<0"),
-           ("out", "fused_ff::gemm_kernel<1")),
-    "tconv": (("zpass", "tconv::zpass_kernel"),
-              ("gemm", "tconv::gemm_kernel")),
+    "ff": (("ln", ("ln_kernel<", "fused_ff::Tag")),
+           ("proj", ("fused_ff::proj_kernel",)),
+           ("out", ("out_kernel<", "fused_ff::Tag"))),
+    "tconv": (("zpass", ("tconv::zpass_kernel",)),
+              ("gemm", ("tconv::gemm_kernel",))),
+    "tpair": (("ln", ("ln_kernel<", "tattn::Tag")),
+              ("qkv", ("tattn::qkv_kernel",)),
+              ("out", ("out_kernel<", "tattn::Tag"))),
 }
 CALLS = 5
+HOST_CALLS = 10
 
 
 def ff_bounds(n: int, c: int, d: int) -> Dict[str, float]:
@@ -62,7 +75,41 @@ def tconv_bounds(bsz: int, t: int, p: int, c: int, res: bool,
                              call - x - affine + framed)[0]}
 
 
-def device_ms(fn, parts: Tuple[Tuple[str, str], ...]) -> Dict[str, float]:
+def tpair_bounds(bsz: int, t: int, p: int, c: int) -> Dict[str, float]:
+    """Least ms of each part of a pair call (two stages): the LayerNorms
+    read x or y and write z; the q|k|v GEMMs read z and the weights and
+    write o, with the projections and the attention's products; the
+    out-GEMMs read o, the residual and the weights and write y."""
+    from tooncrafter_tpu_torch.utils import kernel_check as kc
+
+    n = bsz * t * p
+    act = 2.0 * n * c
+    return {
+        "ln": 2 * kc.bound(0.0, 2 * act + 8.0 * c)[0],
+        "qkv": 2 * kc.bound(6.0 * n * c * c + 4.0 * n * t * c,
+                            2 * act + 6.0 * c * c)[0],
+        "out": 2 * kc.bound(2.0 * n * c * c,
+                            3 * act + 2.0 * c * c + 2.0 * c)[0]}
+
+
+def host_us(fn) -> float:
+    """The wrapper's host time per call: HOST_CALLS calls enqueued in a row
+    after a synchronisation, timed on the host before the device catches
+    up (microseconds)."""
+    import time
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(HOST_CALLS):
+        fn()
+    us = (time.perf_counter() - t0) / HOST_CALLS * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
+def device_ms(fn, parts: Tuple[Tuple[str, Tuple[str, ...]], ...]
+              ) -> Dict[str, float]:
     """Mean device ms per call of each part over CALLS traced calls."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -75,8 +122,9 @@ def device_ms(fn, parts: Tuple[Tuple[str, str], ...]) -> Dict[str, float]:
     out = {part: 0.0 for part, _ in parts}
     for event in prof.key_averages():
         us = getattr(event, "self_device_time_total", 0.0)
-        for part, key in parts:
-            if key in event.key.replace(" ", ""):
+        name = event.key.replace(" ", "")
+        for part, keys in parts:
+            if all(k in name for k in keys):
                 out[part] += us / CALLS / 1e3
     return out
 
@@ -89,6 +137,11 @@ def shapes(kernel: str, dev, gen):
         for label, n, c in kc.FF_512 + kc.FF_1024:
             case, = kc.ff_cases(dev, gen, ((label, n, c),))
             yield f"{label} N={n} C={c}", case, ff_bounds(n, c, 4 * c)
+    elif kernel == "tpair":
+        for label, p, c in kc.TPAIR_512 + kc.TPAIR_1024:
+            case, = kc.tpair_cases(dev, gen, ((label, p, c),))
+            yield (f"{label} B=2 T=16 P={p} C={c}", case,
+                   tpair_bounds(2, 16, p, c))
     else:
         for row in kc.TCONV_512 + kc.TCONV_1024:
             label, (bsz, t, p, c), res, _, stats = row
@@ -116,11 +169,13 @@ def main(argv=None) -> int:
     for label, case, bounds in shapes(args.kernel, dev, gen):
         total = kc.cuda_ms(case.kernel, 20)
         got = device_ms(case.kernel, parts)
+        host = host_us(case.kernel)
         whole = kc.bound(case.flops, case.nbytes, case.peak)[0]
         print(f"{args.kernel}_breakdown {label}: ms={total:.4f} (bound "
               f"{whole:.4f}) "
               + " ".join(f"{p}_ms={got[p]:.4f} (bound {bounds[p]:.4f})"
-                         for p, _ in parts), flush=True)
+                         for p, _ in parts)
+              + f" host_us={host:.1f}", flush=True)
         del case
     return 0
 

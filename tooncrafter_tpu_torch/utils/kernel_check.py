@@ -510,12 +510,24 @@ TPAIR_1024 = (("1024 ds1", 9216, 320), ("1024 ds2", 2304, 640),
               ("1024 ds4", 576, 1280), ("1024 mid 9x16", 144, 1280))
 
 
-def tpair_cases(dev, gen, shapes=TPAIR_512) -> List[Case]:
+def tpair_flops(n: int, t: int, c: int, stages: int = 2) -> float:
+    """Per stage: the q, k, v and out projections, q k^T and p v over T."""
+    return stages * (8.0 * n * c * c + 4.0 * n * t * c)
+
+
+def tpair_bytes(n: int, c: int, stages: int = 2) -> float:
+    """x read and the output written once; each stage's weights, biases
+    and fp32 LayerNorm parameters."""
+    return 2.0 * 2 * n * c + stages * (8.0 * c * c + 2.0 * c + 8.0 * c)
+
+
+def tpair_cases(dev, gen, shapes=TPAIR_512, t: int = 16) -> List[Case]:
     """(B, T, P, C): the temporal transformer blocks' attention pair at each
-    UNet level, the init attention's 512-wide blocks, and the mid block."""
+    UNet level, the init attention's 512-wide blocks, and the mid block (T
+    frames: the UNet's 16 unless given)."""
     cases = []
     for label, p, c in shapes:
-        bsz, t, heads = 2, 16, c // ta.HEAD_DIM
+        bsz, heads = 2, c // ta.HEAD_DIM
         x = _rnd(gen, dev, bsz, t, p, c)
         stages = tuple(
             (_rnd(gen, dev, c, scale=0.1, offset=1.0, dtype=torch.float32),
@@ -534,9 +546,8 @@ def tpair_cases(dev, gen, shapes=TPAIR_512) -> List[Case]:
                 x, *s, h, 0.125, 1e-5),
             chain=lambda x=x, s=stages, h=heads: _chain_tpair(x, s, h),
             library=None,
-            # per stage: q, k, v and out projections, q k^T and p v over T
-            flops=2 * (8.0 * n * c * c + 4.0 * n * t * c),
-            nbytes=2.0 * 2 * n * c + 2 * (8.0 * c * c + 2.0 * c + 8.0 * c),
+            flops=tpair_flops(n, t, c),
+            nbytes=tpair_bytes(n, c),
             reps=(10, 3)))
     return cases
 
@@ -569,8 +580,8 @@ def tattn_cases(dev, gen, shapes=TATTN_512) -> List[Case]:
                 x, s, h, 0.125, 1e-5, x.dtype),
             chain=lambda x=x, s=stage, h=heads: _chain_tpair(x, (s,), h),
             library=None,
-            flops=8.0 * n * c * c + 4.0 * n * t * c,
-            nbytes=2.0 * 2 * n * c + 8.0 * c * c + 2.0 * c + 8.0 * c,
+            flops=tpair_flops(n, t, c, 1),
+            nbytes=tpair_bytes(n, c, 1),
             reps=(10, 3)))
     return cases
 

@@ -36,8 +36,7 @@ KINDS = (
     ("fused FF (port kernel)", ("fused_ff::",)),
     ("temporal conv (port kernel)", ("tconv::",)),
     ("GN+SiLU+3x3 conv (port kernel)", ("::conv_kernel<",)),
-    ("temporal attention pair / single stage (port kernel)",
-     ("tpair_kernel",)),
+    ("temporal attention pair / single stage (port kernel)", ("tattn::",)),
     ("T-attention core (port kernel)", ("ptc_kernel",)),
     ("one-pass GroupNorm (port kernel)", ("gn_partial", "gn_finalize",
                                           "gn_apply")),
