@@ -17,7 +17,10 @@
 //     BM x BN (BM = 64 or 128 rows: one or two m64 products), and a named
 //     barrier hands the tensor cores to the other once its last product
 //     is issued, so one warpgroup's epilogue runs while the other's
-//     products do;
+//     products do; or, for an Op with kCoop (BM = 128), both take every
+//     tile, each its 64-row half of A with the one B (a K block of the
+//     ring feeds 128 x BN products, at the price of both epilogues at
+//     once);
 //   * each consumer warpgroup owns a staging area (`Op::kStaging` bytes,
 //     1024-byte aligned: the output tile on its way out by TMA) and
 //     `Op::kExtra` bytes more (e.g. biases), and an mbarrier for the
@@ -27,7 +30,8 @@
 //     `epi_publish` are the two handshakes an epilogue needs around its
 //     staging area.
 //
-// Op: kBM, kBN, kStaging, kExtra; a type Tile, a tile's coordinates, and
+// Op: kBM, kBN, kStaging, kExtra (and kCoop, false unless given); a type
+//   Tile, a tile's coordinates, and
 //   Tile tile(int t) const (computed once a tile, so the producer's issue
 //   of a K block is its TMA calls alone); int tiles() const; int kblocks()
 //   const;
@@ -36,16 +40,19 @@
 //     into b, completing on bar; the ring expects kStage bytes);
 //   void before(const Tile&, unsigned char* staging, unsigned char* extra,
 //     uint64_t* xbar) const (one thread of the warpgroup);
-//   void epilogue(float (&acc)[BM / 64][BN / 2], const Tile&, int parity,
+//   void epilogue(float (&acc)[MT][BN / 2], const Tile&, int parity,
 //     int wgi, unsigned char* staging, unsigned char* extra, uint64_t* xbar)
-//     const (the warpgroup; xbar's phase of this tile is `parity`).
+//     const (the warpgroup; xbar's phase of this tile is `parity`; MT = BM
+//     / 64, or 1 with kCoop).
 // Thread (warp w of the warpgroup, lane l; g = l / 4, t4 = l % 4) holds
 // acc[mi][4 j + e] at row 64 mi + 16 w + g + 8 (e / 2), column 8 j + 2 t4 +
-// (e % 2) of the tile (sm90.cuh).
+// (e % 2) of the tile (sm90.cuh); with kCoop, of its warpgroup's half.
 #pragma once
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "sm90.cuh"
 
@@ -77,6 +84,16 @@ struct Ring {
 
 template <class Op>
 using RingOf = Ring<Op::kBM, Op::kBN, Op::kStaging, Op::kExtra>;
+
+// Op::kCoop where the Op gives it, else false
+template <class Op, class = void>
+struct CoopOf {
+  static constexpr bool value = false;
+};
+template <class Op>
+struct CoopOf<Op, std::void_t<decltype(Op::kCoop)>> {
+  static constexpr bool value = Op::kCoop;
+};
 
 // one m64 x BN x k16 product from shared memory, both operands K-major
 template <int BN>
@@ -111,7 +128,9 @@ template <class Op>
 __device__ __forceinline__ void run(const Op& op, unsigned char* smem_raw) {
   using R = RingOf<Op>;
   constexpr int BN = Op::kBN;
-  constexpr int kMT = Op::kBM / 64;  // m64 products
+  constexpr bool kCoop = CoopOf<Op>::value;
+  static_assert(!kCoop || Op::kBM == 128, "a 64-row half a warpgroup");
+  constexpr int kMT = kCoop ? 1 : Op::kBM / 64;  // m64 products
   unsigned char* base = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
   uint64_t* full = reinterpret_cast<uint64_t*>(base + R::kBarOffset);
@@ -126,7 +145,8 @@ __device__ __forceinline__ void run(const Op& op, unsigned char* smem_raw) {
   if (tid == 0) {
     for (int s = 0; s < R::kStages; ++s) {
       sm90::mbar_init(&full[s], 1);
-      sm90::mbar_init(&empty[s], 4);  // one arrival per consumer warp
+      // one arrival per consumer warp that reads the stage
+      sm90::mbar_init(&empty[s], kCoop ? 8 : 4);
     }
     sm90::mbar_init(&xbar[0], 1);
     sm90::mbar_init(&xbar[1], 1);
@@ -165,7 +185,8 @@ __device__ __forceinline__ void run(const Op& op, unsigned char* smem_raw) {
   auto issue = [&](int it, int kb) {
     const int s = it % R::kStages;
     sm90::mbar_wait(&full[s], (it / R::kStages) & 1);
-    const uint64_t da = sm90::desc_sw128(base + s * R::kStage);
+    const uint64_t da = sm90::desc_sw128(base + s * R::kStage +
+                                         (kCoop ? wgi * 64 * 128 : 0));
     const uint64_t db = sm90::desc_sw128(base + s * R::kStage + R::kA);
 #pragma unroll
     for (int mi = 0; mi < kMT; ++mi) sm90::fence_regs(acc[mi]);
@@ -184,11 +205,12 @@ __device__ __forceinline__ void run(const Op& op, unsigned char* smem_raw) {
 
   unsigned char* staging = base + R::kStagingOffset + wgi * Op::kStaging;
   unsigned char* extra = base + R::kExtraOffset + wgi * Op::kExtra;
-  for (int i = wgi, lt = 0; i < my_tiles; i += 2, ++lt) {
+  for (int i = kCoop ? 0 : wgi, lt = 0; i < my_tiles;
+       i += kCoop ? 1 : 2, ++lt) {
     const typename Op::Tile c = op.tile(blockIdx.x + i * gridDim.x);
     // this warpgroup's turn on the tensor cores: the other has issued the
     // products of the block's previous tile
-    if (i > 0) sm90::bar_sync(kOrderBar + wgi, 256);
+    if (!kCoop && i > 0) sm90::bar_sync(kOrderBar + wgi, 256);
     if (leader) op.before(c, staging, extra, &xbar[wgi]);
     int it = i * kblocks;
     issue(it, 0);
@@ -197,7 +219,8 @@ __device__ __forceinline__ void run(const Op& op, unsigned char* smem_raw) {
       sm90::wgmma_wait<1>();
       release(it - 1);
     }
-    if (i + 1 < my_tiles) sm90::bar_arrive(kOrderBar + (wgi ^ 1), 256);
+    if (!kCoop && i + 1 < my_tiles)
+      sm90::bar_arrive(kOrderBar + (wgi ^ 1), 256);
     sm90::wgmma_wait<0>();
 #pragma unroll
     for (int mi = 0; mi < kMT; ++mi) sm90::fence_regs(acc[mi]);

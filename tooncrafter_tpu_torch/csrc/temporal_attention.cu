@@ -21,13 +21,16 @@
 // (ln_and_out.cuh: each tile reads its residual before it stores it).
 //
 // (b) on the persistent mainloop of persistent_gemm.cuh (a TMA ring fed by a
-// producer thread, two consumer warpgroups in ping-pong on the tensor
-// cores). A tile is 64 tokens by one head's q | k | v (192 columns, K = C):
+// producer thread) in its cooperative mode: a tile is 128 tokens by one
+// head's q | k | v (192 columns, K = C), each consumer warpgroup's 64-row
+// half with the one B, so a K block read from L2 feeds 128 x 192 products
+// (2 x 128 x 192 operations on 320 rows of 128 bytes: 77 a byte; 48 for
+// the 64-row tiles of the ping-pong mode, which ran 1.3-1.4x slower):
 //   * A = z gathered pixel-major by a 4-D tensor map over z viewed as (C,
-//     T, P, B) with boxes of {64 channels, T frames, 64 / T pixels, 1}: row
-//     r of the tile is frame r % T of pixel r / T (T divides 16). Its inner
-//     dimension stays 128 bytes, so the swizzle and the wgmma descriptors
-//     are those of a 2-D box; pixels past P arrive as zeros;
+//     T, P, B) with boxes of {64 channels, T frames, 128 / T pixels, 1}:
+//     row r of the tile is frame r % T of pixel r / T (T divides 16). Its
+//     inner dimension stays 128 bytes, so the swizzle and the wgmma
+//     descriptors are those of a 2-D box; pixels past P arrive as zeros;
 //   * B = rows h 64.. of Wq, Wk and Wv (torch's Linear layout, three TMA
 //     boxes making one 192-row operand, no concatenated copy); head tiles
 //     run fastest, so the heads of one z tile read it from L2;
@@ -39,14 +42,14 @@
 //     fp32 softmax over the keys; p rounded to bf16 is the A fragment of p
 //     v; v's fragments reach p v's B layout by movmatrix.trans; o (fp32)
 //     rounds to bf16 into the warpgroup's staging tile, which one thread
-//     stores by TMA through the same 4-D map into the head's 64 columns of
-//     o (rows past P are clipped). The attention is ~2 % of the products
-//     and runs while the other warpgroup's products do.
+//     stores by TMA through a 4-D map of o in boxes of 64 / T pixels into
+//     the head's 64 columns (rows past P are clipped). The attention is ~2
+//     % of the products; the producer fills the ring for the next tile
+//     while it runs.
 //
 // What bounds a stage on the H100: 8 N C^2 operations on 14 N C bytes
 // (x and z; z and o; o, x and y), the bytes at C = 320 (~0.11 ms a stage at
-// N = 81920) and the operations at C >= 640. (b) reads 64 + 192 rows for
-// 2 x 64 x 192 products a K column: 48 operations a byte from L2.
+// N = 81920) and the operations at C >= 640.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -79,25 +82,27 @@ __device__ __forceinline__ uint32_t movmatrix_trans(uint32_t x) {
 struct QkvParams {
   int t;        // frames
   int heads;    // C / 64
-  int ppt;      // pixels a tile: 64 / T
+  int ppt;      // pixels a tile: 128 / T
   int ptiles;   // pixel tiles a sample: ceil(P / ppt)
   int kblocks;  // C / 64
   int tiles;    // B ptiles heads
   float scale;
 };
 
-// 64 rows x 192 accumulator columns (q, k, v of one head) a warpgroup tile;
-// the staging area holds the tile's o (64 x 64, one 128-byte-swizzled box).
+// 128 rows x 192 accumulator columns (q, k, v of one head) a tile, 64 rows
+// a warpgroup; the staging area holds a warpgroup's o (64 x 64, one
+// 128-byte-swizzled box).
 struct QkvOp {
-  static constexpr int kBM = 64, kBN = 3 * kD;
-  static constexpr int kStaging = kBM * kD * 2;
+  static constexpr int kBM = 128, kBN = 3 * kD;
+  static constexpr bool kCoop = true;
+  static constexpr int kStaging = 64 * kD * 2;
   static constexpr int kExtra = 0;
   QkvParams p;
   const CUtensorMap* tm_z;  // z as (C, T, P, B), boxes {64, T, ppt, 1}
   const CUtensorMap* tm_wq;
   const CUtensorMap* tm_wk;
   const CUtensorMap* tm_wv;
-  const CUtensorMap* tm_o;  // o as tm_z
+  const CUtensorMap* tm_o;  // o as (C, T, P, B), boxes {64, T, ppt / 2, 1}
 
   // the tile's sample, first pixel and head
   struct Tile {
@@ -128,7 +133,8 @@ struct QkvOp {
 
   // The attention of the warp's 16 rows, with the TPU kernel's rounding.
   // Thread (g = lane / 4, t4 = lane % 4) holds acc[4 j + e] at row g + 8 (e
-  // / 2), column 8 j + 2 t4 + (e % 2): q in j 0-7, k in 8-15, v in 16-23.
+  // / 2) of the warp's, column 8 j + 2 t4 + (e % 2): q in j 0-7, k in 8-15,
+  // v in 16-23.
   __device__ __forceinline__ void epilogue(float (&acc)[1][kBN / 2],
                                            const Tile& c, int, int wgi,
                                            unsigned char* stage,
@@ -205,7 +211,8 @@ struct QkvOp {
     }
     pgemm::epi_publish(wgi);
     if ((threadIdx.x & 127) == 0) {
-      sm90::tma_store_4d(tm_o, stage, c.h * kD, 0, c.px0, c.b);
+      sm90::tma_store_4d(tm_o, stage, c.h * kD, 0,
+                         c.px0 + wgi * (p.ppt / 2), c.b);
       sm90::bulk_commit();
     }
   }
@@ -223,14 +230,14 @@ qkv_kernel(const QkvParams p, const __grid_constant__ CUtensorMap tm_z,
 }
 
 // a (B, T, P, C) bf16 tensor viewed as (C, T, P, B), in boxes of {64, T,
-// 64 / T, 1}
+// rows / T, 1}
 int make_map_tokens(CUtensorMap* map, const void* base, int b, int t, int p,
-                    int c) {
+                    int c, int rows) {
   const uint64_t dims[4] = {(uint64_t)c, (uint64_t)t, (uint64_t)p,
                             (uint64_t)b};
   const uint64_t strides[3] = {(uint64_t)p * c * 2, (uint64_t)c * 2,
                                (uint64_t)t * p * c * 2};
-  const uint32_t box[4] = {(uint32_t)kBK, (uint32_t)t, (uint32_t)(64 / t),
+  const uint32_t box[4] = {(uint32_t)kBK, (uint32_t)t, (uint32_t)(rows / t),
                            1u};
   return sm90_host::make_map(map, base, 4, dims, strides, box);
 }
@@ -242,18 +249,18 @@ int launch_qkv(const void* z, const void* wq, const void* wk, const void* wv,
   QkvParams q{};
   q.t = t;
   q.heads = c / kD;
-  q.ppt = 64 / t;
+  q.ppt = QkvOp::kBM / t;
   q.ptiles = (p + q.ppt - 1) / q.ppt;
   q.kblocks = c / kBK;
   q.tiles = b * q.ptiles * q.heads;
   q.scale = scale;
   if (grid < 1 || grid > q.tiles) return (int)cudaErrorInvalidValue;
   CUtensorMap tz, tq, tk, tv, to;
-  int err = make_map_tokens(&tz, z, b, t, p, c);
+  int err = make_map_tokens(&tz, z, b, t, p, c, QkvOp::kBM);
   if (!err) err = lnout::make_map(&tq, wq, c, c, kD);
   if (!err) err = lnout::make_map(&tk, wk, c, c, kD);
   if (!err) err = lnout::make_map(&tv, wv, c, c, kD);
-  if (!err) err = make_map_tokens(&to, o, b, t, p, c);
+  if (!err) err = make_map_tokens(&to, o, b, t, p, c, 64);
   if (err) return err;
   cudaError_t e = cudaFuncSetAttribute(
       qkv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, R::kBytes);
@@ -297,7 +304,7 @@ bool valid(int b, int t, int p, int c) {
 // wv, wo (c, c) and bo (c) bf16, torch's Linear layout. Scratch from the
 // caller: z and o (b, t, p, c) bf16. c = heads * 64; t divides 16. The
 // tiles: the q|k|v GEMM's qkv_grid persistent blocks (at most B ceil(P /
-// (64 / T)) heads), the out-GEMM's out_bm (64 or 128) x out_bn (128 or 160)
+// (128 / T)) heads), the out-GEMM's out_bm (64 or 128) x out_bn (128 or 160)
 // tiles on out_grid blocks. Stage 2 runs on out in place. Returns a
 // cudaError_t code (0 on success).
 extern "C" int tc_temporal_attn_pair(

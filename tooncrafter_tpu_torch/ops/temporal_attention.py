@@ -68,7 +68,7 @@ _PAIR = os.environ.get("TC_TATTN_PAIR", "1") == "1"
 # kernels to
 HEAD_DIM = 64
 _MAX_C = 1280
-_TILE = 64  # tokens a tile of the q|k|v GEMM
+_TILE = 128  # tokens a tile of the q|k|v GEMM
 
 
 def reset_launch_counts() -> None:
@@ -231,11 +231,12 @@ _LIB: Optional[ctypes.CDLL] = None
 class Plan:
     """A stage's three kernels (the pair runs them twice): the LayerNorm
     into ``z``; the q|k|v GEMM with the attention in its epilogue into
-    ``o``, over ``qkv.tiles`` tiles of 64 tokens (``pixels`` whole pixels of
-    T frames) by one head's q | k | v (192 columns), head tiles fastest,
-    walked by ``qkv.grid`` persistent blocks; the out-GEMM with the bias and
-    residual, tiled as the FF's (``fused_ff.plan``) for N = B T P and Cout =
-    C. z and o are bf16 (B, T, P, C), reused by stage 2."""
+    ``o``, over ``qkv.tiles`` tiles of 128 tokens (``pixels`` whole pixels
+    of T frames; 64 a consumer warpgroup) by one head's q | k | v (192
+    columns), head tiles fastest, walked by ``qkv.grid`` persistent blocks;
+    the out-GEMM with the bias and residual, tiled as the FF's
+    (``fused_ff.plan``) for N = B T P and Cout = C. z and o are bf16 (B, T,
+    P, C), reused by stage 2."""
     z: Tuple[int, int, int, int]
     o: Tuple[int, int, int, int]
     pixels: int
