@@ -11,7 +11,14 @@ of a row tile that straddles frames credited to the tile's first frame)
 must fail at every path shape of ``kernel_check`` (the conv's also at the
 576x1024 F(2x4)-named shape). The temporal conv at ragged pixel counts,
 T P not a multiple of its row tile and Cin = 32, and its autograd
-Function against plain autograd.
+Function against plain autograd. The temporal attention pair (#9) at
+ragged pixel counts and T = 8 and 4, its output nearer its plain version
+(p rounded to bf16) than the same with p unrounded, and five broken builds
+that must fail at every 512 #9 shape and the short clips (output x1.01,
+the q|k|v GEMM's last K block skipped, o stored at the next head's
+columns: phase 2's bounds; p left unrounded: the nearer-reference check,
+which phase 2's bounds do not see; the cross-pixel mask dropped: at T < 16
+only).
 The 576x1024 path's new shapes: attn1 at S = 9216, 2304 and 576 (each at
 the UNet's 32 images, through the wrapper the UNet picks), the pair at
 P = 144 and 9216, and the F(2x4)-named conv (#14). The d = 512 forward
