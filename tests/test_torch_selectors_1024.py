@@ -294,6 +294,13 @@ def test_pair_differs_only_at_p144(sites, on_tpu):
     assert ps == {9216, 2304, 576, 144}
 
 
+def test_phase2_checks_the_pair_at_every_launched_shape(sites):
+    """``kernel_check.TPAIR_1024`` holds every (P, C) the 576x1024 UNet
+    launches the pair at, the 9216-pixel 512-wide init attention too."""
+    launched = {(p, c) for (t, p, c, _), _ in _by_kind(sites["unet"], "pair")}
+    assert launched == {(p, c) for _, p, c in kc.TPAIR_1024}
+
+
 def test_conv_names_f24_exactly_where_jax_takes_it(sites, on_tpu):
     rows = _by_kind(sites["unet"], "conv")
     f24 = [key for key, port in rows if port == "winograd24_gn_silu_conv3x3"]

@@ -176,6 +176,17 @@ def test_temporal_blocks_take_the_jax_route(sites, jax_switched):
     assert {key[1] for key, _ in rows} == {2560, 640, 160, 40}
 
 
+def test_phase2_checks_the_temporal_stages_at_every_launched_shape(sites):
+    """``kernel_check.TATTN_512`` (#10) and ``TPAIR_512`` (#9, the same
+    blocks on the default route) hold every (P, C) the 320x512 UNet
+    launches a temporal self-attention stage at."""
+    from tooncrafter_tpu_torch.utils import kernel_check as kc
+
+    launched = {(p, c) for (t, p, c, _), _ in _moved(sites["unet"], "single")}
+    assert launched == {(p, c) for _, p, c in kc.TATTN_512}
+    assert launched == {(p, c) for _, p, c in kc.TPAIR_512}
+
+
 def _jax_conv(key):
     if jwg.table_entry24(*key):
         return "winograd24_gn_silu_conv3x3"

@@ -31,6 +31,7 @@ PLANS = {
     (2, 16, 2304, 640): (8, 5760, 132, 128, 160, 2304, 132),
     (2, 16, 576, 1280): (8, 2880, 132, 128, 160, 1152, 132),
     (2, 16, 144, 1280): (8, 720, 132, 128, 160, 288, 132),
+    (2, 16, 9216, 512): (8, 18432, 132, 128, 128, 9216, 132),
     (2, 16, 37, 320): (8, 50, 50, 64, 160, 38, 38),
     (2, 4, 21, 512): (32, 16, 16, 64, 128, 12, 12),
     (2, 16, 3, 1280): (8, 40, 40, 64, 160, 16, 16),

@@ -503,11 +503,14 @@ def conv_cases(dev, gen, shapes=CONV_512, name=None) -> List[Case]:
     return cases
 
 
-# (label, P, C)
+# (label, P, C): every shape a request launches the pair at (the launch
+# tables of tests/test_torch_selectors_1024.py and _switched.py hold them
+# to the models)
 TPAIR_512 = (("ds1", 2560, 320), ("init_attn", 2560, 512), ("ds2", 640, 640),
              ("ds4", 160, 1280), ("mid 5x8", 40, 1280))
 TPAIR_1024 = (("1024 ds1", 9216, 320), ("1024 ds2", 2304, 640),
-              ("1024 ds4", 576, 1280), ("1024 mid 9x16", 144, 1280))
+              ("1024 ds4", 576, 1280), ("1024 mid 9x16", 144, 1280),
+              ("1024 init_attn", 9216, 512))
 
 
 def tpair_flops(n: int, t: int, c: int, stages: int = 2) -> float:
@@ -552,8 +555,10 @@ def tpair_cases(dev, gen, shapes=TPAIR_512, t: int = 16) -> List[Case]:
     return cases
 
 
-# the temporal sub-block (#10) under TC_TATTN_PAIR=0: (label, P, C)
-TATTN_512 = (("ds1", 2560, 320), ("init_attn", 2560, 512), ("ds4", 160, 1280))
+# the temporal sub-block (#10) under TC_TATTN_PAIR=0: (label, P, C), the
+# pair's shapes
+TATTN_512 = (("ds1", 2560, 320), ("init_attn", 2560, 512), ("ds4", 160, 1280),
+             ("ds2", 640, 640), ("mid 5x8", 40, 1280))
 
 
 def tattn_cases(dev, gen, shapes=TATTN_512) -> List[Case]:
