@@ -44,12 +44,12 @@ def test_plan_tiles_grids_and_scratch(shape):
     """128-token tiles of 128 / T whole pixels by one head's q | k | v, on
     at most one block an SM; the out-GEMM tiled as the FF's at N = B T P and
     Cout = C (128 rows unless that gives fewer tiles than SMs, 160 columns
-    where C allows); z and o (B, T, P, C)."""
+    where C allows); the scratch z and o each (B, T, P, C)."""
     bsz, t, p, c = shape
     pl = ta.plan(*shape)
     assert (pl.pixels, pl.qkv.tiles, pl.qkv.grid, pl.out.rows, pl.out.width,
             pl.out.tiles, pl.out.grid) == PLANS[shape]
-    assert pl.z == pl.o == shape
+    assert pl.scratch == shape
     assert (pl.qkv.rows, pl.qkv.width) == (128, 192)
     assert pl.qkv.tiles == bsz * -(-p // (128 // t)) * (c // 64)
     assert pl.out == ta.ff.plan(bsz * t * p, c, c, c, False).out
@@ -74,7 +74,7 @@ def _tiles(pl, heads):
     head), head tiles fastest."""
     i = torch.arange(pl.qkv.tiles)
     r = i // heads
-    ptiles = -(-pl.z[2] // pl.pixels)
+    ptiles = -(-pl.scratch[2] // pl.pixels)
     return r // ptiles, (r % ptiles) * pl.pixels, i % heads
 
 

@@ -24,8 +24,9 @@
 // producer thread) in its cooperative mode: a tile is 128 tokens by one
 // head's q | k | v (192 columns, K = C), each consumer warpgroup's 64-row
 // half with the one B, so a K block read from L2 feeds 128 x 192 products
-// (2 x 128 x 192 operations on 320 rows of 128 bytes: 77 a byte; 48 for
-// the 64-row tiles of the ping-pong mode, which ran 1.3-1.4x slower):
+// (2 x 128 x 192 operations on 320 rows of 128 bytes: 77 a byte, against
+// 48 for 64-row tiles in ping-pong, which were slower at C >= 512 and no
+// faster at C = 320; PERF.md):
 //   * A = z gathered pixel-major by a 4-D tensor map over z viewed as (C,
 //     T, P, B) with boxes of {64 channels, T frames, 128 / T pixels, 1}:
 //     row r of the tile is frame r % T of pixel r / T (T divides 16). Its

@@ -33,11 +33,11 @@ accumulates in fp32 and rounds; + bo and + x each round. Stage 1's output
 is stage 2's input, in the compute dtype.
 
 On the card a stage runs three kernels: the LayerNorm into z (the FF's
-kernel), a persistent wgmma q|k|v GEMM over 64-token tiles of whole pixels
+kernel), a persistent wgmma q|k|v GEMM over 128-token tiles of whole pixels
 with the attention in its epilogue into o, and the FF's out-GEMM with the
 bias and residual; z and o are the tensors the TPU kernel rounds to bf16,
 so they pass through device memory in bf16 and no number changes. ``plan``
-picks the tiles and grids and the scratch shapes; the wrapper allocates z
+picks the tiles and grids and the scratch shape; the wrapper allocates z
 and o with ``torch.empty`` on the caller's stream, stage 2 reuses them and
 runs on the output in place. One call counts one launch of the TPU
 kernel's name, whatever number of CUDA kernels it runs.
@@ -235,10 +235,9 @@ class Plan:
     of T frames; 64 a consumer warpgroup) by one head's q | k | v (192
     columns), head tiles fastest, walked by ``qkv.grid`` persistent blocks;
     the out-GEMM with the bias and residual, tiled as the FF's
-    (``fused_ff.plan``) for N = B T P and Cout = C. z and o are bf16 (B, T,
-    P, C), reused by stage 2."""
-    z: Tuple[int, int, int, int]
-    o: Tuple[int, int, int, int]
+    (``fused_ff.plan``) for N = B T P and Cout = C. ``scratch`` is the
+    shape of z and of o, each bf16, reused by stage 2."""
+    scratch: Tuple[int, int, int, int]
     pixels: int
     qkv: ff.GemmPlan
     out: ff.GemmPlan
@@ -260,7 +259,7 @@ def plan(bsz: int, t: int, p: int, c: int,
     pixels = _TILE // t
     tiles = bsz * -(-p // pixels) * (c // HEAD_DIM)
     n = bsz * t * p
-    return Plan(z=(bsz, t, p, c), o=(bsz, t, p, c), pixels=pixels,
+    return Plan(scratch=(bsz, t, p, c), pixels=pixels,
                 qkv=ff.GemmPlan(_TILE, 3 * HEAD_DIM, tiles, min(tiles, sms)),
                 out=ff.plan(n, c, c, c, False, sms).out)
 
@@ -310,8 +309,8 @@ def _launch_stages(x, stages, heads: int, scale: float, eps: float):
     out = torch.empty_like(x)
     if x.numel():
         pl = plan(bsz, t, p, c, _launch.sm_count(dev))
-        z = torch.empty(pl.z, dtype=bf, device=dev)
-        o = torch.empty(pl.o, dtype=bf, device=dev)
+        z, o = (torch.empty(pl.scratch, dtype=bf, device=dev)
+                for _ in range(2))
         lib = _library()
         call = (lib.tc_temporal_attn_pair if len(stages) == 2
                 else lib.tc_temporal_attn_single)
