@@ -9,8 +9,10 @@ Phases, each printed on its own lines; any failure exits non-zero:
   2. hold each kernel against its plain PyTorch version on the card at the
      shapes the 320x512 interpolation path gives it, then at the 576x1024
      path's most-launched shapes (the VAE mid attention at both its
-     decoder and per-frame encoder shapes), the switched path's, and the
-     shapes the
+     decoder and per-frame encoder shapes), the switched path's (the
+     one-pass GroupNorm at every shape it launches with, in inference and
+     training, and at two samples no cluster holds: its L2 branch), and
+     the shapes the
      op functions of the kernels no model reaches are driven with, with
      its time, the plain version's (fp32 products: a reference), the
      unfused module chain's in bf16 (chain_ms: what the port ran before the

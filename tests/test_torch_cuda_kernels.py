@@ -34,12 +34,18 @@ kernels of the JAX package's opt-in switches (#10 the single-stage
 temporal attention, #11 the T-attention core, #15 the im2col-named conv
 with its fp32 cast point, #16 the one-pass GroupNorm) at ragged shapes,
 and each against one broken build that must fail at every one of its
-``kernel_check.switched_cases`` shapes; #15's cast point through an
-identity conv, and against a build that takes #13's. The CUDA kernels of
-the op functions no model reaches (#17 the dual cross-attention,
-#18 the per-channel sums, #5 the ones-column flash) at ragged and strided
-shapes, at every ``kernel_check.op_cases`` shape, and each one's cast point
-against a build that takes the other rounding. The CUDA
+``kernel_check.switched_cases`` shapes (#16 against two: its eps, and
+its cluster exchange reading rank 0's sums for rank 1's); #15's cast
+point through an identity conv, and against a build that takes #13's;
+#16's bf16 square pinned, against a build squaring in fp32. The CUDA
+kernels of the op functions no model reaches (#17 the dual
+cross-attention, #18 the per-channel sums, #5 the ones-column flash) at
+ragged and strided shapes, at every ``kernel_check.op_cases`` shape, and
+each one's cast point against a build that takes the other rounding;
+#18 against a build whose last block leaves out the final chunk. #16 and
+#18 launch one kernel a call (a profiler trace) and give the same bits
+twice; #18 gives the bits of its summation order run in torch
+(tests/row_sums_order.py) and leaves its arrival counters at 0. The CUDA
 kernels have no CPU mode, so without a card these tests skip.
 
     python -m pytest tests/test_torch_cuda_kernels.py --noconftest -q -s
@@ -836,6 +842,76 @@ def test_gn_kernel_ragged_rows(dev, shape, silu):
     assert fn.LAUNCHES["_pallas_gn"] == 1
 
 
+def _gn_pin(dev):
+    """#16's cast point: x = 3 +- 2^-6 (bf16-exact, half the rows each way)
+    at the training ResBlock ds1 shape. Every sum is exact in fp32 in any
+    order, mean = 3 and the fp32 squares give var = 2^-12; the bf16
+    squares (9.125 and 8.9375) give var = 2^-5, so y = (x - 3) A differs
+    ~11x between the two. True where the kernel's output is within
+    phase 2's bounds of the plain version, which squares in bf16."""
+    n, hw, c = 32, 2560, 320
+    sign = torch.where(torch.arange(hw, device=dev) % 2 == 0, 1.0, -1.0)
+    x = (3.0 + sign[None, :, None] * 2.0 ** -6).expand(n, hw, c).to(
+        torch.bfloat16).contiguous()
+    w = torch.ones(c, device=dev)
+    b = torch.zeros(c, device=dev)
+    ref = fn._plain_gn(x.float(), w, b, 32, 1e-5, False, cdt=torch.bfloat16)
+    f32 = fn._plain_gn(x.float(), w, b, 32, 1e-5, False)
+    assert (ref - f32).abs().max().item() > 0.5  # the pin tells them apart
+    out = fn._pallas_gn(x, w, b, 32, 1e-5, False)
+    torch.cuda.synchronize()
+    err = (out.float() - ref).abs()
+    max_bound, mean_bound = fa.error_bounds(ref)
+    print(f"#16 pin: max error {err.max().item():.3e} (bound {max_bound:.3e})")
+    return err.max().item() <= max_bound and err.mean().item() <= mean_bound
+
+
+def test_gn_kernel_squares_in_bf16(dev):
+    assert _gn_pin(dev)
+
+
+def test_gn_kernel_squaring_in_fp32_fails(dev, tmp_path, monkeypatch):
+    src = _broken_copy(tmp_path, "group_norm_silu.cu",
+                       "using Square = rowsums::SquareBf16;",
+                       "using Square = rowsums::SquareF32;")
+    monkeypatch.setattr(fn, "_LIB", fn.bind(
+        _build.load_library(*fn.LIBRARY, csrc=src)))
+    assert not _gn_pin(dev)
+
+
+def _one_kernel_a_call(call, name, kernel):
+    """One call counts one launch, and a profiler trace of a few calls
+    holds no kernel but ``kernel``, at most once a call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    call()
+    torch.cuda.synchronize()
+    kc.reset_launch_counts()
+    calls = 5
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            call()
+        torch.cuda.synchronize()
+    assert kc.launch_counts()[name] == calls
+    seen = [(e.key, e.count) for e in prof.key_averages()
+            if getattr(e, "self_device_time_total", 0) > 0]
+    assert len(seen) == 1 and kernel in seen[0][0].replace(" ", ""), seen
+    assert 1 <= seen[0][1] <= calls, seen
+
+
+@pytest.mark.parametrize("shape", [(32, 2560, 320), (2, 16384, 128)])
+def test_gn_kernel_one_launch_and_bit_identical(dev, shape):
+    """A resident and an L2-branch shape: one kernel a call, and two calls
+    give the same bits."""
+    gen = torch.Generator(device=dev).manual_seed(5)
+    x = kc.gn_input(dev, gen, *shape)
+    w = torch.rand(shape[-1], device=dev, generator=gen) + 0.5
+    b = torch.rand(shape[-1], device=dev, generator=gen) - 0.5
+    call = lambda: fn._pallas_gn(x, w, b, 32, 1e-5, True)
+    _one_kernel_a_call(call, "_pallas_gn", "gn_kernel<")
+    assert torch.equal(call(), call())
+
+
 # (the kernel, its library's module and (name, sources), the file edited,
 #  the text replaced, the replacement)
 SWITCHED_MUTATIONS = [
@@ -852,6 +928,11 @@ SWITCHED_MUTATIONS = [
     ("_pallas_gn", "group_norm_silu.cu",
      "const float inv = 1.f / sqrtf(var + eps);",
      "const float inv = 1.01f / sqrtf(var + eps);"),
+    # the exchange through distributed shared memory reads rank 0's group
+    # partials in place of rank 1's (every #16 shape has k > 1 ranks)
+    ("_pallas_gn", "group_norm_silu.cu",
+     "t += sm90::ld_peer_f32(sm90::peer_addr(&grp[i], r));",
+     "t += sm90::ld_peer_f32(sm90::peer_addr(&grp[i], r == 1 ? 0 : r));"),
 ]
 
 
@@ -864,7 +945,8 @@ def _switched_library(name):
 
 
 @pytest.mark.parametrize("name,edited,old,new", SWITCHED_MUTATIONS,
-                         ids=[m[0] for m in SWITCHED_MUTATIONS])
+                         ids=[m[0] for m in SWITCHED_MUTATIONS[:-1]]
+                         + ["_pallas_gn_rank0_twice"])
 def test_mutated_switched_kernel_fails_at_every_shape(dev, tmp_path,
                                                       monkeypatch, name,
                                                       edited, old, new):
@@ -1177,13 +1259,62 @@ def test_sums_kernel_squares_in_fp32(dev):
 
 
 def test_sums_kernel_squaring_in_bf16_fails(dev, tmp_path, monkeypatch):
-    old = "float sq(float v) { return v * v; }"
-    new = ("float sq(float v) { "
-           "return __bfloat162float(__float2bfloat16(v * v)); }")
-    src = _broken_copy(tmp_path, "channel_sums.cu", old, new)
+    src = _broken_copy(tmp_path, "channel_sums.cu",
+                       "using Square = rowsums::SquareF32;",
+                       "using Square = rowsums::SquareBf16;")
     monkeypatch.setattr(st, "_LIB", st.bind(
         _build.load_library(*st.LIBRARY, csrc=src)))
     assert not _sums_pin(dev)
+
+
+def test_sums_kernel_skipping_the_last_chunk_fails(dev, tmp_path,
+                                                   monkeypatch):
+    """The last block's fold leaves the final chunk's partial out: off
+    its bound at every phase-2 #18 shape."""
+    src = _broken_copy(tmp_path, "channel_sums.cu", "4ll * chunks * cols,",
+                       "4ll * (chunks - 1) * cols,")
+    monkeypatch.setattr(st, "_LIB", st.bind(
+        _build.load_library(*st.LIBRARY, csrc=src)))
+    gen = torch.Generator(device=dev).manual_seed(0)
+    cases = kc.stats_cases(dev, gen)
+    for case in cases:
+        row = kc.run_case(case, None, timed=False)
+        print(f"#18 without its last chunk: {kc.line(case, row)}")
+        assert not row["ok"], case.label
+    assert len(cases) == len(kc.STATS_512)
+
+
+@pytest.mark.parametrize("shape", [(32, 2560, 320), (2, 40960, 320),
+                                   (3, 300, 64)])
+def test_sums_kernel_is_its_fold_bit_for_bit(dev, shape):
+    """#18 against its summation order in torch (tests/row_sums_order.py,
+    fp32 adds on the card): the same bits; two calls the same bits; one
+    kernel a call."""
+    import row_sums_order as order
+
+    x = (_rand(dev, 134, *shape).float() * 2 + 0.5).to(torch.bfloat16)
+    call = lambda: st._pallas_sums(x)
+    got = call()
+    want = order.channel_sums(x, st.plan(*shape, 2))
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    for g, w in zip(got, call()):
+        assert torch.equal(g, w)
+    _one_kernel_a_call(call, "_pallas_sums", "sums_kernel<")
+
+
+def test_sums_counters_stay_zero(dev):
+    """50 calls in a row at mixed N on one stream: each right, and the
+    arrival counters all 0 after."""
+    st._COUNTERS.clear()
+    xs = [(_rand(dev, 135 + n, n, 640, 320).float() + 0.5).to(torch.bfloat16)
+          for n in (1, 2, 5, 32, 3)]
+    outs = [st._pallas_sums(xs[i % 5]) for i in range(50)]
+    torch.cuda.synchronize()
+    for i, got in enumerate(outs):
+        assert kc._sums_row(got, kc.sums_reference(xs[i % 5]))["ok"], i
+    assert st._COUNTERS and all(not t.any().item()
+                                for t in st._COUNTERS.values())
 
 
 @pytest.mark.parametrize("sq,sk", [(200, 200), (160, 97), (64, 333)])

@@ -100,17 +100,6 @@ __device__ __forceinline__ void cp_async16(bf16* dst, const bf16* src) {
                : "memory");
 }
 
-// v * sigmoid(v) with the approximate exponential and reciprocal (a few
-// fp32 ulps, far below the bf16 rounding that follows; the IEEE-rounded
-// reciprocal, or __expf's range fix-up, cost instructions the prologue,
-// which sets the kernel's pace, cannot spare)
-__device__ __forceinline__ float fast_silu(float v) {
-  float e, r;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(e) : "f"(v * -1.4426950408889634f));
-  asm("rcp.approx.ftz.f32 %0, %1;\n" : "=f"(r) : "f"(1.f + e));
-  return v * r;
-}
-
 // 16 bytes from / to shared memory at a shared-window address
 __device__ __forceinline__ uint4 lds128(uint32_t a) {
   uint4 v;

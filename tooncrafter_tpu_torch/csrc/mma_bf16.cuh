@@ -1,7 +1,8 @@
 // Small device helpers shared by the fused kernels (temporal_attention.cu,
 // temporal_ptc.cu, dual_cross_attention.cu, group_norm_silu.cu,
 // gn_silu_conv3x3.cu; temporal_conv.cu for the bf16 packing): bf16 packing
-// and rounding, fragment loads, and the m16n8k16 bf16 tensor-core product.
+// and rounding, the fast SiLU, fragment loads, and the m16n8k16 bf16
+// tensor-core product.
 //
 // Fragment layouts of mma.sync.m16n8k16 (g = lane / 4, t = lane % 4):
 //   A (16x16, row): a0 (row g, cols 2t..2t+1), a1 (row g+8, same cols),
@@ -23,6 +24,17 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 
 __device__ __forceinline__ float round_bf16(float v) {
   return __bfloat162float(__float2bfloat16(v));
+}
+
+// v * sigmoid(v) with the approximate exponential and reciprocal (a few
+// fp32 ulps, far below the bf16 rounding that follows; the IEEE-rounded
+// reciprocal, or __expf's range fix-up, cost instructions that the conv's
+// prologue, which sets its pace, and the GroupNorm's apply cannot spare)
+__device__ __forceinline__ float fast_silu(float v) {
+  float e, r;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(e) : "f"(v * -1.4426950408889634f));
+  asm("rcp.approx.ftz.f32 %0, %1;\n" : "=f"(r) : "f"(1.f + e));
+  return v * r;
 }
 
 __device__ __forceinline__ uint32_t ld32(const bf16* p) {

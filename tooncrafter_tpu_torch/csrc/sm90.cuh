@@ -1,11 +1,13 @@
 // Hopper (sm_90a) building blocks shared by the wgmma kernels
 // (flash_attention.cu, flash_attention_bwd.cu, gn_silu_conv3x3.cu;
 // fused_ff.cu, temporal_conv.cu and temporal_attention.cu through
-// persistent_gemm.cuh):
-// mbarriers, TMA tile loads described by a tensor map (multicast to a
-// cluster too), bulk copies and reductions, named barriers, wgmma
-// descriptors and the wgmma products they run, and the host side that
-// encodes a tensor map.
+// persistent_gemm.cuh) and the row sums (group_norm_silu.cu and
+// channel_sums.cu through row_sums.cuh):
+// mbarriers, cluster barriers and distributed shared memory, TMA tile
+// loads described by a tensor map (multicast to a cluster too), bulk
+// copies and reductions, proxy fences and an acquire-release atomic,
+// named barriers, wgmma descriptors and the wgmma products they run, and
+// the host side that encodes a tensor map.
 //
 // Shared tiles that wgmma reads through a descriptor are written by TMA in
 // the 128-byte swizzle: rows of 64 bf16 (128 bytes), each 16-byte chunk c
@@ -124,6 +126,16 @@ __device__ __forceinline__ void cluster_sync() {
           : "memory");
 }
 
+// cluster_sync in two halves: arrive (releasing this thread's accesses)
+// and, later, wait for every thread of the cluster to have arrived
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
+}
+
 // the address of `p`'s counterpart in block `cta` of the cluster
 __device__ __forceinline__ uint32_t peer_addr(const void* p, uint32_t cta) {
   uint32_t r;
@@ -138,6 +150,15 @@ __device__ __forceinline__ void st_peer128(uint32_t addr, uint4 v) {
                    addr),
                "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w)
                : "memory");
+}
+
+__device__ __forceinline__ float ld_peer_f32(uint32_t addr) {
+  float v;
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n"
+               : "=f"(v)
+               : "r"(addr)
+               : "memory");
+  return v;
 }
 
 // one arrival on the mbarrier at `addr` (peer_addr), releasing this
@@ -598,6 +619,22 @@ __device__ __forceinline__ void bulk_wait() {
 // (wgmma operands, TMA and bulk stores)
 __device__ __forceinline__ void fence_async_smem() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// this thread's global accesses ordered with its later (or, from other
+// threads through a release / acquire, earlier) bulk copies
+__device__ __forceinline__ void fence_async_global() {
+  asm volatile("fence.proxy.async.global;\n" ::: "memory");
+}
+
+// *p += v at device scope, acquiring and releasing; returns the old value
+__device__ __forceinline__ int atom_add_acq_rel(int* p, int v) {
+  int old;
+  asm volatile("atom.acq_rel.gpu.global.add.s32 %0, [%1], %2;\n"
+               : "=r"(old)
+               : "l"(p), "r"(v)
+               : "memory");
+  return old;
 }
 
 __device__ __forceinline__ void bar_sync(int id, int threads) {

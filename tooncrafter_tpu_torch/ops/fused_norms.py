@@ -1,6 +1,8 @@
 """One-pass GroupNorm (+SiLU) per sample (tooncrafter_tpu/ops/fused_norms.py):
 its CUDA kernel (``csrc/group_norm_silu.cu``, replacing the TPU kernel
-``_pallas_gn``), its plain version and the dispatch rule.
+``_pallas_gn``: one launch, a thread block cluster a sample that exchanges
+its sums through distributed shared memory; ``plan`` cuts the sample), its
+plain version and the dispatch rule.
 
 ``TOONCRAFTER_FUSED_GN=1`` (read once, at import, as the JAX package reads
 it) sends ``group_norm_silu`` to the kernel wherever one sample's activation
@@ -23,21 +25,34 @@ package's custom_vjp differentiates ``_xla_impl``
 from __future__ import annotations
 
 import ctypes
+import functools
 import os
-from typing import Dict, Optional
+from typing import Dict, NamedTuple, Optional
 
 import torch
 
 from tooncrafter_tpu_torch.ops import _build
 from tooncrafter_tpu_torch.ops import _launch
 from tooncrafter_tpu_torch.ops.norms import group_norm
+from tooncrafter_tpu_torch.ops.row_sums import (BAR_BYTES, MAX_SLOTS,
+                                                RING_SLOTS, SMEM_BLOCK,
+                                                blocks_an_sm, row_step,
+                                                stage_rows)
 
 LAUNCHES: Dict[str, int] = {"_pallas_gn": 0}
 
 _MAX_VMEM_SAMPLE_BYTES = 4 * 1024 * 1024  # one sample, compute dtype
 _FUSED_GN = os.environ.get("TOONCRAFTER_FUSED_GN") == "1"
-_MAX_C = 4096  # csrc/group_norm_silu.cu: the partial sums' shared rows
-_TARGET_BLOCKS = 1056  # 8 blocks an SM of the H100's 132
+_MAX_C = 4096  # the widest rows the plan is made for: 512 16-byte columns
+
+CLUSTER_SIZES = (1, 2, 4, 8, 16)  # csrc/group_norm_silu.cu; 16 non-portable
+MAX_THREADS = 1024
+MIN_ROWS = 20      # rows a block, at least, where the cluster size allows
+# clusters of k blocks the H100 holds at once at one block an SM (its
+# cudaOccupancyMaxActiveClusters: ``utils/breakdown.py --kernel gn``
+# prints it for each plan); a 16-block cluster takes 16 SMs of one GPC,
+# and only 112 of the 132 SMs make up such groups
+CLUSTERS_AT_ONE_AN_SM = {1: 132, 2: 66, 4: 30, 8: 15, 16: 7}
 
 
 def reset_launch_counts() -> None:
@@ -112,8 +127,10 @@ _LIB: Optional[ctypes.CDLL] = None
 
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.tc_group_norm_silu.argtypes = [vp] * 6 + [i] * 5 + [f, i, vp]
+    lib.tc_group_norm_silu.argtypes = [vp] * 4 + [i] * 9 + [f, i, vp]
     lib.tc_group_norm_silu.restype = ctypes.c_int
+    lib.tc_gn_clusters.argtypes = [i] * 4
+    lib.tc_gn_clusters.restype = ctypes.c_int
     return lib
 
 
@@ -124,12 +141,63 @@ def _library() -> ctypes.CDLL:
     return _LIB
 
 
-def chunks(n: int, hw: int) -> int:
-    """Row chunks a sample is cut into: ~_TARGET_BLOCKS blocks over the
-    batch, at least 64 rows a chunk, every chunk non-empty."""
-    want = max(1, min(-(-_TARGET_BLOCKS // n), -(-hw // 64)))
-    rows = -(-hw // want)
-    return -(-hw // rows)
+def smem_bytes(c: int, groups: int, rstep: int, data: int) -> int:
+    """A block's shared memory (csrc/group_norm_silu.cu's Layout): the
+    mbarriers, the group partials, the channel sums, the row offsets'
+    fold, then ``data`` bytes of slice or ring at a 128-byte boundary."""
+    head = BAR_BYTES + -(-8 * groups // 16) * 16 + 8 * c
+    return -(-(head + 4 * max(rstep, 2) * c) // 128) * 128 + data
+
+
+class GnPlan(NamedTuple):
+    k: int            # blocks a sample: one cluster
+    rows: int         # rows a block (the last block's may be fewer)
+    threads: int      # a block's: 16-byte columns x row offsets
+    rstep: int
+    stage_rows: int   # rows a stage
+    slots: int        # stages held in shared memory
+    resident: bool    # the whole slice held (else streamed twice)
+    smem: int         # bytes a block
+    per_sm: int       # blocks an SM could hold
+
+
+@functools.lru_cache(maxsize=None)
+def plan(n: int, hw: int, c: int, groups: int = 32) -> GnPlan:
+    """#16's launch for a (n, hw, c) bf16 input: k blocks (one cluster) a
+    sample, ``rows`` rows each, every block's rows non-empty. The rules,
+    from timing every (k, branch, row offsets) on the H100 (PERF.md, PR
+    13):
+    - k: the largest cluster size that leaves each block MIN_ROWS rows, but
+      at least 4 where the rows allow: small slices cost a cluster more
+      than they save;
+    - twice the row offsets (threads) where the grid is under two blocks
+      an SM: its few blocks then work faster;
+    - the slice resident in shared memory where blocks fit two to an SM,
+      or where the batch is one wave at one an SM (CLUSTERS_AT_ONE_AN_SM);
+      else streamed twice through a ring of RING_SLOTS stages, the second
+      read from L2 (the L2 branch): a wave of resident slices at one
+      block an SM leaves the card's memory idle while it computes."""
+    cv = c // 8
+    row = 2 * c
+    ks = [k for k in CLUSTER_SIZES if (k - 1) * -(-hw // k) < hw]
+    k = max([k for k in ks if -(-hw // k) >= MIN_ROWS] + [max(
+        k for k in ks if k <= 4)])
+    rows = -(-hw // k)
+    rstep = row_step(cv)
+    if n * k < 2 * _launch.H100_SMS and 2 * cv * rstep <= MAX_THREADS:
+        rstep *= 2
+    threads = cv * rstep
+    srows = stage_rows(rstep, row)
+    smem = smem_bytes(c, groups, rstep, rows * row)
+    slots = -(-rows // srows)
+    per_sm = blocks_an_sm(smem, threads)
+    if (smem <= SMEM_BLOCK and slots <= MAX_SLOTS
+            and (per_sm >= 2 or n <= CLUSTERS_AT_ONE_AN_SM[k])):
+        return GnPlan(k, rows, threads, rstep, srows, slots, True, smem,
+                      per_sm)
+    smem = smem_bytes(c, groups, rstep, RING_SLOTS * srows * row)
+    return GnPlan(k, rows, threads, rstep, srows, RING_SLOTS, False, smem,
+                  blocks_an_sm(smem, threads))
 
 
 def _launch_gn(x, scale, bias, num_groups: int, eps: float, silu: bool):
@@ -146,13 +214,11 @@ def _launch_gn(x, scale, bias, num_groups: int, eps: float, silu: bool):
     out = torch.empty_like(x)
     if not x.numel():
         return out
-    k = chunks(n, hw)
-    part = torch.empty((n, k, 2, c), dtype=f32, device=dev)
-    ab = torch.empty((n, 2, c), dtype=f32, device=dev)
+    p = plan(n, hw, c, num_groups)
     err = _library().tc_group_norm_silu(
-        x.data_ptr(), scale.data_ptr(), bias.data_ptr(), out.data_ptr(),
-        part.data_ptr(), ab.data_ptr(), n, hw, c, num_groups, k, float(eps),
-        int(silu), _launch.stream(x))
+        x.data_ptr(), scale.data_ptr(), bias.data_ptr(), out.data_ptr(), n,
+        hw, c, num_groups, p.k, p.rows, p.rstep, p.stage_rows, p.slots,
+        float(eps), int(silu), _launch.stream(x))
     _launch.raise_on_error(err, f"GroupNorm (N={n}, HW={hw}, C={c})")
     return out
 

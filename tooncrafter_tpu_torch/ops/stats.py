@@ -1,7 +1,9 @@
 """Per-channel (s1, s2) sums over every non-batch, non-channel axis
 (tooncrafter_tpu/ops/stats.py): the CUDA kernel ``csrc/channel_sums.cu``
-(replacing the TPU kernel ``_pallas_sums``), its plain version, the
-autograd Function and the JAX package's dispatch rule.
+(replacing the TPU kernel ``_pallas_sums``: one launch over the whole card
+whose last block a sample folds the partials in chunk order; ``plan`` cuts
+the batch), its plain version, the autograd Function and the JAX package's
+dispatch rule.
 
 s1 = sum(x) and s2 = sum(x^2) per (N, C) in fp32, with x cast to fp32
 *before* it is squared (not #16's bf16 square). ``channel_sums`` takes the
@@ -19,18 +21,27 @@ custom_vjp's backward, gx = g1 + 2 x g2 in x's dtype
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional, Tuple
+import functools
+import math
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
 from tooncrafter_tpu_torch.ops import _build
 from tooncrafter_tpu_torch.ops import _launch
+from tooncrafter_tpu_torch.ops.row_sums import (BAR_BYTES, RING_SLOTS,
+                                                STAGE_BYTES, row_step,
+                                                stage_rows)
 
 LAUNCHES: Dict[str, int] = {"_pallas_sums": 0}
 
 _DTYPES = {torch.bfloat16: 0, torch.float16: 1, torch.float32: 2}
-_TARGET_BLOCKS = 1056  # 8 blocks an SM of the H100's 132
+_BLOCKS_AN_SM = 1      # one block an SM streams fastest (PERF.md, PR 13)
+_MIN_ROWS = 64         # rows a chunk, at least
+_STAGE_BYTES = 2 * STAGE_BYTES  # fewer, larger stages: one block an SM
 _MAX_THREADS = 1024    # csrc/channel_sums.cu: C / (16 bytes of x) a block
+# the arrival counters, zeros, per (device, stream): see ``counters``
+_COUNTERS: Dict[Tuple[int, int], torch.Tensor] = {}
 
 
 def reset_launch_counts() -> None:
@@ -76,7 +87,7 @@ _LIB: Optional[ctypes.CDLL] = None
 
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     vp, i = ctypes.c_void_p, ctypes.c_int
-    lib.tc_channel_sums.argtypes = [vp] * 4 + [i] * 5 + [vp]
+    lib.tc_channel_sums.argtypes = [vp] * 5 + [i] * 11 + [vp]
     lib.tc_channel_sums.restype = ctypes.c_int
     return lib
 
@@ -88,12 +99,51 @@ def _library() -> ctypes.CDLL:
     return _LIB
 
 
-def chunks(n: int, s: int) -> int:
-    """Spatial chunks a sample is cut into: ~_TARGET_BLOCKS blocks over the
-    batch, at least 64 positions a chunk, every chunk non-empty."""
-    want = max(1, min(-(-_TARGET_BLOCKS // n), -(-s // 64)))
+class SumsPlan(NamedTuple):
+    chunks: int       # blocks a sample
+    rows: int         # rows a chunk (the last chunk's may be fewer)
+    threads: int      # a block's: 16-byte columns x row offsets
+    rstep: int
+    stage_rows: int   # rows a ring stage
+    slots: int        # ring stages in flight
+    fold_rows: int    # chunks' partials a stage of the last block's fold
+    fold_slots: int
+    smem: int         # dynamic shared memory a block
+
+
+@functools.lru_cache(maxsize=None)
+def plan(n: int, s: int, c: int, itemsize: int) -> SumsPlan:
+    """#18's launch for an (n, s, c) input of ``itemsize`` bytes: one wave
+    of about _BLOCKS_AN_SM blocks an SM over the batch, at least _MIN_ROWS
+    rows a chunk, every chunk non-empty, and no more chunks than about
+    sqrt(s itemsize / 8), where a block's chunk (s / chunks rows) and the
+    last block's fold (chunks partials of 8 c bytes) take equal bytes; the
+    ring in stages of about _STAGE_BYTES, the fold in stages of half the
+    ring's memory (the ring's depth mattered little on the H100, its
+    stages' size did)."""
+    cv = c * itemsize // 16
+    rstep = row_step(cv)
+    row = c * itemsize
+    srows = stage_rows(rstep, row, _STAGE_BYTES)
+    want = max(1, min(_BLOCKS_AN_SM * _launch.H100_SMS // n,
+                      -(-s // _MIN_ROWS), math.isqrt(s * itemsize // 8)))
     rows = -(-s // want)
-    return -(-s // rows)
+    data = RING_SLOTS * srows * row
+    fold_rows = max(1, data // 2 // (8 * c))
+    fold_slots = data // (8 * c * fold_rows)
+    return SumsPlan(-(-s // rows), rows, cv * rstep, rstep, srows,
+                    RING_SLOTS, fold_rows, fold_slots, BAR_BYTES + data)
+
+
+def counters(dev: torch.device, stream: int, n: int) -> torch.Tensor:
+    """The arrival counters of launches on ``stream``: int32 zeros, at
+    least n, allocated once and kept (each launch leaves them 0)."""
+    key = (dev.index, stream)
+    have = _COUNTERS.get(key)
+    if have is None or have.numel() < n:
+        have = torch.zeros(max(n, 64), dtype=torch.int32, device=dev)
+        _COUNTERS[key] = have
+    return have
 
 
 def _launch_sums(x):
@@ -111,12 +161,19 @@ def _launch_sums(x):
         raise ValueError(f"channel sums kernel: needs C % {vec} == 0, "
                          f"C <= {vec * _MAX_THREADS} and N, S > 0; got "
                          f"shape {tuple(x.shape)}")
-    k = chunks(n, s)
-    part = torch.empty((n, k, 2, c), dtype=torch.float32, device=x.device)
+    lib = _library()
+    p = plan(n, s, c, x.element_size())
+    part = torch.empty((n, p.chunks, 2, c), dtype=torch.float32,
+                       device=x.device)
     out = torch.empty((2, n, c), dtype=torch.float32, device=x.device)
-    err = _library().tc_channel_sums(
+    stream = _launch.stream(x)
+    arrived = counters(x.device, stream, n)
+    err = lib.tc_channel_sums(
         x.data_ptr(), part.data_ptr(), out[0].data_ptr(), out[1].data_ptr(),
-        n, s, c, k, _DTYPES[x.dtype], _launch.stream(x))
+        arrived.data_ptr(), n, s, c, p.chunks, p.rows, p.rstep, p.stage_rows,
+        p.slots, p.fold_rows, p.fold_slots, _DTYPES[x.dtype], stream)
+    if err:
+        arrived.zero_()
     _launch.raise_on_error(err, f"channel sums (N={n}, S={s}, C={c})")
     return out[0], out[1]
 

@@ -14,7 +14,12 @@ checkout's ``kernel_check`` (``TCONV_512``, ``TCONV_1024``) where its phase
 requests (two 320x512 and one 576x1024 DDIM-50 clips,
 ``chip_smoke.answer_requests``) and takes its 4b training steps
 (``chip_smoke.train_full_width``, the 512 training model at full width),
-with the functions of that checkout's ``chip_smoke.py``. The runs go A, B,
+with the functions of that checkout's ``chip_smoke.py``. Then it answers one
+320x512 request with the three opt-in switches on (3d, 3b's model, seed
+and inputs; its PSNR against 3b's first clip) and takes the 4b' training
+steps under ``TOONCRAFTER_FUSED_GN=1``; and it times the one-pass
+GroupNorm at this checkout's ``GN_512`` and ``GN_L2`` shapes where a
+checkout's phase 2 lacks them. The runs go A, B,
 B, A, so a drift of the card's clock or temperature over the call falls on
 both alike. A run whose kernels fail their check ends there with a non-zero
 code; the comparison stops at it and exits 1, so every time it reports
@@ -84,14 +89,33 @@ for case in kc.tconv_cases(dev, gen, tuple(s for s in TCONV_SHAPES
                                             if s[0] not in have)):
     axes = (2,) if "stats" in case.label else None
     print(kc.line(case, kc.run_case(case, axes)), flush=True)
-for yaml, n, kernels in (("inference_512_v1.0.yaml", 2, cs.KERNELS_512),
-                         ("inference_1024_v1.0.yaml", 1, cs.KERNELS_1024)):
-    print(f"== requests {yaml}", flush=True)
-    cs.answer_requests(dev, 50, yaml, n, kernels)
-    gc.collect()
-    torch.cuda.empty_cache()
+# the one-pass GroupNorm at every shape of this file's checkout, where a
+# checkout's phase 2 lacks it: (label, (N, HW, C), silu)
+have = {row[0] for row in kc.GN_512 + getattr(kc, "GN_L2", ())}
+for case in kc.gn_cases(dev, gen, tuple(s for s in GN_SHAPES
+                                         if s[0] not in have)):
+    print(kc.line(case, kc.run_case(case)), flush=True)
+print("== requests inference_512_v1.0.yaml", flush=True)
+counts, pipe, requests, clips = cs.answer_requests(
+    dev, 50, "inference_512_v1.0.yaml", 2, cs.KERNELS_512)
+print("== requests 3d", flush=True)
+with cs.switches():
+    _, clips_sw = cs._serve(pipe, requests[:1], dev)
+print(f"3d against 3b's first clip: min PSNR "
+      f"{cs.psnr(clips_sw[0], clips[0]):.2f} dB", flush=True)
+del pipe, requests, clips, clips_sw
+gc.collect()
+torch.cuda.empty_cache()
+print("== requests inference_1024_v1.0.yaml", flush=True)
+cs.answer_requests(dev, 50, "inference_1024_v1.0.yaml", 1, cs.KERNELS_1024)
+gc.collect()
+torch.cuda.empty_cache()
 print("== training", flush=True)
 cs.train_full_width(dev)
+print("== training switched", flush=True)
+with cs.switches(pair=True, spatial_conv_pallas=False):
+    cs.train_full_width(dev, cs.TRAIN_STEPS_SWITCHED,
+                        cs.TRAIN_KERNELS_SWITCHED)
 """
 
 # "name label: [dq ]max_abs_err=... ms=1.2 plain_ms=... library_ms=...
@@ -102,6 +126,7 @@ _REQUEST = re.compile(r"^request (\d+) \(fs \d+\): ([\d.]+) s")
 _PEAK = re.compile(r"^peak memory allocated ([\d.]+) GiB")
 _STEP = re.compile(r"^train step \d+: ([\d.]+) s")
 _TRAIN_PEAK = re.compile(r"^training: peak memory allocated ([\d.]+) GiB")
+_PSNR = re.compile(r"^3d against 3b's first clip: min PSNR ([\d.]+) dB")
 
 
 def parse(log: str) -> dict:
@@ -110,10 +135,16 @@ def parse(log: str) -> dict:
     kernels: Dict[str, dict] = {}
     requests: Dict[str, List[float]] = {}
     peaks: Dict[str, float] = {}
-    model = None
+    psnr = None
+    model, training = None, "training"
     for line in log.splitlines():
         if line.startswith("== requests "):
             model = line.split()[-1]
+        if line.startswith("== training"):
+            training = line[3:]
+        m = _PSNR.match(line)
+        if m:
+            psnr = float(m.group(1))
         m = _LINE.match(line)
         if m:
             lib = m.group(4)
@@ -128,20 +159,22 @@ def parse(log: str) -> dict:
             peaks[model] = float(m.group(1))
         m = _STEP.match(line)
         if m:
-            requests.setdefault("training", []).append(float(m.group(1)))
+            requests.setdefault(training, []).append(float(m.group(1)))
         m = _TRAIN_PEAK.match(line)
         if m:
-            peaks["training"] = float(m.group(1))
-    return {"kernels": kernels, "requests": requests, "peak_gib": peaks}
+            peaks[training] = float(m.group(1))
+    return {"kernels": kernels, "requests": requests, "peak_gib": peaks,
+            "psnr_3d_db": psnr}
 
 
 def run_one(where: str, log_path: str) -> dict:
     """One run in the checkout ``where``: its return code, seconds and what
     ``parse`` reads from its output, which goes to ``log_path``."""
     t0 = time.perf_counter()
+    gn = tuple(row[:3] for row in kc.GN_512 + kc.GN_L2)
     proc = subprocess.run([sys.executable, "-c", _RUN.replace(
-        "TCONV_SHAPES", repr(kc.TCONV_512 + kc.TCONV_1024))], cwd=where,
-        capture_output=True, text=True)
+        "TCONV_SHAPES", repr(kc.TCONV_512 + kc.TCONV_1024)).replace(
+        "GN_SHAPES", repr(gn))], cwd=where, capture_output=True, text=True)
     log = proc.stdout + proc.stderr
     with open(log_path, "w") as f:
         f.write(log)
@@ -167,8 +200,8 @@ def main(argv=None) -> int:
             os.path.join(args.out, f"{i}_{which}.log"))}
         runs.append(run)
         print(f"run {i} ({which}): rc {run['rc']}, {run['seconds']:.0f} s, "
-              f"requests {run['requests']}, peak {run['peak_gib']}",
-              flush=True)
+              f"requests {run['requests']}, peak {run['peak_gib']}, 3d "
+              f"PSNR {run['psnr_3d_db']} dB", flush=True)
         if run["rc"] != 0:
             print(f"run {i} failed: see {i}_{which}.log; no times reported",
                   flush=True)

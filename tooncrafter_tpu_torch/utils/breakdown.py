@@ -6,6 +6,8 @@ take for its part, and the whole call's time from CUDA events.
     python -m tooncrafter_tpu_torch.utils.breakdown --kernel ff
     python -m tooncrafter_tpu_torch.utils.breakdown --kernel tconv
     python -m tooncrafter_tpu_torch.utils.breakdown --kernel tpair
+    python -m tooncrafter_tpu_torch.utils.breakdown --kernel gn
+    python -m tooncrafter_tpu_torch.utils.breakdown --kernel sums
 
 ``ff``: the FF's three kernels (``csrc/fused_ff.cu``: the LayerNorm, the
 projection with the gate, the out-GEMM with the bias and residual) at
@@ -15,15 +17,26 @@ three-tap GEMM with its epilogue) at ``TCONV_512`` and ``TCONV_1024``.
 ``tpair``: the temporal attention pair's kernels (``csrc/temporal_attention.cu``:
 the LayerNorm, the q|k|v GEMM with the attention in its epilogue, the
 out-GEMM with the bias and residual, each twice a call) at ``TPAIR_512``
-and ``TPAIR_1024``. Each line also gives the wrapper's host time per call
-(``host_us``: the enqueue of a few calls in a row, no synchronisation
-between them). Needs a CUDA device. Prints the card's name and power limit
-first, then one line per shape.
+and ``TPAIR_1024``. ``gn``: the one-pass GroupNorm's one cluster launch
+(``csrc/group_norm_silu.cu``) at ``GN_512`` and ``GN_L2``. ``sums``: the
+channel sums' one launch (``csrc/channel_sums.cu``) at ``STATS_512``;
+``--shapes`` replaces those rows ((label, [N, HW, C], silu) and (label,
+[N, S, C], count)), and the package comes from the working directory, so
+``cd DIR && python PATH/breakdown.py --kernel gn`` times the kernels of the
+checkout in DIR (every kernel of a call is its device time). Each
+line also gives the kernels a call launches in the trace
+(``kernels_a_call``) and the wrapper's host time per call (``host_us``: the
+enqueue of a few calls in a row, no synchronisation between them); where
+the host time exceeds the device time, the call's time is the host's.
+Needs a CUDA device. Prints the card's name and power limit first, then
+one line per shape.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
+import os
 import subprocess
 import sys
 from typing import Dict, Tuple
@@ -42,6 +55,10 @@ PARTS = {
     "tpair": (("ln", ("ln_kernel<", "tattn::Tag")),
               ("qkv", ("tattn::qkv_kernel",)),
               ("out", ("out_kernel<", "tattn::Tag"))),
+    # one part: every kernel of the call (this tree launches one; a
+    # checkout before the one-launch designs, three or two)
+    "gn": (("gn", ()),),
+    "sums": (("sums", ()),),
 }
 CALLS = 5
 HOST_CALLS = 10
@@ -110,7 +127,8 @@ def host_us(fn) -> float:
 
 def device_ms(fn, parts: Tuple[Tuple[str, Tuple[str, ...]], ...]
               ) -> Dict[str, float]:
-    """Mean device ms per call of each part over CALLS traced calls."""
+    """Mean device ms per call of each part over CALLS traced calls, and
+    the kernels a call launches (``kernels_a_call``)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -120,17 +138,21 @@ def device_ms(fn, parts: Tuple[Tuple[str, Tuple[str, ...]], ...]
             fn()
         torch.cuda.synchronize()
     out = {part: 0.0 for part, _ in parts}
+    kernels = 0
     for event in prof.key_averages():
         us = getattr(event, "self_device_time_total", 0.0)
+        kernels += event.count if us > 0 else 0
         name = event.key.replace(" ", "")
         for part, keys in parts:
             if all(k in name for k in keys):
                 out[part] += us / CALLS / 1e3
+    out["kernels_a_call"] = kernels / CALLS
     return out
 
 
-def shapes(kernel: str, dev, gen):
-    """(label, case, each part's bound) at every shape of ``kernel``."""
+def shapes(kernel: str, dev, gen, rows=None):
+    """(label, case, each part's bound) at every shape of ``kernel`` (for
+    ``gn`` and ``sums``, at ``rows`` where given)."""
     from tooncrafter_tpu_torch.utils import kernel_check as kc
 
     if kernel == "ff":
@@ -142,6 +164,25 @@ def shapes(kernel: str, dev, gen):
             case, = kc.tpair_cases(dev, gen, ((label, p, c),))
             yield (f"{label} B=2 T=16 P={p} C={c}", case,
                    tpair_bounds(2, 16, p, c))
+    elif kernel == "gn":
+        from tooncrafter_tpu_torch.ops import fused_norms as fn
+
+        for row in rows or kc.GN_512 + kc.GN_L2:
+            case, = kc.gn_cases(dev, gen, (row,))
+            label = case.label
+            if hasattr(fn, "plan"):  # the plan, and its clusters a wave
+                p = fn.plan(*row[1])
+                held = fn._library().tc_gn_clusters(p.k, p.threads, p.smem,
+                                                    int(p.resident))
+                label += (f" [k={p.k} rstep={p.rstep} "
+                          f"{'resident' if p.resident else 'streamed'} "
+                          f"clusters_a_wave={held}]")
+            yield label, case, {"gn": kc.bound(case.flops, case.nbytes)[0]}
+    elif kernel == "sums":
+        for row in rows or kc.STATS_512:
+            case, = kc.stats_cases(dev, gen, (row,))
+            yield case.label, case, {"sums": kc.bound(
+                case.flops, case.nbytes, case.peak)[0]}
     else:
         for row in kc.TCONV_512 + kc.TCONV_1024:
             label, (bsz, t, p, c), res, _, stats = row
@@ -153,7 +194,9 @@ def shapes(kernel: str, dev, gen):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--kernel", choices=sorted(PARTS), required=True)
+    ap.add_argument("--shapes", default=None)
     args = ap.parse_args(argv)
+    sys.path.insert(0, os.getcwd())
     if not torch.cuda.is_available():
         print("no CUDA device: the breakdown runs only on the GPU",
               file=sys.stderr)
@@ -166,7 +209,8 @@ def main(argv=None) -> int:
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(0)
     parts = PARTS[args.kernel]
-    for label, case, bounds in shapes(args.kernel, dev, gen):
+    rows = args.shapes and [tuple(r) for r in json.loads(args.shapes)]
+    for label, case, bounds in shapes(args.kernel, dev, gen, rows):
         total = kc.cuda_ms(case.kernel, 20)
         got = device_ms(case.kernel, parts)
         host = host_us(case.kernel)
@@ -175,7 +219,8 @@ def main(argv=None) -> int:
               f"{whole:.4f}) "
               + " ".join(f"{p}_ms={got[p]:.4f} (bound {bounds[p]:.4f})"
                          for p, _ in parts)
-              + f" host_us={host:.1f}", flush=True)
+              + f" kernels_a_call={got['kernels_a_call']:g}"
+              f" host_us={host:.1f}", flush=True)
         del case
     return 0
 

@@ -636,22 +636,61 @@ def ptc_cases(dev, gen, shapes=PTC_512) -> List[Case]:
 CONV15_512 = (("UNet ds1", (32, 40, 64, 320, 320)),
               ("VAE 40x64 (decoder, 16 frames)", (16, 40, 64, 512, 512)))
 
-# the one-pass GroupNorm (#16): (label, (N, HW, C), silu)
-GN_512 = (("train ResBlock ds1", (32, 2560, 320), True),
-          ("train spatial norm ds2", (32, 640, 640), False),
-          ("encoder norm_out", (1, 2560, 512), True),
-          ("decoder level 0 (past the 4 MiB rule)", (16, 163840, 128), True))
+# the one-pass GroupNorm (#16) at every (N, HW, C, SiLU) the switched 512
+# path launches it with, and its launches in one training UNet forward (the
+# encoder's norm_out: once an encoded frame, in inference), read off the
+# model on the meta device (tests/test_torch_row_sums.py):
+# (label, (N, HW, C), silu, launches)
+GN_512 = (
+    ("train ResBlock ds1", (32, 2560, 320), True, 8),
+    ("train spatial norm ds1", (32, 2560, 320), False, 5),
+    ("train ResBlock ds1 skip concat 640", (32, 2560, 640), True, 2),
+    ("train ResBlock ds2 in", (32, 640, 320), True, 1),
+    ("train ResBlock ds2", (32, 640, 640), True, 6),
+    ("train spatial norm ds2", (32, 640, 640), False, 5),
+    ("train ResBlock ds2 skip concat 960", (32, 640, 960), True, 1),
+    ("train ResBlock ds2 skip concat 1280", (32, 640, 1280), True, 1),
+    ("train ResBlock ds2 skip concat 1920", (32, 640, 1920), True, 1),
+    ("train ResBlock ds4 in", (32, 160, 640), True, 1),
+    ("train ResBlock ds4", (32, 160, 1280), True, 6),
+    ("train spatial norm ds4", (32, 160, 1280), False, 5),
+    ("train ResBlock ds4 skip concat 1920", (32, 160, 1920), True, 1),
+    ("train ResBlock ds4 skip concat 2560", (32, 160, 2560), True, 2),
+    ("train ResBlock ds8", (32, 40, 1280), True, 11),
+    ("train spatial norm ds8", (32, 40, 1280), False, 1),
+    ("train ResBlock ds8 skip concat 2560", (32, 40, 2560), True, 3),
+    ("train temporal norm ds8", (2, 640, 1280), True, 28),
+    ("train temporal norm ds8 without SiLU", (2, 640, 1280), False, 1),
+    ("encoder norm_out", (1, 2560, 512), True, 0),
+)
+# samples that no cluster holds in shared memory, which stream through a
+# ring twice (``fused_norms.plan``'s L2 branch): the 4 MiB edge of the
+# dispatch rule, and the decoder's level 0, past it (no path launches #16
+# there)
+GN_L2 = (("4 MiB edge (L2 branch)", (2, 16384, 128), True, 0),
+         ("decoder level 0 (past the 4 MiB rule)", (16, 163840, 128), True,
+          0))
+GN_RAMP = 4.0  # x's mean runs from -GN_RAMP to GN_RAMP down the rows
 
 
-def gn_cases(dev, gen, shapes=GN_512) -> List[Case]:
-    """GroupNorm (+SiLU) over (N, HW, C) at the switched 512 path's sites;
-    chain: ``norms.group_norm`` (+ SiLU) in bf16, the port's route before;
-    library: ATen's ``F.group_norm`` on the channels-first view, the whole
-    function without SiLU and the core op with it (as ``F.conv2d`` is for
-    the GN+SiLU+3x3 conv)."""
+def gn_input(dev, gen, n: int, hw: int, c: int) -> torch.Tensor:
+    """bf16 x (N, HW, C): N(0.5, 2) plus a mean that ramps down the rows,
+    as activations vary across an image, so that the cluster's blocks (row
+    slices) hold different sums and a fold that mixes them up shows."""
+    ramp = torch.linspace(-GN_RAMP, GN_RAMP, hw, device=dev)[:, None]
+    return (torch.randn(n, hw, c, device=dev, generator=gen) * 2.0 + 0.5
+            + ramp).to(torch.bfloat16)
+
+
+def gn_cases(dev, gen, shapes=GN_512 + GN_L2) -> List[Case]:
+    """GroupNorm (+SiLU) over (N, HW, C) at the switched 512 path's sites
+    and the L2 branch; chain: ``norms.group_norm`` (+ SiLU) in bf16, the
+    port's route before; library: ATen's ``F.group_norm`` on the
+    channels-first view, the whole function without SiLU and the core op
+    with it (as ``F.conv2d`` is for the GN+SiLU+3x3 conv)."""
     cases = []
-    for label, (n, hw, c), silu in shapes:
-        x = _rnd(gen, dev, n, hw, c, scale=2.0, offset=0.5)
+    for label, (n, hw, c), silu, *_ in shapes:
+        x = gn_input(dev, gen, n, hw, c)
         w = _rnd(gen, dev, c, scale=0.2, offset=1.0, dtype=torch.float32)
         b = _rnd(gen, dev, c, scale=0.2, dtype=torch.float32)
         w16, b16 = w.to(x.dtype), b.to(x.dtype)  # ATen's wants x's dtype

@@ -6,9 +6,11 @@ family, or two checkouts in turns on one card.
         [--shapes '{"tpair": [["1024 init_attn", 9216, 512]]}']
 
 ``--kernels``: any of ``tpair`` (``kernel_check.TPAIR_512`` and
-``TPAIR_1024``), ``tattn`` (``TATTN_512``) and ``ff`` (``FF_512``);
-``--shapes`` replaces a family's shapes by (label, P, C) or (label, N, C)
-rows. Each line: the case's check (``ok``) and its mean device time over 20
+``TPAIR_1024``), ``tattn`` (``TATTN_512``), ``ff`` (``FF_512``), ``gn``
+(the one-pass GroupNorm, ``GN_512`` and ``GN_L2``) and ``sums`` (the
+channel sums, ``STATS_512``); ``--shapes`` replaces a family's shapes by
+(label, P, C) or (label, N, C) rows, (label, [N, HW, C], silu) for ``gn``,
+(label, [N, S, C], count) for ``sums``. Each line: the case's check (``ok``) and its mean device time over 20
 warm calls (CUDA events). The package comes from the working directory, so
 running this file from another checkout's root (``cd DIR && python
 PATH/kernel_times.py``) times that checkout's kernels with its own
@@ -53,6 +55,10 @@ def main(argv=None) -> int:
         "tattn": lambda: kc.tattn_cases(dev, gen, shapes.get(
             "tattn", kc.TATTN_512)),
         "ff": lambda: kc.ff_cases(dev, gen, shapes.get("ff", kc.FF_512)),
+        "gn": lambda: kc.gn_cases(dev, gen, shapes["gn"] if "gn" in shapes
+                                  else kc.GN_512 + kc.GN_L2),
+        "sums": lambda: kc.stats_cases(dev, gen, shapes.get(
+            "sums", kc.STATS_512)),
     }
     with kc.fp32_reference():
         for name in args.kernels.split(","):
