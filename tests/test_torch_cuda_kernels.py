@@ -52,8 +52,11 @@ kernels have no CPU mode, so without a card these tests skip.
 """
 
 import functools
+import json
 import re
 import shutil
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -879,24 +882,21 @@ def test_gn_kernel_squaring_in_fp32_fails(dev, tmp_path, monkeypatch):
     assert not _gn_pin(dev)
 
 
-def _one_kernel_a_call(call, name, kernel):
-    """One call counts one launch, and a profiler trace of a few calls
-    holds no kernel but ``kernel``, at most once a call."""
-    from torch.profiler import ProfilerActivity, profile
-
-    call()
-    torch.cuda.synchronize()
+def _one_kernel_a_call(call, name, kind, row):
+    """One call counts one launch; a profiler trace of a few calls at
+    ``row`` holds one kernel a call (``utils/breakdown.py --kernel kind``,
+    which counts the kernels a call launches, run in a fresh process: in
+    the test process, after the tests before, the profiler has shown no
+    kernel of #18's calls at all)."""
     kc.reset_launch_counts()
-    calls = 5
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            call()
-        torch.cuda.synchronize()
-    assert kc.launch_counts()[name] == calls
-    seen = [(e.key, e.count) for e in prof.key_averages()
-            if getattr(e, "self_device_time_total", 0) > 0]
-    assert len(seen) == 1 and kernel in seen[0][0].replace(" ", ""), seen
-    assert 1 <= seen[0][1] <= calls, seen
+    call()
+    assert kc.launch_counts()[name] == 1
+    out = subprocess.run(
+        [sys.executable, "-m", "tooncrafter_tpu_torch.utils.breakdown",
+         "--kernel", kind, "--shapes", json.dumps([row])],
+        cwd=str(_build.CSRC.parents[1]), capture_output=True, text=True)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert " kernels_a_call=1 " in out.stdout, out.stdout[-3000:]
 
 
 @pytest.mark.parametrize("shape", [(32, 2560, 320), (2, 16384, 128)])
@@ -908,7 +908,7 @@ def test_gn_kernel_one_launch_and_bit_identical(dev, shape):
     w = torch.rand(shape[-1], device=dev, generator=gen) + 0.5
     b = torch.rand(shape[-1], device=dev, generator=gen) - 0.5
     call = lambda: fn._pallas_gn(x, w, b, 32, 1e-5, True)
-    _one_kernel_a_call(call, "_pallas_gn", "gn_kernel<")
+    _one_kernel_a_call(call, "_pallas_gn", "gn", ["one launch", shape, True])
     assert torch.equal(call(), call())
 
 
@@ -1300,7 +1300,7 @@ def test_sums_kernel_is_its_fold_bit_for_bit(dev, shape):
         assert torch.equal(g, w)
     for g, w in zip(got, call()):
         assert torch.equal(g, w)
-    _one_kernel_a_call(call, "_pallas_sums", "sums_kernel<")
+    _one_kernel_a_call(call, "_pallas_sums", "sums", ["one launch", shape, 0])
 
 
 def test_sums_counters_stay_zero(dev):
