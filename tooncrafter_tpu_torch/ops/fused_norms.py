@@ -165,8 +165,7 @@ class GnPlan(NamedTuple):
 def plan(n: int, hw: int, c: int, groups: int = 32) -> GnPlan:
     """#16's launch for a (n, hw, c) bf16 input: k blocks (one cluster) a
     sample, ``rows`` rows each, every block's rows non-empty. The rules,
-    from timing every (k, branch, row offsets) on the H100 (PERF.md, PR
-    13):
+    from timing every (k, branch, row offsets) on the H100 (PERF.md):
     - k: the largest cluster size that leaves each block MIN_ROWS rows, but
       at least 4 where the rows allow: small slices cost a cluster more
       than they save;

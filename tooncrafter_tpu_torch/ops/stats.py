@@ -36,7 +36,7 @@ from tooncrafter_tpu_torch.ops.row_sums import (BAR_BYTES, RING_SLOTS,
 LAUNCHES: Dict[str, int] = {"_pallas_sums": 0}
 
 _DTYPES = {torch.bfloat16: 0, torch.float16: 1, torch.float32: 2}
-_BLOCKS_AN_SM = 1      # one block an SM streams fastest (PERF.md, PR 13)
+_BLOCKS_AN_SM = 1      # one block an SM streams fastest on the H100 (PERF.md)
 _MIN_ROWS = 64         # rows a chunk, at least
 _STAGE_BYTES = 2 * STAGE_BYTES  # fewer, larger stages: one block an SM
 _MAX_THREADS = 1024    # csrc/channel_sums.cu: C / (16 bytes of x) a block
