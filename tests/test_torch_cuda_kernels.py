@@ -37,14 +37,18 @@ and each against one broken build that must fail at every one of its
 ``kernel_check.switched_cases`` shapes (#16 against two: its eps, and
 its cluster exchange reading rank 0's sums for rank 1's); #15's cast
 point through an identity conv, and against a build that takes #13's;
-#16's bf16 square pinned, against a build squaring in fp32. The CUDA
-kernels of the op functions no model reaches (#17 the dual
+#16's bf16 square pinned, against a build squaring in fp32. #11's two masks
+each against a build that drops it, at the shapes where it can show (the
+neighbouring pixel at T = 8 and 4, the zero frames t >= T at T = 3 and
+20). The CUDA kernels of the op functions no model reaches (#17 the dual
 cross-attention, #18 the per-channel sums, #5 the ones-column flash) at
-ragged and strided shapes, at every ``kernel_check.op_cases`` shape, and
-each one's cast point against a build that takes the other rounding;
-#18 against a build whose last block leaves out the final chunk. #16 and
-#18 launch one kernel a call (a profiler trace) and give the same bits
-twice; #18 gives the bits of its summation order run in torch
+ragged and strided shapes (#17 also past one key tile, resident and
+streamed), at every ``kernel_check.op_cases`` shape, and each one's cast
+point against a build that takes the other rounding; #17 against a build
+whose blocks keep their first (b, h)'s K/V; #18 against a build whose
+last block leaves out the final chunk. #11, #16, #17 (with a float gate)
+and #18 launch one kernel a call (a profiler trace) and give the same
+bits twice; #18 gives the bits of its summation order run in torch
 (tests/row_sums_order.py) and leaves its arrival counters at 0. The CUDA
 kernels have no CPU mode, so without a card these tests skip.
 
@@ -920,8 +924,8 @@ SWITCHED_MUTATIONS = [
     ("_fused_tattn_call", _LO, "const float rstd = rsqrtf(var + eps);",
      "const float rstd = rsqrtf(var + 0.5f);"),
     ("_ptc_kernel_call", "temporal_ptc.cu",
-     "l[j] = round_bf16(l[j] / den);",
-     "l[j] = round_bf16(1.01f * l[j] / den);"),
+     "for (int e = 0; e < 2; ++e) s[mi][nt][2 * hr + e] /= den;",
+     "for (int e = 0; e < 2; ++e) s[mi][nt][2 * hr + e] *= 1.01f / den;"),
     ("_pallas_fused_conv", "gn_silu_conv3x3.cu",
      "    if (silu) {\n      z0 = fast_silu(z0);",
      "    if (silu && kRoundFirst) {\n      z0 = fast_silu(z0);"),
@@ -934,6 +938,13 @@ SWITCHED_MUTATIONS = [
      "t += sm90::ld_peer_f32(sm90::peer_addr(&grp[i], r));",
      "t += sm90::ld_peer_f32(sm90::peer_addr(&grp[i], r == 1 ? 0 : r));"),
 ]
+
+
+def _use_ptc_library(monkeypatch, built):
+    """Bind the T-attention wrapper to a library built elsewhere."""
+    monkeypatch.setattr(ta, "_PTC_LIB", None)
+    monkeypatch.setattr(_build, "load_library", lambda *a, **k: built)
+    ta._ptc_library()
 
 
 def _switched_library(name):
@@ -959,10 +970,7 @@ def test_mutated_switched_kernel_fails_at_every_shape(dev, tmp_path,
     mod, attr, (lib, sources) = _switched_library(name)
     built = _build.load_library(lib, sources, csrc=tmp_path)
     if attr == "_PTC_LIB":
-        monkeypatch.setattr(ta, "_PTC_LIB", None)
-        monkeypatch.setattr(_build, "load_library",
-                            lambda *a, **k: built)
-        ta._ptc_library()
+        _use_ptc_library(monkeypatch, built)
     else:
         monkeypatch.setattr(mod, attr, mod.bind(built))
     checked = 0
@@ -974,6 +982,50 @@ def test_mutated_switched_kernel_fails_at_every_shape(dev, tmp_path,
         assert not row["ok"], f"the broken {name} passed at {case.label}"
         checked += 1
     assert checked >= 2
+
+
+# #11's masks, each broken where it can show: a key of the neighbouring
+# pixel counts only where 16 / T > 1 pixels share a warp's 16 rows (T = 8 of
+# PTC_512, and T = 4); a zero frame t >= T only where T does not divide 16
+# (T = 3 and 20: boxes of 16 and 32 frames)
+PTC_MASK_MUTATIONS = [
+    ("neighbour_pixel", "const bool same_pixel = key / p.tb == qi / p.tb;",
+     "const bool same_pixel = true;",
+     tuple(r for r in kc.PTC_512 if r[1] < 16)
+     + (("T=4", 4, 640, 320, 5),)),
+    ("zero_frames", "const bool real_frame = key % p.tb < p.t;",
+     "const bool real_frame = true;",
+     (("T=3", 3, 640, 320, 5), ("T=20 d=128", 20, 160, 640, 5))),
+]
+
+
+@pytest.mark.parametrize("what,old,new,shapes", PTC_MASK_MUTATIONS,
+                         ids=[m[0] for m in PTC_MASK_MUTATIONS])
+def test_mutated_ptc_mask_fails_where_it_can_show(dev, tmp_path,
+                                                   monkeypatch, what, old,
+                                                   new, shapes):
+    gen = torch.Generator(device=dev).manual_seed(3)
+    cases = kc.ptc_cases(dev, gen, shapes)
+    for case in cases:  # the kernel as built holds at these shapes
+        row = kc.run_case(case, None, timed=False)
+        assert row["ok"], f"#11 fails at {case.label}"
+    src = _broken_copy(tmp_path, "temporal_ptc.cu", old, new)
+    _use_ptc_library(monkeypatch, _build.load_library(*ta.PTC_LIBRARY,
+                                                      csrc=src))
+    for case in cases:
+        row = kc.run_case(case, None, timed=False)
+        print(f"#11 {what}: {kc.line(case, row)}")
+        assert not row["ok"], f"#11 {what} passed at {case.label}"
+
+
+def test_ptc_kernel_one_launch_and_bit_identical(dev):
+    """One kernel a call (no copy of the strided q, k, v), and two calls
+    give the same bits."""
+    q, k, v = _rand(dev, 81, 2, 16, 2560, 960).chunk(3, dim=-1)
+    call = lambda: ta._ptc_kernel_call(q, k, v, 5, 0.125)
+    _one_kernel_a_call(call, "_ptc_kernel_call", "ptc",
+                       ["one launch", 16, 2560, 320, 5])
+    assert torch.equal(call(), call())
 
 
 # ---------------------------------------------------------------------------
@@ -1143,11 +1195,14 @@ def test_op_kernels_at_their_shapes(dev):
 
 @pytest.mark.parametrize("sq,lt,li,strided", [(200, 77, 16, False),
                                               (64, 100, 32, True),
-                                              (37, 1, 1, False)])
+                                              (37, 1, 1, False),
+                                              (130, 300, 40, False)])
 def test_dual_kernel_ragged_long_and_strided(dev, sq, lt, li, strided):
     """Query rows that leave the last 64-row tile part empty, contexts
-    past one tile (the online rescale), one-token contexts, and q, k, v as
-    slices of wider projections."""
+    past one tile (the online rescale; resident at (100, 32), streamed
+    through the key-tile ring at (300, 40)), one-token contexts, and q, k,
+    v as slices of wider projections."""
+    assert ca.plan(2, sq, 192, lt, li).resident == (lt < 300)
     c, heads = 192, 3
     if strided:
         q = _rand(dev, 110, 2, sq, 2 * c)[..., c:]
@@ -1214,6 +1269,32 @@ def test_dual_kernel_rounding_each_branch_fails(dev, tmp_path, monkeypatch):
     monkeypatch.setattr(ca, "_LIB", ca.bind(
         _build.load_library(*ca.LIBRARY, csrc=src)))
     assert _dual_pin(dev) > 0.05
+
+
+def test_dual_kernel_keeping_the_previous_kv_fails(dev, tmp_path,
+                                                  monkeypatch):
+    """A build whose blocks load their first (b, h)'s K/V at every change
+    of (b, h) fails at every ATTN2_512 shape (every block range there
+    spans more than one (b, h))."""
+    src = _broken_copy(tmp_path, "dual_cross_attention.cu",
+                       "const int src = bh;",
+                       "const int src = lo / p.qtiles * p.heads + head;")
+    monkeypatch.setattr(ca, "_LIB", ca.bind(
+        _build.load_library(*ca.LIBRARY, csrc=src)))
+    gen = torch.Generator(device=dev).manual_seed(4)
+    for case in kc.dual_cases(dev, gen):
+        row = kc.run_case(case, None, timed=False)
+        print(f"#17 keeping the previous K/V: {kc.line(case, row)}")
+        assert not row["ok"], f"the broken #17 passed at {case.label}"
+
+
+def test_dual_kernel_one_launch_with_a_float_gate_and_bit_identical(dev):
+    gen = torch.Generator(device=dev).manual_seed(5)
+    ops = kc.dual_operands(dev, gen, 2560, 320)
+    call = lambda: ca._dual_kernel_call(*ops, kc.DUAL_S_IP, 5, 0.125)
+    _one_kernel_a_call(call, "_dual_kernel_call", "dual",
+                       ["one launch", 2560, 320])
+    assert torch.equal(call(), call())
 
 
 @pytest.mark.parametrize("shape,dtype", [((3, 7, 9, 96), torch.bfloat16),

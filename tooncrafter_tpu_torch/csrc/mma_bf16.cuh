@@ -15,6 +15,8 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include <utility>
+
 typedef __nv_bfloat16 bf16;
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -75,6 +77,69 @@ __device__ __forceinline__ void ldmatrix_x2_trans(uint32_t r[2],
       "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
       : "=r"(r[0]), "=r"(r[1])
       : "r"(a));
+}
+
+// Four 8x8 b16 matrices, each transposed (the x4 form of the above): from
+// a (k x n) operand stored k-major, matrices (k 0-7, n 0-7), (k 8-15, n
+// 0-7), (k 0-7, n 8-15), (k 8-15, n 8-15) give b0, b1 of two n8 tiles.
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t r[4],
+                                                  const void* p) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a));
+}
+
+// ldmatrix x4 (or x4.trans) at shared address `a` (a cvta'd shared-window
+// address) plus the constant byte offset kOff, which rides in the
+// instruction: the fragments of a swizzled tile's row groups 16 rows apart
+// share one address register
+template <int kOff, bool kTrans = false>
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t a) {
+  if constexpr (kTrans)
+    asm volatile(
+        "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+        "[%4+%5];\n"
+        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+        : "r"(a), "n"(kOff));
+  else
+    asm volatile(
+        "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, "
+        "[%4+%5];\n"
+        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+        : "r"(a), "n"(kOff));
+}
+
+// 32 bits into shared memory at a cvta'd shared-window address (a store
+// through a generic pointer costs the address-space check)
+__device__ __forceinline__ void sts32(uint32_t a, uint32_t v) {
+  asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(a), "r"(v) : "memory");
+}
+
+// f(Int<0>) .. f(Int<N - 1>): an unrolled loop whose index is a constant
+// expression (decltype(i)::value)
+template <int I>
+struct Int {
+  static constexpr int value = I;
+};
+template <class F, int... I>
+__device__ __forceinline__ void static_for_impl(
+    F&& f, std::integer_sequence<int, I...>) {
+  (f(Int<I>{}), ...);
+}
+template <int N, class F>
+__device__ __forceinline__ void static_for(F&& f) {
+  static_for_impl(f, std::make_integer_sequence<int, N>{});
+}
+
+// The byte offset of 16-byte chunk `chunk` of row `row` in a tile of
+// 128-byte rows stored in the 128-byte swizzle (chunk c of row r at chunk
+// c ^ (r % 8), as TMA writes it; sm90.cuh), from a 1024-byte aligned base.
+// ldmatrix reads eight such rows at one chunk conflict-free.
+__device__ __forceinline__ int sw128(int row, int chunk) {
+  return row * 128 + ((chunk ^ (row & 7)) << 4);
 }
 
 // K-contiguous operands without a permuted copy. A product over 32 k values

@@ -27,8 +27,10 @@ custom_vjp does (cross_attention.py:177-183).
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 import os
-from typing import Dict, Optional, Union
+from typing import Dict, List, Optional, Tuple, Union
 
 import torch
 
@@ -127,12 +129,103 @@ def _xla_dual(q, kt, vt, ki, vi, s_ip: Scalar, heads: int, scale: float):
 LIBRARY = ("dual_cross_attention", ("dual_cross_attention.cu",))
 _LIB: Optional[ctypes.CDLL] = None
 
+# the kernel's tiles (csrc/dual_cross_attention.cu)
+Q_TILE = 64         # query rows a tile: four consumer warps of 16
+TEXT_TILE = 80      # keys a text tile (77 tokens, padded and masked)
+IMAGE_TILE = 16     # keys an image tile
+_ROW = 128          # bytes of a tile row: one 64-wide head in bf16
+_SMEM = 227 * 1024  # the dynamic shared memory a block may ask for
+_SM_SMEM = 228 * 1024  # an SM's, 1 KB of it reserved a block
+_RESIDENT_SLOT = 48 * 1024  # largest K/V slot held resident (twice)
+_Q_STAGES = 4
+_STREAM_SLOTS = 4
+_BLOCKS_AN_SM = 2  # the kernel's __launch_bounds__ (its registers allow)
+
+
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    """The dual kernel's work split. Each head's (b, query tile) index,
+    tiles fastest (``qtiles`` 64-row tiles a (b, h), ``span`` = B qtiles),
+    is cut into ``blocks`` contiguous ranges; block i takes head i % heads
+    and range i // heads (``grid`` = heads blocks persistent blocks), so
+    the heads of a range walk the same query rows side by side.
+    ``resident``: a block loads the K/V of a (b, h) (``text_tiles`` key
+    tiles of 80 rows, ``image_tiles`` of 16) into one of two slots of
+    ``slot`` bytes when its range enters that (b, h); else (streamed) every
+    query tile's key tiles pass through a ring of ``kvslots`` slots. Either
+    way the online softmax rescales at those key tiles. q tiles stream
+    through ``qstages``."""
+    heads: int
+    qtiles: int
+    span: int
+    blocks: int
+    text_tiles: int
+    image_tiles: int
+    resident: bool
+    slot: int
+    kvslots: int
+    qstages: int
+    smem: int
+    grid: int
+
+    def block_range(self, i: int) -> Tuple[int, int, int]:
+        """Block i's head and (b, tile) indices [lo, hi) of that head."""
+        run = i // self.heads
+        return (i % self.heads, run * self.span // self.blocks,
+                (run + 1) * self.span // self.blocks)
+
+    def units(self, i: int) -> List[Tuple[int, int, int]]:
+        """Block i's units in order: (b heads + h, first query tile,
+        tiles), one a (b, h) its range enters; the K/V loads of a resident
+        plan."""
+        h, lo, hi = self.block_range(i)
+        out: List[Tuple[int, int, int]] = []
+        f = lo
+        while f < hi:
+            b, qt = divmod(f, self.qtiles)
+            n = min(hi, (b + 1) * self.qtiles) - f
+            out.append((b * self.heads + h, qt, n))
+            f += n
+        return out
+
+
+@functools.lru_cache(maxsize=None)
+def plan(b: int, sq: int, c: int, lt: int, li: int,
+         sms: int = _launch.H100_SMS) -> Plan:
+    """The kernel's plan for q (B, Sq, C) against Lt text and Li image
+    tokens. Raises ValueError outside its envelope: 64-wide heads, non-empty
+    operands, B <= 65535."""
+    if (min(b, sq, lt, li) < 1 or c < HEAD_DIM or c % HEAD_DIM
+            or b > 65535):
+        raise ValueError(f"dual cross-attention kernel: head dim "
+                         f"{HEAD_DIM} only and non-empty operands; got B={b},"
+                         f" Sq={sq}, C={c}, Lt={lt}, Li={li}")
+    heads = c // HEAD_DIM
+    qtiles = -(-sq // Q_TILE)
+    tt, it = -(-lt // TEXT_TILE), -(-li // IMAGE_TILE)
+    slot = 2 * (tt * TEXT_TILE + it * IMAGE_TILE) * _ROW
+    resident = slot <= _RESIDENT_SLOT
+    if not resident:
+        slot = 2 * TEXT_TILE * _ROW
+    kvslots = 2 if resident else _STREAM_SLOTS
+    smem = (kvslots * slot + _Q_STAGES * Q_TILE * _ROW + 4 * 16 * _ROW
+            + 2 * (_Q_STAGES + kvslots) * 8 + 1024)
+    per_sm = min(_BLOCKS_AN_SM, _SM_SMEM // (smem + 1024))
+    blocks = max(1, min(b * qtiles, per_sm * sms // heads))
+    return Plan(heads=heads, qtiles=qtiles, span=b * qtiles, blocks=blocks,
+                text_tiles=tt, image_tiles=it, resident=resident, slot=slot,
+                kvslots=kvslots, qstages=_Q_STAGES, smem=smem,
+                grid=heads * blocks)
+
 
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
-    vp, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    vp, ll, i, f = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, \
+        ctypes.c_float
     lib.tc_dual_cross_attention.argtypes = (
-        [vp] * 7 + [ll] * 12 + [i] * 5 + [ctypes.c_float, vp])
+        [vp] * 6 + [f, vp] + [ll] * 12 + [i] * 5 + [f] + [i] * 4 + [vp])
     lib.tc_dual_cross_attention.restype = ctypes.c_int
+    lib.tc_dual_blocks_per_sm.argtypes = [i]
+    lib.tc_dual_blocks_per_sm.restype = ctypes.c_int
     return lib
 
 
@@ -165,28 +258,35 @@ def _launch_dual(q, kt, vt, ki, vi, s_ip: Scalar, heads: int, scale: float):
     if c % heads or c // heads != HEAD_DIM:
         raise ValueError(f"dual cross-attention kernel: head dim "
                          f"{HEAD_DIM} only, got C={c}, heads={heads}")
-    if min(sq, lt, li, b) < 1 or b > 65535 or heads > 65535:
+    if min(sq, lt, li, b) < 1 or b > 65535:
         raise ValueError(f"dual cross-attention kernel: empty or too large "
-                         f"a grid (B={b}, Sq={sq}, Lt={lt}, Li={li})")
+                         f"a batch (B={b}, Sq={sq}, Lt={lt}, Li={li})")
     dev = q.device
     for name, t, s in (("q", q, sq), ("kt", kt, lt), ("vt", vt, lt),
                        ("ki", ki, li), ("vi", vi, li)):
         _check_operand(name, t, (b, s, c), dev)
+    # a tensor gate by pointer (no host sync), a Python float by value: one
+    # launch either way
+    si, si_value = None, 0.0
     if isinstance(s_ip, torch.Tensor):
         if s_ip.numel() != 1 or s_ip.device != dev:
             raise ValueError(f"s_ip: one value on {dev}, got shape "
                              f"{tuple(s_ip.shape)} on {s_ip.device}")
-        si = s_ip.detach().float().reshape(1).contiguous()
+        si = s_ip.detach()
+        if si.dtype != torch.float32 or not si.is_contiguous():
+            si = si.float().contiguous()
     else:
-        si = torch.full((1,), float(s_ip), dtype=torch.float32, device=dev)
+        si_value = float(s_ip)
     out = torch.empty((b, sq, c), dtype=q.dtype, device=dev)
     strides = []
     for t in (q, kt, vt, ki, vi, out):
         strides += [t.stride(0), t.stride(1)]
+    pl = plan(b, sq, c, lt, li, _launch.sm_count(dev))
     err = _library().tc_dual_cross_attention(
         q.data_ptr(), kt.data_ptr(), vt.data_ptr(), ki.data_ptr(),
-        vi.data_ptr(), si.data_ptr(), out.data_ptr(), *strides, b, heads,
-        sq, lt, li, float(scale) * _LOG2E, _launch.stream(q))
+        vi.data_ptr(), _launch.ptr(si), si_value, out.data_ptr(), *strides,
+        b, heads, sq, lt, li, float(scale) * _LOG2E, int(pl.resident),
+        pl.qstages, pl.kvslots, pl.grid, _launch.stream(q))
     _launch.raise_on_error(err, f"dual cross-attention (B={b}, Sq={sq}, "
                                 f"C={c}, Lt={lt}, Li={li})")
     return out

@@ -410,6 +410,74 @@ def _dispatch_single(x, stage, heads: int, scale: float, eps: float):
 PTC_LIBRARY = ("temporal_ptc", ("temporal_ptc.cu",))
 _PTC_LIB: Optional[ctypes.CDLL] = None
 _PTC_MAX_T = 32
+_PTC_GROUPS = 2       # consumer groups taking a block's units in turns
+_PTC_MAX_STAGES = 8
+_SMEM = 227 * 1024    # the dynamic shared memory a block may ask for
+_ROW = 128            # bytes of a tile row: 64 bf16 channels
+
+
+@dataclasses.dataclass(frozen=True)
+class PtcPlan:
+    """The T-attention kernel's tiling (``csrc/temporal_ptc.cu``): boxes
+    of ``t_box`` frames (rows r of a tile: frame r % t_box of pixel r /
+    t_box; frames t >= T arrive as zeros), ``rows`` a consumer warp (16, or
+    32 where t_box = 32), ``warps`` consumer warps a group (two groups take
+    a block's units in turns), so ``pixels`` pixels a tile and ``ptiles`` a
+    sample; ``units`` = B ptiles heads work units of (b, pixel tile, head),
+    heads fastest, each a ring stage of q, k and v (``stage_bytes``);
+    ``stages`` of them in flight, ``smem`` bytes a block, ``grid``
+    persistent blocks, unit u on block u % grid."""
+    t_box: int
+    rows: int
+    warps: int
+    pixels: int
+    ptiles: int
+    units: int
+    stage_bytes: int
+    stages: int
+    smem: int
+    grid: int
+
+    def unit(self, u: int, heads: int) -> Tuple[int, int, int]:
+        """(b, first pixel, head) of unit u."""
+        r = u // heads
+        return r // self.ptiles, (r % self.ptiles) * self.pixels, u % heads
+
+
+def _ptc_smem(d: int, rows: int, warps: int, stages: int) -> int:
+    boxes = d // 64
+    stage = 3 * boxes * warps * rows * _ROW
+    staging = _PTC_GROUPS * warps * boxes * rows * _ROW
+    return stages * stage + staging + 2 * stages * 8 + 1024
+
+
+@functools.lru_cache(maxsize=None)
+def ptc_plan(b: int, t: int, p: int, inner: int, heads: int,
+             sms: int = _launch.H100_SMS) -> PtcPlan:
+    """The T-attention kernel's plan for q, k, v (B, T, P, heads * d).
+    Raises ValueError outside its envelope: T <= 32, d 64 or 128, fewer
+    than 2^31 units."""
+    d = inner // heads if heads > 0 else 0
+    if (min(b, t, p, heads) <= 0 or t > _PTC_MAX_T or inner % heads
+            or d not in (64, 128) or b > 65535):
+        raise ValueError(f"T-attention kernel: needs T <= {_PTC_MAX_T} and "
+                         f"heads of 64 or 128; got B={b}, T={t}, P={p}, "
+                         f"inner={inner}, heads={heads}")
+    t_box = t if 16 % t == 0 else (16 if t <= 16 else 32)
+    rows = 32 if t_box == 32 else 16
+    warps = 2 if (rows == 32 and d == 128) else 4
+    pixels = warps * rows // t_box
+    ptiles = -(-p // pixels)
+    units = b * ptiles * heads
+    if units >= 2 ** 31:
+        raise ValueError(f"T-attention kernel: {units} work units")
+    stage = 3 * (d // 64) * warps * rows * _ROW
+    stages = min(_PTC_MAX_STAGES,
+                 (_SMEM - _ptc_smem(d, rows, warps, 0)) // (stage + 16))
+    return PtcPlan(t_box=t_box, rows=rows, warps=warps, pixels=pixels,
+                   ptiles=ptiles, units=units, stage_bytes=stage,
+                   stages=stages, smem=_ptc_smem(d, rows, warps, stages),
+                   grid=min(units, sms))
 
 
 def _ptc_library() -> ctypes.CDLL:
@@ -417,7 +485,8 @@ def _ptc_library() -> ctypes.CDLL:
     if _PTC_LIB is None:
         lib = _build.load_library(*PTC_LIBRARY)
         vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.tc_temporal_ptc.argtypes = [vp] * 5 + [i] * 5 + [f, vp]
+        lib.tc_temporal_ptc.argtypes = [vp] * 5 + [i] * 5 + [f] + [i] * 4 \
+            + [vp]
         lib.tc_temporal_ptc.restype = ctypes.c_int
         _PTC_LIB = lib
     return _PTC_LIB
@@ -488,11 +557,12 @@ def _launch_ptc(q, k, v, heads: int, scale: float):
         strides += list(z.stride()[:3])
     out = torch.empty((b, t, p, inner), dtype=torch.bfloat16, device=q.device)
     if out.numel():
+        pl = ptc_plan(b, t, p, inner, heads, _launch.sm_count(q.device))
         arr = (ctypes.c_longlong * 9)(*strides)
         err = _ptc_library().tc_temporal_ptc(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             ctypes.addressof(arr), b, t, p, heads, d, float(scale),
-            _launch.stream(q))
+            pl.t_box, pl.warps, pl.stages, pl.grid, _launch.stream(q))
         _launch.raise_on_error(err, f"T-attention (B={b}, T={t}, P={p}, "
                                     f"inner={inner})")
     return out

@@ -8,6 +8,8 @@ take for its part, and the whole call's time from CUDA events.
     python -m tooncrafter_tpu_torch.utils.breakdown --kernel tpair
     python -m tooncrafter_tpu_torch.utils.breakdown --kernel gn
     python -m tooncrafter_tpu_torch.utils.breakdown --kernel sums
+    python -m tooncrafter_tpu_torch.utils.breakdown --kernel ptc
+    python -m tooncrafter_tpu_torch.utils.breakdown --kernel dual
 
 ``ff``: the FF's three kernels (``csrc/fused_ff.cu``: the LayerNorm, the
 projection with the gate, the out-GEMM with the bias and residual) at
@@ -19,9 +21,13 @@ the LayerNorm, the q|k|v GEMM with the attention in its epilogue, the
 out-GEMM with the bias and residual, each twice a call) at ``TPAIR_512``
 and ``TPAIR_1024``. ``gn``: the one-pass GroupNorm's one cluster launch
 (``csrc/group_norm_silu.cu``) at ``GN_512`` and ``GN_L2``. ``sums``: the
-channel sums' one launch (``csrc/channel_sums.cu``) at ``STATS_512``;
-``--shapes`` replaces those rows ((label, [N, HW, C], silu) and (label,
-[N, S, C], count)), and the package comes from the working directory, so
+channel sums' one launch (``csrc/channel_sums.cu``) at ``STATS_512``.
+``ptc``: the T-attention core's one launch (``csrc/temporal_ptc.cu``) at
+``PTC_512``; ``dual``: the dual cross-attention's one launch
+(``csrc/dual_cross_attention.cu``, a Python float gate) at ``ATTN2_512``.
+``--shapes`` replaces those rows ((label, [N, HW, C], silu), (label, [N,
+S, C], count), (label, T, P, inner, heads) and (label, Sq, C)), and the
+package comes from the working directory, so
 ``cd DIR && python PATH/breakdown.py --kernel gn`` times the kernels of the
 checkout in DIR (every kernel of a call is its device time). Each
 line also gives the kernels a call launches in the trace
@@ -59,6 +65,10 @@ PARTS = {
     # checkout before the one-launch designs, three or two)
     "gn": (("gn", ()),),
     "sums": (("sums", ()),),
+    # one part: every kernel of the call (the parent's #17 wrapper also
+    # filled its float gate on the card)
+    "ptc": (("ptc", ()),),
+    "dual": (("dual", ()),),
 }
 CALLS = 5
 HOST_CALLS = 10
@@ -183,6 +193,31 @@ def shapes(kernel: str, dev, gen, rows=None):
             case, = kc.stats_cases(dev, gen, (row,))
             yield case.label, case, {"sums": kc.bound(
                 case.flops, case.nbytes, case.peak)[0]}
+    elif kernel == "ptc":
+        from tooncrafter_tpu_torch.ops import temporal_attention as ta
+
+        for row in rows or kc.PTC_512:
+            case, = kc.ptc_cases(dev, gen, (row,))
+            label = case.label
+            if hasattr(ta, "ptc_plan"):
+                p = ta.ptc_plan(2, *row[1:])
+                label += (f" [t_box={p.t_box} pixels={p.pixels} "
+                          f"stages={p.stages} grid={p.grid}]")
+            yield label, case, {"ptc": kc.bound(case.flops, case.nbytes)[0]}
+    elif kernel == "dual":
+        from tooncrafter_tpu_torch.ops import cross_attention as ca
+
+        for row in rows or kc.ATTN2_512:
+            case, = kc.dual_cases(dev, gen, (row,))
+            label = case.label
+            if hasattr(ca, "plan"):
+                p = ca.plan(32, row[1], row[2], 77, 16)
+                held = ca._library().tc_dual_blocks_per_sm(p.smem)
+                label += (f" [{'resident' if p.resident else 'streamed'} "
+                          f"grid={p.grid} blocks_an_sm={held} kv_loads="
+                          f"{sum(len(p.units(i)) for i in range(p.grid))}]")
+            yield label, case, {"dual": kc.bound(case.flops,
+                                                 case.nbytes)[0]}
     else:
         for row in kc.TCONV_512 + kc.TCONV_1024:
             label, (bsz, t, p, c), res, _, stats = row

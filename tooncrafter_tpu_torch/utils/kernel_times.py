@@ -7,10 +7,13 @@ family, or two checkouts in turns on one card.
 
 ``--kernels``: any of ``tpair`` (``kernel_check.TPAIR_512`` and
 ``TPAIR_1024``), ``tattn`` (``TATTN_512``), ``ff`` (``FF_512``), ``gn``
-(the one-pass GroupNorm, ``GN_512`` and ``GN_L2``) and ``sums`` (the
-channel sums, ``STATS_512``); ``--shapes`` replaces a family's shapes by
-(label, P, C) or (label, N, C) rows, (label, [N, HW, C], silu) for ``gn``,
-(label, [N, S, C], count) for ``sums``. Each line: the case's check (``ok``) and its mean device time over 20
+(the one-pass GroupNorm, ``GN_512`` and ``GN_L2``), ``sums`` (the
+channel sums, ``STATS_512``), ``ptc`` (the T-attention core,
+``PTC_512``) and ``dual`` (the dual cross-attention, ``ATTN2_512``);
+``--shapes`` replaces a family's shapes by (label, P, C) or (label, N, C)
+rows, (label, [N, HW, C], silu) for ``gn``, (label, [N, S, C], count) for
+``sums``, (label, T, P, inner, heads) for ``ptc``, (label, Sq, C) for
+``dual``. Each line: the case's check (``ok``) and its mean device time over 20
 warm calls (CUDA events). The package comes from the working directory, so
 running this file from another checkout's root (``cd DIR && python
 PATH/kernel_times.py``) times that checkout's kernels with its own
@@ -59,6 +62,10 @@ def main(argv=None) -> int:
                                   else kc.GN_512 + kc.GN_L2),
         "sums": lambda: kc.stats_cases(dev, gen, shapes.get(
             "sums", kc.STATS_512)),
+        "ptc": lambda: kc.ptc_cases(dev, gen, shapes.get("ptc",
+                                                          kc.PTC_512)),
+        "dual": lambda: kc.dual_cases(dev, gen, shapes.get(
+            "dual", kc.ATTN2_512)),
     }
     with kc.fp32_reference():
         for name in args.kernels.split(","):
