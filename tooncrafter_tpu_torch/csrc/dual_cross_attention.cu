@@ -74,7 +74,7 @@ constexpr int kStreamSlot = 2 * kText;  // a streamed slot: one K and V tile
 struct Params {
   const float* s_ip;  // the gate in device memory, or null: s_ip_value
   float s_ip_value;
-  int heads, sq, lt, li;
+  int heads, lt, li;
   int qtiles;         // 64-row tiles a (b, h)
   int span;           // batch qtiles: the tiles of a head
   int blocks;         // blocks a head (the grid is heads blocks)
@@ -542,14 +542,13 @@ extern "C" int tc_dual_cross_attention(
     int resident, int qstages, int kvslots, int grid, void* stream) {
   using namespace dual;
   if (batch <= 0 || heads <= 0 || sq <= 0 || lt <= 0 || li <= 0 ||
-      batch > 65535 || qstages < 2 || grid < 1 ||
-      kvslots != (resident ? 2 : kvslots) || kvslots < 2)
+      batch > 65535 || qstages < 2 || grid < 1 || kvslots < 2 ||
+      (resident && kvslots != 2))
     return (int)cudaErrorInvalidValue;
   Params p;
   p.s_ip = s_ip;
   p.s_ip_value = s_ip_value;
   p.heads = heads;
-  p.sq = sq;
   p.lt = lt;
   p.li = li;
   p.qtiles = (sq + kBlockM - 1) / kBlockM;

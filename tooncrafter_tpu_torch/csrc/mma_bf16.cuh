@@ -79,19 +79,6 @@ __device__ __forceinline__ void ldmatrix_x2_trans(uint32_t r[2],
       : "r"(a));
 }
 
-// Four 8x8 b16 matrices, each transposed (the x4 form of the above): from
-// a (k x n) operand stored k-major, matrices (k 0-7, n 0-7), (k 8-15, n
-// 0-7), (k 0-7, n 8-15), (k 8-15, n 8-15) give b0, b1 of two n8 tiles.
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t r[4],
-                                                  const void* p) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(a));
-}
-
 // ldmatrix x4 (or x4.trans) at shared address `a` (a cvta'd shared-window
 // address) plus the constant byte offset kOff, which rides in the
 // instruction: the fragments of a swizzled tile's row groups 16 rows apart
@@ -110,6 +97,14 @@ __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t a) {
         "[%4+%5];\n"
         : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
         : "r"(a), "n"(kOff));
+}
+
+// Four 8x8 b16 matrices, each transposed (ldmatrix_x2_trans's x4 form): from
+// a (k x n) operand stored k-major, matrices (k 0-7, n 0-7), (k 8-15, n
+// 0-7), (k 0-7, n 8-15), (k 8-15, n 8-15) give b0, b1 of two n8 tiles.
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  const void* p) {
+  ldsm_x4<0, true>(r, static_cast<uint32_t>(__cvta_generic_to_shared(p)));
 }
 
 // 32 bits into shared memory at a cvta'd shared-window address (a store
