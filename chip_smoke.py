@@ -46,6 +46,19 @@ Phases, each printed on its own lines; any failure exits non-zero:
      at 0 launches; the single-stage temporal attention, the im2col-named
      conv and the one-pass GroupNorm launched), its PSNR against 3b's
      first clip printed;
+  3e. serving: one ``cli/serve.Image2Video`` resident on the card at the
+     full 512 YAML answers three requests from 480x640 uint8 frames (an
+     interpolation at DDIM --ddim_steps, the same again through the cached
+     pipeline, a single-image "repeat" request at DDIM-10 and eta 0), each
+     launching every kernel of the 320x512 path, the second equal to the
+     first bit for bit, the allocated memory flat, each clip written;
+  3f. the dual-ref decoder's 'attn-only' and 'all' time modes: a reduced
+     decoder in bf16 on the card against fp32 on the CPU, then one
+     full-width 320x512 decode of each, every flash launch at a shape
+     phase 2 checks;
+  3g. ``ddpm_sample`` (a 4-step schedule) and ``decode_plain`` on a
+     reduced plain-decoder model, card against CPU (the CPU's noise);
+     then ``cli/smoke.py`` on the card;
   4. training: a reduced model's UNet and image_proj gradients in bf16 on
      the card against the same model's fp32 gradients on the CPU (same
      weights, same draws), then the full-width 320x512 training model
@@ -57,7 +70,7 @@ Phases, each printed on its own lines; any failure exits non-zero:
 No model phase launches #5, #17 or #18. The last two lines are the
 kernels' JSON summary (``launches`` from the first path that runs the
 kernel: 3b, else 3c, else 4b, else 3d, else 4b', else 2'; and each path's
-count) and the device JSON.
+count, 3e's and 3f's too) and the device JSON.
 """
 
 from __future__ import annotations
@@ -118,6 +131,16 @@ TRAIN_STEPS_SWITCHED = 2
 # the kernels no model reaches, driven through their op functions (2')
 OP_KERNELS = ("_dual_kernel_call", "_pallas_sums", "_flash_mh_ones",
               "_ptc_kernel_call")
+# 3e: the allocated memory after the third request may differ from its
+# value after the first by this much (the weights stay resident and
+# nothing accumulates; a request's own tensors are freed)
+SERVE_MEMORY_SLACK_MIB = 8.0
+SERVE_REPEAT_STEPS = 10
+DDPM_STEPS = 4
+# 3f's and 3g's reduced models run on the CPU too: a quarter of 3a's pixels
+SMALL_LATENT = (16, 24)
+# the flash kernels' (BH, Sq, Sk, D) that phase 2 checks
+FLASH_CHECKED = set()
 # a batch of two clips with per-item generators against each clip alone,
 # reduced model in bf16 on the card, against the same comparison with
 # nothing drawn (3a'' prints both): batched and single runs sum in other
@@ -152,8 +175,11 @@ def psnr(a, b) -> float:
     return (10 * torch.log10(4.0 / mse.clamp_min(1e-12))).min().item()
 
 
+_T0 = time.perf_counter()
+
+
 def phase(name: str) -> None:
-    print(f"== {name}", flush=True)
+    print(f"== {name} (at {time.perf_counter() - _T0:.1f} s)", flush=True)
 
 
 def sdpa(q, k, v, scale, heads=None):
@@ -334,6 +360,7 @@ def check_kernels(dev) -> dict:
         # QK^T and PV products; q, k, v read and the output written once
         bound_ms, bound_by = kc.bound(4.0 * bh * sq * sk * d,
                                       2.0 * bh * d * (2 * sq + 2 * sk))
+        FLASH_CHECKED.add((bh, sq, sk, d))
         print(f"{line} ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms="
               f"{library_ms:.4f} bound_ms={bound_ms:.4f} ({bound_by})"
               + (" ok" if ok else " FAIL"), flush=True)
@@ -725,6 +752,282 @@ def _check_outputs(cfg, outs) -> None:
                              f"+-{OUTPUT_MAX_ABS}")
 
 
+def serve_requests(dev, ddim_steps: int,
+                   yaml: str = "inference_512_v1.0.yaml",
+                   resolution=(320, 512), kernels=KERNELS_512) -> dict:
+    """3e: one Image2Video, resident on the card, answers three requests;
+    returns the launch counts over them."""
+    import numpy as np
+
+    from tooncrafter_tpu_torch.cli.serve import Image2Video
+    from tooncrafter_tpu_torch.utils import kernel_check as kc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    backend = Image2Video(config_path=os.path.join(REPO, "configs", yaml),
+                          result_dir=os.path.join(REPO, "build", "serve"),
+                          resolution=resolution, device=dev.type)
+    torch.cuda.synchronize()
+    print(f"Image2Video {yaml} {resolution[0]}x{resolution[1]}: built in "
+          f"{time.perf_counter() - t0:.1f} s, "
+          f"{torch.cuda.memory_allocated(dev) / 2 ** 30:.2f} GiB allocated",
+          flush=True)
+    rng = np.random.default_rng(SEED)
+    img_a, img_b = (rng.integers(0, 256, (480, 640, 3), dtype=np.uint8)
+                    for _ in range(2))
+    interp = dict(steps=ddim_steps, eta=1.0, image_b=img_b)
+    plan = (("interp", "", interp),
+            ("interp", ", the cached pipeline", interp),
+            ("repeat", "", dict(steps=SERVE_REPEAT_STEPS, eta=0.0)))
+    t, (h, w) = backend.cfg.video_length, resolution
+    total = dict.fromkeys(kc.launch_counts(), 0)
+    clips, allocated = [], []
+    for r, (mode, note, kw) in enumerate(plan):
+        torch.cuda.reset_peak_memory_stats(dev)
+        kc.reset_launch_counts()
+        t0 = time.perf_counter()
+        path = backend.get_image(img_a, "", fs=backend.cfg.default_fs,
+                                 seed=SEED, **kw)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = kc.launch_counts()
+        for k, v in counts.items():
+            total[k] += v
+        clip = backend.last_clip
+        allocated.append(torch.cuda.memory_allocated(dev))
+        written = (os.path.getsize(path) > 0 if os.path.isfile(path)
+                   else os.path.isdir(path) and len(os.listdir(path)) == t)
+        missed = [k for k in kernels if not counts[k]]
+        pipe = backend._pipelines[(kw["steps"], 7.5, kw["eta"], mode)]
+        print(f"3e request {r} ({mode}{note}, DDIM-{kw['steps']}, eta "
+              f"{kw['eta']}): {dt:.2f} s (phase seconds "
+              + ", ".join(f"{k} {v:.2f}" for k, v in pipe.timings.items())
+              + f"); peak memory allocated "
+              f"{torch.cuda.max_memory_allocated(dev) / 2 ** 30:.2f} GiB, "
+              f"{allocated[-1] / 2 ** 30:.4f} GiB after; clip range "
+              f"[{clip.min():.3f}, {clip.max():.3f}] written to "
+              f"{os.path.relpath(path, REPO)}; launches "
+              + ", ".join(f"{k} {v}" for k, v in counts.items() if v),
+              flush=True)
+        if (missed or not written or clip.shape != (t, h, w, 3)
+                or not np.isfinite(clip).all()
+                or np.abs(clip).max() > OUTPUT_MAX_ABS):
+            raise SystemExit(f"3e request {r}: kernels {missed} not "
+                             f"launched, clip not written ({path}), or a "
+                             f"clip of shape {clip.shape} not finite or "
+                             f"outside +-{OUTPUT_MAX_ABS}")
+        clips.append(clip)
+    same = bool(np.array_equal(clips[0], clips[1]))
+    drift = (allocated[2] - allocated[0]) / 2 ** 20
+    print(f"3e request 1 against request 0: bit for bit {same} (max abs "
+          f"diff {np.abs(clips[1] - clips[0]).max():.3e}); allocated after "
+          f"request 2 minus after request 0: {drift:+.3f} MiB (bound "
+          f"+-{SERVE_MEMORY_SLACK_MIB}); pipelines cached "
+          f"{sorted(backend._pipelines)}", flush=True)
+    if not same or abs(drift) > SERVE_MEMORY_SLACK_MIB:
+        raise SystemExit("3e: the cached pipeline's clip differs from the "
+                         "first, or the allocated memory moved")
+    return total
+
+
+def _bf16_module(mod):
+    """bf16, the norms' parameters kept fp32 (ToonCrafter.to_compute_dtype)."""
+    mod.to(torch.bfloat16)
+    for m in mod.modules():
+        if isinstance(m, (torch.nn.GroupNorm, torch.nn.LayerNorm)):
+            m.float()
+    return mod.eval()
+
+
+def decoder_inputs(cfg, gen, device, dtype=torch.float32):
+    """Raw latents (1, T, h, w, z) and the five reference taps
+    (1, 2, H_l, W_l, C_l) of the configuration, standard normal."""
+    h, w = cfg.latent_h * 8, cfg.latent_w * 8
+    shapes = []
+    for i, mult in enumerate(cfg.vae_ch_mult):
+        shapes.append((h, w, cfg.vae_ch * mult))
+        if i != len(cfg.vae_ch_mult) - 1:
+            h, w = (h + 1) // 2, (w + 1) // 2
+    shapes.append((cfg.latent_h * 8, cfg.latent_w * 8, cfg.vae_ch))
+    rnd = lambda *s: torch.randn(*s, generator=gen, device=gen.device).to(
+        device, dtype)
+    z = rnd(1, cfg.video_length, cfg.latent_h, cfg.latent_w, cfg.z_channels)
+    return z, [rnd(1, 2, *sh) for sh in shapes]
+
+
+@contextlib.contextmanager
+def record_flash_shapes():
+    """(BH, Sq, Sk, D) of every flash forward launch."""
+    from tooncrafter_tpu_torch.ops import flash_attention as fa
+
+    seen, launch = [], fa._launch
+
+    def rec(q4, k4, *args, **kw):
+        b, sq, h, d = q4.shape
+        seen.append((b * h, sq, k4.shape[1], d))
+        return launch(q4, k4, *args, **kw)
+    fa._launch = rec
+    try:
+        yield seen
+    finally:
+        fa._launch = launch
+
+
+def check_time_modes(dev) -> dict:
+    """3f: each of the 'attn-only' and 'all' decoders, reduced, bf16 on the
+    card against fp32 on the CPU (same weights and inputs), then at full
+    width (320x512x16) twice on the card: seconds, peak, flash launches,
+    each launch at a shape phase 2 checks. Returns the full-width decodes'
+    launch counts."""
+    import copy
+    import dataclasses
+
+    from tooncrafter_tpu_torch.config import (ModelConfig,
+                                              model_config_from_yaml)
+    from tooncrafter_tpu_torch.models.vae_dualref import DualRefVideoDecoder
+    from tooncrafter_tpu_torch.utils import kernel_check as kc
+    from tooncrafter_tpu_torch.utils.weights import init_random_
+
+    def decoder(cfg):
+        return DualRefVideoDecoder(
+            ch=cfg.vae_ch, ch_mult=tuple(cfg.vae_ch_mult),
+            num_res_blocks=cfg.vae_num_res_blocks,
+            attn_level=tuple(cfg.dualref_attn_level),
+            z_channels=cfg.z_channels, time_mode=cfg.dualref_time_mode)
+
+    full = model_config_from_yaml(os.path.join(REPO, "configs",
+                                               "inference_512_v1.0.yaml"))
+    total = dict.fromkeys(kc.launch_counts(), 0)
+    failed = []
+    for mode in ("attn-only", "all"):
+        cfg = dataclasses.replace(reduced_config(ModelConfig()),
+                                  latent_h=SMALL_LATENT[0],
+                                  latent_w=SMALL_LATENT[1],
+                                  dualref_time_mode=mode)
+        cpu_dec = decoder(cfg).eval()
+        init_random_(cpu_dec, torch.Generator().manual_seed(1))
+        gpu_dec = _bf16_module(copy.deepcopy(cpu_dec).to(dev))
+        z, refs = decoder_inputs(cfg, torch.Generator().manual_seed(2), "cpu")
+        kc.reset_launch_counts()
+        with torch.no_grad():
+            ref = cpu_dec(z, refs)
+            got = gpu_dec(z.to(dev, torch.bfloat16),
+                          [r.to(dev, torch.bfloat16) for r in refs])
+        got = got.float().cpu()
+        db = psnr(got, ref)
+        print(f"3f {mode} reduced decoder {cfg.latent_h * 8}x"
+              f"{cfg.latent_w * 8}x{cfg.video_length}: card bf16 vs CPU fp32"
+              f" min PSNR {db:.2f} dB, max_abs_err "
+              f"{(got - ref).abs().max().item():.4e}, output range "
+              f"[{ref.min().item():.3f}, {ref.max().item():.3f}], launches "
+              f"{ {k: v for k, v in kc.launch_counts().items() if v} }",
+              flush=True)
+        if not db >= REDUCED_MIN_PSNR:
+            failed.append(f"{mode} reduced")
+        del cpu_dec, gpu_dec
+        cfg = dataclasses.replace(full, dualref_time_mode=mode)
+        gc.collect()
+        torch.cuda.empty_cache()
+        with torch.device(dev):
+            dec = decoder(cfg)
+        init_random_(dec, torch.Generator(dev).manual_seed(SEED))
+        dec = _bf16_module(dec)
+        z, refs = decoder_inputs(cfg, torch.Generator(dev).manual_seed(3),
+                                 dev, torch.bfloat16)
+        torch.cuda.reset_peak_memory_stats(dev)
+        seconds = []
+        for _ in range(2):
+            kc.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with torch.no_grad(), record_flash_shapes() as shapes:
+                out = dec(z, refs)
+                torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t0)
+        counts = kc.launch_counts()
+        for k, v in counts.items():
+            total[k] += v
+        unchecked = sorted(set(shapes) - FLASH_CHECKED)
+        ok = (tuple(out.shape) == (1, cfg.video_length, cfg.latent_h * 8,
+                                   cfg.latent_w * 8, 3)
+              and torch.isfinite(out).all().item() and not unchecked)
+        print(f"3f {mode} full-width decode {cfg.latent_h * 8}x"
+              f"{cfg.latent_w * 8}x{cfg.video_length}: "
+              f"{', '.join(f'{t:.3f}' for t in seconds)} s; peak memory "
+              f"allocated {torch.cuda.max_memory_allocated(dev) / 2 ** 30:.2f}"
+              f" GiB; launches a decode "
+              + ", ".join(f"{k} {v}" for k, v in counts.items() if v)
+              + f"; flash (BH, Sq, Sk, D) {sorted(set(shapes))}, not checked"
+              f" in phase 2: {unchecked}" + ("" if ok else " FAIL"),
+              flush=True)
+        if not ok:
+            failed.append(f"{mode} full width")
+        del dec, out, z, refs
+    if failed:
+        raise SystemExit(f"3f: {failed}")
+    return total
+
+
+def check_ddpm_decode_plain(dev) -> None:
+    """3g: a reduced model with the plain decoder, the same weights on the
+    card (bf16) and the CPU (fp32): encode, the conditioning, a
+    ``DDPM_STEPS``-step ``ddpm_sample`` with noise from one CPU generator
+    on both, ``decode_plain``; the clips held to the 3a bar."""
+    import copy
+    import dataclasses
+
+    from tooncrafter_tpu_torch.config import ModelConfig
+    from tooncrafter_tpu_torch.models.diffusion import Pipeline, ToonCrafter
+    from tooncrafter_tpu_torch.ops import schedule as S
+    from tooncrafter_tpu_torch.sampling.ddim import GuidanceConfig
+    from tooncrafter_tpu_torch.sampling.ddpm import ddpm_sample
+    from tooncrafter_tpu_torch.utils import kernel_check as kc
+    from tooncrafter_tpu_torch.utils.weights import init_random_
+
+    cfg = dataclasses.replace(reduced_config(ModelConfig()),
+                              latent_h=SMALL_LATENT[0],
+                              latent_w=SMALL_LATENT[1])
+    cpu_model = ToonCrafter(cfg, dualref=False)
+    init_random_(cpu_model, torch.Generator().manual_seed(1))
+    gpu_model = copy.deepcopy(cpu_model).to(dev)
+    gpu_model.config = dataclasses.replace(cfg, compute_dtype=torch.bfloat16)
+    gpu_model.to_compute_dtype()
+    sched = S.build_schedule(
+        timesteps=DDPM_STEPS, beta_schedule=cfg.beta_schedule,
+        linear_start=cfg.linear_start, linear_end=cfg.linear_end,
+        rescale_betas_zero_snr=cfg.rescale_betas_zero_snr,
+        parameterization=cfg.parameterization)
+    outs = {}
+    for name, model, device in (("cpu", cpu_model.eval(), "cpu"),
+                                ("gpu", gpu_model.eval(), dev)):
+        video, tokens, null, fs, x_T = small_inputs(cfg, 4, device)
+        kc.reset_launch_counts()
+        with torch.no_grad():
+            z, _ = model.encode_first_stage(video, sample_posterior=False)
+            ctx = Pipeline(model, guidance=GuidanceConfig(
+                cfg_scale=1.0)).conditioning(tokens, null, video[:, 0])
+            lat = ddpm_sample(model.unet, sched, x_T, ctx,
+                              model.build_concat_cond(z), fs,
+                              torch.Generator().manual_seed(SEED))
+            outs[name] = (lat.float().cpu(),
+                          model.decode_plain(lat).float().cpu())
+        if name == "gpu":
+            torch.cuda.synchronize()
+            hit = kc.launch_counts()
+    (lc, vc), (lg, vg) = outs["cpu"], outs["gpu"]
+    rel = ((lg - lc).norm() / lc.norm()).item()
+    db = psnr(vg, vc)
+    print(f"3g reduced plain-decoder model, DDPM-{DDPM_STEPS} + "
+          f"decode_plain: card bf16 vs CPU fp32 latents relative L2 error "
+          f"{rel:.4e}, clip min PSNR {db:.2f} dB, output range "
+          f"[{vc.min().item():.3f}, {vc.max().item():.3f}]; launches "
+          f"{ {k: v for k, v in hit.items() if v} }", flush=True)
+    if not (db >= REDUCED_MIN_PSNR and torch.isfinite(vg).all()):
+        raise SystemExit("3g: ddpm_sample / decode_plain on the card "
+                         "disagree with the CPU")
+
+
 class _KeptDropout(torch.nn.Dropout):
     """A dropout that passes its input through but keeps its p, so the
     UNet still takes its training branch: the card and the CPU then see
@@ -966,6 +1269,19 @@ def main(argv=None) -> int:
         raise SystemExit(f"3d: kernels {missed} never launched, or the pair "
                          f"launched {counts_sw['_fused_tpair_call']} times")
     del pipe, requests, clips, clips_sw
+    phase(f"3e serving: Image2Video resident on the card, three requests")
+    counts_serve = serve_requests(dev, args.ddim_steps)
+    phase("3f the dual-ref decoder's 'attn-only' and 'all' time modes")
+    counts_modes = check_time_modes(dev)
+    phase(f"3g ddpm_sample and decode_plain: card against CPU; the smoke CLI")
+    check_ddpm_decode_plain(dev)
+    from tooncrafter_tpu_torch.cli import smoke
+    t0 = time.perf_counter()
+    smoke.main(["--steps", "3", "--out",
+                os.path.join(REPO, "build", "smoke", "clip")])
+    torch.cuda.synchronize()
+    print(f"3g cli/smoke.py on the card: {time.perf_counter() - t0:.2f} s",
+          flush=True)
     phase(f"3c one full-width 576x1024 request, DDIM-{args.ddim_steps}")
     counts_1024 = answer_requests(dev, args.ddim_steps,
                                   "inference_1024_v1.0.yaml", 1,
@@ -991,7 +1307,7 @@ def main(argv=None) -> int:
           f"GiB against {train_peak:.2f}", flush=True)
     summary = []
     paths = (counts, counts_1024, train_counts, counts_sw, train_sw,
-             counts_ops)
+             counts_serve, counts_modes, counts_ops)
     in_models = {k: [c[k] for c in paths[:-1]]
                  for k in ("_dual_kernel_call", "_pallas_sums",
                            "_flash_mh_ones")}
@@ -1009,6 +1325,8 @@ def main(argv=None) -> int:
         row["launches_train"] = train_counts[name]
         row["launches_512_switched"] = counts_sw[name]
         row["launches_train_switched"] = train_sw[name]
+        row["launches_serve"] = counts_serve[name]
+        row["launches_time_modes"] = counts_modes[name]
         row["launches_ops"] = counts_ops[name]
         summary.append(row)
     missed = [r["name"] for r in summary if not r["launches"]]
@@ -1016,6 +1334,8 @@ def main(argv=None) -> int:
         raise SystemExit(f"kernels {missed} launched on no path, or "
                          f"{len(summary)} rows for {len(kc.REPLACES)} TPU "
                          f"kernels")
+    print(f"chip_smoke: every phase passed in "
+          f"{time.perf_counter() - _T0:.1f} s", flush=True)
     print(json.dumps({"kernels": summary}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -25,9 +25,9 @@ torch.set_num_threads(1)  # one thread a pytest worker: the suite runs six
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 # A meta-path finder makes jax, flax and the JAX package unimportable, then
-# every module of the port is imported (both CLIs included), the tiny
-# pipeline runs, a tiny training step runs and the training CLI's dry run
-# starts.
+# every module of the port is imported (the CLIs, the serving backend and
+# the inference-side modules included), the tiny pipeline runs, a tiny
+# training step runs and the training CLI's dry run starts.
 _NO_JAX = """
 import importlib
 import os
@@ -52,7 +52,9 @@ names = [m.name for m in pkgutil.walk_packages(
     tooncrafter_tpu_torch.__path__, "tooncrafter_tpu_torch.")]
 for want in ("cli.inference", "cli.train", "training.trainer",
              "training.checkpoints", "training.callbacks",
-             "training.lr_schedule", "data.webvid"):
+             "training.lr_schedule", "data.webvid", "cli.serve",
+             "cli.smoke", "sampling.ddpm", "models.lpips",
+             "utils.metrics"):
     assert "tooncrafter_tpu_torch." + want in names, names
 for name in names:
     importlib.import_module(name)

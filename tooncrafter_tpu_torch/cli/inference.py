@@ -133,20 +133,14 @@ def build_model(args, device):
 
 def main(argv=None):
     args = get_parser().parse_args(argv)
-    if args.device == "cpu":
-        device = torch.device("cpu")
-    elif not torch.cuda.is_available():
-        raise SystemExit("the PyTorch port's inference runs on a CUDA "
-                         "device and none is available (pass --device cpu "
-                         "to run on the CPU)")
-    else:
-        device = torch.device("cuda", 0)
+    from tooncrafter_tpu_torch.cli import resolve_device
     from tooncrafter_tpu_torch.models.diffusion import Pipeline
     from tooncrafter_tpu_torch.sampling.ddim import GuidanceConfig
     from tooncrafter_tpu_torch.utils import rngs as R
     from tooncrafter_tpu_torch.utils.tokenizer import ClipTokenizer
     from tooncrafter_tpu_torch.utils.video_io import write_video
 
+    device = resolve_device(args.device)
     t_start = time.time()
     model = build_model(args, device)
     tokenizer = None

@@ -82,13 +82,8 @@ def main(argv=None):
     if args.n_model_shards > 1:
         raise SystemExit("--n_model_shards > 1: multi-device training is "
                          "not ported (one card)")
-    if args.device == "cpu":
-        device = torch.device("cpu")
-    elif not torch.cuda.is_available():
-        raise SystemExit("the PyTorch port trains on a CUDA device and none "
-                         "is available (pass --device cpu to run on the CPU)")
-    else:
-        device = torch.device("cuda", 0)
+    from tooncrafter_tpu_torch.cli import resolve_device
+    device = resolve_device(args.device)
 
     from tooncrafter_tpu_torch.config import load_yaml, model_config_from_dict
     from tooncrafter_tpu_torch.data.webvid import PrefetchLoader, WebVidDataset

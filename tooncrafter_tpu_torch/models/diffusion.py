@@ -8,7 +8,14 @@ checkpoint's top-level prefixes (``model.diffusion_model``,
 
   encode (VAE, per-frame taps) -> conditioning (CLIP text + vision ->
   Resampler) -> DDIM with the CFG branches in one UNet batch -> dual-ref
-  decode, twice: the full decode and the middle-frame splice.
+  decode, twice: the full decode and the middle-frame splice
+  (``middle_frame_splice``; ``use_splice=False`` keeps the full decode).
+
+A ToonCrafter checkpoint's ``first_stage_model.decoder`` is the dual-ref
+video decoder, a DynamiCrafter one's the plain decoder: ``ToonCrafter(cfg,
+dualref=False)`` builds the latter in the same place, which
+``decode_plain`` runs (``utils/checkpoint.full_mapping(cfg, dualref)``
+lists either model's tensors).
 """
 
 from __future__ import annotations
@@ -24,7 +31,8 @@ from tooncrafter_tpu_torch.models.clip import (CLIPTextTower, CLIPVisionTower,
                                                clip_preprocess)
 from tooncrafter_tpu_torch.models.resampler import Resampler
 from tooncrafter_tpu_torch.models.unet import UNetModel
-from tooncrafter_tpu_torch.models.vae import AutoencoderKL, DiagonalGaussian
+from tooncrafter_tpu_torch.models.vae import (AutoencoderKL, Decoder,
+                                              DiagonalGaussian)
 from tooncrafter_tpu_torch.models.vae_dualref import DualRefVideoDecoder
 from tooncrafter_tpu_torch.ops import schedule as S
 from tooncrafter_tpu_torch.sampling.ddim import GuidanceConfig, ddim_sample
@@ -41,9 +49,13 @@ class _Holder(nn.Module):
 
 
 class ToonCrafter(nn.Module):
-    def __init__(self, config: ModelConfig):
+    def __init__(self, config: ModelConfig, dualref: bool = True):
+        """``dualref`` picks the decoder under ``first_stage_model.decoder``:
+        the dual-ref video decoder (a ToonCrafter checkpoint) or the plain
+        one (a DynamiCrafter checkpoint)."""
         super().__init__()
         self.config = c = config
+        self.dualref = dualref
         self.schedule = S.build_schedule(
             timesteps=c.timesteps, beta_schedule=c.beta_schedule,
             linear_start=c.linear_start, linear_end=c.linear_end,
@@ -67,11 +79,16 @@ class ToonCrafter(nn.Module):
             use_causal_attention=c.use_causal_attention,
             use_relative_position=c.use_relative_position,
             use_checkpoint=c.use_checkpoint, remat_policy=c.remat_policy))
-        decoder = DualRefVideoDecoder(
-            ch=c.vae_ch, ch_mult=tuple(c.vae_ch_mult),
-            num_res_blocks=c.vae_num_res_blocks,
-            attn_level=tuple(c.dualref_attn_level), z_channels=c.z_channels,
-            time_mode=c.dualref_time_mode)
+        if dualref:
+            decoder = DualRefVideoDecoder(
+                ch=c.vae_ch, ch_mult=tuple(c.vae_ch_mult),
+                num_res_blocks=c.vae_num_res_blocks,
+                attn_level=tuple(c.dualref_attn_level),
+                z_channels=c.z_channels, time_mode=c.dualref_time_mode)
+        else:
+            decoder = Decoder(ch=c.vae_ch, ch_mult=tuple(c.vae_ch_mult),
+                              num_res_blocks=c.vae_num_res_blocks,
+                              z_channels=c.z_channels)
         self.first_stage_model = AutoencoderKL(
             decoder, ch=c.vae_ch, ch_mult=tuple(c.vae_ch_mult),
             num_res_blocks=c.vae_num_res_blocks, z_channels=c.z_channels,
@@ -161,20 +178,54 @@ class ToonCrafter(nn.Module):
 
     def denoise(self, x_T, contexts, concat, fs, guidance: GuidanceConfig,
                 ddim_steps: int = 50, eta: float = 1.0,
-                spacing: str = "uniform_trailing", generator=None):
+                spacing: str = "uniform_trailing", generator=None,
+                temperature: float = 1.0):
         ddim = S.build_ddim_schedule(self.schedule, ddim_steps, eta, spacing)
         return ddim_sample(self.unet, self.schedule, ddim, x_T, contexts,
-                           concat, fs, guidance, generator)
+                           concat, fs, guidance, generator, temperature)
 
     def decode_first_stage(self, z, refs, chunk_size: Optional[int] = None):
         """Scaled latents (B, T, h, w, 4) -> video (B, T, H, W, 3); chunks
         of ``chunk_size`` frames decode separately with the same refs."""
+        if not self.dualref:
+            raise TypeError("decode_first_stage runs the dual-ref decoder; "
+                            "this model holds the plain one (decode_plain)")
         z = (z / self.config.scale_factor).to(self.dtype)
         dec = self.first_stage_model.decoder
         t = z.shape[1]
         step = t if chunk_size is None else chunk_size
         return torch.cat([dec(z[:, i:i + step], refs)
                           for i in range(0, t, step)], dim=1)
+
+    def decode_plain(self, z):
+        """Scaled latents (B, T, h, w, 4) -> video (B, T, H, W, 3), every
+        frame alone through post_quant_conv and the plain decoder (a
+        ``dualref=False`` model)."""
+        if self.dualref:
+            raise TypeError("decode_plain runs the plain decoder; this model "
+                            "holds the dual-ref one (build it with "
+                            "dualref=False)")
+        b, t = z.shape[:2]
+        flat = (z / self.config.scale_factor).to(self.dtype).reshape(
+            (b * t,) + z.shape[2:])
+        out = self.first_stage_model.decode(flat)
+        return out.reshape((b, t) + out.shape[1:])
+
+
+def middle_frame_splice(model: ToonCrafter, samples, refs,
+                        chunk_size: Optional[int] = None, timed=None):
+    """Decode twice and put the two center frames of a decode whose latent
+    frames {1, -2} were dropped into the full one. ``timed(name, fn,
+    *args)``, when given, runs each decode (``Pipeline._timed``)."""
+    run = timed or (lambda name, fn, *args: fn(*args))
+    full = run("decode", model.decode_first_stage, samples, refs, chunk_size)
+    t = samples.shape[1]
+    keep = [i for i in range(t) if i not in (1, t - 2)]
+    partial = run("decode_splice", model.decode_first_stage,
+                  samples[:, keep], refs, chunk_size)
+    mid = full.shape[1] // 2
+    full[:, mid - 1:mid + 1] = partial[:, mid - 2:mid]
+    return full
 
 
 class Pipeline:
@@ -183,8 +234,10 @@ class Pipeline:
     def __init__(self, model: ToonCrafter, ddim_steps: int = 50,
                  eta: float = 1.0, spacing: str = "uniform_trailing",
                  guidance: Optional[GuidanceConfig] = None,
-                 mode: str = "interp", perframe_ae: bool = False):
+                 mode: str = "interp", use_splice: bool = True,
+                 perframe_ae: bool = False):
         self.model = model
+        self.use_splice = use_splice
         self.guidance = guidance or GuidanceConfig(cfg_scale=7.5,
                                                    guidance_rescale=0.7)
         self.mode = mode
@@ -217,16 +270,11 @@ class Pipeline:
         return torch.stack([uc, cond]) if n == 2 else cond[None]
 
     def decode(self, samples, refs):
-        m = self.model
-        full = self._timed("decode", m.decode_first_stage, samples, refs,
-                           self.dec_chunk)
-        t = samples.shape[1]
-        keep = [i for i in range(t) if i not in (1, t - 2)]
-        partial = self._timed("decode_splice", m.decode_first_stage,
-                              samples[:, keep], refs, self.dec_chunk)
-        mid = full.shape[1] // 2
-        full[:, mid - 1:mid + 1] = partial[:, mid - 2:mid]
-        return full
+        if not self.use_splice:
+            return self._timed("decode", self.model.decode_first_stage,
+                               samples, refs, self.dec_chunk)
+        return middle_frame_splice(self.model, samples, refs, self.dec_chunk,
+                                   timed=self._timed)
 
     @torch.no_grad()
     def __call__(self, video, tokens, null_tokens, fs,

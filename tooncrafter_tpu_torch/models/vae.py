@@ -1,9 +1,11 @@
-"""KL autoencoder encoder, f=8, 4-channel latent (tooncrafter_tpu/models/vae.py).
+"""KL autoencoder, f=8, 4-channel latent (tooncrafter_tpu/models/vae.py).
 
 The Encoder returns the per-level hidden-state taps (after each level's
 res blocks, before its downsample) plus the conv_in feature, which the
-dual-reference decoder consumes. Tensors are channels-last (N, H, W, C);
-parameter names follow the upstream ``first_stage_model`` state dict.
+dual-reference decoder consumes. The plain ``Decoder`` (the DynamiCrafter
+lineage's, after ``post_quant_conv``) decodes one frame at a time.
+Tensors are channels-last (N, H, W, C); parameter names follow the
+upstream ``first_stage_model`` state dict.
 """
 
 from __future__ import annotations
@@ -16,7 +18,7 @@ from torch import nn
 from tooncrafter_tpu_torch.ops.attention import attention
 from tooncrafter_tpu_torch.ops.norms import GroupNorm
 from tooncrafter_tpu_torch.ops.spatial_conv import (Conv1x1, Conv2d,
-                                                    Downsample,
+                                                    Downsample, Upsample,
                                                     spatial_conv3x3)
 
 
@@ -85,10 +87,10 @@ class DownLevel(nn.Module):
 
 
 class MidBlock(nn.Module):
-    def __init__(self, c: int, block=ResnetBlock):
+    def __init__(self, c: int, block=ResnetBlock, attn=AttnBlock):
         super().__init__()
         self.block_1 = block(c, c)
-        self.attn_1 = AttnBlock(c)
+        self.attn_1 = attn(c)
         self.block_2 = block(c, c)
 
 
@@ -121,6 +123,53 @@ class Encoder(nn.Module):
         return self.conv_out(self.norm_out(h)), taps + [conv_in_feat]
 
 
+class UpLevel(nn.Module):
+    """num_res_blocks + 1 blocks of ``block``, then a nearest-2x upsample
+    and 3x3 conv unless it is the last level."""
+
+    def __init__(self, cin: int, cout: int, num_res_blocks: int,
+                 upsample: bool, block=ResnetBlock):
+        super().__init__()
+        self.block = nn.ModuleList(
+            block(cin if i == 0 else cout, cout)
+            for i in range(num_res_blocks + 1))
+        if upsample:
+            self.upsample = Upsample(cout)
+
+
+class Decoder(nn.Module):
+    """The plain decoder: conv_in, the mid block, levels 3..0 (blocks then
+    upsample), GN+swish and conv_out, one (N, h, w, z) frame batch at a
+    time."""
+
+    def __init__(self, ch: int = 128, out_ch: int = 3,
+                 ch_mult: Sequence[int] = (1, 2, 4, 4),
+                 num_res_blocks: int = 2, z_channels: int = 4):
+        super().__init__()
+        block_in = ch * ch_mult[-1]
+        self.conv_in = Conv2d(z_channels, block_in, 3, padding=1)
+        self.mid = MidBlock(block_in)
+        ups, c = [], block_in
+        for level in reversed(range(len(ch_mult))):
+            ups.append(UpLevel(c, ch * ch_mult[level], num_res_blocks,
+                               upsample=level != 0))
+            c = ch * ch_mult[level]
+        self.up = nn.ModuleList(reversed(ups))
+        self.norm_out = GroupNorm(c, 1e-6, act=True)
+        self.conv_out = Conv2d(c, out_ch, 3, padding=1)
+
+    def forward(self, z):
+        """z: (N, h, w, z_ch) after post_quant_conv -> (N, H, W, out_ch)."""
+        h = self.mid.block_2(self.mid.attn_1(self.mid.block_1(
+            self.conv_in(z))))
+        for level in reversed(self.up):
+            for blk in level.block:
+                h = blk(h)
+            if hasattr(level, "upsample"):
+                h = level.upsample(h)
+        return self.conv_out(self.norm_out(h))
+
+
 class DiagonalGaussian:
     def __init__(self, moments):
         self.mean, logvar = moments.chunk(2, dim=-1)
@@ -137,8 +186,11 @@ class DiagonalGaussian:
 
 
 class AutoencoderKL(nn.Module):
-    """Encoder + quant convs; ``decoder`` is the dual-reference decoder
-    (models/vae_dualref.py), which skips ``post_quant_conv``."""
+    """Encoder + quant convs + ``decoder``: the dual-reference video decoder
+    of a ToonCrafter model (models/vae_dualref.py, which skips
+    ``post_quant_conv``), or the plain ``Decoder`` of a DynamiCrafter-style
+    one. Both sit under the upstream key ``first_stage_model.decoder``, so
+    either checkpoint loads with ``load_state_dict``."""
 
     def __init__(self, decoder: nn.Module, ch: int = 128,
                  ch_mult: Sequence[int] = (1, 2, 4, 4),
@@ -154,3 +206,20 @@ class AutoencoderKL(nn.Module):
         """x: (N, H, W, 3) -> (moments (N, h, w, 2*embed_dim), taps)."""
         h, taps = self.encoder(x)
         return self.quant_conv(h), taps
+
+    def decode(self, z):
+        """z: (N, h, w, embed_dim) -> (N, H, W, 3) through post_quant_conv
+        and the plain decoder."""
+        if not isinstance(self.decoder, Decoder):
+            raise TypeError("decode runs the plain decoder; this autoencoder "
+                            f"holds a {type(self.decoder).__name__}")
+        return self.decoder(self.post_quant_conv(z))
+
+    def forward(self, x, generator=None):
+        """The round trip: (reconstruction, moments). The latent is drawn
+        from the posterior with ``generator`` when one is given, else its
+        mode."""
+        moments, _ = self.encode(x)
+        post = DiagonalGaussian(moments)
+        z = post.sample(generator) if generator is not None else post.mode()
+        return self.decode(z), moments

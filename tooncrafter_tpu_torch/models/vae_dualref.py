@@ -1,33 +1,45 @@
-"""Dual-reference 3D VAE decoder, ``time_mode="conv-only"``
-(tooncrafter_tpu/models/vae_dualref.py).
+"""Dual-reference 3D VAE decoder (tooncrafter_tpu/models/vae_dualref.py),
+in the three time modes of the reference's VideoDecoder: ``conv-only``
+(shipped), ``all`` and ``attn-only``.
 
-  * VideoResBlock: a per-frame ResnetBlock, then a (3,1,1) temporal
-    residual stack merged as x + sigmoid(mix_factor) * stack(x), its two
-    convs through the fused temporal conv kernel (ops/temporal_conv.py).
+  * VideoResBlock: a per-frame ResnetBlock, then (unless ``attn-only``) a
+    (3,1,1) temporal residual stack merged as x + sigmoid(mix_factor) *
+    stack(x), its two convs through the fused temporal conv kernel
+    (ops/temporal_conv.py).
   * mid attention: per-frame single-head self-attention (d = C = 512 at
-    full width, the d=512 flash kernel).
+    full width, the d=512 flash kernel); under ``all`` and ``attn-only``
+    the TimeAttnBlock, which mixes that attention with a temporal
+    transformer over the frames (its attention over T = 16 tokens stays
+    on the plain path, as the TPU package leaves it to XLA).
   * FusionCrossAttention at levels {2, 3}: per-frame GroupNorm, 8 heads of
     64; all frames share the first/last-frame K/V, so frames ride the query
     axis of one attention per clip (the d=64 flash kernel with lse).
   * Combiner at the other levels and after norm_out: a 1x1 conv of the
     reference features added to frames 0 and -1.
-  * AE3DConv output: a 2-D conv per frame, then a temporal mixing conv.
+  * AE3DConv output: a 2-D conv per frame, then (unless ``attn-only``) a
+    temporal mixing conv.
 The caller passes raw latents (``post_quant_conv`` is skipped on this
 path). Tensors are (B, T, H, W, C).
 """
 
 from __future__ import annotations
 
+import functools
 from typing import List, Sequence
 
 import torch
 from torch import nn
 
 from tooncrafter_tpu_torch.ops.attention import attention
-from tooncrafter_tpu_torch.ops.norms import GroupNorm
-from tooncrafter_tpu_torch.ops.spatial_conv import Conv1x1, Conv2d, Upsample
+from tooncrafter_tpu_torch.ops.norms import GroupNorm, LayerNorm
+from tooncrafter_tpu_torch.ops.schedule import timestep_embedding
+from tooncrafter_tpu_torch.ops.spatial_conv import Conv1x1, Conv2d
 from tooncrafter_tpu_torch.ops.temporal_conv import TemporalConv3
-from tooncrafter_tpu_torch.models.vae import MidBlock, ResnetBlock
+from tooncrafter_tpu_torch.models.unet import CrossAttention, FeedForward
+from tooncrafter_tpu_torch.models.vae import (AttnBlock, MidBlock,
+                                              ResnetBlock, UpLevel)
+
+TIME_MODES = ("all", "conv-only", "attn-only")
 
 
 def _fold(x):
@@ -60,30 +72,102 @@ class TimeStack(nn.Module):
 
 
 class VideoResBlock(ResnetBlock):
-    def __init__(self, cin: int, cout: int):
+    """A per-frame ResnetBlock; with ``temporal`` (every mode but
+    ``attn-only``) its time stack and mix_factor."""
+
+    def __init__(self, cin: int, cout: int, temporal: bool = True):
         super().__init__(cin, cout)
-        self.time_stack = TimeStack(cout)
-        self.mix_factor = nn.Parameter(torch.zeros(1))
+        if temporal:
+            self.time_stack = TimeStack(cout)
+            self.mix_factor = nn.Parameter(torch.zeros(1))
 
     def forward(self, x):
         b, t = x.shape[:2]
         x = super().forward(_fold(x))
         x = x.reshape((b, t) + x.shape[1:])
+        if not hasattr(self, "time_stack"):
+            return x
         # a*(x + stack(x)) + (1-a)*x == x + a*stack(x), a in fp32
         return self.time_stack(x, torch.sigmoid(self.mix_factor.float())[0])
 
 
 class AE3DConv(Conv2d):
-    """2-D conv per frame + a temporal (3,1,1) mixing conv."""
+    """2-D conv per frame; with ``temporal`` a (3,1,1) mixing conv after it
+    (without, the reference's Conv2DWrapper)."""
 
-    def __init__(self, cin: int, cout: int):
+    def __init__(self, cin: int, cout: int, temporal: bool = True):
         super().__init__(cin, cout, 3, padding=1)
-        self.time_mix_conv = TemporalConv3(cout, cout)
+        if temporal:
+            self.time_mix_conv = TemporalConv3(cout, cout)
 
     def forward(self, x):
         b, t = x.shape[:2]
         y = super().forward(_fold(x))
-        return self.time_mix_conv(y.reshape((b, t) + y.shape[1:]))
+        y = y.reshape((b, t) + y.shape[1:])
+        if not hasattr(self, "time_mix_conv"):
+            return y
+        return self.time_mix_conv(y)
+
+
+class SVDTemporalBlock(nn.Module):
+    """The reference's VideoTransformerBlock as the decoder builds it: one
+    head of d = C, a GEGLU ``ff_in`` (exact erf), self-attention twice and
+    the FF, each pre-LayerNorm with a residual, over the T frames of every
+    spatial token."""
+
+    def __init__(self, c: int):
+        super().__init__()
+        self.norm_in = LayerNorm(c)
+        self.ff_in = FeedForward(c)
+        self.attn1 = CrossAttention(c, 1, c)  # self-attention, one head
+        self.attn2 = CrossAttention(c, 1, c)
+        self.norm1 = LayerNorm(c)
+        self.norm2 = LayerNorm(c)
+        self.norm3 = LayerNorm(c)
+        self.ff = FeedForward(c)
+
+    def forward(self, x, timesteps: int):
+        """x: (B*T, S, C) frame-major -> the same shape."""
+        bt, s, c = x.shape
+        b = bt // timesteps
+        x = x.reshape(b, timesteps, s, c).transpose(1, 2).reshape(
+            b * s, timesteps, c)
+        x = self.ff_in(self.norm_in(x)) + x
+        x = self.attn1(self.norm1(x)) + x
+        x = self.attn2(self.norm2(x)) + x
+        x = self.ff(self.norm3(x)) + x
+        return x.reshape(b, s, timesteps, c).transpose(1, 2).reshape(
+            bt, s, c)
+
+
+class TimeAttnBlock(AttnBlock):
+    """The mid attention of the ``all`` and ``attn-only`` modes: per-frame
+    single-head attention, alpha-merged with a temporal transformer over the
+    frames fed that attention plus a frame-position embedding (the
+    ``video_time_embed`` MLP)."""
+
+    def __init__(self, c: int):
+        super().__init__(c)
+        self.video_time_embed = nn.Sequential(
+            nn.Linear(c, 4 * c), nn.SiLU(), nn.Linear(4 * c, c))
+        self.time_mix_block = SVDTemporalBlock(c)
+        self.mix_factor = nn.Parameter(torch.zeros(1))
+
+    def forward(self, x):
+        b, t, hh, ww, c = x.shape
+        h = self.norm(_fold(x))
+        toks = lambda a: a.reshape(b * t, hh * ww, c)
+        att = attention(toks(self.q(h)), toks(self.k(h)), toks(self.v(h)),
+                        heads=1)
+        # frame index of row b*t + i is i
+        frames = torch.arange(t, dtype=torch.float32,
+                              device=x.device).repeat(b)
+        emb = self.video_time_embed(timestep_embedding(frames, c).to(
+            att.dtype))
+        x_mix = self.time_mix_block(att + emb[:, None, :], t)
+        a = torch.sigmoid(self.mix_factor.float()).to(att.dtype)
+        out = self.proj_out(a * att + (1.0 - a) * x_mix)
+        return x + out.reshape(b, t, hh, ww, c)
 
 
 class FusionCrossAttention(nn.Module):
@@ -118,35 +202,30 @@ class Combiner(nn.Module):
                           x[:, -1:] + ctx[:, 1:2]], dim=1)
 
 
-class UpLevel(nn.Module):
-    def __init__(self, cin: int, cout: int, num_res_blocks: int,
-                 upsample: bool):
-        super().__init__()
-        self.block = nn.ModuleList(
-            VideoResBlock(cin if i == 0 else cout, cout)
-            for i in range(num_res_blocks + 1))
-        if upsample:
-            self.upsample = Upsample(cout)
-
-
 class DualRefVideoDecoder(nn.Module):
     def __init__(self, ch: int = 128, out_ch: int = 3,
                  ch_mult: Sequence[int] = (1, 2, 4, 4),
                  num_res_blocks: int = 2, attn_level: Sequence[int] = (2, 3),
                  z_channels: int = 4, time_mode: str = "conv-only"):
         super().__init__()
-        if time_mode != "conv-only":
-            raise NotImplementedError(
-                f"time_mode={time_mode!r}: only the shipped 'conv-only' "
-                "decoder is ported")
+        if time_mode not in TIME_MODES:
+            raise ValueError(f"time_mode={time_mode!r}, not one of "
+                             f"{TIME_MODES}")
+        # which sub-blocks get temporal machinery
+        self.time_attn = time_mode in ("all", "attn-only")
+        time_res = time_mode != "attn-only"
+        block = functools.partial(VideoResBlock, temporal=time_res)
         block_in = ch * ch_mult[-1]
         self.conv_in = Conv2d(z_channels, block_in, 3, padding=1)
-        self.mid = MidBlock(block_in, block=VideoResBlock)
+        self.mid = MidBlock(block_in, block=block,
+                            attn=TimeAttnBlock if self.time_attn
+                            else AttnBlock)
         ups, refine = [], []
         c = block_in
         for level in reversed(range(len(ch_mult))):
             cout = ch * ch_mult[level]
-            ups.append(UpLevel(c, cout, num_res_blocks, upsample=level != 0))
+            ups.append(UpLevel(c, cout, num_res_blocks, upsample=level != 0,
+                               block=block))
             refine.append(FusionCrossAttention(cout) if level in attn_level
                           else Combiner(cout))
             c = cout
@@ -155,7 +234,7 @@ class DualRefVideoDecoder(nn.Module):
             list(reversed(refine)) + [Combiner(c)])
         # the JAX package folds it from the chained sums (no one-pass kernel)
         self.norm_out = GroupNorm(c, 1e-6, one_pass=False)
-        self.conv_out = AE3DConv(c, out_ch)
+        self.conv_out = AE3DConv(c, out_ch, temporal=time_res)
 
     def forward(self, z, refs: List[torch.Tensor]):
         """z: (B, T, h, w, z_ch) raw latents; refs: the encoder taps, each
@@ -164,7 +243,10 @@ class DualRefVideoDecoder(nn.Module):
         h = self.conv_in(_fold(z))
         h = h.reshape((b, t) + h.shape[1:])
         h = self.mid.block_1(h)
-        h = self.mid.attn_1(_fold(h)).reshape(h.shape)
+        if self.time_attn:
+            h = self.mid.attn_1(h)
+        else:
+            h = self.mid.attn_1(_fold(h)).reshape(h.shape)
         h = self.mid.block_2(h)
         for level in reversed(range(len(self.up))):
             up = self.up[level]

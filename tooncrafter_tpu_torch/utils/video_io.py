@@ -1,15 +1,18 @@
 """Host-side video and image I/O of the port's CLI.
 
 OpenCV (``cv2``) writes and reads mp4; without it a clip is written as PNG
-frames through Pillow. Images are read with Pillow. Both are imported only
-when a function needs them, so the package imports without either: the
-CLI needs Pillow to read its input images and OpenCV or Pillow to write
-its clips.
+frames, through Pillow where it is installed, else by the standard
+library's ``zlib`` (``png_bytes``). Images are read with Pillow. Both are
+imported only when a function needs them, so the package imports without
+either: the CLI needs Pillow to read its input images, and writes its
+clips with neither.
 """
 
 from __future__ import annotations
 
 import os
+import struct
+import zlib
 from typing import Optional, Sequence
 
 import numpy as np
@@ -65,13 +68,35 @@ def write_video(path: str, video: np.ndarray, fps: int = 8) -> str:
     return base
 
 
+def png_bytes(frame: np.ndarray) -> bytes:
+    """An (H, W, 3) uint8 RGB frame as an 8-bit truecolor PNG, each row
+    unfiltered, compressed by zlib."""
+    h, w, _ = frame.shape
+    rows = np.concatenate([np.zeros((h, 1), np.uint8),
+                           np.ascontiguousarray(frame, np.uint8).reshape(
+                               h, w * 3)], axis=1)
+
+    def chunk(kind: bytes, data: bytes) -> bytes:
+        return (struct.pack(">I", len(data)) + kind + data
+                + struct.pack(">I", zlib.crc32(kind + data)))
+    return (b"\x89PNG\r\n\x1a\n"
+            + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(rows.tobytes(), 6))
+            + chunk(b"IEND", b""))
+
+
 def _write_png(path: str, frame: np.ndarray):
     cv2 = _cv2()
     if cv2 is not None:
         cv2.imwrite(path, cv2.cvtColor(frame, cv2.COLOR_RGB2BGR))
-    else:
+        return
+    try:
         from PIL import Image
-        Image.fromarray(frame).save(path)
+    except ImportError:
+        with open(path, "wb") as f:
+            f.write(png_bytes(frame))
+        return
+    Image.fromarray(frame).save(path)
 
 
 def write_video_grid(path: str, videos: np.ndarray, fps: int = 8) -> str:

@@ -36,12 +36,16 @@ def _leaf(tree, path):
     return tree
 
 
-def from_jax_params(params: Dict[str, Any], config) -> Dict[str, torch.Tensor]:
+def from_jax_params(params: Dict[str, Any], config,
+                    dualref: bool = True) -> Dict[str, torch.Tensor]:
     """JAX ``ToonCrafter.init_params``-shaped tree (arrays of any kind) ->
     fp32 state dict for ``tooncrafter_tpu_torch.models.diffusion.
-    ToonCrafter``."""
+    ToonCrafter(config, dualref)``. The JAX model holds both decoders: the
+    dual-ref one (``params["dualref_decoder"]``) goes to
+    ``first_stage_model.decoder`` when ``dualref``, else the plain one
+    (``params["vae"]["decoder"]``); ``post_quant_conv`` goes either way."""
     sd = {}
-    for tower, entries in ckpt.full_mapping(config, dualref=True).items():
+    for tower, entries in ckpt.full_mapping(config, dualref=dualref).items():
         for jpath, tkey, fn in entries:
             leaf = _leaf(params.get(tower, {}), jpath)
             if leaf is None:
