@@ -831,15 +831,6 @@ def serve_requests(dev, ddim_steps: int,
     return total
 
 
-def _bf16_module(mod):
-    """bf16, the norms' parameters kept fp32 (ToonCrafter.to_compute_dtype)."""
-    mod.to(torch.bfloat16)
-    for m in mod.modules():
-        if isinstance(m, (torch.nn.GroupNorm, torch.nn.LayerNorm)):
-            m.float()
-    return mod.eval()
-
-
 def decoder_inputs(cfg, gen, device, dtype=torch.float32):
     """Raw latents (1, T, h, w, z) and the five reference taps
     (1, 2, H_l, W_l, C_l) of the configuration, standard normal."""
@@ -887,14 +878,10 @@ def check_time_modes(dev) -> dict:
                                               model_config_from_yaml)
     from tooncrafter_tpu_torch.models.vae_dualref import DualRefVideoDecoder
     from tooncrafter_tpu_torch.utils import kernel_check as kc
-    from tooncrafter_tpu_torch.utils.weights import init_random_
+    from tooncrafter_tpu_torch.utils.weights import (init_random_,
+                                                     to_compute_dtype)
 
-    def decoder(cfg):
-        return DualRefVideoDecoder(
-            ch=cfg.vae_ch, ch_mult=tuple(cfg.vae_ch_mult),
-            num_res_blocks=cfg.vae_num_res_blocks,
-            attn_level=tuple(cfg.dualref_attn_level),
-            z_channels=cfg.z_channels, time_mode=cfg.dualref_time_mode)
+    cast_bf16 = lambda mod: to_compute_dtype(mod, torch.bfloat16).eval()
 
     full = model_config_from_yaml(os.path.join(REPO, "configs",
                                                "inference_512_v1.0.yaml"))
@@ -905,9 +892,9 @@ def check_time_modes(dev) -> dict:
                                   latent_h=SMALL_LATENT[0],
                                   latent_w=SMALL_LATENT[1],
                                   dualref_time_mode=mode)
-        cpu_dec = decoder(cfg).eval()
+        cpu_dec = DualRefVideoDecoder.from_config(cfg).eval()
         init_random_(cpu_dec, torch.Generator().manual_seed(1))
-        gpu_dec = _bf16_module(copy.deepcopy(cpu_dec).to(dev))
+        gpu_dec = cast_bf16(copy.deepcopy(cpu_dec).to(dev))
         z, refs = decoder_inputs(cfg, torch.Generator().manual_seed(2), "cpu")
         kc.reset_launch_counts()
         with torch.no_grad():
@@ -930,9 +917,9 @@ def check_time_modes(dev) -> dict:
         gc.collect()
         torch.cuda.empty_cache()
         with torch.device(dev):
-            dec = decoder(cfg)
+            dec = DualRefVideoDecoder.from_config(cfg)
         init_random_(dec, torch.Generator(dev).manual_seed(SEED))
-        dec = _bf16_module(dec)
+        dec = cast_bf16(dec)
         z, refs = decoder_inputs(cfg, torch.Generator(dev).manual_seed(3),
                                  dev, torch.bfloat16)
         torch.cuda.reset_peak_memory_stats(dev)
@@ -969,19 +956,32 @@ def check_time_modes(dev) -> dict:
     return total
 
 
+class _HostNoise:
+    """Stands in for a sampler module's ``utils.rngs``: every draw comes
+    from one CPU generator and moves to the draw's device, so a card run
+    and a CPU run share their noise."""
+
+    def __init__(self, seed: int):
+        self.gen = torch.Generator().manual_seed(seed)
+
+    def normal(self, gen, shape, device=None, dtype=torch.float32):
+        return torch.randn(tuple(shape), generator=self.gen).to(device, dtype)
+
+
 def check_ddpm_decode_plain(dev) -> None:
     """3g: a reduced model with the plain decoder, the same weights on the
     card (bf16) and the CPU (fp32): encode, the conditioning, a
     ``DDPM_STEPS``-step ``ddpm_sample`` with noise from one CPU generator
-    on both, ``decode_plain``; the clips held to the 3a bar."""
+    on both (the sampler's ``R`` swapped for ``_HostNoise``, as the CPU
+    tests swap it), ``decode_plain``; the clips held to the 3a bar."""
     import copy
     import dataclasses
 
     from tooncrafter_tpu_torch.config import ModelConfig
     from tooncrafter_tpu_torch.models.diffusion import Pipeline, ToonCrafter
     from tooncrafter_tpu_torch.ops import schedule as S
+    from tooncrafter_tpu_torch.sampling import ddpm
     from tooncrafter_tpu_torch.sampling.ddim import GuidanceConfig
-    from tooncrafter_tpu_torch.sampling.ddpm import ddpm_sample
     from tooncrafter_tpu_torch.utils import kernel_check as kc
     from tooncrafter_tpu_torch.utils.weights import init_random_
 
@@ -1007,9 +1007,12 @@ def check_ddpm_decode_plain(dev) -> None:
             z, _ = model.encode_first_stage(video, sample_posterior=False)
             ctx = Pipeline(model, guidance=GuidanceConfig(
                 cfg_scale=1.0)).conditioning(tokens, null, video[:, 0])
-            lat = ddpm_sample(model.unet, sched, x_T, ctx,
-                              model.build_concat_cond(z), fs,
-                              torch.Generator().manual_seed(SEED))
+            rngs, ddpm.R = ddpm.R, _HostNoise(SEED)
+            try:
+                lat = ddpm.ddpm_sample(model.unet, sched, x_T, ctx,
+                                       model.build_concat_cond(z), fs)
+            finally:
+                ddpm.R = rngs
             outs[name] = (lat.float().cpu(),
                           model.decode_plain(lat).float().cpu())
         if name == "gpu":

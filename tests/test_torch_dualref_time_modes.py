@@ -39,14 +39,6 @@ def _fill_zero_leaves(tree, seed):
     return jax.tree_util.tree_map(f, tree)
 
 
-def _decoder(cfg):
-    return DualRefVideoDecoder(
-        ch=cfg.vae_ch, ch_mult=tuple(cfg.vae_ch_mult),
-        num_res_blocks=cfg.vae_num_res_blocks,
-        attn_level=tuple(cfg.dualref_attn_level), z_channels=cfg.z_channels,
-        time_mode=cfg.dualref_time_mode)
-
-
 @pytest.mark.parametrize("mode", ["all", "attn-only"])
 def test_time_mode_matches_jax_and_mapping_covers_it(mode):
     overrides = dict(dualref_time_mode=mode, latent_w=6)
@@ -65,7 +57,7 @@ def test_time_mode_matches_jax_and_mapping_covers_it(mode):
     ref = jm.dualref_decoder.apply({"params": params}, jnp.asarray(z),
                                    [jnp.asarray(r) for r in refs])
 
-    dec = _decoder(cfg)
+    dec = DualRefVideoDecoder.from_config(cfg)
     sd = from_jax_params({"dualref_decoder": params}, cfg)
     dec.load_state_dict({k[len(PREFIX):]: v for k, v in sd.items()},
                         strict=True)
@@ -93,6 +85,6 @@ def test_time_mode_matches_jax_and_mapping_covers_it(mode):
 def test_every_time_mode_builds():
     cfg = ModelConfig().tiny()
     for mode in TIME_MODES:
-        _decoder(cfg.tiny(dualref_time_mode=mode))
+        DualRefVideoDecoder.from_config(cfg.tiny(dualref_time_mode=mode))
     with pytest.raises(ValueError, match="time_mode"):
-        _decoder(cfg.tiny(dualref_time_mode="frames"))
+        DualRefVideoDecoder.from_config(cfg.tiny(dualref_time_mode="frames"))

@@ -150,3 +150,29 @@ def test_cuda_tensors_never_take_the_plain_version(monkeypatch):
     with pytest.raises((FileNotFoundError, ValueError)):
         ta._fused_tpair_call(x, stage, stage, 1, 0.125)
     assert not called
+
+
+@pytest.mark.parametrize("t,p,heads,d,want", [
+    (16, 64, 2, 32, "plain"),    # the tiny config: the JAX package's XLA
+    (16, 64, 2, 128, "pair"),    # Pallas pair at 128-wide heads
+    (20, 64, 2, 64, "pair"),     # Pallas pair at T = 20
+    (16, 64, 2, 64, "pair"),     # the shipped configs' heads
+])
+def test_temporal_transformer_route_follows_the_jax_rule(
+        interpret, monkeypatch, t, p, heads, d, want):
+    """``TemporalTransformer.route`` takes the pair wherever the JAX package
+    runs its Pallas pair kernel, whether or not the CUDA kernel takes the
+    shape (then it raises on the card, never runs plain PyTorch in the
+    kernel's place); the plain chain only where the JAX package runs XLA
+    and the CUDA pair does not cover the shape."""
+    from tooncrafter_tpu_torch.models.unet import TemporalTransformer
+
+    c = heads * d
+    tt = TemporalTransformer(c, heads, d, depth=1)
+    assert tt.route(t, p) == want
+    assert jta.use_pair_kernel(t, p, d, c, c) == (want == "pair")
+    if want == "pair" and not ta.covers(t, d, c):
+        monkeypatch.setattr(ta._launch, "on_cpu", lambda *a: False)
+        x = torch.zeros(1, t, 8, 8, c)
+        with pytest.raises(ValueError, match="temporal attention kernels"):
+            tt.transformer_blocks[0].temporal_pair(x)

@@ -102,32 +102,38 @@ def load_data_prompts(data_dir, video_size, video_frames, interp):
     return names, data, prompts
 
 
-def build_model(args, device):
-    """The configured model on ``device`` (bf16 on a card, fp32 on the
-    CPU), from --ckpt_path or random weights drawn from --seed."""
+def build_model(config_path, ckpt_path, height: int, width: int,
+                video_length: int, seed: int, device: torch.device):
+    """The model of ``config_path`` (the default config without one) at
+    height x width and video_length frames on ``device``, bf16 on a card
+    and fp32 on the CPU, with the weights of ``ckpt_path`` or random ones
+    drawn from ``seed``. The inference CLI and the serving backend build
+    their model here."""
     from tooncrafter_tpu_torch.config import ModelConfig, model_config_from_yaml
     from tooncrafter_tpu_torch.models.diffusion import ToonCrafter
     from tooncrafter_tpu_torch.utils.weights import init_random_
 
-    cfg = model_config_from_yaml(args.config) if args.config \
+    cfg = model_config_from_yaml(config_path) if config_path \
         else ModelConfig()
     cfg = dataclasses.replace(
-        cfg, video_length=args.video_length, latent_h=args.height // 8,
-        latent_w=args.width // 8,
+        cfg, video_length=video_length, latent_h=height // 8,
+        latent_w=width // 8,
         compute_dtype=(torch.float32 if device.type == "cpu"
                        else torch.bfloat16))
     with torch.device(device):
         model = ToonCrafter(cfg)
-    if args.ckpt_path:
+    if ckpt_path:
         from tooncrafter_tpu_torch.utils.checkpoint import \
             load_torch_state_dict
         missing, _ = model.load_state_dict(
-            load_torch_state_dict(args.ckpt_path), strict=False)
+            load_torch_state_dict(ckpt_path), strict=False)
         if missing:
-            print(f"[warn] {len(missing)} params missing from ckpt")
+            warnings.warn(f"{len(missing)} parameters missing from "
+                          f"{ckpt_path}", stacklevel=2)
     else:
-        print("[warn] no --ckpt_path: using random weights (smoke mode)")
-        init_random_(model, torch.Generator(device).manual_seed(args.seed))
+        warnings.warn("no checkpoint: using random weights (smoke mode)",
+                      stacklevel=2)
+        init_random_(model, torch.Generator(device).manual_seed(seed))
     return model.to_compute_dtype().eval()
 
 
@@ -142,7 +148,8 @@ def main(argv=None):
 
     device = resolve_device(args.device)
     t_start = time.time()
-    model = build_model(args, device)
+    model = build_model(args.config, args.ckpt_path, args.height,
+                        args.width, args.video_length, args.seed, device)
     tokenizer = None
     if args.bpe_path:
         tokenizer = ClipTokenizer(bpe_path=args.bpe_path)

@@ -20,7 +20,6 @@ not the TPU package's, so a seed gives another clip than there.
 
 from __future__ import annotations
 
-import dataclasses
 import os
 import time
 import warnings
@@ -39,38 +38,16 @@ class Image2Video:
                  result_dir: str = "./gradio_results",
                  resolution=(320, 512), video_length: int = 16,
                  device: str = "cuda"):
-        from tooncrafter_tpu_torch.config import (ModelConfig,
-                                                  model_config_from_yaml)
-        from tooncrafter_tpu_torch.models.diffusion import ToonCrafter
+        from tooncrafter_tpu_torch.cli.inference import build_model
         from tooncrafter_tpu_torch.utils.tokenizer import ClipTokenizer
-        from tooncrafter_tpu_torch.utils.weights import init_random_
 
         self.device = resolve_device(device)
-        cfg = (model_config_from_yaml(config_path) if config_path
-               else ModelConfig())
-        cfg = dataclasses.replace(
-            cfg, video_length=video_length,
-            latent_h=resolution[0] // 8, latent_w=resolution[1] // 8,
-            compute_dtype=(torch.float32 if self.device.type == "cpu"
-                           else torch.bfloat16))
-        self.cfg = cfg
+        self.model = build_model(config_path, ckpt_path, resolution[0],
+                                 resolution[1], video_length, 0, self.device)
+        self.cfg = self.model.config
         self.resolution = tuple(resolution)
         self.result_dir = result_dir
         os.makedirs(result_dir, exist_ok=True)
-        with torch.device(self.device):
-            model = ToonCrafter(cfg)
-        if ckpt_path:
-            from tooncrafter_tpu_torch.utils.checkpoint import \
-                load_torch_state_dict
-
-            missing, _ = model.load_state_dict(
-                load_torch_state_dict(ckpt_path), strict=False)
-            if missing:
-                warnings.warn(f"{len(missing)} parameters missing from "
-                              f"{ckpt_path}", stacklevel=2)
-        else:
-            init_random_(model, torch.Generator(self.device).manual_seed(0))
-        self.model = model.to_compute_dtype().eval()
         if bpe_path:
             self.tokenizer = ClipTokenizer(bpe_path=bpe_path)
         else:

@@ -37,6 +37,7 @@ from tooncrafter_tpu_torch.models.vae_dualref import DualRefVideoDecoder
 from tooncrafter_tpu_torch.ops import schedule as S
 from tooncrafter_tpu_torch.sampling.ddim import GuidanceConfig, ddim_sample
 from tooncrafter_tpu_torch.utils import rngs as R
+from tooncrafter_tpu_torch.utils.weights import to_compute_dtype
 
 
 class _Holder(nn.Module):
@@ -80,11 +81,7 @@ class ToonCrafter(nn.Module):
             use_relative_position=c.use_relative_position,
             use_checkpoint=c.use_checkpoint, remat_policy=c.remat_policy))
         if dualref:
-            decoder = DualRefVideoDecoder(
-                ch=c.vae_ch, ch_mult=tuple(c.vae_ch_mult),
-                num_res_blocks=c.vae_num_res_blocks,
-                attn_level=tuple(c.dualref_attn_level),
-                z_channels=c.z_channels, time_mode=c.dualref_time_mode)
+            decoder = DualRefVideoDecoder.from_config(c)
         else:
             decoder = Decoder(ch=c.vae_ch, ch_mult=tuple(c.vae_ch_mult),
                               num_res_blocks=c.vae_num_res_blocks,
@@ -111,12 +108,8 @@ class ToonCrafter(nn.Module):
 
     def to_compute_dtype(self) -> "ToonCrafter":
         """Cast to ``config.compute_dtype``, keeping the norms' parameters
-        fp32 (their statistics are fp32 either way)."""
-        self.to(self.config.compute_dtype)
-        for mod in self.modules():
-            if isinstance(mod, (nn.GroupNorm, nn.LayerNorm)):
-                mod.float()
-        return self
+        fp32 (``utils/weights.to_compute_dtype``)."""
+        return to_compute_dtype(self, self.config.compute_dtype)
 
     @property
     def dtype(self) -> torch.dtype:

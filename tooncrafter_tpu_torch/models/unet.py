@@ -23,8 +23,8 @@ where upstream has it.
 The temporal blocks take their kernel by the JAX package's coverage rules
 (tooncrafter_tpu/models/unet.py:547-567, 688-700): the pair where
 ``use_pair_kernel`` holds (and, under the default TC_TATTN_PAIR=1, also
-where the JAX package runs its XLA chain: the same function), the plain
-chain where the pair's CUDA kernel takes no such shape (``ta.covers``); under
+where the JAX package runs its XLA chain: the same function, or the plain
+chain where the pair's CUDA kernel takes no such shape, ``ta.covers``); under
 TC_TATTN_PAIR=0 each sub-block through the single-stage kernel (#10) where
 ``use_fused_kernel`` holds, else the T-attention core (#11) where
 ``use_kernel`` does, else the plain chain. A GroupNorm that the JAX package
@@ -367,11 +367,14 @@ class TemporalTransformer(nn.Module):
         fused_ok = ta.use_fused_kernel(t, p, d, inner, inner)
         fast = not self.causal and (
             ta.use_kernel(t, p, d, inner=inner) or fused_ok)
-        if ta._PAIR and (ta.use_pair_kernel(t, p, d, inner, inner)
-                         or not fast):
-            # the JAX package's XLA chain where the CUDA kernel takes no
-            # such shape either (heads other than 64 wide, T not dividing
-            # 16, C > 1280)
+        if ta.use_pair_kernel(t, p, d, inner, inner):
+            # the JAX package's Pallas pair kernel: the CUDA pair, which
+            # raises on the card at a shape it does not take
+            return "pair"
+        if ta._PAIR and not fast:
+            # the JAX package's XLA chain: the same function through the
+            # CUDA pair where it takes the shape, else the plain chain
+            # (heads other than 64 wide, T not dividing 16, C > 1280)
             return "pair" if ta.covers(t, d, inner) else "plain"
         if fast:
             return "single" if fused_ok else "ptc"

@@ -203,6 +203,16 @@ class Combiner(nn.Module):
 
 
 class DualRefVideoDecoder(nn.Module):
+    @classmethod
+    def from_config(cls, cfg) -> "DualRefVideoDecoder":
+        """The decoder of a ModelConfig (its ``vae_*`` and ``dualref_*``
+        fields)."""
+        return cls(ch=cfg.vae_ch, ch_mult=tuple(cfg.vae_ch_mult),
+                   num_res_blocks=cfg.vae_num_res_blocks,
+                   attn_level=tuple(cfg.dualref_attn_level),
+                   z_channels=cfg.z_channels,
+                   time_mode=cfg.dualref_time_mode)
+
     def __init__(self, ch: int = 128, out_ch: int = 3,
                  ch_mult: Sequence[int] = (1, 2, 4, 4),
                  num_res_blocks: int = 2, attn_level: Sequence[int] = (2, 3),

@@ -10,9 +10,7 @@ gives other numbers than the JAX package.
 
 Every draw accepts one ``torch.Generator`` (or None: torch's default), which
 draws the whole batch at once as before, or a sequence of generators, one
-per item along the first axis. A generator on another device than the
-draw's (a CPU generator for a draw on the card) draws on its own device and
-the noise is copied over, so a card run can use the CPU run's noise.
+per item along the first axis.
 """
 
 from __future__ import annotations
@@ -42,15 +40,6 @@ def is_batched(gen: Generators) -> bool:
     return gen is not None and not isinstance(gen, torch.Generator)
 
 
-def _randn(shape, gen: Optional[torch.Generator], device, dtype):
-    if gen is None or device is None \
-            or torch.device(device).type == gen.device.type:
-        return torch.randn(tuple(shape), generator=gen, device=device,
-                           dtype=dtype)
-    return torch.randn(tuple(shape), generator=gen, device=gen.device,
-                       dtype=dtype).to(device)
-
-
 def normal(gen: Generators, shape: Sequence[int],
            device: Optional[torch.device] = None,
            dtype: torch.dtype = torch.float32) -> torch.Tensor:
@@ -58,8 +47,11 @@ def normal(gen: Generators, shape: Sequence[int],
     tensor is one draw; with a sequence, shape[0] must be its length and
     item i's slice shape[1:] is drawn from gen[i]."""
     if not is_batched(gen):
-        return _randn(shape, gen, device, dtype)
+        return torch.randn(tuple(shape), generator=gen, device=device,
+                           dtype=dtype)
     if len(gen) != shape[0]:
         raise ValueError(f"{len(gen)} per-item generators for a leading "
                          f"dim of {shape[0]}")
-    return torch.stack([_randn(shape[1:], g, device, dtype) for g in gen])
+    return torch.stack([torch.randn(tuple(shape[1:]), generator=g,
+                                    device=device, dtype=dtype)
+                        for g in gen])

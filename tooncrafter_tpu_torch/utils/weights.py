@@ -1,5 +1,6 @@
 """Weights for the port: JAX parameter trees to an upstream-named state
-dict, and random initialisation from an explicit generator.
+dict, random initialisation from an explicit generator, and the cast to
+the compute dtype.
 
 ``from_jax_params`` inverts the layout transforms of the checkpoint mapping
 (``utils/checkpoint.py``, the port's copy of the JAX package's tables), so
@@ -71,3 +72,13 @@ def init_random_(model: nn.Module, generator: torch.Generator) -> None:
                 fan_in = (p[0].numel() if isinstance(mod, convs)
                           and name == "weight" else p.shape[-1])
                 p.normal_(0.0, fan_in ** -0.5, generator=generator)
+
+
+def to_compute_dtype(module: nn.Module, dtype: torch.dtype) -> nn.Module:
+    """Cast ``module`` to ``dtype`` in place, keeping the norms' parameters
+    fp32 (their statistics are fp32 either way)."""
+    module.to(dtype)
+    for mod in module.modules():
+        if isinstance(mod, (nn.GroupNorm, nn.LayerNorm)):
+            mod.float()
+    return module
