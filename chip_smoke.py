@@ -59,18 +59,30 @@ Phases, each printed on its own lines; any failure exits non-zero:
   3g. ``ddpm_sample`` (a 4-step schedule) and ``decode_plain`` on a
      reduced plain-decoder model, card against CPU (the CPU's noise);
      then ``cli/smoke.py`` on the card;
-  4. training: a reduced model's UNet and image_proj gradients in bf16 on
-     the card against the same model's fp32 gradients on the CPU (same
-     weights, same draws), then the full-width 320x512 training model
-     (configs/training_512_v1.0.yaml: per-block checkpointing with the
-     'dots' policy) with random weights from a fixed seed takes three
-     AdamW steps with EMA on a batch of two 16x320x512 clips through
-     ``make_train_step``, counting the forward and backward kernels'
-     launches, with the step seconds and the peak memory.
+  4. training, the UNet on its training branch (dropout 0.1: the ResBlock
+     convs through the 3x3 conv kernel where the JAX package's tables take
+     one, the temporal convs through #12, each under autograd through its
+     Function; phase 2 holds both Functions' gradients at the 512 and 1024
+     training shapes): 4a a reduced model's UNet and image_proj gradients
+     in bf16 on the card against the same model's fp32 gradients on the CPU
+     (same weights, same draws, the dropout modules passing their input
+     through), then again at the 512 model's ds2 and ds4 shapes (#13); 4b
+     the full-width 320x512 training model (configs/training_512_v1.0.yaml:
+     per-block checkpointing with the 'dots' policy) with random weights
+     from a fixed seed takes three AdamW steps with EMA on a batch of two
+     16x320x512 clips through ``make_train_step``, every step launching
+     every kernel of TRAIN_KERNELS, with the step seconds and the peak
+     memory, then two steps each with the 'adamw_lowmem' and 'adafactor'
+     profiles (their state bytes and peaks); 4d on that model
+     ``make_val_step`` with the EMA weights and one ``VideoSampleLogger``
+     clip (DDIM-2), finite and written; 4a' and 4b' the same under
+     TOONCRAFTER_FUSED_GN=1 and TC_SPATIAL_CONV_PALLAS=1 (#16 and #15); 4c
+     the 576x1024 training model (configs/training_1024_v1.0.yaml, one
+     clip) takes three AdamW steps with EMA, #14 launched in each.
 No model phase launches #5, #17 or #18. The last two lines are the
 kernels' JSON summary (``launches`` from the first path that runs the
-kernel: 3b, else 3c, else 4b, else 3d, else 4b', else 2'; and each path's
-count, 3e's and 3f's too) and the device JSON.
+kernel: 3b, else 3c, else 4b, else 3d, else 4b', else 4c, else 2'; and
+each path's count, 3e's and 3f's too) and the device JSON.
 """
 
 from __future__ import annotations
@@ -84,6 +96,7 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -106,9 +119,27 @@ OUTPUT_MAX_ABS = 100.0
 GRAD_MIN_COSINE = 0.99
 GRAD_MAX_REL_L2 = 0.1
 TRAIN_STEPS = 3
-# the kernels a training step of the 512 model launches
+# the kernels every training step of the 512 model launches: the training
+# branch's temporal convs (#12) and its ResBlock convs at the JAX tables'
+# shapes (#13) too
 TRAIN_KERNELS = ("_flash_mh_packed", "_flash_mh", "_pallas_ff",
-                 "_pallas_ff_streamed", "_fused_tpair_call", "_flash_bwd_bh")
+                 "_pallas_ff_streamed", "_fused_tpair_call", "_flash_bwd_bh",
+                 "_pallas_tconv", "winograd_gn_silu_conv3x3")
+# the reduced training model's: its ResBlock convs meet no JAX table
+REDUCED_TRAIN_KERNELS = tuple(k for k in TRAIN_KERNELS
+                              if k != "winograd_gn_silu_conv3x3")
+# 4a's second run: the reduced model at the 512 model's ds2 and ds4 shapes
+TABLE_TRAIN_KERNELS = ("_pallas_tconv", "winograd_gn_silu_conv3x3")
+# the low-memory optimizer profiles, two steps each after 4b's AdamW steps
+PROFILE_STEPS = 2
+# 4c: the 576x1024 training model (configs/training_1024_v1.0.yaml)
+TRAIN_STEPS_1024 = 3
+TRAIN_KERNELS_1024 = ("_flash_mh", "_flash_bh_with_lse", "_pallas_ff",
+                      "_pallas_ff_streamed", "_fused_tpair_call",
+                      "_pallas_tconv", "winograd_gn_silu_conv3x3",
+                      "winograd24_gn_silu_conv3x3")
+# 4d: the sampled clip's DDIM steps
+SAMPLE_DDIM_STEPS = 2
 # the kernels a 320x512 request launches (the reduced model reaches each)
 KERNELS_512 = ("_flash_mh_packed", "_flash_mh", "_flash_bh_with_lse",
                "_flash_bh_single", "_pallas_ff", "_pallas_ff_streamed",
@@ -126,7 +157,11 @@ KERNELS_1024 = ("_flash_mh", "_flash_bh_with_lse", "_pallas_ff",
 # core #11 is reached at no shipped site: wherever its rule holds, the
 # single-stage kernel's does too); under them the pair runs nowhere
 KERNELS_SWITCHED = ("_fused_tattn_call", "_pallas_fused_conv", "_pallas_gn")
-TRAIN_KERNELS_SWITCHED = TRAIN_KERNELS + ("_pallas_gn",)
+# under TC_SPATIAL_CONV_PALLAS=1 the training branch's convs outside the
+# tables take #15 (the reduced model's too)
+TRAIN_KERNELS_SWITCHED = TRAIN_KERNELS + ("_pallas_gn", "_pallas_fused_conv")
+REDUCED_TRAIN_KERNELS_SWITCHED = REDUCED_TRAIN_KERNELS + (
+    "_pallas_gn", "_pallas_fused_conv")
 TRAIN_STEPS_SWITCHED = 2
 # the kernels no model reaches, driven through their op functions (2')
 OP_KERNELS = ("_dual_kernel_call", "_pallas_sums", "_flash_mh_ones",
@@ -390,6 +425,14 @@ def check_kernels(dev) -> dict:
             "_flash_bwd_bh", r["ms"], r["plain_ms"], r["library_ms"],
             r["bound_ms"], r["bound_by"]))
         row["max_abs_err"] = max(row["max_abs_err"], r["max_abs_err"])
+        del case
+    # the training branch's convs under autograd: each Function's gradients
+    # against the plain version's autograd in fp32
+    for case in kc.train_grad_cases(dev):
+        r = kc.run_grad_case(case)
+        print(kc.grad_line(case, r), flush=True)
+        if not r["ok"]:
+            failed.append(f"{case.name} backward {case.label}")
         del case
     if failed:
         raise SystemExit("kernels disagree with their plain versions: "
@@ -1047,21 +1090,37 @@ def _keep_dropout(model) -> None:
                 setattr(mod, name, _KeptDropout(child.p))
 
 
-def check_reduced_training(dev, kernels=TRAIN_KERNELS) -> None:
+def table_config(base):
+    """The reduced training model at the 512 model's ds2 and ds4 shapes:
+    20x32 latents at 640 channels and 10x16 at 1280, where the JAX
+    package's F(2x2) table takes the ResBlock convs (#13) but for the 640
+    -> 1280 in_conv."""
+    return base.tiny(
+        latent_h=20, latent_w=32, model_channels=640, num_res_blocks=1,
+        channel_mult=(1, 2), attention_resolutions=(1, 2),
+        num_head_channels=64, vae_ch=32, vae_ch_mult=(1, 2, 4, 16))
+
+
+def check_reduced_training(dev, kernels=REDUCED_TRAIN_KERNELS,
+                           config=reduced_config) -> None:
     """The reduced model's trainable gradients: card (bf16 autocast over
     fp32 weights, the kernels and #6) against CPU (fp32, plain versions),
-    on the same weights, batch and draws, dropout kept out of both."""
+    on the same weights, batch and draws. The UNet trains on its unfused
+    branch (dropout 0.1, the training convs through their kernels'
+    Functions) with the dropout modules passing their input through on
+    both sides, so the two see the same (no) masks."""
     import copy
     import dataclasses
 
     from tooncrafter_tpu_torch.config import ModelConfig
     from tooncrafter_tpu_torch.models.diffusion import ToonCrafter
+    from tooncrafter_tpu_torch.models.unet import ResBlock
     from tooncrafter_tpu_torch.training import trainer as T
     from tooncrafter_tpu_torch.utils import kernel_check as kc
     from tooncrafter_tpu_torch.utils.profiling import random_batch
     from tooncrafter_tpu_torch.utils.weights import init_random_
 
-    cfg = dataclasses.replace(reduced_config(ModelConfig()),
+    cfg = dataclasses.replace(config(ModelConfig()),
                               use_checkpoint=True, remat_policy="dots")
     cpu_model = ToonCrafter(cfg)
     init_random_(cpu_model, torch.Generator().manual_seed(1))
@@ -1080,13 +1139,16 @@ def check_reduced_training(dev, kernels=TRAIN_KERNELS) -> None:
         b = {k: v.to(device) for k, v in batch.items()}
         with T.autocast(model, torch.device(device)):
             loss, _ = T.diffusion_loss(model, b, draws=draws, train=True)
+        unfused = all(m.unfused for m in model.unet.modules()
+                      if isinstance(m, ResBlock))
         loss.backward()
         if name == "gpu":
             torch.cuda.synchronize()
             hit = kc.launch_counts()
         grads[name] = {k: p.grad.float().cpu() for k, p in train.items()}
         print(f"reduced training model on the {name}: loss "
-              f"{loss.item():.6f}", flush=True)
+              f"{loss.item():.6f}, ResBlocks on the unfused branch "
+              f"{unfused}", flush=True)
     names = sorted(grads["cpu"])
     flat = {k: torch.cat([grads[k][n].flatten() for n in names]).double()
             for k in grads}
@@ -1097,37 +1159,46 @@ def check_reduced_training(dev, kernels=TRAIN_KERNELS) -> None:
            for n in names}
     worst = sorted(rel.items(), key=lambda kv: -kv[1])[:5]
     print(f"reduced training model {cfg.latent_h * 8}x{cfg.latent_w * 8}x"
-          f"{cfg.video_length}, B=2: {len(names)} trainable tensors, "
+          f"{cfg.video_length}, C={cfg.model_channels}, B=2: {len(names)} "
+          f"trainable tensors, "
           f"gradient cosine {cos:.6f} (bound >= {GRAD_MIN_COSINE}), "
           f"largest per-tensor relative L2 error {worst[0][1]:.4f} (bound "
-          f"{GRAD_MAX_REL_L2}); worst {worst}; kernel launches {hit}",
-          flush=True)
+          f"{GRAD_MAX_REL_L2}); worst {worst}; kernel launches "
+          f"{ {k: v for k, v in hit.items() if v} }", flush=True)
     missed = [k for k in kernels if not hit[k]]
-    if cos < GRAD_MIN_COSINE or worst[0][1] > GRAD_MAX_REL_L2 or missed:
+    if (cos < GRAD_MIN_COSINE or worst[0][1] > GRAD_MAX_REL_L2 or missed
+            or not unfused):
         raise SystemExit(f"reduced training model: card gradients disagree "
-                         f"with the CPU's, or kernels {missed} not reached")
+                         f"with the CPU's, kernels {missed} not reached, or "
+                         f"a ResBlock off its training branch")
 
 
-def train_full_width(dev, steps: int = TRAIN_STEPS,
-                     kernels=TRAIN_KERNELS):
-    """``steps`` AdamW steps of the 512 training model at full width;
-    returns the launch counts over the steps, each step's seconds and the
-    peak memory (GiB). With #16 among ``kernels``, then counts its
-    launches in one forward of the loss (a step also recomputes the
-    checkpointed blocks' forward in its backward)."""
+def train_full_width(dev, steps: int = TRAIN_STEPS, kernels=TRAIN_KERNELS,
+                     yaml: str = "training_512_v1.0.yaml", profiles=(),
+                     keep: bool = False):
+    """``steps`` AdamW steps with EMA of the training model in ``yaml``
+    (its batch of clips, its checkpointing) at full width, every step
+    launching every kernel of ``kernels``; then ``PROFILE_STEPS`` steps
+    with each optimizer profile in ``profiles`` on the same model (the
+    AdamW moments freed first), with its state bytes and peak. Returns the
+    launch counts over the AdamW steps, each step's seconds and the peak
+    memory (GiB), and with ``keep`` the model, the state, its TrainConfig
+    and the batch. With #16 among ``kernels``, then counts its launches in
+    one forward of the loss (a step also recomputes the checkpointed
+    blocks' forward in its backward)."""
     import dataclasses
 
-    from tooncrafter_tpu_torch.config import model_config_from_yaml
+    from tooncrafter_tpu_torch.config import load_yaml, model_config_from_yaml
     from tooncrafter_tpu_torch.models.diffusion import ToonCrafter
     from tooncrafter_tpu_torch.training import trainer as T
     from tooncrafter_tpu_torch.utils import kernel_check as kc
     from tooncrafter_tpu_torch.utils.profiling import random_batch
     from tooncrafter_tpu_torch.utils.weights import init_random_
 
-    cfg = dataclasses.replace(
-        model_config_from_yaml(os.path.join(
-            REPO, "configs", "training_512_v1.0.yaml")),
-        compute_dtype=torch.bfloat16)
+    path = os.path.join(REPO, "configs", yaml)
+    cfg = dataclasses.replace(model_config_from_yaml(path),
+                              compute_dtype=torch.bfloat16)
+    bsz = load_yaml(path)["data"]["params"]["batch_size"]
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
@@ -1136,13 +1207,15 @@ def train_full_width(dev, steps: int = TRAIN_STEPS,
     with torch.device(dev):
         model = ToonCrafter(cfg)
     init_random_(model, torch.Generator(dev).manual_seed(SEED))
-    tcfg = T.TrainConfig(learning_rate=1e-5 * 2)
+    tcfg = T.TrainConfig(learning_rate=1e-5 * bsz)
     state, opt = T.make_train_state(model, tcfg, use_ema=True)
-    step_fn = T.make_train_step(model, opt, tcfg)
+    del opt  # the state holds it
     n_train = sum(p.numel() for p in state.train_params.values())
     torch.cuda.synchronize()
-    print(f"training model (use_checkpoint={cfg.use_checkpoint}, "
-          f"remat_policy={cfg.remat_policy}): {n_train / 1e9:.3f} B "
+    print(f"training model {yaml} (use_checkpoint={cfg.use_checkpoint}, "
+          f"remat_policy={cfg.remat_policy}, {bsz} clips of "
+          f"{cfg.latent_h * 8}x{cfg.latent_w * 8}x{cfg.video_length}): "
+          f"{n_train / 1e9:.3f} B "
           f"trainable of {sum(p.numel() for p in model.parameters()) / 1e9:.3f}"
           f" B parameters, AdamW + EMA, built in "
           f"{time.perf_counter() - t0:.1f} s, "
@@ -1158,28 +1231,38 @@ def train_full_width(dev, steps: int = TRAIN_STEPS,
     hooks = [p.register_post_accumulate_grad_hook(seen(n))
              for n, p in state.train_params.items()]
     ema0 = {k: e.double().sum() for k, e in state.ema_params.items()}
-    batch = random_batch(cfg, 2, SEED, dev)
+    batch = random_batch(cfg, bsz, SEED, dev)
     gen = torch.Generator(dev).manual_seed(SEED)
-    total = dict.fromkeys(kc.launch_counts(), 0)
-    seconds = []
-    for i in range(steps):
-        kc.reset_launch_counts()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        state, metrics = step_fn(state, batch, gen)
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
-        seconds.append(dt)
-        counts = kc.launch_counts()
-        for k, v in counts.items():
-            total[k] += v
-        loss, gnorm = float(metrics["loss"]), float(metrics["grad_norm"])
-        print(f"train step {i}: {dt:.2f} s, loss {loss:.6f}, grad_norm "
-              f"{gnorm:.6f}, t {float(metrics['t_mean']):.0f}; launches "
-              + ", ".join(f"{k} {v}" for k, v in counts.items() if v),
-              flush=True)
-        if not (torch.isfinite(torch.tensor([loss, gnorm])).all()):
-            raise SystemExit(f"train step {i}: non-finite loss or grad_norm")
+
+    def run(step_fn, n, label):
+        total = dict.fromkeys(kc.launch_counts(), 0)
+        seconds = []
+        for i in range(n):
+            kc.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, metrics = step_fn(state, batch, gen)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            seconds.append(dt)
+            counts = kc.launch_counts()
+            for k, v in counts.items():
+                total[k] += v
+            loss, gnorm = float(metrics["loss"]), float(metrics["grad_norm"])
+            print(f"{label} step {i}: {dt:.2f} s, loss {loss:.6f}, grad_norm "
+                  f"{gnorm:.6f}, t {float(metrics['t_mean']):.0f}; launches "
+                  + ", ".join(f"{k} {v}" for k, v in counts.items() if v),
+                  flush=True)
+            missed = [k for k in kernels if not counts[k]]
+            if missed or not torch.isfinite(
+                    torch.tensor([loss, gnorm])).all():
+                raise SystemExit(f"{label} step {i}: kernels {missed} not "
+                                 f"launched, or a non-finite loss or "
+                                 f"grad_norm")
+        return total, seconds
+
+    total, seconds = run(T.make_train_step(model, state.optimizer, tcfg), steps,
+                         "train")
     for h in hooks:
         h.remove()
     zero = [n for n in state.train_params if not bool(grad_seen.get(n))]
@@ -1190,13 +1273,26 @@ def train_full_width(dev, steps: int = TRAIN_STEPS,
           f"{len(state.train_params) - len(zero)} of "
           f"{len(state.train_params)} trainable tensors got a non-zero "
           f"gradient; EMA shadow moved on {len(ema0) - len(still)} of "
-          f"{len(ema0)}", flush=True)
+          f"{len(ema0)}; optimizer state {state_gib(state.optimizer):.2f} "
+          f"GiB", flush=True)
     if zero or still:
         raise SystemExit(f"training: zero gradients {zero[:5]} or an EMA "
                          f"that did not move {still[:5]}")
-    missed = [k for k in kernels if not total[k]]
-    if missed:
-        raise SystemExit(f"training: kernels {missed} never launched")
+    for name in profiles:
+        pcfg = dataclasses.replace(tcfg, optimizer=name)
+        state.optimizer.state.clear()
+        state.optimizer = state.scheduler = None
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        state.optimizer, state.scheduler = T.make_optimizer(
+            pcfg, list(state.train_params.values()))
+        _, secs = run(T.make_train_step(model, state.optimizer, pcfg),
+                      PROFILE_STEPS, name)
+        print(f"{name}: step seconds {', '.join(f'{t:.2f}' for t in secs)};"
+              f" optimizer state {state_gib(state.optimizer):.2f} GiB; peak "
+              f"memory allocated {torch.cuda.max_memory_allocated(dev) / 2 ** 30:.2f}"
+              f" GiB (AdamW above: {peak:.2f})", flush=True)
     if "_pallas_gn" in kernels:
         kc.reset_launch_counts()
         with T.autocast(model, dev):
@@ -1205,7 +1301,61 @@ def train_full_width(dev, steps: int = TRAIN_STEPS,
         print(f"training: _pallas_gn launches in one forward of the loss "
               f"{kc.launch_counts()['_pallas_gn']}", flush=True)
         del loss
+    if keep:
+        return total, seconds, peak, (model, state, tcfg, batch)
     return total, seconds, peak
+
+
+def state_gib(opt) -> float:
+    """The bytes of an optimizer's state tensors, GiB."""
+    return sum(t.numel() * t.element_size() for st in opt.state.values()
+               for t in st.values() if torch.is_tensor(t)) / 2 ** 30
+
+
+def check_validation(dev, model, state, tcfg, batch) -> None:
+    """4d: ``make_val_step`` on the training batch (the loss with the raw
+    weights and with the EMA shadow, on the same draws) and one
+    ``VideoSampleLogger`` call (the Pipeline at DDIM-SAMPLE_DDIM_STEPS on
+    the batch's first clip with the EMA weights), each finite, the clip
+    written."""
+    from tooncrafter_tpu_torch.training import callbacks as CB
+    from tooncrafter_tpu_torch.training import trainer as T
+    from tooncrafter_tpu_torch.utils import video_io
+
+    t0 = time.perf_counter()
+    metrics = T.make_val_step(model, tcfg)(
+        state, batch, torch.Generator(dev).manual_seed(SEED))
+    torch.cuda.synchronize()
+    vals = {k: float(v) for k, v in metrics.items()}
+    print(f"4d make_val_step: {vals} in {time.perf_counter() - t0:.2f} s",
+          flush=True)
+    clips = []
+    write = video_io.write_video
+
+    def recorded(path, video, *a, **k):
+        clips.append((video.shape, bool(np.isfinite(video).all())))
+        return write(path, video, *a, **k)
+    logger = CB.VideoSampleLogger(
+        model, os.path.join(REPO, "build", "train_samples"), every_steps=1,
+        ddim_steps=SAMPLE_DDIM_STEPS)
+    video_io.write_video = recorded
+    t0 = time.perf_counter()
+    try:
+        out = logger.maybe_log(state.step, state, batch,
+                               torch.Generator(dev).manual_seed(SEED))
+    finally:
+        video_io.write_video = write
+    torch.cuda.synchronize()
+    written = (sorted(os.listdir(out)) if os.path.isdir(out)
+               else [os.path.basename(out)] if os.path.getsize(out) else [])
+    print(f"4d VideoSampleLogger (DDIM-{SAMPLE_DDIM_STEPS}, EMA weights): "
+          f"{time.perf_counter() - t0:.2f} s, clip {clips}, written {out} "
+          f"({len(written)} files)", flush=True)
+    if not (set(vals) == {"val/loss", "val/loss_ema"}
+            and all(np.isfinite(v) for v in vals.values())
+            and clips and all(ok for _, ok in clips) and written):
+        raise SystemExit("4d: a validation loss or the sampled clip is not "
+                         "finite, or no clip was written")
 
 
 def main(argv=None) -> int:
@@ -1291,15 +1441,23 @@ def main(argv=None) -> int:
                                   KERNELS_1024)[0]
     phase("4a reduced training model: card gradients against CPU")
     check_reduced_training(dev)
-    phase(f"4b full-width training, {TRAIN_STEPS} steps")
-    train_counts, train_s, train_peak = train_full_width(dev)
-    phase("4a' reduced training model with TOONCRAFTER_FUSED_GN=1: card "
-          "gradients against CPU")
-    with switches(pair=True, spatial_conv_pallas=False):
-        check_reduced_training(dev, TRAIN_KERNELS_SWITCHED)
-    phase(f"4b' full-width training with TOONCRAFTER_FUSED_GN=1, "
-          f"{TRAIN_STEPS_SWITCHED} steps")
-    with switches(pair=True, spatial_conv_pallas=False):
+    print("4a, second run: the reduced model at the 512 model's ds2 and ds4 "
+          "shapes (#13 on the training branch)", flush=True)
+    check_reduced_training(dev, TABLE_TRAIN_KERNELS, table_config)
+    phase(f"4b full-width training, {TRAIN_STEPS} steps, then "
+          f"{PROFILE_STEPS} with each of adamw_lowmem and adafactor")
+    train_counts, train_s, train_peak, kept = train_full_width(
+        dev, profiles=("adamw_lowmem", "adafactor"), keep=True)
+    phase("4d validation with the EMA weights and a sampled clip")
+    check_validation(dev, *kept)
+    del kept
+    phase("4a' reduced training model with TOONCRAFTER_FUSED_GN=1 and "
+          "TC_SPATIAL_CONV_PALLAS=1: card gradients against CPU")
+    with switches(pair=True):
+        check_reduced_training(dev, REDUCED_TRAIN_KERNELS_SWITCHED)
+    phase(f"4b' full-width training with TOONCRAFTER_FUSED_GN=1 and "
+          f"TC_SPATIAL_CONV_PALLAS=1, {TRAIN_STEPS_SWITCHED} steps")
+    with switches(pair=True):
         train_sw, sw_s, sw_peak = train_full_width(
             dev, TRAIN_STEPS_SWITCHED, TRAIN_KERNELS_SWITCHED)
     print(f"4b' beside 4b: _pallas_gn launches per step "
@@ -1308,9 +1466,17 @@ def main(argv=None) -> int:
           f"seconds {', '.join(f'{t:.2f}' for t in sw_s)} against "
           f"{', '.join(f'{t:.2f}' for t in train_s)}; peak {sw_peak:.2f} "
           f"GiB against {train_peak:.2f}", flush=True)
+    phase(f"4c full-width 576x1024 training, {TRAIN_STEPS_1024} steps")
+    train_1024, s_1024, peak_1024 = train_full_width(
+        dev, TRAIN_STEPS_1024, TRAIN_KERNELS_1024,
+        yaml="training_1024_v1.0.yaml")
+    print(f"4c: step seconds {', '.join(f'{t:.2f}' for t in s_1024)}; peak "
+          f"{peak_1024:.2f} GiB; launches per step "
+          + ", ".join(f"{k} {v / TRAIN_STEPS_1024:.0f}"
+                      for k, v in train_1024.items() if v), flush=True)
     summary = []
     paths = (counts, counts_1024, train_counts, counts_sw, train_sw,
-             counts_serve, counts_modes, counts_ops)
+             train_1024, counts_serve, counts_modes, counts_ops)
     in_models = {k: [c[k] for c in paths[:-1]]
                  for k in ("_dual_kernel_call", "_pallas_sums",
                            "_flash_mh_ones")}
@@ -1321,13 +1487,15 @@ def main(argv=None) -> int:
         # each kernel's launches on the first path that runs it: two
         # 320x512 requests, else the 576x1024 request, else training, else
         # the switched request (3d), else the switched training steps
-        # (4b'), else the op functions (2')
+        # (4b'), else the 576x1024 training steps (4c), else the op
+        # functions (2')
         row["launches"] = next((c[name] for c in paths if c[name]), 0)
         row["launches_512"] = counts[name]
         row["launches_1024"] = counts_1024[name]
         row["launches_train"] = train_counts[name]
         row["launches_512_switched"] = counts_sw[name]
         row["launches_train_switched"] = train_sw[name]
+        row["launches_train_1024"] = train_1024[name]
         row["launches_serve"] = counts_serve[name]
         row["launches_time_modes"] = counts_modes[name]
         row["launches_ops"] = counts_ops[name]

@@ -52,7 +52,8 @@ names = [m.name for m in pkgutil.walk_packages(
     tooncrafter_tpu_torch.__path__, "tooncrafter_tpu_torch.")]
 for want in ("cli.inference", "cli.train", "training.trainer",
              "training.checkpoints", "training.callbacks",
-             "training.lr_schedule", "data.webvid", "cli.serve",
+             "training.lr_schedule", "training.optim", "data.webvid",
+             "cli.serve",
              "cli.smoke", "sampling.ddpm", "models.lpips",
              "utils.metrics"):
     assert "tooncrafter_tpu_torch." + want in names, names

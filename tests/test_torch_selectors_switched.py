@@ -54,8 +54,7 @@ UNET_LAUNCHES_SWITCHED = {
     "_flash_mh_packed": 10, "_flash_mh": 5, "_pallas_ff": 20,
     "_pallas_ff_streamed": 13, "_fused_tattn_call": 34, "_pallas_tconv": 88,
     "winograd_gn_silu_conv3x3": 33, "_pallas_fused_conv": 11}
-# launches of #16 in one UNet call in training mode (its convs stay plain
-# F.conv2d there: the port's conv kernel has no backward)
+# launches of #16 in one UNet call in training mode
 TRAIN_GN_LAUNCHES = 89
 
 

@@ -1,6 +1,6 @@
 """The port's temporal conv under autograd (``_TconvFunction``: the
 kernels, here the plain version, forward; the gradient of the unfused
-formula ``_plain_tconv`` back) against ``jax.grad`` of the JAX package's
+XLA form ``_xla_tconv`` back) against ``jax.grad`` of the JAX package's
 ``temporal_conv3`` (its custom_vjp recomputes through ``_xla_tconv``): the
 same numpy inputs and cotangents, gradients of x, the weight, the bias, the
 folded GroupNorm affine (A, B), the residual and the out_scale, through y

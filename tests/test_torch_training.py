@@ -15,12 +15,23 @@ JAX package's at the tiny config in fp32 on the CPU.
     other orders).
   * AdamW, the EMA and the scheduler YAML against optax over 3 updates on
     the same gradients (rtol 1e-5, fp32); ``grad_accum`` against
-    ``optax.MultiSteps`` on the same micro-gradients.
-  * A checkpoint round trip with keep-K, and the weights-only export.
+    ``optax.MultiSteps`` on the same micro-gradients. The 'adamw_lowmem'
+    and 'adafactor' profiles the same way over 4 updates, on a factored
+    4-D weight (given to optax in the JAX layout (kh, kw, I, O)), a 2-D
+    weight below the factoring size and a bias: adafactor at rtol 1e-5;
+    adamw_lowmem at rtol 1e-5 plus, per update, one bf16 ulp (2^-7
+    relative) of its lr-scaled normalized first moment, and its bf16 mu
+    equal to optax's bit for bit without a clip (with one, the global
+    norm's summation order moves g by an ulp, which flips a bf16 rounding
+    of mu in ~0.1% of the elements; the bound above covers those).
+  * A checkpoint round trip with keep-K, and the weights-only export; for
+    each low-memory profile, resuming equals continuing (bf16 mu stays
+    bf16, the factored rows and columns keep their shapes).
 
 The overfit criterion is in tests/test_torch_training_overfit.py.
 """
 
+import collections
 import os
 
 import jax
@@ -128,18 +139,88 @@ def test_loss_and_gradients_match_jax(models):
                                      draws=draws)
     loss.backward()
     assert loss.item() == pytest.approx(float(ref_loss), rel=1e-5)
+    _assert_grads_match({k: p.grad.numpy() for k, p in tparams.items()},
+                        ref_grads, pm)
+
+
+def _assert_grads_match(got, ref_grads, pm):
+    """Every trainable's gradient against the JAX tree's: the whole
+    gradient's cosine >= 0.99999, each within 2e-3 of its largest
+    magnitude."""
     ref = from_jax_params(jax.tree_util.tree_map(np.asarray, ref_grads),
                           pm.config)
-    assert set(ref) == set(tparams)
-    got = np.concatenate([tparams[k].grad.numpy().ravel() for k in ref])
+    assert set(ref) == set(got)
+    flat = np.concatenate([got[k].ravel() for k in ref])
     want = np.concatenate([ref[k].numpy().ravel() for k in ref])
-    cos = float(got @ want / (np.linalg.norm(got) * np.linalg.norm(want)))
+    cos = float(flat @ want / (np.linalg.norm(flat) * np.linalg.norm(want)))
     assert cos >= 0.99999, cos
     for k, r in ref.items():
-        g = tparams[k].grad.numpy()
         scale = max(float(np.abs(r.numpy()).max()), 1e-8)
-        err = float(np.abs(g - r.numpy()).max()) / scale
+        err = float(np.abs(got[k] - r.numpy()).max()) / scale
         assert err <= 2e-3, (k, err)
+
+
+def test_training_branch_gradients_match_jax(models, monkeypatch):
+    """train=True: the ResBlocks and TemporalConvBlocks on their unfused
+    (training) branch, each conv through its kernel's Function (here the
+    plain version forward, the XLA form's gradient back); dropout held out
+    of both sides (the port's nn.Dropout as in eval, the JAX side's
+    flax.linen.Dropout an identity), so the same draws give the same loss.
+    The bars of test_loss_and_gradients_match_jax."""
+    import flax.linen as fnn
+
+    monkeypatch.setattr(torch.nn.Dropout, "forward",
+                        lambda self, x: torch.nn.functional.dropout(
+                            x, self.p, training=False))
+    monkeypatch.setattr(fnn.Dropout, "__call__",
+                        lambda self, inputs, *a, **k: inputs)
+    jm, params, pm = models
+    c = jm.config
+    b = 2
+    batch = _batch(c, b, seed=4)
+    key = jax.random.PRNGKey(7)
+    train, frozen = JT.split_trainable(params)
+    jb = {k: jnp.asarray(v) for k, v in batch.items()}
+
+    def f(tp):
+        return JT.diffusion_loss(jm, tp, frozen, jb, key, uncond_prob=0.3,
+                                 train=True)
+    (ref_loss, _), ref_grads = jax.jit(
+        jax.value_and_grad(f, has_aux=True))(train)
+    draws = {k: torch.from_numpy(np.array(v))
+             for k, v in _jax_draws(key, c, b, jm.schedule.num_timesteps)
+             .items()}
+    tparams, _ = T.split_trainable(pm)
+    for p in tparams.values():
+        p.grad = None
+    functions = collections.Counter()
+    hooks = [m.register_forward_hook(
+        lambda mod, args, out: functions.update([type(mod).__name__]))
+        for m in pm.unet.modules() if type(m).__name__ == "ResBlock"]
+    loss, _ = T.diffusion_loss(pm, {k: torch.from_numpy(v)
+                                    for k, v in batch.items()},
+                               uncond_prob=0.3, train=True, draws=draws)
+    for h in hooks:
+        h.remove()
+    assert functions["ResBlock"] and all(
+        m.unfused for m in pm.unet.modules()
+        if type(m).__name__ == "ResBlock")
+    seen = collections.Counter()
+    stack = [loss.grad_fn]
+    while stack:  # the convs' Functions are in the graph
+        fn = stack.pop()
+        if fn is None or fn in seen:
+            continue
+        seen[fn] += 1
+        stack += [n for n, _ in fn.next_functions]
+    kinds = collections.Counter(type(fn).__name__ for fn in seen)
+    assert kinds["_TconvFunctionBackward"] == 4 * functions["ResBlock"]
+    loss.backward()
+    got = {k: p.grad.numpy() for k, p in tparams.items()}
+    for p in tparams.values():  # the fixture's model is shared
+        p.grad = None
+    assert loss.item() == pytest.approx(float(ref_loss), rel=1e-5)
+    _assert_grads_match(got, ref_grads, pm)
 
 
 # ---------------------------------------------------------------------------
@@ -163,39 +244,85 @@ def _small_params(seed=0):
             "b": rng.normal(size=(4,)).astype(np.float32)}
 
 
-def _grads(n, seed=1):
+def _profile_params(seed=0):
+    """A factored 4-D conv weight (O, I, 3, 3), a 2-D weight below the
+    factoring size and a bias."""
     rng = np.random.default_rng(seed)
-    return [{"w": rng.normal(size=(8, 4)).astype(np.float32),
-             "b": rng.normal(size=(4,)).astype(np.float32)}
-            for _ in range(n)]
+    return {"conv": (rng.normal(size=(160, 128, 3, 3)) * 0.05).astype(
+                np.float32),
+            "w": rng.normal(size=(96, 64)).astype(np.float32),
+            "b": rng.normal(size=(64,)).astype(np.float32)}
 
 
-@pytest.mark.parametrize("sched,clip", [(WARMUP, 0.0), (COSINE, 0.0),
-                                        (None, 1.5)])
-def test_adamw_ema_and_schedule_match_optax(sched, clip):
-    cfg = T.TrainConfig(learning_rate=1e-2, weight_decay=1e-2,
-                        grad_clip=clip, scheduler=sched, ema_decay=0.9)
-    jcfg = JT.TrainConfig(learning_rate=1e-2, weight_decay=1e-2,
-                          grad_clip=clip, scheduler=sched, ema_decay=0.9)
-    p0 = _small_params()
+def _jax_layout(k, v):
+    """The conv weight as the JAX package holds it: (kh, kw, I, O)."""
+    return np.transpose(v, (2, 3, 1, 0)) if k == "conv" else v
+
+
+def _grads(n, seed=1, like=None):
+    rng = np.random.default_rng(seed)
+    like = like or _small_params()
+    return [{k: rng.normal(size=v.shape).astype(np.float32)
+             for k, v in like.items()} for _ in range(n)]
+
+
+def _lowmem_slack(state, lr):
+    """One bf16 ulp (2^-7 relative) of each parameter's normalized first
+    moment after an update, scaled by that update's ``lr``."""
+    out = {}
+    for k, p in state.train_params.items():
+        st = state.optimizer.state[p]
+        n = float(st["step"])
+        u = (st["mu"].float().abs() / (1 - 0.9 ** n)
+             / ((st["nu"] / (1 - 0.999 ** n)).sqrt() + 1e-8))
+        out[k] = lr * 2.0 ** -7 * float(u.max())
+    return out
+
+
+@pytest.mark.parametrize("opt_name,sched,clip", [
+    ("adamw", WARMUP, 0.0), ("adamw", COSINE, 0.0), ("adamw", None, 1.5),
+    ("adamw_lowmem", COSINE, 0.0), ("adamw_lowmem", WARMUP, 1.5),
+    ("adafactor", COSINE, 0.0), ("adafactor", WARMUP, 1.5)])
+def test_adamw_ema_and_schedule_match_optax(opt_name, sched, clip):
+    kw = dict(learning_rate=1e-2, weight_decay=1e-2, grad_clip=clip,
+              scheduler=sched, ema_decay=0.9, optimizer=opt_name)
+    cfg, jcfg = T.TrainConfig(**kw), JT.TrainConfig(**kw)
+    p0 = _small_params() if opt_name == "adamw" else _profile_params()
     opt = JT.make_optimizer(jcfg)
-    jparams = {k: jnp.asarray(v) for k, v in p0.items()}
+    jparams = {k: jnp.asarray(_jax_layout(k, v)) for k, v in p0.items()}
     jstate, jema = opt.init(jparams), jparams
     state = _small_state(cfg, p0)
-    for i, g in enumerate(_grads(3)):
-        upd, jstate = opt.update({k: jnp.asarray(v) for k, v in g.items()},
-                                 jstate, jparams)
+    slack = dict.fromkeys(p0, 0.0)
+    steps = 3 if opt_name == "adamw" else 4
+    for i, g in enumerate(_grads(steps, like=p0)):
+        upd, jstate = opt.update(
+            {k: jnp.asarray(_jax_layout(k, v)) for k, v in g.items()},
+            jstate, jparams)
         jparams = optax.apply_updates(jparams, upd)
         jema = JT.ema_update(jema, jparams, i, 0.9)
+        lr = state.optimizer.param_groups[0]["lr"]
         T.update(state, cfg, [torch.tensor(g[k])
                               for k in state.train_params])
+        if opt_name == "adamw_lowmem":
+            for k, v in _lowmem_slack(state, lr).items():
+                slack[k] += v
         for k in p0:
             np.testing.assert_allclose(
-                state.train_params[k].detach().numpy(), jparams[k],
-                rtol=1e-5, atol=1e-6)
-            np.testing.assert_allclose(state.ema_params[k].numpy(), jema[k],
-                                       rtol=1e-5, atol=1e-6)
-    assert state.step == 3
+                _jax_layout(k, state.train_params[k].detach().numpy()),
+                jparams[k], rtol=1e-5, atol=max(1e-6, slack[k]))
+            np.testing.assert_allclose(
+                _jax_layout(k, state.ema_params[k].numpy()), jema[k],
+                rtol=1e-5, atol=max(1e-6, slack[k]))
+    assert state.step == steps
+    if opt_name == "adamw_lowmem":
+        jmu = optax.tree.get(jstate, "mu")
+        for k, p in state.train_params.items():
+            mu = state.optimizer.state[p]["mu"]
+            assert mu.dtype == torch.bfloat16
+            want = np.asarray(jmu[k]).astype(np.float32)
+            got = _jax_layout(k, mu.float().numpy())
+            frac = float((got != want).mean())
+            assert frac <= (0.0 if clip == 0 else 5e-3), (k, frac)
 
 
 def test_grad_accum_matches_multisteps():
@@ -223,10 +350,6 @@ def test_grad_accum_matches_multisteps():
 
 
 def test_unported_optimizers_raise():
-    for name in ("adamw_lowmem", "adafactor"):
-        with pytest.raises(NotImplementedError):
-            T.make_optimizer(T.TrainConfig(optimizer=name),
-                             [torch.nn.Parameter(torch.zeros(2))])
     with pytest.raises(ValueError):
         T.make_optimizer(T.TrainConfig(optimizer="nope"),
                          [torch.nn.Parameter(torch.zeros(2))])
@@ -267,3 +390,38 @@ def test_checkpoint_round_trip_and_keep(tmp_path):
     loaded = CKPT.load_params(str(tmp_path / "w.pt"))
     for k, e in state.ema_params.items():
         torch.testing.assert_close(loaded[k], e)
+
+
+@pytest.mark.parametrize("opt_name", ["adamw_lowmem", "adafactor"])
+def test_profile_checkpoint_resume_equals_continuing(tmp_path, opt_name):
+    cfg = T.TrainConfig(learning_rate=1e-2, scheduler=COSINE,
+                        optimizer=opt_name)
+    p0 = _profile_params()
+    grads = _grads(4, like=p0)
+    state = _small_state(cfg, p0)
+    for g in grads[:2]:
+        T.update(state, cfg, [torch.tensor(g[k])
+                              for k in state.train_params])
+    CKPT.save_train_state(str(tmp_path), 2, state)
+    fresh, step = CKPT.restore_train_state(
+        str(tmp_path), _small_state(cfg, _profile_params(9)))
+    assert step == 2 and fresh.step == 2
+    conv = fresh.train_params["conv"]
+    st = fresh.optimizer.state[conv]
+    if opt_name == "adamw_lowmem":
+        assert st["mu"].dtype == torch.bfloat16
+        assert st["nu"].dtype == torch.float32
+    else:  # rows: means over O (the largest dim), columns: over I
+        assert st["v_row"].shape == (128, 3, 3)
+        assert st["v_col"].shape == (160, 3, 3)
+        assert "v" in fresh.optimizer.state[fresh.train_params["w"]]
+    for g in grads[2:]:
+        for s in (state, fresh):
+            T.update(s, cfg, [torch.tensor(g[k]) for k in s.train_params])
+    for k, p in state.train_params.items():
+        torch.testing.assert_close(fresh.train_params[k].detach(),
+                                   p.detach(), rtol=0, atol=0)
+        for name, t in state.optimizer.state[p].items():
+            got = fresh.optimizer.state[fresh.train_params[k]][name]
+            assert got.dtype == t.dtype
+            torch.testing.assert_close(got, t, rtol=0, atol=0)

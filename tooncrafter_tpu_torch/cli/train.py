@@ -9,7 +9,9 @@ SIGUSR1 save-on-preemption, auto-resume.
 It runs on ``cuda:0`` (bf16 autocast over fp32 master weights) and refuses
 to start without a card unless ``--device cpu`` is passed (fp32). One card:
 ``--n_model_shards`` above 1 is refused. The optimizer is read from the
-YAML's ``model.params.optimizer`` when present ('adamw' is the one ported).
+YAML's ``model.params.optimizer`` when present: 'adamw' (the default),
+'adamw_lowmem' or 'adafactor', the JAX package's memory profiles (its CLI
+ignores the key and trains AdamW).
 """
 
 from __future__ import annotations

@@ -18,7 +18,12 @@ reads its input, each conv emitting the per-channel sums that feed the
 next norm, and the ResBlock's time embedding folded into that affine; the
 two temporal self-attention sub-blocks of a temporal transformer block as
 one call of the temporal attention pair. The unfused branch keeps dropout
-where upstream has it.
+where upstream has it and takes the kernels where the JAX package's
+training branch does: each ResBlock conv by its ``_impl`` dispatch
+(``spatial_conv3x3``: #13, #14, #15 on their tables and rule, else
+``F.conv2d``), each temporal conv through the temporal conv kernel (at
+every shape, as in inference), both under autograd through their
+Functions.
 
 The temporal blocks take their kernel by the JAX package's coverage rules
 (tooncrafter_tpu/models/unet.py:547-567, 688-700): the pair where
@@ -61,7 +66,8 @@ from tooncrafter_tpu_torch.ops.norms import (GroupNorm, LayerNorm,
 from tooncrafter_tpu_torch.ops.schedule import timestep_embedding
 from tooncrafter_tpu_torch.ops.spatial_conv import (Conv1d1, Conv1x1, Conv2d,
                                                     Downsample, Upsample,
-                                                    gn_silu_conv3x3)
+                                                    gn_silu_conv3x3,
+                                                    spatial_conv3x3)
 from tooncrafter_tpu_torch.ops.temporal_conv import TemporalConv3
 
 
@@ -83,14 +89,17 @@ class TemporalConvBlock(nn.Module):
         """x: (B, T, H, W, C); ``stats`` (s1, s2), each (B, C): sums of x
         over (T, H, W) from the producer, for conv1's norm."""
         if self.training and self.conv2[2].p > 0:
+            # each conv through the kernel without a prologue (the JAX
+            # package's TemporalConv3 with no prologue); dropout between the
+            # norm and the conv; the block's residual added after conv4
             h = x
             for i in (1, 2, 3, 4):
                 seq = getattr(self, f"conv{i}")
                 h = seq[0](h)
                 if i > 1:
                     h = seq[2](h)
-                h = seq[-1](h, residual=x if i == 4 else None)
-            return h
+                h = seq[-1].fused(h, None)
+            return x + h
         # each conv's stats epilogue feeds the next norm; the closing
         # residual rides conv4's epilogue
         h = x
@@ -130,9 +139,13 @@ class ResBlock(nn.Module):
         e = self.emb_layers[1](F.silu(emb))
         skip = self.skip_connection(x)
         if self.unfused:
-            h = self.in_layers[2](self.in_layers[0](x))
+            # each conv through the JAX package's dispatch with no prologue
+            # (an identity affine, no SiLU): a kernel where it takes one
+            h = spatial_conv3x3(self.in_layers[0](x), None, self.in_layers[2],
+                                silu=False)
             h = self.out_layers[2](self.out_layers[0](h, shift=e))
-            h = skip + self.out_layers[3](h)
+            h = skip + spatial_conv3x3(h, None, self.out_layers[3],
+                                       silu=False)
             h5 = h.reshape((-1, num_frames) + h.shape[1:])
             return self.temopral_conv(h5).reshape(h.shape)
         # in_conv's sums feed out_norm, whose affine folds the time

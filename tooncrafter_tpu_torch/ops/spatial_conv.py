@@ -37,6 +37,12 @@ the SiLU in fp32 before the one rounding. ``spatial_conv3x3`` is that
 dispatch as the JAX package's ``_impl`` takes it (the VAE's ResnetBlocks):
 the kernel where a TPU kernel runs, else the plain formula in the compute
 dtype (``F.conv2d``), where it runs XLA.
+
+Under autograd the kernel runs inside ``_ConvFunction``: its forward (the
+plain version on the CPU), the gradient of the XLA form ``_xla_conv3x3``
+back, as the JAX package's custom_vjp differentiates ``_xla_impl``
+whichever kernel ran. An affine of None is the identity (the training
+branch's plain convs: z = x, ``silu`` False).
 """
 
 from __future__ import annotations
@@ -225,7 +231,9 @@ def _prologue(x, a, b, silu: bool, cdt, round_first: bool = True):
     """silu(round(x * A + B)) at the "ref" cast point, the SiLU in fp32
     and rounded once, as the kernel does; rounds to ``cdt``. With
     round_first False, the fp32 cast point: one rounding after the SiLU
-    (_pallas_fused_conv's prologue)."""
+    (_pallas_fused_conv's prologue). ``a`` None: the identity affine."""
+    if a is None:
+        return (F.silu(x.float()) if silu else x).to(cdt)
     u = x.float() * a[:, None, None] + b[:, None, None]
     if round_first:
         u = u.to(cdt).float()
@@ -235,7 +243,8 @@ def _prologue(x, a, b, silu: bool, cdt, round_first: bool = True):
 def _plain_conv3x3(x, a, b, weight, bias, res, silu: bool, stats: bool,
                    cdt: Optional[torch.dtype] = None,
                    round_first: bool = True):
-    """x: (N, H, W, Cin); a, b: (N, Cin) fp32; weight (Cout, Cin, 3, 3);
+    """x: (N, H, W, Cin); a, b: (N, Cin) fp32 or None; weight (Cout, Cin,
+    3, 3);
     res: (N, H, W, Cout) or None. The kernel's rounding points: z rounds
     to ``cdt`` (x's dtype unless given), y once to x's dtype."""
     z = _prologue(x, a, b, silu, x.dtype if cdt is None else cdt,
@@ -316,22 +325,66 @@ def kernel_weight(weight):
     return weight.permute(0, 2, 3, 1).contiguous()
 
 
-def _conv(name: str, x, a, b, weight, bias, res, silu: bool, stats: bool):
-    """CPU tensors take the plain version, CUDA tensors the kernel (in CUDA
-    autocast's dtype while it is on), its launch counted under ``name``;
-    #15's name takes its fp32 cast point."""
-    cdt = _launch.compute_dtype(x)
-    x, weight, bias = x.to(cdt), weight.to(cdt), bias.to(cdt)
-    res = None if res is None else res.to(cdt)
+class _ConvFunction(torch.autograd.Function):
+    """The kernel's forward with the gradient of the XLA form
+    ``_xla_conv3x3``, as the JAX package's ``_fused`` custom_vjp
+    differentiates ``_xla_impl`` whichever kernel ran
+    (tooncrafter_tpu/ops/spatial_conv.py:397-423): x, A, B, the weight, the
+    bias and the residual, through y and (with stats) the per-channel
+    sums."""
+
+    @staticmethod
+    def forward(ctx, name, silu, stats, x, a, b, weight, bias, res):
+        ops = (x, a, b, weight, bias, res)
+        ctx.save_for_backward(*ops)
+        ctx.silu, ctx.stats = silu, stats
+        ctx.set_materialize_grads(False)
+        return _dispatch(name, *ops, silu, stats)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        ops = ctx.saved_tensors
+        want = ctx.needs_input_grad[3:]
+        with torch.enable_grad(), torch.autocast("cuda", enabled=False):
+            leaves = [None if t is None else t.detach().requires_grad_(w)
+                      for t, w in zip(ops, want)]
+            outs = _xla_conv3x3(*leaves, ctx.silu, ctx.stats)
+            outs = outs if ctx.stats else (outs,)
+            used = [(o, g.to(o.dtype)) for o, g in zip(outs, grads)
+                    if g is not None]
+            wrt = [t for t, w in zip(leaves, want) if w]
+            got = iter(torch.autograd.grad(
+                [o for o, _ in used], wrt, [g for _, g in used]))
+        return (None,) * 3 + tuple(next(got) if w else None for w in want)
+
+
+def _dispatch(name: str, x, a, b, weight, bias, res, silu: bool,
+              stats: bool):
+    """The plain version for CPU tensors, the kernel for CUDA tensors, its
+    launch counted under ``name``; #15's name takes its fp32 cast point."""
     round_first = name != "_pallas_fused_conv"
     if _launch.on_cpu("GN+SiLU+3x3 conv", x, a, b, weight, bias, res):
         return _plain_conv3x3(x, a, b, weight, bias, res, silu, stats,
                               round_first=round_first)
-    _launch.refuse_grad("GN+SiLU+3x3 conv", x, a, b, weight, bias, res)
+    if a is None:
+        a = torch.ones(x.shape[0], x.shape[-1], device=x.device)
+        b = torch.zeros_like(a)
     out = _launch_conv(x, a, b, kernel_weight(weight), bias, res, silu, stats,
                        **({} if round_first else {"round_first": False}))
     LAUNCHES[name] += 1
     return out
+
+
+def _conv(name: str, x, a, b, weight, bias, res, silu: bool, stats: bool):
+    """In CUDA autocast's dtype while it is on; under autograd through
+    ``_ConvFunction``."""
+    cdt = _launch.compute_dtype(x)
+    x, weight, bias = x.to(cdt), weight.to(cdt), bias.to(cdt)
+    res = None if res is None else res.to(cdt)
+    ops = (x, a, b, weight, bias, res)
+    if _launch.needs_grad(*ops):
+        return _ConvFunction.apply(name, silu, stats, *ops)
+    return _dispatch(name, *ops, silu, stats)
 
 
 def winograd_gn_silu_conv3x3(x, a, b, weight, bias, res=None,
@@ -372,7 +425,8 @@ def _pallas_fused_conv(x, a, b, weight, bias, res=None, silu: bool = True,
 
 def _xla_conv3x3(x, a, b, weight, bias, res, silu: bool, stats: bool):
     """The JAX package's XLA form (``_xla_impl``, "ref" cast point) in the
-    compute dtype: the prologue rounds, F.conv2d with its bias, + res."""
+    compute dtype: the prologue rounds, F.conv2d with its bias, + res;
+    ``a`` None: the identity affine."""
     cdt = _launch.compute_dtype(x)
     z = _prologue(x, a, b, silu, cdt)
     y = conv2d_nhwc(z, weight.to(cdt), bias.to(cdt), padding=1)
@@ -388,11 +442,13 @@ def spatial_conv3x3(x, affine, conv: nn.Conv2d, residual=None,
                     return_stats: bool = False, silu: bool = True):
     """conv3x3(silu(x * A + B)) + bias (+ residual) dispatched as the JAX
     package's ``_impl``: a kernel where it takes a TPU kernel, the plain
-    formula where it runs XLA."""
+    formula where it runs XLA. ``affine`` None: the identity (the JAX
+    ``SpatialConv3x3`` without a prologue passes ones and zeros)."""
     n, h, w, cin = x.shape
+    a, b = (None, None) if affine is None else affine
     name = tpu_kernel(h, w, cin, conv.weight.shape[0])
     if name is None:
-        return _xla_conv3x3(x, affine[0], affine[1], conv.weight, conv.bias,
-                            residual, silu, return_stats)
-    return _conv(name, x, affine[0], affine[1], conv.weight, conv.bias,
-                 residual, silu, return_stats)
+        return _xla_conv3x3(x, a, b, conv.weight, conv.bias, residual, silu,
+                            return_stats)
+    return _conv(name, x, a, b, conv.weight, conv.bias, residual, silu,
+                 return_stats)

@@ -13,9 +13,9 @@ next GroupNorm's statistics. The module keeps nn.Conv3d's parameters
 (weight (O, I, 3, 1, 1), bias), the weight stored channels-last from
 construction on, (O, 3, 1, 1, I) in memory: the kernel's layout, so it takes
 the parameter itself, no copy. Its ``forward`` is the unfused plain form
-(three dense products over the channel axis), used by the training branch
-and by the decoder's 3 -> 3 ``time_mix_conv``, which the TPU package also
-leaves outside its kernel.
+(three dense products over the channel axis), used by the decoder's 3 -> 3
+``time_mix_conv``, which the TPU package also leaves outside its kernel;
+the UNet's training branch takes the kernel without a prologue.
 
 On the card a call runs two kernels (``csrc/temporal_conv.cu``): the z pass
 writes z, the tensor the TPU kernel rounds to bf16, into a zero-framed bf16
@@ -24,7 +24,8 @@ each tap as a shifted box of it; ``plan`` picks the GEMM's tiles and grid
 and the scratch shapes, and the wrapper allocates them with ``torch.empty``
 on the caller's stream. One call counts one launch of the TPU kernel's
 name. Under autograd the wrapper runs ``_TconvFunction``: the kernels (the
-plain version on the CPU) forward, the gradient of ``_plain_tconv`` back.
+plain version on the CPU) forward, the gradient of the XLA form
+``_xla_tconv`` back.
 """
 
 from __future__ import annotations
@@ -80,12 +81,38 @@ def _plain_tconv(x, w3, bias, a, b, res, scale, silu: bool, stats: bool,
     return (y,) + _frame_sums(y) if stats else y
 
 
+def _xla_tconv(x, w3, bias, a, b, res, scale, silu: bool, stats: bool):
+    """The JAX package's XLA form (``_xla_tconv``) in x's dtype: z =
+    silu(x * A + B) in fp32 rounded to x's dtype (z = x without an affine
+    or SiLU), the three shifted products, the bias, the scale and the
+    residual each in x's dtype; with stats the per-frame fp32 sums.
+    x: (B, T, P, Cin) (any spatial axes without stats); w3: (Cout, 3,
+    Cin). Out of place: selective checkpointing may keep the products."""
+    if a is not None or silu:
+        z = x.float()
+        if a is not None:
+            z = z * a[:, None, None] + b[:, None, None]
+        if silu:
+            z = z * torch.sigmoid(z)
+        x = z.to(x.dtype)
+    y = F.linear(x, w3[:, 1])
+    pad = y.new_zeros(y[:, :1].shape)
+    y = y + torch.cat([pad, F.linear(x[:, :-1], w3[:, 0])], 1)
+    y = y + torch.cat([F.linear(x[:, 1:], w3[:, 2]), pad], 1)
+    y = y + bias
+    if scale is not None:
+        y = y * scale.to(y.dtype)
+    if res is not None:
+        y = y + res.to(y.dtype)
+    return (y,) + _frame_sums(y) if stats else y
+
+
 class _TconvFunction(torch.autograd.Function):
-    """The kernels' forward with the gradient of the unfused formula
-    ``_plain_tconv``, as the JAX package's custom_vjp recomputes through
-    ``_xla_tconv`` (tooncrafter_tpu/ops/temporal_conv.py:226-263): x, the
-    taps, the bias, A, B, the residual and the scale, through y and (with
-    stats) the per-frame sums."""
+    """The kernels' forward with the gradient of the unfused XLA form
+    ``_xla_tconv`` in the compute dtype, as the JAX package's custom_vjp
+    recomputes through ``_xla_tconv`` (tooncrafter_tpu/ops/
+    temporal_conv.py:226-263): x, the taps, the bias, A, B, the residual
+    and the scale, through y and (with stats) the per-frame sums."""
 
     @staticmethod
     def forward(ctx, silu, stats, x, w3, bias, a, b, res, scale):
@@ -102,7 +129,7 @@ class _TconvFunction(torch.autograd.Function):
         with torch.enable_grad(), torch.autocast("cuda", enabled=False):
             leaves = [None if t is None else t.detach().requires_grad_(w)
                       for t, w in zip(ops, want)]
-            outs = _plain_tconv(*leaves, ctx.silu, ctx.stats)
+            outs = _xla_tconv(*leaves, ctx.silu, ctx.stats)
             outs = outs if ctx.stats else (outs,)
             used = [(o, g.to(o.dtype)) for o, g in zip(outs, grads)
                     if g is not None]
@@ -281,22 +308,16 @@ class TemporalConv3(nn.Conv3d):
             memory_format=torch.channels_last_3d)
 
     def forward(self, x, residual=None, out_scale=None):
-        """out_scale * conv(x) + residual (each optional), plain."""
-        w = self.weight[:, :, :, 0, 0]
-        # out of place: selective checkpointing may keep the products
-        y = F.linear(x, w[:, :, 1], self.bias)
-        pad = y.new_zeros(y[:, :1].shape)
-        y = (y + torch.cat([pad, F.linear(x[:, :-1], w[:, :, 0])], 1)
-             + torch.cat([F.linear(x[:, 1:], w[:, :, 2]), pad], 1))
-        if out_scale is not None:
-            y = y * out_scale.to(y.dtype)
-        if residual is not None:
-            y = y + residual
-        return y
+        """out_scale * conv(x) + residual (each optional), plain: the XLA
+        form over x (B, T, *spatial, Cin)."""
+        return _xla_tconv(x, taps(self.weight), self.bias, None, None,
+                          residual, out_scale, False, False)
 
     def fused(self, x, affine, residual=None, out_scale=None,
               return_stats: bool = False):
-        """silu(x * A + B) through this conv, with the fused epilogue."""
-        return temporal_conv3(x, self.weight, self.bias, affine, silu=True,
-                              residual=residual, out_scale=out_scale,
-                              return_stats=return_stats)
+        """silu(x * A + B) through this conv, with the fused epilogue;
+        ``affine`` None: x itself, no SiLU (the JAX TemporalConv3 without a
+        prologue)."""
+        return temporal_conv3(x, self.weight, self.bias, affine,
+                              silu=affine is not None, residual=residual,
+                              out_scale=out_scale, return_stats=return_stats)

@@ -8,8 +8,9 @@
     hybrid concat; t ~ U[0, 1000), dynamic rescale of x0, offset noise,
     q_sample, the v target; MSE over (T, H, W, C) with the per-timestep
     logvar weighting and the VLB term.
-  * AdamW over the UNet and the image projector (``TRAINABLE``); the VAE
-    and the CLIP towers stay frozen and run under no_grad.
+  * AdamW (or the JAX package's 'adamw_lowmem' and 'adafactor' profiles)
+    over the UNet and the image projector (``TRAINABLE``); the VAE and the
+    CLIP towers stay frozen and run under no_grad.
   * An EMA shadow with warmup decay min(decay, (1 + n) / (10 + n)).
 
 The draws of a step (the posterior noise, ``rand``, ``cond_frame``, ``ts``,
@@ -33,6 +34,7 @@ import torch
 from torch import nn
 
 from tooncrafter_tpu_torch.training import lr_schedule as LR
+from tooncrafter_tpu_torch.training import optim
 
 
 @dataclasses.dataclass(frozen=True)
@@ -44,8 +46,9 @@ class TrainConfig:
     grad_clip: float = 0.0
     rand_cond_frame: bool = True
     grad_accum: int = 1
-    # 'adamw' (fp32 moments, the reference's configure_optimizers); the JAX
-    # package's 'adamw_lowmem' and 'adafactor' profiles are not ported
+    # the JAX package's memory profiles: 'adamw' (fp32 moments, the
+    # reference's configure_optimizers), 'adamw_lowmem' (a bf16 first
+    # moment), 'adafactor' (a factored second moment; training/optim.py)
     optimizer: str = "adamw"
     # reference scheduler YAML block; None -> constant learning_rate
     scheduler: Optional[dict] = None
@@ -78,16 +81,22 @@ def split_trainable(model: nn.Module) -> Tuple[Dict[str, nn.Parameter],
 
 
 def make_optimizer(cfg: TrainConfig, params: List[torch.Tensor]):
-    """(optimizer, LambdaLR). 'adamw' is optax.adamw's rule: b1 0.9, b2
-    0.999, eps 1e-8, weight decay decoupled and applied to every trainable,
-    the learning rate from ``cfg.lr_schedule()`` at each update."""
-    if cfg.optimizer in ("adamw_lowmem", "adafactor"):
-        raise NotImplementedError(
-            f"optimizer {cfg.optimizer!r} is not ported (only 'adamw')")
-    if cfg.optimizer != "adamw":
+    """(optimizer, LambdaLR), the learning rate from ``cfg.lr_schedule()``
+    at each update. 'adamw' is optax.adamw's rule: b1 0.9, b2 0.999, eps
+    1e-8, weight decay decoupled and applied to every trainable;
+    'adamw_lowmem' the same with a bf16 first moment; 'adafactor'
+    optax.adafactor's (training/optim.py)."""
+    if cfg.optimizer == "adamw":
+        opt = torch.optim.AdamW(params, lr=1.0, betas=(0.9, 0.999), eps=1e-8,
+                                weight_decay=cfg.weight_decay)
+    elif cfg.optimizer == "adamw_lowmem":
+        opt = optim.AdamWLowMem(params, lr=1.0,
+                                weight_decay=cfg.weight_decay)
+    elif cfg.optimizer == "adafactor":
+        opt = optim.Adafactor(params, lr=1.0,
+                              weight_decay=cfg.weight_decay or None)
+    else:
         raise ValueError(f"unknown optimizer {cfg.optimizer!r}")
-    opt = torch.optim.AdamW(params, lr=1.0, betas=(0.9, 0.999), eps=1e-8,
-                            weight_decay=cfg.weight_decay)
     return opt, LR.lambda_lr(opt, cfg.lr_schedule())
 
 

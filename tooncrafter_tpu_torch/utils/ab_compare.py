@@ -23,7 +23,12 @@ checkout's phase 2 lacks them. The runs go A, B,
 B, A, so a drift of the card's clock or temperature over the call falls on
 both alike. A run whose kernels fail their check ends there with a non-zero
 code; the comparison stops at it and exits 1, so every time it reports
-comes from runs that passed phase 2. Each run's output goes to
+comes from runs that passed phase 2. With ``--train`` a run only builds
+its checkout's kernels and takes ``TRAIN_STEPS`` AdamW steps with EMA of
+each training model (configs/training_512_v1.0.yaml, two clips, and
+configs/training_1024_v1.0.yaml, one clip) through that checkout's
+``training.trainer`` (the first step warms up): the step seconds, the
+peak memory and the launches per step of each. Each run's output goes to
 ``OUT/<i>_<a|b>.log``; the phase-2 times of every (kernel, shape), the
 request and training-step seconds and the peak memory of each run go to
 ``OUT/summary.json`` and are printed as a table. Needs a CUDA card; the
@@ -113,9 +118,59 @@ torch.cuda.empty_cache()
 print("== training", flush=True)
 cs.train_full_width(dev)
 print("== training switched", flush=True)
-with cs.switches(pair=True, spatial_conv_pallas=False):
+with cs.switches(pair=True):
     cs.train_full_width(dev, cs.TRAIN_STEPS_SWITCHED,
                         cs.TRAIN_KERNELS_SWITCHED)
+"""
+
+TRAIN_STEPS = 4
+_TRAIN_RUN = r"""
+import dataclasses, gc, sys, time, torch
+sys.path.insert(0, ".")
+from tooncrafter_tpu_torch.config import load_yaml, model_config_from_yaml
+from tooncrafter_tpu_torch.models.diffusion import ToonCrafter
+from tooncrafter_tpu_torch.training import trainer as T
+from tooncrafter_tpu_torch.utils import kernel_check as kc
+from tooncrafter_tpu_torch.utils.profiling import random_batch
+from tooncrafter_tpu_torch.utils.weights import init_random_
+dev = torch.device("cuda", 0)
+torch.zeros(1, device=dev)  # the allocator, before its peak is reset
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+t0 = time.perf_counter()
+kc.build_all()
+print(f"== build {time.perf_counter() - t0:.1f} s", flush=True)
+for yaml in ("training_512_v1.0.yaml", "training_1024_v1.0.yaml"):
+    print(f"== training {yaml}", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    path = "configs/" + yaml
+    cfg = dataclasses.replace(model_config_from_yaml(path),
+                              compute_dtype=torch.bfloat16)
+    bsz = load_yaml(path)["data"]["params"]["batch_size"]
+    torch.manual_seed(123)
+    with torch.device(dev):
+        model = ToonCrafter(cfg)
+    init_random_(model, torch.Generator(dev).manual_seed(123))
+    tcfg = T.TrainConfig(learning_rate=1e-5 * bsz)
+    state, opt = T.make_train_state(model, tcfg, use_ema=True)
+    step_fn = T.make_train_step(model, opt, tcfg)
+    batch = random_batch(cfg, bsz, 123, dev)
+    gen = torch.Generator(dev).manual_seed(123)
+    for i in range(STEPS):
+        kc.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step_fn(state, batch, gen)
+        torch.cuda.synchronize()
+        counts = {k: v for k, v in kc.launch_counts().items() if v}
+        print(f"train step {i}: {time.perf_counter() - t0:.4f} s; "
+              f"launches {counts}", flush=True)
+    print(f"training: peak memory allocated "
+          f"{torch.cuda.max_memory_allocated(dev) / 2 ** 30:.2f} GiB",
+          flush=True)
+    del model, state, opt, step_fn, batch
 """
 
 # "name label: [dq ]max_abs_err=... ms=1.2 plain_ms=... library_ms=...
@@ -167,14 +222,16 @@ def parse(log: str) -> dict:
             "psnr_3d_db": psnr}
 
 
-def run_one(where: str, log_path: str) -> dict:
+def run_one(where: str, log_path: str, train: bool = False) -> dict:
     """One run in the checkout ``where``: its return code, seconds and what
     ``parse`` reads from its output, which goes to ``log_path``."""
     t0 = time.perf_counter()
     gn = tuple(row[:3] for row in kc.GN_512 + kc.GN_L2)
-    proc = subprocess.run([sys.executable, "-c", _RUN.replace(
-        "TCONV_SHAPES", repr(kc.TCONV_512 + kc.TCONV_1024)).replace(
-        "GN_SHAPES", repr(gn))], cwd=where, capture_output=True, text=True)
+    code = (_TRAIN_RUN.replace("STEPS", str(TRAIN_STEPS)) if train
+            else _RUN.replace("TCONV_SHAPES", repr(
+                kc.TCONV_512 + kc.TCONV_1024)).replace("GN_SHAPES", repr(gn)))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=where,
+                          capture_output=True, text=True)
     log = proc.stdout + proc.stderr
     with open(log_path, "w") as f:
         f.write(log)
@@ -187,6 +244,9 @@ def main(argv=None) -> int:
     ap.add_argument("--a", required=True, help="checkout A (e.g. the parent)")
     ap.add_argument("--b", required=True, help="checkout B (e.g. the change)")
     ap.add_argument("--out", default="chiprun_out/ab")
+    ap.add_argument("--train", action="store_true",
+                    help="only the training steps of the 512 and 1024 "
+                         "training models")
     args = ap.parse_args(argv)
     os.makedirs(args.out, exist_ok=True)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -197,7 +257,7 @@ def main(argv=None) -> int:
     for i, which in enumerate(ORDER):
         run = {"which": which, **run_one(
             os.path.abspath(getattr(args, which)),
-            os.path.join(args.out, f"{i}_{which}.log"))}
+            os.path.join(args.out, f"{i}_{which}.log"), args.train)}
         runs.append(run)
         print(f"run {i} ({which}): rc {run['rc']}, {run['seconds']:.0f} s, "
               f"requests {run['requests']}, peak {run['peak_gib']}, 3d "

@@ -1073,3 +1073,114 @@ def bwd_line(case: BwdCase, row: dict) -> str:
               f"library_ms={row['library_ms']:.4f}")
     s += f" bound_ms={row['bound_ms']:.4f} ({row['bound_by']})"
     return s + (" ok" if row["ok"] else " FAIL")
+
+
+# ---------------------------------------------------------------------------
+# the training branch's convs under autograd: the 3x3 conv with no prologue
+# (#13, #14 through ``_ConvFunction``) and the temporal conv (#12 through
+# ``_TconvFunction``) at the 512 (2 clips x 16 frames) and 1024 (1 clip)
+# training steps' shapes
+# ---------------------------------------------------------------------------
+
+# (label, wrapper, (N, H, W, Cin, Cout)): the shapes a TPU kernel takes
+TRAIN_CONV = (
+    ("512 ds2", "winograd_gn_silu_conv3x3", (32, 20, 32, 640, 640)),
+    ("512 ds4 skip concat (ragged tile)", "winograd_gn_silu_conv3x3",
+     (32, 10, 16, 2560, 1280)),
+    ("1024 ds2", "winograd24_gn_silu_conv3x3", (16, 36, 64, 640, 640)),
+    ("1024 ds4", "winograd_gn_silu_conv3x3", (16, 18, 32, 1280, 1280)))
+# (label, (B, T, P, C)): every shape at the 1280-wide levels runs where the
+# JAX package runs XLA
+TRAIN_TCONV = (("512 ds1", (2, 16, 2560, 320)),
+               ("512 ds4 (tiles straddle frames)", (2, 16, 160, 1280)),
+               ("1024 ds1", (1, 16, 9216, 320)),
+               ("1024 ds8 (tiles straddle frames)", (1, 16, 144, 1280)))
+
+
+@dataclasses.dataclass
+class GradCase:
+    name: str                        # the TPU kernel (and its counter)
+    label: str
+    fn: Callable[..., torch.Tensor]      # the wrapper under autograd
+    plain: Callable[..., torch.Tensor]   # the plain version, fp32 leaves
+    inputs: Tuple[torch.Tensor, ...]     # bf16: x, weight, bias
+    reps: int = 5
+
+
+def train_grad_cases(dev, seed: int = 0) -> List[GradCase]:
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    cases = []
+    for label, name, (n, h, w, cin, cout) in TRAIN_CONV:
+        weight = _rnd(gen, dev, cout, cin, 3, 3, scale=(9 * cin) ** -0.5
+                      ).contiguous(memory_format=torch.channels_last)
+        cases.append(GradCase(
+            name, f"{label} N={n} {h}x{w} C={cin}->{cout} no prologue",
+            fn=lambda x, wt, bias, f=getattr(sc, name): f(
+                x, None, None, wt, bias, silu=False),
+            plain=lambda x, wt, bias: sc._plain_conv3x3(
+                x, None, None, wt, bias, None, False, False),
+            inputs=(_rnd(gen, dev, n, h, w, cin), weight,
+                    _rnd(gen, dev, cout, scale=0.1))))
+    for label, (bsz, t, p, c) in TRAIN_TCONV:
+        cases.append(GradCase(
+            "_pallas_tconv", f"{label} B={bsz} T={t} P={p} C={c} no prologue",
+            fn=lambda x, w3, bias: tc._pallas_tconv(x, w3, bias),
+            plain=lambda x, w3, bias: tc._plain_tconv(
+                x, w3, bias, None, None, None, None, False, False),
+            inputs=(_rnd(gen, dev, bsz, t, p, c),
+                    _rnd(gen, dev, c, 3, c, scale=(3 * c) ** -0.5),
+                    _rnd(gen, dev, c, scale=0.1))))
+    return cases
+
+
+def run_grad_case(case: GradCase, timed: bool = True) -> dict:
+    """One forward launch through the wrapper's Function and its backward
+    on a bf16 cotangent; x's, the weight's and the bias's gradients held
+    to ``flash_attention.grad_error_bounds`` of the plain version's
+    autograd in fp32 (TF32 off) on the same bf16 values; then the
+    Function's forward + backward timed against the plain version's."""
+    leaves = [t.detach().requires_grad_() for t in case.inputs]
+    before = launch_counts()[case.name]
+    y = case.fn(*leaves)
+    if launch_counts()[case.name] != before + 1:
+        raise SystemExit(f"{case.label} did not launch {case.name}")
+    gen = torch.Generator(device=y.device).manual_seed(1)
+    gy = _rnd(gen, y.device, *y.shape)
+    torch.autograd.backward(y, gy)
+    with fp32_reference():
+        ref = [t.detach().float().requires_grad_() for t in case.inputs]
+        torch.autograd.backward(case.plain(*ref), gy.float())
+    torch.cuda.synchronize()
+    row = {"ok": True, "max_abs_err": 0.0, "parts": []}
+    for part, got, want in zip(("dx", "dw", "db"), leaves, ref):
+        err = (got.grad.float() - want.grad).abs()
+        mx, mean = err.max().item(), err.mean().item()
+        max_bound, mean_bound = fa.grad_error_bounds(want.grad)
+        ok = (mx <= max_bound and mean <= mean_bound
+              and bool(torch.isfinite(got.grad).all().item()))
+        row["parts"].append((part, mx, max_bound, mean, mean_bound,
+                             want.grad.abs().max().item(), ok))
+        row["ok"] = row["ok"] and ok
+        row["max_abs_err"] = max(row["max_abs_err"], mx)
+    del y, ref
+    if timed:
+        def step(fn, ts, g):
+            torch.autograd.backward(fn(*ts), g)
+        row["ms"] = cuda_ms(lambda: step(case.fn, leaves, gy), case.reps)
+        with fp32_reference():
+            ref = [t.detach().float().requires_grad_() for t in case.inputs]
+            row["plain_ms"] = cuda_ms(
+                lambda: step(case.plain, ref, gy.float()), case.reps)
+    return row
+
+
+def grad_line(case: GradCase, row: dict) -> str:
+    s = f"{case.name} backward {case.label}:"
+    for part, mx, mxb, mean, meanb, top, _ in row["parts"]:
+        s += (f" {part} max_abs_err={mx:.3e} (bound {mxb:.3e}) "
+              f"mean_abs_err={mean:.3e} (bound {meanb:.3e}, |ref| max "
+              f"{top:.3e});")
+    if "ms" in row:
+        s += (f" forward+backward ms={row['ms']:.4f} plain_ms="
+              f"{row['plain_ms']:.4f}")
+    return s + (" ok" if row["ok"] else " FAIL")

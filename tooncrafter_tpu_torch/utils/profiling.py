@@ -3,8 +3,8 @@ step (one CFG-batched UNet call) and one dual-ref decode of a 16-frame
 interpolation model (``--config``, by default the 320x512 model's
 configs/inference_512_v1.0.yaml; configs/inference_1024_v1.0.yaml for the
 576x1024 model), by kernel and by kind; with ``--train``, of one training
-step of the 512 model (configs/training_512_v1.0.yaml, batch 2, AdamW +
-EMA) and its phases.
+step (``--config`` a training YAML, by default configs/training_512_v1.0.yaml;
+its batch, AdamW + EMA) and its phases.
 
     python -m tooncrafter_tpu_torch.utils.profiling [--config YAML] [--train]
 
@@ -138,34 +138,34 @@ def _timed(fn: Callable[[], object]) -> Tuple[object, float]:
     return out, (time.perf_counter() - t0) * 1e3
 
 
-def train_breakdown(dev) -> None:
-    """Steps of the 512 training model: the whole step's wall time per
-    step; then the phases of a step run piecewise with a synchronize
-    between them (frozen encoders, the forward through the loss, the
-    backward, the AdamW update and the EMA); then one traced step by
-    kernel kind."""
-    from tooncrafter_tpu_torch.config import model_config_from_yaml
+def train_breakdown(dev, yaml: str) -> None:
+    """Steps of the training model in ``yaml`` at its batch: the whole
+    step's wall time per step; then the phases of a step run piecewise
+    with a synchronize between them (frozen encoders, the forward through
+    the loss, the backward, the AdamW update and the EMA); then one traced
+    step by kernel kind."""
+    from tooncrafter_tpu_torch.config import load_yaml, model_config_from_yaml
     from tooncrafter_tpu_torch.models.diffusion import ToonCrafter
     from tooncrafter_tpu_torch.training import trainer as T
     from tooncrafter_tpu_torch.utils.weights import init_random_
 
-    cfg = dataclasses.replace(
-        model_config_from_yaml(os.path.join(REPO, "configs",
-                                            "training_512_v1.0.yaml")),
-        compute_dtype=torch.bfloat16)
+    cfg = dataclasses.replace(model_config_from_yaml(yaml),
+                              compute_dtype=torch.bfloat16)
+    bsz = load_yaml(yaml)["data"]["params"]["batch_size"]
     torch.manual_seed(SEED)
     with torch.device(dev):
         model = ToonCrafter(cfg)
     init_random_(model, torch.Generator(dev).manual_seed(SEED))
-    tcfg = T.TrainConfig(learning_rate=2e-5)
+    tcfg = T.TrainConfig(learning_rate=1e-5 * bsz)
     state, opt = T.make_train_state(model, tcfg, use_ema=True)
     step_fn = T.make_train_step(model, opt, tcfg)
     g = torch.Generator(dev).manual_seed(SEED)
-    batch = random_batch(cfg, 2, SEED, dev)
+    batch = random_batch(cfg, bsz, SEED, dev)
     torch.cuda.reset_peak_memory_stats(dev)
     walls = [_timed(lambda: step_fn(state, batch, g))[1]
              for _ in range(TRAIN_STEPS)]
-    print("-- training step (B=2, 16x320x512, AdamW + EMA): wall ms "
+    print(f"-- training step (B={bsz}, {cfg.video_length}x"
+          f"{cfg.latent_h * 8}x{cfg.latent_w * 8}, AdamW + EMA): wall ms "
           + ", ".join(f"{w:.1f}" for w in walls) + f"; peak memory "
           f"{torch.cuda.max_memory_allocated(dev) / 2 ** 30:.2f} GiB")
     params = list(state.train_params.values())
@@ -206,19 +206,23 @@ def main() -> None:
     from tooncrafter_tpu_torch.utils.weights import init_random_
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--config", default=os.path.join(
-        REPO, "configs", "inference_512_v1.0.yaml"),
-                    help="the inference model's YAML")
+    ap.add_argument("--config", default=None,
+                    help="the model's YAML (default: configs/"
+                         "inference_512_v1.0.yaml, with --train configs/"
+                         "training_512_v1.0.yaml)")
     ap.add_argument("--train", action="store_true",
                     help="profile a training step instead of inference")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profiling needs a CUDA device")
     dev = torch.device("cuda", 0)
+    config = args.config or os.path.join(
+        REPO, "configs", "training_512_v1.0.yaml" if args.train
+        else "inference_512_v1.0.yaml")
     if args.train:
-        train_breakdown(dev)
+        train_breakdown(dev, config)
         return
-    cfg = dataclasses.replace(model_config_from_yaml(args.config),
+    cfg = dataclasses.replace(model_config_from_yaml(config),
                               compute_dtype=torch.bfloat16)
     with torch.device(dev):
         model = ToonCrafter(cfg)
