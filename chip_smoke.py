@@ -62,11 +62,11 @@ Phases, each printed on its own lines; any failure exits non-zero:
   4. training, the UNet on its training branch (dropout 0.1: the ResBlock
      convs through the 3x3 conv kernel where the JAX package's tables take
      one, the temporal convs through #12, each under autograd through its
-     Function; phase 2 holds both Functions' gradients at the 512 and 1024
-     training shapes): 4a a reduced model's UNet and image_proj gradients
-     in bf16 on the card against the same model's fp32 gradients on the CPU
-     (same weights, same draws, the dropout modules passing their input
-     through), then again at the 512 model's ds2 and ds4 shapes (#13); 4b
+     Function; phase 2 holds both Functions' outputs and gradients at the
+     512 and 1024 training shapes): 4a a reduced model's UNet and
+     image_proj gradients in bf16 on the card against the same model's
+     fp32 gradients on the CPU (same weights, same draws, the dropout
+     modules passing their input through), then again at the 512 model's ds2 and ds4 shapes (#13); 4b
      the full-width 320x512 training model (configs/training_512_v1.0.yaml:
      per-block checkpointing with the 'dots' policy) with random weights
      from a fixed seed takes three AdamW steps with EMA on a batch of two
@@ -136,7 +136,8 @@ PROFILE_STEPS = 2
 TRAIN_STEPS_1024 = 3
 TRAIN_KERNELS_1024 = ("_flash_mh", "_flash_bh_with_lse", "_pallas_ff",
                       "_pallas_ff_streamed", "_fused_tpair_call",
-                      "_pallas_tconv", "winograd_gn_silu_conv3x3",
+                      "_flash_bwd_bh", "_pallas_tconv",
+                      "winograd_gn_silu_conv3x3",
                       "winograd24_gn_silu_conv3x3")
 # 4d: the sampled clip's DDIM steps
 SAMPLE_DDIM_STEPS = 2
@@ -426,13 +427,13 @@ def check_kernels(dev) -> dict:
             r["bound_ms"], r["bound_by"]))
         row["max_abs_err"] = max(row["max_abs_err"], r["max_abs_err"])
         del case
-    # the training branch's convs under autograd: each Function's gradients
-    # against the plain version's autograd in fp32
+    # the training branch's convs under autograd: each Function's output
+    # and gradients against the plain version and its autograd in fp32
     for case in kc.train_grad_cases(dev):
         r = kc.run_grad_case(case)
         print(kc.grad_line(case, r), flush=True)
         if not r["ok"]:
-            failed.append(f"{case.name} backward {case.label}")
+            failed.append(f"{case.name} forward and backward {case.label}")
         del case
     if failed:
         raise SystemExit("kernels disagree with their plain versions: "

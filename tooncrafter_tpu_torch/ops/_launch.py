@@ -48,6 +48,29 @@ def refuse_grad(what: str, *ts: Optional[torch.Tensor]) -> None:
             "grad; call it under torch.no_grad()")
 
 
+def recompute_grads(ctx, grads, xla_form, n_flags: int):
+    """The backward of a kernel's autograd Function: the gradient of
+    ``xla_form`` (the form the JAX package's custom_vjp differentiates,
+    whichever kernel ran) at the saved operands, in their own dtype with
+    autocast off, through every output that has a cotangent. The
+    Function's first ``n_flags`` arguments take no gradient; its operands
+    follow, saved in ``ctx.saved_tensors``, and ``ctx.flags`` goes to
+    ``xla_form`` after them."""
+    ops = ctx.saved_tensors
+    want = ctx.needs_input_grad[n_flags:]
+    with torch.enable_grad(), torch.autocast("cuda", enabled=False):
+        leaves = [None if t is None else t.detach().requires_grad_(w)
+                  for t, w in zip(ops, want)]
+        outs = xla_form(*leaves, *ctx.flags)
+        outs = outs if isinstance(outs, tuple) else (outs,)
+        used = [(o, g.to(o.dtype)) for o, g in zip(outs, grads)
+                if g is not None]
+        wrt = [t for t, w in zip(leaves, want) if w]
+        got = iter(torch.autograd.grad(
+            [o for o, _ in used], wrt, [g for _, g in used]))
+    return (None,) * n_flags + tuple(next(got) if w else None for w in want)
+
+
 def compute_dtype(t: torch.Tensor) -> torch.dtype:
     """The dtype a fused kernel computes in for a call on ``t``: CUDA
     autocast's for a CUDA tensor while it is on, else t's own."""

@@ -337,25 +337,13 @@ class _ConvFunction(torch.autograd.Function):
     def forward(ctx, name, silu, stats, x, a, b, weight, bias, res):
         ops = (x, a, b, weight, bias, res)
         ctx.save_for_backward(*ops)
-        ctx.silu, ctx.stats = silu, stats
+        ctx.flags = (silu, stats)
         ctx.set_materialize_grads(False)
         return _dispatch(name, *ops, silu, stats)
 
     @staticmethod
     def backward(ctx, *grads):
-        ops = ctx.saved_tensors
-        want = ctx.needs_input_grad[3:]
-        with torch.enable_grad(), torch.autocast("cuda", enabled=False):
-            leaves = [None if t is None else t.detach().requires_grad_(w)
-                      for t, w in zip(ops, want)]
-            outs = _xla_conv3x3(*leaves, ctx.silu, ctx.stats)
-            outs = outs if ctx.stats else (outs,)
-            used = [(o, g.to(o.dtype)) for o, g in zip(outs, grads)
-                    if g is not None]
-            wrt = [t for t, w in zip(leaves, want) if w]
-            got = iter(torch.autograd.grad(
-                [o for o, _ in used], wrt, [g for _, g in used]))
-        return (None,) * 3 + tuple(next(got) if w else None for w in want)
+        return _launch.recompute_grads(ctx, grads, _xla_conv3x3, 3)
 
 
 def _dispatch(name: str, x, a, b, weight, bias, res, silu: bool,

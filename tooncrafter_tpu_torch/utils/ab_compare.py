@@ -27,11 +27,12 @@ comes from runs that passed phase 2. With ``--train`` a run only builds
 its checkout's kernels and takes ``TRAIN_STEPS`` AdamW steps with EMA of
 each training model (configs/training_512_v1.0.yaml, two clips, and
 configs/training_1024_v1.0.yaml, one clip) through that checkout's
-``training.trainer`` (the first step warms up): the step seconds, the
-peak memory and the launches per step of each. Each run's output goes to
-``OUT/<i>_<a|b>.log``; the phase-2 times of every (kernel, shape), the
-request and training-step seconds and the peak memory of each run go to
-``OUT/summary.json`` and are printed as a table. Needs a CUDA card; the
+``chip_smoke.train_full_width`` (the first step warms up; a checkout
+whose ``train_full_width`` takes no ``yaml`` cannot be compared so): the
+step seconds, the peak memory and the launches per step of each. Each
+run's output goes to ``OUT/<i>_<a|b>.log``; the phase-2 times of every
+(kernel, shape), the request and training-step seconds and the peak
+memory of each run go to ``OUT/summary.json`` and are printed as a table. Needs a CUDA card; the
 checkouts' own code decides everything else.
 """
 
@@ -125,14 +126,10 @@ with cs.switches(pair=True):
 
 TRAIN_STEPS = 4
 _TRAIN_RUN = r"""
-import dataclasses, gc, sys, time, torch
+import sys, time, torch
 sys.path.insert(0, ".")
-from tooncrafter_tpu_torch.config import load_yaml, model_config_from_yaml
-from tooncrafter_tpu_torch.models.diffusion import ToonCrafter
-from tooncrafter_tpu_torch.training import trainer as T
+import chip_smoke as cs
 from tooncrafter_tpu_torch.utils import kernel_check as kc
-from tooncrafter_tpu_torch.utils.profiling import random_batch
-from tooncrafter_tpu_torch.utils.weights import init_random_
 dev = torch.device("cuda", 0)
 torch.zeros(1, device=dev)  # the allocator, before its peak is reset
 torch.backends.cuda.matmul.allow_tf32 = False
@@ -142,35 +139,7 @@ kc.build_all()
 print(f"== build {time.perf_counter() - t0:.1f} s", flush=True)
 for yaml in ("training_512_v1.0.yaml", "training_1024_v1.0.yaml"):
     print(f"== training {yaml}", flush=True)
-    gc.collect()
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats(dev)
-    path = "configs/" + yaml
-    cfg = dataclasses.replace(model_config_from_yaml(path),
-                              compute_dtype=torch.bfloat16)
-    bsz = load_yaml(path)["data"]["params"]["batch_size"]
-    torch.manual_seed(123)
-    with torch.device(dev):
-        model = ToonCrafter(cfg)
-    init_random_(model, torch.Generator(dev).manual_seed(123))
-    tcfg = T.TrainConfig(learning_rate=1e-5 * bsz)
-    state, opt = T.make_train_state(model, tcfg, use_ema=True)
-    step_fn = T.make_train_step(model, opt, tcfg)
-    batch = random_batch(cfg, bsz, 123, dev)
-    gen = torch.Generator(dev).manual_seed(123)
-    for i in range(STEPS):
-        kc.reset_launch_counts()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        step_fn(state, batch, gen)
-        torch.cuda.synchronize()
-        counts = {k: v for k, v in kc.launch_counts().items() if v}
-        print(f"train step {i}: {time.perf_counter() - t0:.4f} s; "
-              f"launches {counts}", flush=True)
-    print(f"training: peak memory allocated "
-          f"{torch.cuda.max_memory_allocated(dev) / 2 ** 30:.2f} GiB",
-          flush=True)
-    del model, state, opt, step_fn, batch
+    cs.train_full_width(dev, STEPS, (), yaml=yaml)
 """
 
 # "name label: [dq ]max_abs_err=... ms=1.2 plain_ms=... library_ms=...

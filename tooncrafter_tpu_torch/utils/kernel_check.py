@@ -1135,10 +1135,12 @@ def train_grad_cases(dev, seed: int = 0) -> List[GradCase]:
 
 def run_grad_case(case: GradCase, timed: bool = True) -> dict:
     """One forward launch through the wrapper's Function and its backward
-    on a bf16 cotangent; x's, the weight's and the bias's gradients held
-    to ``flash_attention.grad_error_bounds`` of the plain version's
-    autograd in fp32 (TF32 off) on the same bf16 values; then the
-    Function's forward + backward timed against the plain version's."""
+    on a bf16 cotangent. The kernel's y is held to
+    ``flash_attention.error_bounds`` (phase 2's forward bound) of the plain
+    version in fp32 (TF32 off) on the same bf16 values; x's, the weight's
+    and the bias's gradients to ``grad_error_bounds`` of that version's
+    autograd. Then the Function's forward + backward timed against the
+    plain version's."""
     leaves = [t.detach().requires_grad_() for t in case.inputs]
     before = launch_counts()[case.name]
     y = case.fn(*leaves)
@@ -1149,20 +1151,24 @@ def run_grad_case(case: GradCase, timed: bool = True) -> dict:
     torch.autograd.backward(y, gy)
     with fp32_reference():
         ref = [t.detach().float().requires_grad_() for t in case.inputs]
-        torch.autograd.backward(case.plain(*ref), gy.float())
+        y_ref = case.plain(*ref)
+        torch.autograd.backward(y_ref, gy.float())
     torch.cuda.synchronize()
     row = {"ok": True, "max_abs_err": 0.0, "parts": []}
-    for part, got, want in zip(("dx", "dw", "db"), leaves, ref):
-        err = (got.grad.float() - want.grad).abs()
+    parts = [("y", y.detach(), y_ref.detach(), fa.error_bounds)]
+    parts += [(part, got.grad, want.grad, fa.grad_error_bounds)
+              for part, got, want in zip(("dx", "dw", "db"), leaves, ref)]
+    for part, got, want, bounds in parts:
+        err = (got.float() - want).abs()
         mx, mean = err.max().item(), err.mean().item()
-        max_bound, mean_bound = fa.grad_error_bounds(want.grad)
+        max_bound, mean_bound = bounds(want)
         ok = (mx <= max_bound and mean <= mean_bound
-              and bool(torch.isfinite(got.grad).all().item()))
+              and bool(torch.isfinite(got).all().item()))
         row["parts"].append((part, mx, max_bound, mean, mean_bound,
-                             want.grad.abs().max().item(), ok))
+                             want.abs().max().item(), ok))
         row["ok"] = row["ok"] and ok
         row["max_abs_err"] = max(row["max_abs_err"], mx)
-    del y, ref
+    del y, y_ref, ref, parts
     if timed:
         def step(fn, ts, g):
             torch.autograd.backward(fn(*ts), g)
@@ -1175,7 +1181,7 @@ def run_grad_case(case: GradCase, timed: bool = True) -> dict:
 
 
 def grad_line(case: GradCase, row: dict) -> str:
-    s = f"{case.name} backward {case.label}:"
+    s = f"{case.name} forward and backward {case.label}:"
     for part, mx, mxb, mean, meanb, top, _ in row["parts"]:
         s += (f" {part} max_abs_err={mx:.3e} (bound {mxb:.3e}) "
               f"mean_abs_err={mean:.3e} (bound {meanb:.3e}, |ref| max "
