@@ -78,11 +78,31 @@ Phases, each printed on its own lines; any failure exits non-zero:
      clip (DDIM-2), finite and written; 4a' and 4b' the same under
      TOONCRAFTER_FUSED_GN=1 and TC_SPATIAL_CONV_PALLAS=1 (#16 and #15); 4c
      the 576x1024 training model (configs/training_1024_v1.0.yaml, one
-     clip) takes three AdamW steps with EMA, #14 launched in each.
+     clip) takes three AdamW steps with EMA, #14 launched in each;
+  5. multi-device (``parallel/`` over torch.distributed): 5a a process
+     group of one over NCCL: the 512 training model's all-reduced
+     gradients against one process's (same weights, draws and
+     pass-through dropout), then two AdamW steps with the optimizer state
+     split by owner, every step launching TRAIN_KERNELS, their seconds and
+     peak beside 4b's; 5b two spawned ranks sharing cuda:0 over gloo (the
+     compute mode must be Default), the reduced training model: the
+     reduced gradients against one process with the batch of two on the
+     card (4a's bounds), two AdamW steps and one adafactor step with the
+     ranks' trainables equal bit for bit after each, every rank launching
+     REDUCED_TRAIN_KERNELS; 5c two ranks sharing cuda:0 over gloo serve
+     three 512 clips through ``BatchedPipeline`` (ragged: two and one,
+     DDIM-10, per-item generators), held against one process running the
+     same micro-batches, every rank launching KERNELS_512; 5d
+     ``graft_entry.entry("cuda")``'s UNet forward, finite, of the latent
+     shape, and ``graft_entry.dryrun_multidevice(2, "cuda")`` (a train
+     step, validation and DDIM-2 serving at the tiny config on two ranks
+     sharing the card, its values finite). A rank that raises, exits non-zero or outlives RANK_TIMEOUT_S
+     fails the run.
 No model phase launches #5, #17 or #18. The last two lines are the
 kernels' JSON summary (``launches`` from the first path that runs the
-kernel: 3b, else 3c, else 4b, else 3d, else 4b', else 4c, else 2'; and
-each path's count, 3e's and 3f's too) and the device JSON.
+kernel: 3b, else 3c, else 4b, else 3d, else 4b', else 4c, else the paths
+of 3e, 3f and 5, else 2'; and each path's count, 3e's, 3f's, 5a's and
+each rank's of 5b and 5c too) and the device JSON.
 """
 
 from __future__ import annotations
@@ -177,6 +197,18 @@ DDPM_STEPS = 4
 SMALL_LATENT = (16, 24)
 # the flash kernels' (BH, Sq, Sk, D) that phase 2 checks
 FLASH_CHECKED = set()
+# phase 5 (multi-device): 5a's distributed gradient at world 1 against one
+# process's (the same weights, draws and pass-through dropout; #6's dq sums
+# in another order each run), its AdamW steps after; 5b's two ranks' steps
+# (two AdamW, one adafactor); 5c's DDIM steps and its clips' floor where a
+# second process picks other library algorithms than the first
+WORLD1_MIN_COSINE = 0.9999
+WORLD1_STEPS = 2
+RANK_PROFILES = (("adamw", 2), ("adafactor", 1))
+SERVE_DDIM_STEPS = 10
+SERVE_MIN_PSNR = 40.0
+# a spawned rank that runs longer than this fails its phase
+RANK_TIMEOUT_S = 300.0
 # a batch of two clips with per-item generators against each clip alone,
 # reduced model in bf16 on the card, against the same comparison with
 # nothing drawn (3a'' prints both): batched and single runs sum in other
@@ -1075,22 +1107,6 @@ def check_ddpm_decode_plain(dev) -> None:
                          "disagree with the CPU")
 
 
-class _KeptDropout(torch.nn.Dropout):
-    """A dropout that passes its input through but keeps its p, so the
-    UNet still takes its training branch: the card and the CPU then see
-    the same (no) masks."""
-
-    def forward(self, x):
-        return x
-
-
-def _keep_dropout(model) -> None:
-    for mod in list(model.modules()):
-        for name, child in list(mod.named_children()):
-            if type(child) is torch.nn.Dropout and child.p > 0:
-                setattr(mod, name, _KeptDropout(child.p))
-
-
 def table_config(base):
     """The reduced training model at the 512 model's ds2 and ds4 shapes:
     20x32 latents at 640 channels and 10x16 at 1280, where the JAX
@@ -1116,6 +1132,7 @@ def check_reduced_training(dev, kernels=REDUCED_TRAIN_KERNELS,
     from tooncrafter_tpu_torch.config import ModelConfig
     from tooncrafter_tpu_torch.models.diffusion import ToonCrafter
     from tooncrafter_tpu_torch.models.unet import ResBlock
+    from tooncrafter_tpu_torch.parallel import rank_runs
     from tooncrafter_tpu_torch.training import trainer as T
     from tooncrafter_tpu_torch.utils import kernel_check as kc
     from tooncrafter_tpu_torch.utils.profiling import random_batch
@@ -1125,7 +1142,7 @@ def check_reduced_training(dev, kernels=REDUCED_TRAIN_KERNELS,
                               use_checkpoint=True, remat_policy="dots")
     cpu_model = ToonCrafter(cfg)
     init_random_(cpu_model, torch.Generator().manual_seed(1))
-    _keep_dropout(cpu_model)
+    rank_runs.pass_dropout_(cpu_model)
     gpu_model = copy.deepcopy(cpu_model).to(dev)
     gpu_model.config = dataclasses.replace(cfg, compute_dtype=torch.bfloat16)
     batch = random_batch(cfg, 2, 4, "cpu")
@@ -1359,6 +1376,340 @@ def check_validation(dev, model, state, tcfg, batch) -> None:
                          "finite, or no clip was written")
 
 
+# ---------------------------------------------------------------------------
+# phase 5: multi-device (parallel/, the trainer and BatchedPipeline over
+# torch.distributed)
+# ---------------------------------------------------------------------------
+
+def _grad_agreement(a, b):
+    """(cosine of the concatenated gradients, [(name, relative L2 error)]
+    worst first) of two name -> tensor maps, summed in float64."""
+    dot = na = nb = 0.0
+    rel = {}
+    for n in b:
+        x, y = a[n].double(), b[n].double()
+        dot += float((x * y).sum())
+        na += float(x.square().sum())
+        nb += float(y.square().sum())
+        rel[n] = float((x - y).norm() / y.norm().clamp_min(1e-30))
+    return dot / (na * nb) ** 0.5, sorted(rel.items(), key=lambda kv: -kv[1])
+
+
+def check_world1_training(dev, train_s, train_peak) -> dict:
+    """5a: a process group of one over NCCL on the card; the 512 training
+    model (4b's YAML, seed and batch of two). One non-distributed step's
+    gradients against the distributed step's all-reduced ones, from the
+    same weights (drawn again from the seed), the same draws and the
+    dropout modules passing their input through; then WORLD1_STEPS AdamW
+    steps of the distributed state, each launching TRAIN_KERNELS. Returns
+    the launch counts over those steps."""
+    import dataclasses
+    import tempfile
+
+    import torch.distributed as dist
+
+    from tooncrafter_tpu_torch.config import load_yaml, model_config_from_yaml
+    from tooncrafter_tpu_torch.models.diffusion import ToonCrafter
+    from tooncrafter_tpu_torch.parallel import mesh as M
+    from tooncrafter_tpu_torch.parallel import rank_runs
+    from tooncrafter_tpu_torch.training import trainer as T
+    from tooncrafter_tpu_torch.utils import kernel_check as kc
+    from tooncrafter_tpu_torch.utils.profiling import random_batch
+    from tooncrafter_tpu_torch.utils.weights import init_random_
+
+    path = os.path.join(REPO, "configs", "training_512_v1.0.yaml")
+    cfg = dataclasses.replace(model_config_from_yaml(path),
+                              compute_dtype=torch.bfloat16)
+    bsz = load_yaml(path)["data"]["params"]["batch_size"]
+    store = tempfile.mkdtemp(prefix="chip_smoke_5a_")
+    d = M.init_distributed(dev, backend="nccl",
+                           init_method=f"file://{store}/store", rank=0,
+                           world_size=1)
+    try:
+        mesh = M.make_mesh(device_type="cuda")
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        torch.manual_seed(SEED)
+        with torch.device(dev):
+            model = ToonCrafter(cfg)
+        rank_runs.pass_dropout_(model)
+        tcfg = T.TrainConfig(learning_rate=1e-5 * bsz)
+        batch = random_batch(cfg, bsz, SEED, dev)
+        draws = T.sample_draws(model, batch["video"],
+                               torch.Generator(dev).manual_seed(SEED))
+        grads = {}
+        for name, group in (("one process", None), ("world 1", mesh)):
+            init_random_(model, torch.Generator(dev).manual_seed(SEED))
+            state, _ = T.make_train_state(model, tcfg, use_ema=True,
+                                          group=group)
+            _, g = T.loss_and_grads(model, tcfg, state, batch, draws=draws)
+            if group is not None:
+                M.all_reduce_mean_(g, state.group)
+            grads[name] = dict(zip(state.train_params, g))
+            del g
+        cos, worst = _grad_agreement(grads["world 1"], grads["one process"])
+        print(f"5a world 1 over {dist.get_backend()} on {d.device}, mesh "
+              f"{dict(zip(mesh.mesh_dim_names, mesh.shape))}: gradient "
+              f"cosine {cos:.7f} against one process (bound >= "
+              f"{WORLD1_MIN_COSINE}); worst relative L2 {worst[:3]}",
+              flush=True)
+        del grads
+        if cos < WORLD1_MIN_COSINE:
+            raise SystemExit("5a: the world-1 reduced gradients disagree "
+                             "with one process's")
+        step_fn = T.make_train_step(model, state.optimizer, tcfg)
+        gen = torch.Generator(dev).manual_seed(SEED)
+        total = dict.fromkeys(kc.launch_counts(), 0)
+        seconds = []
+        torch.cuda.reset_peak_memory_stats(dev)
+        for i in range(WORLD1_STEPS):
+            kc.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, metrics = step_fn(state, batch, gen)
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t0)
+            counts = kc.launch_counts()
+            for k, v in counts.items():
+                total[k] += v
+            missed = [k for k in TRAIN_KERNELS if not counts[k]]
+            loss = float(metrics["loss"])
+            print(f"5a step {i}: {seconds[-1]:.2f} s, loss {loss:.6f}, "
+                  f"grad_norm {float(metrics['grad_norm']):.6f}", flush=True)
+            if missed or not np.isfinite(loss):
+                raise SystemExit(f"5a step {i}: kernels {missed} not "
+                                 f"launched or a non-finite loss")
+        peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+        print(f"5a: step seconds {', '.join(f'{t:.2f}' for t in seconds)} "
+              f"against 4b's {', '.join(f'{t:.2f}' for t in train_s)}; peak "
+              f"{peak:.2f} GiB against 4b's {train_peak:.2f}; launches per "
+              f"step " + ", ".join(f"{k} {v / WORLD1_STEPS:.0f}"
+                                  for k, v in total.items() if v), flush=True)
+        del model, state, step_fn, batch
+        return total
+    finally:
+        dist.destroy_process_group()
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def _card_shared() -> None:
+    """Two ranks share cuda:0 only in the Default compute mode."""
+    mode = subprocess.run(
+        ["nvidia-smi", "--query-gpu=compute_mode", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.split()[0]
+    if mode != "Default":
+        raise SystemExit(f"phase 5: the card's compute mode is {mode}, not "
+                         f"Default: two ranks cannot share it")
+
+
+def _rank_report(label, results, kernels) -> list:
+    """Print each rank's seconds and peak; exit if a rank missed a kernel
+    of ``kernels``. Returns the ranks' launch counts."""
+    counts = []
+    for r in results:
+        secs = (r["seconds"] if "seconds" in r else
+                {k: [round(t, 2) for t in v["seconds"]]
+                 for k, v in r["profiles"].items()})
+        missed = [k for k in kernels if not r["launches"][k]]
+        print(f"{label} rank {r['rank']}: seconds {secs}, peak "
+              f"{r['peak_gib']:.2f} GiB; launches "
+              + ", ".join(f"{k} {v}" for k, v in r["launches"].items() if v),
+              flush=True)
+        if missed:
+            raise SystemExit(f"{label} rank {r['rank']}: kernels {missed} "
+                             f"not launched")
+        counts.append(r["launches"])
+    return counts
+
+
+def check_two_rank_training(dev) -> list:
+    """5b: two spawned ranks share cuda:0 over gloo, the reduced training
+    model (weights drawn on the card from a seed; 4a's batch and draws),
+    one clip a rank, the dropout modules passing their input through. The
+    reduced gradients against one process with the batch of two on the
+    card (4a's bounds); then two AdamW steps and one adafactor step, each
+    from those weights, the ranks' trainables equal bit for bit after
+    every step. Returns each rank's launch counts."""
+    import dataclasses
+
+    from tooncrafter_tpu_torch.config import ModelConfig
+    from tooncrafter_tpu_torch.models.diffusion import ToonCrafter
+    from tooncrafter_tpu_torch.parallel import rank_runs
+    from tooncrafter_tpu_torch.parallel.spawn import run_ranks
+    from tooncrafter_tpu_torch.training import trainer as T
+    from tooncrafter_tpu_torch.utils.profiling import random_batch
+    from tooncrafter_tpu_torch.utils.weights import init_random_
+
+    _card_shared()
+    cfg = dataclasses.replace(reduced_config(ModelConfig()),
+                              use_checkpoint=True, remat_policy="dots")
+    with torch.device(dev):
+        model = ToonCrafter(cfg)
+    init_random_(model, torch.Generator(dev).manual_seed(1))
+    rank_runs.pass_dropout_(model)
+    model.config = dataclasses.replace(cfg, compute_dtype=torch.bfloat16)
+    batch = random_batch(cfg, 2, 4, "cpu")
+    draws = T.sample_draws(model, batch["video"],
+                           torch.Generator().manual_seed(5))
+    draws["rand"] = torch.tensor([0.5, 0.07])  # one clip keeps its text
+    train, _ = T.split_trainable(model)
+    t0 = time.perf_counter()
+    with T.autocast(model, dev):
+        loss, _ = T.diffusion_loss(model, {k: v.to(dev) for k, v in
+                                           batch.items()}, draws=draws,
+                                   train=True)
+    loss.backward()
+    one = {k: p.grad.float().cpu() for k, p in train.items()}
+    print(f"5b one process, batch of two on the card: loss "
+          f"{loss.item():.6f} in {time.perf_counter() - t0:.2f} s", flush=True)
+    del model, train, loss
+    gc.collect()
+    torch.cuda.empty_cache()
+    spec = {"config": cfg, "init_device_seed": 1, "batch": batch,
+            "first_draws": draws, "pass_dropout": True,
+            "train_config": {"learning_rate": 2e-5},
+            "profiles": RANK_PROFILES, "gen_seed": SEED}
+    t0 = time.perf_counter()
+    res = run_ranks(rank_runs.train, 2, "cuda", args=(spec,),
+                    timeout=RANK_TIMEOUT_S)
+    print(f"5b two ranks over gloo on {dev} (mesh {res[0]['mesh']}): "
+          f"{time.perf_counter() - t0:.1f} s, spawn and build included; "
+          f"rank 0's seconds by part "
+          f"{ {k: round(v, 2) for k, v in res[0]['clock'].items()} }",
+          flush=True)
+    cos, worst = _grad_agreement(res[0]["grads"], one)
+    same_grads = res[0]["grads_digest"] == res[1]["grads_digest"]
+    print(f"5b reduced gradients against one process: cosine {cos:.6f} "
+          f"(bound >= {GRAD_MIN_COSINE}), largest per-tensor relative L2 "
+          f"{worst[0][1]:.4f} (bound {GRAD_MAX_REL_L2}); the ranks' reduced "
+          f"gradients equal {same_grads}; worst {worst[:3]}", flush=True)
+    if cos < GRAD_MIN_COSINE or worst[0][1] > GRAD_MAX_REL_L2 \
+            or not same_grads:
+        raise SystemExit("5b: the ranks' reduced gradients disagree with "
+                         "one process's or with each other")
+    for name, steps in RANK_PROFILES:
+        a, b = (r["profiles"][name] for r in res)
+        same = [x == y for x, y in zip(a["digests"], b["digests"])]
+        print(f"5b {name}: losses {a['losses']}; trainables equal across "
+              f"the ranks after each step {same}", flush=True)
+        if len(same) != steps or not all(same) \
+                or not np.isfinite(a["losses"]).all():
+            raise SystemExit(f"5b {name}: the ranks' trainables differ or a "
+                             f"loss is not finite")
+    return _rank_report("5b", res, REDUCED_TRAIN_KERNELS)
+
+
+def check_two_rank_serving(dev, seconds_3b) -> list:
+    """5c: two spawned ranks share cuda:0 over gloo and serve three clips
+    of the 512 inference model (3b's YAML and seed, random weights) through
+    ``BatchedPipeline``: ragged, rank 0 clips 0-1 and rank 1 clip 2, DDIM-
+    SERVE_DDIM_STEPS, CFG 7.5 with rescale 0.7, the splice, per-item
+    generators. Held against one process running the same micro-batches
+    (first, then freed): bit for bit, else each clip's PSNR >=
+    SERVE_MIN_PSNR. Returns each rank's launch counts."""
+    import dataclasses
+
+    from tooncrafter_tpu_torch.config import model_config_from_yaml
+    from tooncrafter_tpu_torch.models.diffusion import Pipeline, ToonCrafter
+    from tooncrafter_tpu_torch.parallel import rank_runs
+    from tooncrafter_tpu_torch.parallel.spawn import run_ranks
+    from tooncrafter_tpu_torch.sampling.ddim import GuidanceConfig
+    from tooncrafter_tpu_torch.utils import rngs as R
+    from tooncrafter_tpu_torch.utils.weights import init_random_
+
+    _card_shared()
+    cfg = dataclasses.replace(
+        model_config_from_yaml(os.path.join(REPO, "configs",
+                                            "inference_512_v1.0.yaml")),
+        compute_dtype=torch.bfloat16)
+    parts = [small_inputs(cfg, 10 + r, "cpu")[:4] for r in range(3)]
+    inputs = [torch.cat(p) for p in zip(*parts)]
+    pipe_kw = dict(ddim_steps=SERVE_DDIM_STEPS, eta=1.0,
+                   spacing="uniform_trailing",
+                   guidance=dict(cfg_scale=7.5, guidance_rescale=0.7),
+                   perframe_ae=cfg.perframe_ae)
+    gc.collect()
+    torch.cuda.empty_cache()
+    with torch.device(dev):
+        model = ToonCrafter(cfg)
+    init_random_(model, torch.Generator(dev).manual_seed(SEED))
+    model.to_compute_dtype().eval()
+    kw = dict(pipe_kw, guidance=GuidanceConfig(**pipe_kw["guidance"]))
+    pipe = Pipeline(model, **kw)
+    ref, ref_s = [], []
+    for rows in (slice(0, 2), slice(2, 3)):
+        gens = R.per_item_generators(SEED, range(3)[rows], dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ref.append(pipe(*(x[rows].to(dev) for x in inputs),
+                        generator=gens).float().cpu())
+        torch.cuda.synchronize()
+        ref_s.append(time.perf_counter() - t0)
+    ref = torch.cat(ref).numpy()
+    print(f"5c one process, the same micro-batches (clips 0-1, clip 2): "
+          f"{', '.join(f'{t:.2f}' for t in ref_s)} s", flush=True)
+    del model, pipe
+    gc.collect()
+    torch.cuda.empty_cache()
+    spec = {"config": cfg, "init_device_seed": SEED, "inputs": inputs,
+            "seed": SEED, "pipeline": pipe_kw}
+    t0 = time.perf_counter()
+    res = run_ranks(rank_runs.serve, 2, "cuda", args=(spec,),
+                    timeout=RANK_TIMEOUT_S)
+    out = res[0]["clips"]
+    equal = bool(np.array_equal(out, ref))
+    db = [psnr(torch.from_numpy(out[i:i + 1]), torch.from_numpy(ref[i:i + 1]))
+          for i in range(len(ref))]
+    print(f"5c two ranks over gloo on {dev} (mesh {res[0]['mesh']}): "
+          f"{time.perf_counter() - t0:.1f} s, spawn and build included; "
+          f"clips a rank {[r['clips_here'] for r in res]}; gathered "
+          f"{tuple(out.shape)} against one process: bit for bit {equal}, "
+          f"per-clip min PSNR {[round(x, 2) for x in db]} dB; the ranks' "
+          f"gathered clips equal {res[0]['digest'] == res[1]['digest']}; "
+          f"3b's request {seconds_3b:.2f} s at DDIM-50", flush=True)
+    if not equal:
+        print("5c: not bit for bit: a second process may pick other cuBLAS "
+              "and cuDNN algorithms than the first; each clip held to "
+              f"{SERVE_MIN_PSNR} dB", flush=True)
+    if (out.shape != ref.shape or not np.isfinite(out).all()
+            or res[0]["digest"] != res[1]["digest"]
+            or [r["clips_here"] for r in res] != [2, 1]
+            or not (equal or min(db) >= SERVE_MIN_PSNR)):
+        raise SystemExit("5c: the gathered clips disagree with one process "
+                         "or between the ranks")
+    return _rank_report("5c", res, KERNELS_512)
+
+
+def check_graft_entry(dev) -> None:
+    """5d: the graft entry's UNet forward on the card, then its dry run on
+    two ranks sharing the card."""
+    from tooncrafter_tpu_torch import graft_entry
+
+    t0 = time.perf_counter()
+    fn, args = graft_entry.entry("cuda")
+    out = fn(*args)
+    torch.cuda.synchronize()
+    ok = (tuple(out.shape) == (2, 16, 40, 64, 4)
+          and bool(torch.isfinite(out).all()))
+    print(f"5d graft_entry.entry('cuda'): output {tuple(out.shape)} "
+          f"{out.dtype}, finite {bool(torch.isfinite(out).all())}, range "
+          f"[{out.min().item():.4f}, {out.max().item():.4f}], "
+          f"{time.perf_counter() - t0:.2f} s with the build", flush=True)
+    if not ok:
+        raise SystemExit("5d: the graft entry's output is not the finite "
+                         "latent")
+    del fn, args, out
+    gc.collect()
+    torch.cuda.empty_cache()
+    _card_shared()
+    t0 = time.perf_counter()
+    graft_entry.dryrun_multidevice(2, "cuda", timeout=RANK_TIMEOUT_S)
+    print(f"5d dryrun_multidevice(2, 'cuda'): "
+          f"{time.perf_counter() - t0:.1f} s, spawn included", flush=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--ddim_steps", type=int, default=50)
@@ -1411,6 +1762,7 @@ def main(argv=None) -> int:
     phase(f"3b two full-width requests, DDIM-{args.ddim_steps}")
     counts, pipe, requests, clips = answer_requests(
         dev, args.ddim_steps, "inference_512_v1.0.yaml", 2, KERNELS_512)
+    seconds_3b = sum(pipe.timings.values())  # the last request's phases
     phase(f"3d one full-width request with the three switches on, "
           f"DDIM-{args.ddim_steps}")
     with switches():
@@ -1475,9 +1827,20 @@ def main(argv=None) -> int:
           f"{peak_1024:.2f} GiB; launches per step "
           + ", ".join(f"{k} {v / TRAIN_STEPS_1024:.0f}"
                       for k, v in train_1024.items() if v), flush=True)
+    phase(f"5a world 1 over NCCL: full-width training, the reduced "
+          f"gradients against one process, {WORLD1_STEPS} AdamW steps")
+    counts_5a = check_world1_training(dev, train_s, train_peak)
+    phase("5b two ranks sharing the card over gloo: reduced training")
+    counts_5b = check_two_rank_training(dev)
+    phase(f"5c two ranks sharing the card over gloo: full-width serving of "
+          f"three clips, DDIM-{SERVE_DDIM_STEPS}")
+    counts_5c = check_two_rank_serving(dev, seconds_3b)
+    phase("5d the graft entry's UNet forward and its two-rank dry run")
+    check_graft_entry(dev)
     summary = []
     paths = (counts, counts_1024, train_counts, counts_sw, train_sw,
-             train_1024, counts_serve, counts_modes, counts_ops)
+             train_1024, counts_serve, counts_modes, counts_5a, *counts_5b,
+             *counts_5c, counts_ops)
     in_models = {k: [c[k] for c in paths[:-1]]
                  for k in ("_dual_kernel_call", "_pallas_sums",
                            "_flash_mh_ones")}
@@ -1488,8 +1851,8 @@ def main(argv=None) -> int:
         # each kernel's launches on the first path that runs it: two
         # 320x512 requests, else the 576x1024 request, else training, else
         # the switched request (3d), else the switched training steps
-        # (4b'), else the 576x1024 training steps (4c), else the op
-        # functions (2')
+        # (4b'), else the 576x1024 training steps (4c), else the paths of
+        # phases 3e, 3f and 5, else the op functions (2')
         row["launches"] = next((c[name] for c in paths if c[name]), 0)
         row["launches_512"] = counts[name]
         row["launches_1024"] = counts_1024[name]
@@ -1500,6 +1863,11 @@ def main(argv=None) -> int:
         row["launches_serve"] = counts_serve[name]
         row["launches_time_modes"] = counts_modes[name]
         row["launches_ops"] = counts_ops[name]
+        row["launches_5a_world1"] = counts_5a[name]
+        for r, c in enumerate(counts_5b):
+            row[f"launches_5b_rank{r}"] = c[name]
+        for r, c in enumerate(counts_5c):
+            row[f"launches_5c_rank{r}"] = c[name]
         summary.append(row)
     missed = [r["name"] for r in summary if not r["launches"]]
     if missed or len(summary) != len(kc.REPLACES):

@@ -55,7 +55,8 @@ for want in ("cli.inference", "cli.train", "training.trainer",
              "training.lr_schedule", "training.optim", "data.webvid",
              "cli.serve",
              "cli.smoke", "sampling.ddpm", "models.lpips",
-             "utils.metrics"):
+             "utils.metrics", "parallel.mesh", "parallel.serving",
+             "utils.synth", "graft_entry"):
     assert "tooncrafter_tpu_torch." + want in names, names
 for name in names:
     importlib.import_module(name)

@@ -10,8 +10,15 @@ inference.py parser):
       --timestep_spacing uniform_trailing --guidance_rescale 0.7 \
       --frame_stride 10 --seed 123
 
+  torchrun --nproc_per_node N -m tooncrafter_tpu_torch.cli.inference ...
+
 It runs on one CUDA device and refuses to start without one unless
-``--device cpu`` is passed (fp32, the kernels' plain versions). Without
+``--device cpu`` is passed (fp32, the kernels' plain versions). Under
+torchrun each rank takes ``cuda:{LOCAL_RANK}`` over NCCL (gloo with
+``--device cpu``), takes rank 0's weights and runs its ``batch_slice`` of
+the prompts (contiguous, the remainder on the first ranks, none dropped),
+writing its own clips; a clip's noise is keyed by its global index, so it
+does not depend on the world size. Without
 --ckpt_path the weights are random, drawn from --seed. Each clip's noise
 comes from its own generator, seeded from (--seed, its global index
 prompt * n_samples + sample) (``utils/rngs.py``), so --bs 2 writes the
@@ -140,16 +147,29 @@ def build_model(config_path, ckpt_path, height: int, width: int,
 def main(argv=None):
     args = get_parser().parse_args(argv)
     from tooncrafter_tpu_torch.cli import resolve_device
+    from tooncrafter_tpu_torch.parallel import mesh as M
+
+    d = M.init_distributed(resolve_device(args.device))
+    try:
+        _infer(args, d)
+    finally:
+        if d.group is not None:
+            torch.distributed.destroy_process_group()
+
+
+def _infer(args, d):
     from tooncrafter_tpu_torch.models.diffusion import Pipeline
+    from tooncrafter_tpu_torch.parallel import mesh as M
     from tooncrafter_tpu_torch.sampling.ddim import GuidanceConfig
     from tooncrafter_tpu_torch.utils import rngs as R
     from tooncrafter_tpu_torch.utils.tokenizer import ClipTokenizer
     from tooncrafter_tpu_torch.utils.video_io import write_video
 
-    device = resolve_device(args.device)
+    device = d.device
     t_start = time.time()
     model = build_model(args.config, args.ckpt_path, args.height,
                         args.width, args.video_length, args.seed, device)
+    M.replicate_(model, 0, d.group)
     tokenizer = None
     if args.bpe_path:
         tokenizer = ClipTokenizer(bpe_path=args.bpe_path)
@@ -173,8 +193,10 @@ def main(argv=None):
     os.makedirs(os.path.join(args.savedir, "samples_separate"),
                 exist_ok=True)
     bs = max(1, args.bs)
-    for i0 in range(0, len(prompts), bs):
-        chunk = list(range(i0, min(i0 + bs, len(prompts))))
+    sel = M.batch_slice(len(prompts), d.rank, d.world)
+    mine = list(range(sel.start, sel.stop))
+    for i0 in range(0, len(mine), bs):
+        chunk = mine[i0:i0 + bs]
         batch_prompts = [prompts[j] if args.text_input else "" for j in chunk]
         if tokenizer is not None:
             tokens = torch.as_tensor(np.asarray(tokenizer(batch_prompts)))

@@ -5,11 +5,20 @@ SIGUSR1 save-on-preemption, auto-resume.
 
   python -m tooncrafter_tpu_torch.cli.train --config config.yaml \\
       --name run0 --logdir ./runs [--train] [--device cpu]
+  torchrun --nproc_per_node N -m tooncrafter_tpu_torch.cli.train ...
 
-It runs on ``cuda:0`` (bf16 autocast over fp32 master weights) and refuses
-to start without a card unless ``--device cpu`` is passed (fp32). One card:
-``--n_model_shards`` above 1 is refused. The optimizer is read from the
-YAML's ``model.params.optimizer`` when present: 'adamw' (the default),
+It runs on a card (bf16 autocast over fp32 master weights) and refuses to
+start without one unless ``--device cpu`` is passed (fp32). Under torchrun
+each rank takes ``cuda:{LOCAL_RANK}`` over NCCL (gloo with ``--device
+cpu``), loads its shard of the data, trains on a batch of the YAML's
+``batch_size`` (a global batch of that times the world size, and the
+learning rate ``base_learning_rate x batch_size x world``, the
+reference's rule), with the gradients all-reduced and the optimizer state
+split by owner (``training/trainer.py``); rank 0 logs, prints, samples and
+writes the checkpoints, and SIGUSR1 on any rank checkpoints every rank at
+the next step. ``--n_model_shards`` above 1 is refused (tensor
+parallelism is not ported). The optimizer is read from the YAML's
+``model.params.optimizer`` when present: 'adamw' (the default),
 'adamw_lowmem' or 'adafactor', the JAX package's memory profiles (its CLI
 ignores the key and trains AdamW).
 """
@@ -81,11 +90,28 @@ def main(argv=None):
     args = get_parser().parse_args(argv)
     import torch
 
+    from tooncrafter_tpu_torch.parallel import mesh as M
+
     if args.n_model_shards > 1:
-        raise SystemExit("--n_model_shards > 1: multi-device training is "
-                         "not ported (one card)")
+        raise SystemExit(f"--n_model_shards > 1: {M.MODEL_AXIS}")
     from tooncrafter_tpu_torch.cli import resolve_device
-    device = resolve_device(args.device)
+    d = M.init_distributed(resolve_device(args.device))
+    try:
+        _train(args, d)
+    finally:
+        if d.group is not None:
+            torch.distributed.destroy_process_group()
+
+
+def _train(args, d):
+    import torch
+
+    from tooncrafter_tpu_torch.parallel import mesh as M
+
+    device = d.device
+    lead = d.rank == 0
+    mesh = (M.make_mesh(device_type=device.type) if d.group is not None
+            else None)
 
     from tooncrafter_tpu_torch.config import load_yaml, model_config_from_dict
     from tooncrafter_tpu_torch.data.webvid import PrefetchLoader, WebVidDataset
@@ -100,14 +126,14 @@ def main(argv=None):
     cfg = model_config_from_dict(raw)
     if device.type == "cuda":
         cfg = dataclasses.replace(cfg, compute_dtype=torch.bfloat16)
-    torch.manual_seed(args.seed)  # dropout's stream
+    torch.manual_seed(args.seed + d.rank)  # dropout's stream, per rank
     with torch.device(device):
         model = ToonCrafter(cfg)
 
     workdir = os.path.join(args.logdir, args.name)
     ckpt_dir = os.path.join(workdir, "checkpoints")
     os.makedirs(workdir, exist_ok=True)
-    logger = CB.MetricLogger(workdir)
+    logger = CB.MetricLogger(workdir) if lead else None
 
     # ---- data ----
     dcfg = raw.get("data", {}).get("params", {})
@@ -124,27 +150,31 @@ def main(argv=None):
         tokenizer = ClipTokenizer(merges=[])
     res = [cfg.latent_h * 8, cfg.latent_w * 8]
 
-    def dataset(d, default_dir=""):
+    def dataset(split, default_dir=""):
         return WebVidDataset(
-            meta_path=d.get("meta_path", ""),
-            data_dir=d.get("data_dir", default_dir),
-            video_length=d.get("video_length", cfg.video_length),
-            frame_stride=d.get("frame_stride", 6),
-            resolution=d.get("resolution", res), fps_max=d.get("fps_max"),
-            fixed_fps=d.get("fixed_fps"))
+            meta_path=split.get("meta_path", ""),
+            data_dir=split.get("data_dir", default_dir),
+            video_length=split.get("video_length", cfg.video_length),
+            frame_stride=split.get("frame_stride", 6),
+            resolution=split.get("resolution", res),
+            fps_max=split.get("fps_max"), fixed_fps=split.get("fixed_fps"))
 
+    # each rank loads a disjoint shard of every epoch (the reference's
+    # DistributedSampler)
+    shard = (d.rank, d.world)
     loader = PrefetchLoader(dataset(train_d), bs, tokenizer=tokenizer,
                             num_workers=dcfg.get("num_workers", 4),
-                            seed=args.seed)
+                            seed=args.seed, shard=shard)
     val_d = dcfg.get("validation", {}).get("params", {})
     val_loader = None
     if val_d.get("meta_path"):
         val_loader = PrefetchLoader(
             dataset(val_d, train_d.get("data_dir", "")), bs,
-            tokenizer=tokenizer, num_workers=2, seed=args.seed + 1)
+            tokenizer=tokenizer, num_workers=2, seed=args.seed + 1,
+            shard=shard)
 
     # ---- params / optimizer ----
-    lr = base_lr * bs  # the reference's scaling rule, one card
+    lr = base_lr * bs * d.world  # the reference's rule: the global batch
     mp = raw.get("model", {}).get("params", {})
     tcfg = T.TrainConfig(
         learning_rate=lr,
@@ -158,28 +188,52 @@ def main(argv=None):
     if args.pretrained_ckpt:
         ik = tuple(k for k in args.ignore_keys.split(",") if k)
         missing = warm_start(model, args.pretrained_ckpt, ik, args.only_model)
-        print(f"warm start: {len(missing)} missing (left at their "
-              "random init)")
+        if lead:
+            print(f"warm start: {len(missing)} missing (left at their "
+                  "random init)")
 
-    state, opt = T.make_train_state(model, tcfg, use_ema=True)
+    # with a mesh every rank takes rank 0's weights and owns a share of
+    # the optimizer state
+    state, opt = T.make_train_state(model, tcfg, use_ema=True, group=mesh)
     if args.auto_resume:
         state, start_step = CKPT.restore_train_state(ckpt_dir, state)
-        print(f"resumed at step {start_step}")
+        if lead:
+            print(f"resumed at step {start_step}")
 
     step_fn = T.make_train_step(model, opt, tcfg)
     val_fn = T.make_val_step(model, tcfg)
     sampler_log = CB.VideoSampleLogger(model, workdir,
                                        every_steps=args.sample_every)
-    tracker = CB.ThroughputTracker(bs)
+    tracker = CB.ThroughputTracker(bs * d.world)
     gen = torch.Generator(device).manual_seed(args.seed)
+    # rank 0 alone samples clips: with more than one rank they draw from
+    # a generator of their own, so every rank's training draws stay equal
+    sample_gen = (gen if d.world == 1 else
+                  torch.Generator(device).manual_seed(args.seed + 1))
 
-    # SIGUSR1 -> checkpoint now (preemption hook)
+    # SIGUSR1 -> checkpoint now (preemption hook); the flag is all-reduced
+    # every step, so every rank checkpoints together
     want_ckpt = {"now": False}
     signal.signal(signal.SIGUSR1, lambda *_: want_ckpt.update(now=True))
 
+    def ckpt_now() -> bool:
+        if d.group is None:
+            return want_ckpt["now"]
+        flag = torch.tensor([float(want_ckpt["now"])], device=device)
+        torch.distributed.all_reduce(flag, group=state.group)
+        return bool(flag.item() > 0)
+
     if not args.train:
-        print("dry run complete (pass --train to start)")
+        if lead:
+            print("dry run complete (pass --train to start)")
         return
+    if device.type == "cuda" and d.group is not None:
+        # rank 0 builds the kernels (one nvcc each); the others wait and
+        # load them
+        if lead:
+            from tooncrafter_tpu_torch.utils import kernel_check as kc
+            kc.build_all()
+        M.barrier(state.group, device)
 
     probe = None
     val_iter = iter(val_loader) if val_loader is not None else None
@@ -196,13 +250,15 @@ def main(argv=None):
             metrics.update(CB.device_memory_stats(device)
                            if device.type == "cuda" else {})
             metrics["lr"] = float(lr_of_step(step))
-            logger.log(step, metrics)
-            if step % 50 == 0:
-                print(f"step {step}: loss={metrics['loss']:.4f} "
-                      f"({metrics.get('samples_per_sec', 0):.2f} samples/s)")
-            out = sampler_log.maybe_log(step, state, probe, gen)
-            if out:
-                print(f"sampled video -> {out}")
+            if lead:
+                logger.log(step, metrics)
+                if step % 50 == 0:
+                    print(f"step {step}: loss={metrics['loss']:.4f} "
+                          f"({metrics.get('samples_per_sec', 0):.2f} "
+                          "samples/s)")
+                out = sampler_log.maybe_log(step, state, probe, sample_gen)
+                if out:
+                    print(f"sampled video -> {out}")
             if val_loader is not None and step % args.val_every == 0:
                 try:
                     vb = next(val_iter)
@@ -211,17 +267,19 @@ def main(argv=None):
                     vb = next(val_iter)
                 vm = {k: float(v) for k, v in
                       val_fn(state, to_device(vb, device), gen).items()}
-                logger.log(step, vm)
-                print(f"step {step}: " + " ".join(
-                    f"{k}={v:.4f}" for k, v in vm.items()))
-            if step % args.ckpt_every == 0 or want_ckpt["now"]:
+                if lead:
+                    logger.log(step, vm)
+                    print(f"step {step}: " + " ".join(
+                        f"{k}={v:.4f}" for k, v in vm.items()))
+            if step % args.ckpt_every == 0 or ckpt_now():
                 CKPT.save_train_state(ckpt_dir, step, state)
                 want_ckpt["now"] = False
             if step >= args.max_steps:
                 break
     CKPT.save_train_state(ckpt_dir, step, state)
-    logger.close()
-    print(f"done at step {step}")
+    if lead:
+        logger.close()
+        print(f"done at step {step}")
 
 
 if __name__ == "__main__":

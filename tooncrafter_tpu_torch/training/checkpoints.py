@@ -7,6 +7,16 @@ a temporary file, then a rename) and keeps the newest ``keep``;
 ``TrainState``: trainable weights, optimizer and schedule state, the EMA
 shadow, the accumulated gradients and the step. ``save_params`` /
 ``load_params`` export and read a weights-only dictionary.
+
+A checkpoint does not depend on the world size. Under data parallel (a
+``ZeroRedundancyOptimizer``: each rank's optimizer holds its owned
+tensors' state) ``save_train_state`` consolidates the owners' state on rank
+0 in the one-process layout (indices over every trainable in
+``train_params`` order), takes the accumulated gradients as the ranks'
+mean, and rank 0 alone writes and prunes; ``restore_train_state`` reads
+the file on every rank, whose optimizer keeps its owned tensors' state.
+So a checkpoint written by N ranks resumes in one process, and the
+reverse.
 """
 
 from __future__ import annotations
@@ -16,6 +26,8 @@ import re
 from typing import Dict, List, Optional, Tuple
 
 import torch
+
+from tooncrafter_tpu_torch.parallel import mesh as M
 
 _NAME = re.compile(r"^step_(\d+)\.pt$")
 
@@ -38,25 +50,41 @@ def _atomic_save(obj, path: str) -> None:
     os.replace(tmp, path)
 
 
+def _device(state) -> torch.device:
+    return next(iter(state.train_params.values())).device
+
+
 def save_train_state(ckpt_dir: str, step: int, state, keep: int = 3) -> str:
     """Write the state at ``step`` (synchronously); drop all but the newest
-    ``keep``."""
-    payload = {
-        "step": int(state.step),
-        "train_params": {k: p.detach() for k, p in
-                         state.train_params.items()},
-        "opt_state": state.optimizer.state_dict(),
-        "scheduler": state.scheduler.state_dict(),
-        "micro": state.micro,
-    }
-    if state.ema_params is not None:
-        payload["ema_params"] = state.ema_params
-    if state.accum is not None:
-        payload["accum"] = state.accum
+    ``keep``. Under a process group every rank calls it: the owners'
+    optimizer state is consolidated on rank 0, which writes and prunes, and
+    every rank waits for the write."""
+    group = state.group
+    rank, _ = M.rank_world(group)
+    if group is not None:
+        state.optimizer.consolidate_state_dict(to=0)
+    accum = state.accum
+    if accum is not None and group is not None:
+        accum = [a.clone() for a in accum]
+        M.all_reduce_mean_(accum, group)
     path = _path(ckpt_dir, step)
-    _atomic_save(payload, path)
-    for old in _steps(ckpt_dir)[:-keep]:
-        os.remove(_path(ckpt_dir, old))
+    if rank == 0:
+        payload = {
+            "step": int(state.step),
+            "train_params": {k: p.detach() for k, p in
+                             state.train_params.items()},
+            "opt_state": state.optimizer.state_dict(),
+            "scheduler": state.scheduler.state_dict(),
+            "micro": state.micro,
+        }
+        if state.ema_params is not None:
+            payload["ema_params"] = state.ema_params
+        if accum is not None:
+            payload["accum"] = accum
+        _atomic_save(payload, path)
+        for old in _steps(ckpt_dir)[:-keep]:
+            os.remove(_path(ckpt_dir, old))
+    M.barrier(group, _device(state))
     return path
 
 
@@ -64,17 +92,22 @@ def save_train_state(ckpt_dir: str, step: int, state, keep: int = 3) -> str:
 def restore_train_state(ckpt_dir: str, state,
                         step: Optional[int] = None) -> Tuple[object, int]:
     """Load the newest checkpoint (or ``step``) into ``state`` in place.
-    Returns (state, step restored), or (state, 0) when there is none."""
+    Returns (state, step restored), or (state, 0) when there is none. Under
+    a process group each rank keeps its owned tensors' optimizer state."""
     steps = _steps(ckpt_dir)
     step = steps[-1] if step is None and steps else step
     if step is None:
         return state, 0
-    dev = next(iter(state.train_params.values())).device
-    payload = torch.load(_path(ckpt_dir, step), map_location=dev,
+    payload = torch.load(_path(ckpt_dir, step), map_location=_device(state),
                          weights_only=True)
     for k, p in state.train_params.items():
         p.copy_(payload["train_params"][k])
     state.optimizer.load_state_dict(payload["opt_state"])
+    if state.group is not None:
+        # the ZeroRedundancyOptimizer's own table keeps the loaded values
+        # (cast to the parameters' dtype) beside its local optimizer's,
+        # which alone are used
+        state.optimizer.state.clear()
     state.scheduler.load_state_dict(payload["scheduler"])
     if state.ema_params is not None and "ema_params" in payload:
         for k, e in state.ema_params.items():

@@ -18,6 +18,20 @@ The draws of a step (the posterior noise, ``rand``, ``cond_frame``, ``ts``,
 are passed in ``draws``; dropout draws from torch's global RNG. Torch's
 streams are not JAX's: the same seed gives other numbers.
 
+Data parallel (a process group, or a ``DeviceMesh`` whose ``data`` axis is
+taken; ``parallel/mesh.py``): each rank holds the same weights and its
+rows of the global batch (equal row counts). Every rank draws the global
+batch's draws from the same seeded generator (or is given them) and keeps
+its rows, so N ranks compute what one process computes on the global
+batch, up to the order of sums. The gradients are all-reduced to their
+mean in fp32 (``grad_accum`` > 1: on the k-th call, the local running
+means), the clip norm taken from the reduced gradients. The optimizer is
+torch's ``ZeroRedundancyOptimizer`` over the profile's class: each
+trainable is owned whole by one rank (greedy by size, largest first),
+whose local optimizer alone holds its state and steps it, then broadcasts
+it. The EMA, the schedule and the step count move on every rank; the
+metrics are the ranks' mean. Without a group nothing of this runs.
+
 Precision: fp32 master weights; on the card the loss runs under CUDA
 autocast in the model's ``compute_dtype`` (bf16), with fp32 norm
 statistics, as the JAX CLI computes in bf16 on an accelerator. The
@@ -33,6 +47,7 @@ from typing import Dict, List, Optional, Tuple
 import torch
 from torch import nn
 
+from tooncrafter_tpu_torch.parallel import mesh as M
 from tooncrafter_tpu_torch.training import lr_schedule as LR
 from tooncrafter_tpu_torch.training import optim
 
@@ -80,23 +95,30 @@ def split_trainable(model: nn.Module) -> Tuple[Dict[str, nn.Parameter],
     return train, frozen
 
 
-def make_optimizer(cfg: TrainConfig, params: List[torch.Tensor]):
+def make_optimizer(cfg: TrainConfig, params: List[torch.Tensor],
+                   group=None):
     """(optimizer, LambdaLR), the learning rate from ``cfg.lr_schedule()``
     at each update. 'adamw' is optax.adamw's rule: b1 0.9, b2 0.999, eps
     1e-8, weight decay decoupled and applied to every trainable;
     'adamw_lowmem' the same with a bf16 first moment; 'adafactor'
-    optax.adafactor's (training/optim.py)."""
+    optax.adafactor's (training/optim.py). With a process group the
+    profile runs inside a ``ZeroRedundancyOptimizer`` over it (each tensor's
+    state on its owning rank alone)."""
     if cfg.optimizer == "adamw":
-        opt = torch.optim.AdamW(params, lr=1.0, betas=(0.9, 0.999), eps=1e-8,
-                                weight_decay=cfg.weight_decay)
+        cls, kw = torch.optim.AdamW, dict(betas=(0.9, 0.999), eps=1e-8,
+                                          weight_decay=cfg.weight_decay)
     elif cfg.optimizer == "adamw_lowmem":
-        opt = optim.AdamWLowMem(params, lr=1.0,
-                                weight_decay=cfg.weight_decay)
+        cls, kw = optim.AdamWLowMem, dict(weight_decay=cfg.weight_decay)
     elif cfg.optimizer == "adafactor":
-        opt = optim.Adafactor(params, lr=1.0,
-                              weight_decay=cfg.weight_decay or None)
+        cls, kw = optim.Adafactor, dict(weight_decay=cfg.weight_decay or None)
     else:
         raise ValueError(f"unknown optimizer {cfg.optimizer!r}")
+    if group is None:
+        opt = cls(params, lr=1.0, **kw)
+    else:
+        from torch.distributed.optim import ZeroRedundancyOptimizer
+        opt = ZeroRedundancyOptimizer(params, optimizer_class=cls,
+                                      process_group=group, lr=1.0, **kw)
     return opt, LR.lambda_lr(opt, cfg.lr_schedule())
 
 
@@ -125,10 +147,13 @@ def ema_update(ema: Dict[str, torch.Tensor], params: Dict[str, torch.Tensor],
 
 def sample_draws(model, video: torch.Tensor,
                  generator: Optional[torch.Generator] = None,
-                 rand_cond_frame: bool = True) -> Dict[str, torch.Tensor]:
-    """A step's random draws, in the loss's order, on the video's device."""
+                 rand_cond_frame: bool = True,
+                 batch: Optional[int] = None) -> Dict[str, torch.Tensor]:
+    """A step's random draws, in the loss's order, on the video's device,
+    for ``batch`` clips (default: the video's)."""
     c = model.config
     b, t, hh, ww = video.shape[:4]
+    b = b if batch is None else batch
     f = 2 ** (len(c.vae_ch_mult) - 1)
     dev = video.device
     z_shape = (b, t, hh // f, ww // f, c.z_channels)
@@ -144,6 +169,36 @@ def sample_draws(model, video: torch.Tensor,
     if c.noise_strength > 0:
         draws["offset"] = torch.randn((b, t, 1, 1, c.z_channels), **kw)
     return draws
+
+
+def rank_draws(model, cfg: TrainConfig, batch, generator, draws, group):
+    """This rank's draws: with a group, its rows of the global batch's
+    (``draws``, else drawn from ``generator`` for every rank's rows; the
+    posterior's rows are per frame, ``cond_frame`` is one for the whole
+    batch); without one, ``draws`` as given."""
+    if group is None:
+        return draws
+    rank, world = M.rank_world(group)
+    video = batch["video"]
+    b, t = video.shape[:2]
+    if draws is None:
+        draws = sample_draws(model, video, generator, cfg.rand_cond_frame,
+                             batch=b * world)
+    lo, hi = rank * b, (rank + 1) * b
+    return {k: (v if k == "cond_frame" else
+                v[lo * t:hi * t] if k == "posterior" else v[lo:hi])
+            for k, v in draws.items()}
+
+
+def mean_metrics(metrics: Dict[str, torch.Tensor],
+                 group) -> Dict[str, torch.Tensor]:
+    """Each metric's mean over the group's ranks (one all-reduce)."""
+    if group is None:
+        return metrics
+    keys = list(metrics)
+    v = torch.stack([metrics[k].detach().float().reshape(()) for k in keys])
+    M.all_reduce_mean_([v], group)
+    return {k: v[i] for i, k in enumerate(keys)}
 
 
 def autocast(model, device: torch.device):
@@ -248,24 +303,33 @@ class TrainState:
     # how many it holds (optax.MultiSteps)
     accum: Optional[List[torch.Tensor]] = None
     micro: int = 0
+    # data parallel: the process group (the optimizer is then a
+    # ZeroRedundancyOptimizer over it)
+    group: Optional[object] = None
 
 
-def make_train_state(model, cfg: TrainConfig, use_ema: bool = False):
+def make_train_state(model, cfg: TrainConfig, use_ema: bool = False,
+                     group=None):
     """-> (state, optimizer). Under ``learn_logvar`` a per-timestep logvar
     joins the trainables as 'logvar' (the reference promotes its buffer to
-    a parameter)."""
+    a parameter). With ``group`` (a process group or a ``DeviceMesh``)
+    every rank takes rank 0's weights and buffers, and its optimizer holds
+    the state of the trainables it owns alone."""
+    group = M.data_group(group)
+    if group is not None:
+        M.replicate_(model, 0, group)
     train, frozen = split_trainable(model)
     if model.config.learn_logvar and "logvar" not in train:
         dev = next(iter(train.values())).device
         train["logvar"] = nn.Parameter(torch.full(
             (model.schedule.num_timesteps,), model.config.logvar_init,
             device=dev))
-    opt, sched = make_optimizer(cfg, list(train.values()))
+    opt, sched = make_optimizer(cfg, list(train.values()), group)
     ema = ({k: p.detach().clone() for k, p in train.items()} if use_ema
            else None)
     state = TrainState(step=0, model=model, train_params=train,
                        frozen_params=frozen, optimizer=opt, scheduler=sched,
-                       ema_params=ema)
+                       ema_params=ema, group=group)
     return state, opt
 
 
@@ -309,11 +373,15 @@ def _loss(model, cfg: TrainConfig, state: TrainState, batch, generator,
 def make_val_step(model, cfg: TrainConfig):
     """(state, batch, generator=None, draws=None) -> metrics: the loss
     with the raw weights and, with an EMA shadow, with it, on the same
-    draws (the reference's validation_step)."""
+    draws (the reference's validation_step). Under the state's group each
+    rank takes its rows' loss and the metrics are the ranks' mean."""
 
     @torch.no_grad()
     def val_fn(state: TrainState, batch, generator=None, draws=None):
-        if draws is None:
+        g = state.group
+        if g is not None:
+            draws = rank_draws(model, cfg, batch, generator, draws, g)
+        elif draws is None:
             draws = sample_draws(model, batch["video"], generator,
                                  cfg.rand_cond_frame)
         loss, _ = _loss(model, cfg, state, batch, None, draws, train=False)
@@ -323,26 +391,50 @@ def make_val_step(model, cfg: TrainConfig):
                 loss_ema, _ = _loss(model, cfg, state, batch, None, draws,
                                     train=False)
             metrics["val/loss_ema"] = loss_ema.detach()
-        return metrics
+        return mean_metrics(metrics, g)
 
     return val_fn
 
 
 def _apply_update(state: TrainState, cfg: TrainConfig,
-                  grads: List[torch.Tensor]) -> None:
-    params = list(state.train_params.values())
+                  grads: List[torch.Tensor]) -> torch.Tensor:
+    """Reduce (under a group), clip, step the optimizer (under a group each
+    owner steps its tensors and broadcasts them) and the schedule. Returns
+    the global norm of the (reduced) gradients before the clip."""
+    if state.group is not None:
+        M.all_reduce_mean_(grads, state.group)
+    norm = global_norm(grads)
     if cfg.grad_clip > 0:
-        norm = global_norm(grads)
         # optax.clip_by_global_norm: g * max / |g| where |g| >= max
         scale = torch.where(norm < cfg.grad_clip, torch.ones_like(norm),
                             cfg.grad_clip / norm)
         torch._foreach_mul_(grads, scale.to(grads[0].device))
+    params = list(state.train_params.values())
     for p, g in zip(params, grads):
         p.grad = g
     state.optimizer.step()
     state.scheduler.step()
     for p in params:
         p.grad = None
+    return norm
+
+
+def loss_and_grads(model, cfg: TrainConfig, state: TrainState, batch,
+                   generator=None, draws=None):
+    """The training loss on this rank's rows: (metrics, the local
+    gradients in ``train_params`` order, zeros where none flowed)."""
+    params = list(state.train_params.values())
+    for p in params:
+        p.grad = None
+    draws = rank_draws(model, cfg, batch, generator, draws, state.group)
+    loss, metrics = _loss(model, cfg, state, batch, generator, draws,
+                          train=True)
+    loss.backward()
+    grads = [torch.zeros_like(p) if p.grad is None else p.grad
+             for p in params]
+    for p in params:
+        p.grad = None
+    return metrics, grads
 
 
 def make_train_step(model, opt, cfg: TrainConfig):
@@ -350,33 +442,33 @@ def make_train_step(model, opt, cfg: TrainConfig):
     The state is updated in place (``update``). With ``grad_accum`` k > 1
     the gradients of k calls are averaged and the optimizer (and the
     schedule) steps once, on the k-th; the EMA and the step count move on
-    every call, as in the JAX step."""
+    every call, as in the JAX step. Under the state's group the batch is
+    this rank's rows, ``draws`` (when given) the
+    global batch's, and the metrics the ranks' mean; ``grad_norm`` is the
+    reduced gradients' (the micro-batch's own with ``grad_accum`` > 1)."""
 
     def step_fn(state: TrainState, batch, generator=None, draws=None):
-        params = list(state.train_params.values())
-        for p in params:
-            p.grad = None
-        loss, metrics = _loss(model, cfg, state, batch, generator, draws,
-                              train=True)
-        loss.backward()
-        grads = [torch.zeros_like(p) if p.grad is None else p.grad
-                 for p in params]
-        for p in params:
-            p.grad = None
-        metrics["grad_norm"] = global_norm(grads)
-        update(state, cfg, grads)
-        return state, metrics
+        metrics, grads = loss_and_grads(model, cfg, state, batch, generator,
+                                        draws)
+        local = global_norm(grads) if cfg.grad_accum > 1 else None
+        norm = update(state, cfg, grads)
+        metrics["grad_norm"] = norm if local is None else local
+        return state, mean_metrics(metrics, state.group)
 
     return step_fn
 
 
 def update(state: TrainState, cfg: TrainConfig,
-           grads: List[torch.Tensor]) -> None:
+           grads: List[torch.Tensor]) -> Optional[torch.Tensor]:
     """One call's gradients (in ``train_params`` order, consumed) into the
     state: with ``grad_accum`` k > 1 a running mean, acc += (g - acc) /
     (n + 1), and the update on the k-th call (optax.MultiSteps); else the
-    update at once. Then the EMA, and the step count."""
+    update at once. Under the state's group the gradients, or the running
+    means, are all-reduced first. Then the EMA,
+    and the step count. Returns the applied gradients' global norm, or
+    None on a call that does not update."""
     k = cfg.grad_accum
+    norm = None
     if k > 1:
         if state.accum is None:
             state.accum = [torch.zeros_like(g) for g in grads]
@@ -385,12 +477,13 @@ def update(state: TrainState, cfg: TrainConfig,
         torch._foreach_add_(state.accum, grads, alpha=1.0 / (n + 1))
         state.micro = n + 1
         if state.micro == k:
-            _apply_update(state, cfg, state.accum)
+            norm = _apply_update(state, cfg, state.accum)
             torch._foreach_zero_(state.accum)
             state.micro = 0
     else:
-        _apply_update(state, cfg, grads)
+        norm = _apply_update(state, cfg, grads)
     if state.ema_params is not None:
         ema_update(state.ema_params, state.train_params, state.step,
                    cfg.ema_decay)
     state.step += 1
+    return norm
