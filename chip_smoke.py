@@ -9,7 +9,9 @@ Phases, each printed on its own lines; any failure exits non-zero:
   2. hold each kernel against its plain PyTorch version on the card at the
      shapes the 320x512 interpolation path gives it, then at the 576x1024
      path's most-launched shapes (the VAE mid attention at both its
-     decoder and per-frame encoder shapes), the switched path's (the
+     decoder and per-frame encoder shapes), the stem's one-clip shapes of
+     both paths, the F(2x2)- and F(2x4)-named convs at the fp32 cast point
+     (TC_PROLOGUE_DTYPE=f32), the switched path's (the
      one-pass GroupNorm at every shape it launches with, in inference and
      training, and at two samples no cluster holds: its L2 branch), and
      the shapes the
@@ -26,8 +28,11 @@ Phases, each printed on its own lines; any failure exits non-zero:
      (#18), ``_flash_mh_ones`` at #2's and the 1024 attn1 shapes (#5) and
      ``temporal_attention_ptc`` (#11, no shipped site), each output against
      its plain version;
-  3. check a reduced model on the card against the same model on the CPU
-     (every kernel reached, the convs at a ragged pixel tile), and a batch
+  3. (every model phase runs the main path as ToonCrafter runs it: the
+     per-channel sums chained across blocks, the UNet's CFG stem on one
+     clip's rows) check a reduced model on the card against the same model
+     on the CPU (every kernel reached, the convs at a ragged pixel tile), and
+     a batch
      of two clips with per-item generators against the two clips alone
      (the --bs contract, 3a''), then build
      the full-width 320x512 model (configs/inference_512_v1.0.yaml) with
@@ -38,7 +43,11 @@ Phases, each printed on its own lines; any failure exits non-zero:
      (configs/inference_1024_v1.0.yaml: base_scale 0.3), one request
      (3c); every request at the YAML's default_fs as the frame stride, each
      with its
-     seconds per phase, peak memory and launches per kernel;
+     seconds per phase, peak memory and launches per kernel; after 3b, for
+     one UNet call and one decode, how many norms read their input for
+     statistics (and how many on the parent's route), and after 3b and 3c
+     the UNet step's and the decode's norm and elementwise device ms
+     (``utils/profiling.inference_breakdown``);
   3a', 3d. the JAX package's three opt-in switches on (TC_TATTN_PAIR=0,
      TC_SPATIAL_CONV_PALLAS=1, TOONCRAFTER_FUSED_GN=1, set as the port's
      module globals): the reduced model card against CPU again, then one
@@ -46,6 +55,18 @@ Phases, each printed on its own lines; any failure exits non-zero:
      at 0 launches; the single-stage temporal attention, the im2col-named
      conv and the one-pass GroupNorm launched), its PSNR against 3b's
      first clip printed;
+  3h. the conv switches one at a time (TC_WINOGRAD=0, TC_WINOGRAD24=0,
+     TC_PROLOGUE_DTYPE=f32, TC_PROLOGUE_DTYPE=bf16, TC_STATS_SQ_BF16=1, as
+     module globals through ``switches()``): 3a's reduced model on the card
+     against 3a's CPU clip at 3a's bound with the conv launches the JAX
+     rule predicts, then
+     one conv at every Winograd table shape (the named kernel against its
+     plain version at the setting's cast point; under "bf16" no launch);
+  3i. the reduced UNet with relative-position temporal attention, one
+     denoise call card against CPU;
+  3j. the native host preprocessing (``tooncrafter_tpu_torch/native``,
+     built with g++ on the machine): a 16-frame 720x1280 uint8 clip to
+     320x512 against its numpy plain version, timed;
   3e. serving: one ``cli/serve.Image2Video`` resident on the card at the
      full 512 YAML answers three requests from 480x640 uint8 frames (an
      interpolation at DDIM --ddim_steps, the same again through the cached
@@ -221,20 +242,31 @@ PER_ITEM_MARGIN_DB = 3.0
 
 @contextlib.contextmanager
 def switches(pair: bool = False, spatial_conv_pallas: bool = True,
-             fused_gn: bool = True):
-    """The JAX package's opt-in switches as the port's module globals:
-    TC_TATTN_PAIR=0, TC_SPATIAL_CONV_PALLAS=1, TOONCRAFTER_FUSED_GN=1."""
+             fused_gn: bool = True, winograd: bool = True,
+             winograd24: bool = True, prologue: str = "ref",
+             stats_sq_bf16: bool = False):
+    """The JAX package's switches as the port's module globals: by default
+    the three opt-in ones on (TC_TATTN_PAIR=0, TC_SPATIAL_CONV_PALLAS=1,
+    TOONCRAFTER_FUSED_GN=1) and the conv's four at their defaults
+    (TC_WINOGRAD, TC_WINOGRAD24, TC_PROLOGUE_DTYPE, TC_STATS_SQ_BF16)."""
     from tooncrafter_tpu_torch.ops import fused_norms as fn
     from tooncrafter_tpu_torch.ops import spatial_conv as sc
     from tooncrafter_tpu_torch.ops import temporal_attention as ta
 
-    saved = (ta._PAIR, sc._SPATIAL_CONV_PALLAS, fn._FUSED_GN)
-    ta._PAIR, sc._SPATIAL_CONV_PALLAS, fn._FUSED_GN = (
-        pair, spatial_conv_pallas, fused_gn)
+    names = ((ta, "_PAIR", pair),
+             (sc, "_SPATIAL_CONV_PALLAS", spatial_conv_pallas),
+             (fn, "_FUSED_GN", fused_gn), (sc, "_WINOGRAD", winograd),
+             (sc, "_WINOGRAD24", winograd24),
+             (sc, "_PROLOGUE_DTYPE", prologue),
+             (sc, "_STATS_SQ_BF16", stats_sq_bf16))
+    saved = [(mod, attr, getattr(mod, attr)) for mod, attr, _ in names]
+    for mod, attr, value in names:
+        setattr(mod, attr, value)
     try:
         yield
     finally:
-        ta._PAIR, sc._SPATIAL_CONV_PALLAS, fn._FUSED_GN = saved
+        for mod, attr, value in saved:
+            setattr(mod, attr, value)
 
 
 def psnr(a, b) -> float:
@@ -438,8 +470,8 @@ def check_kernels(dev) -> dict:
                                             bound_ms, bound_by))
         row["max_abs_err"] = max(row["max_abs_err"], mx)
     del cases, args, got, ref, ref_args, qkv
-    for cases_of in (kc.fused_cases, kc.fused_cases_1024, kc.switched_cases,
-                     kc.op_cases):
+    for cases_of in (kc.fused_cases, kc.fused_cases_1024, kc.chain_cases,
+                     kc.switched_cases, kc.op_cases):
         for case, axes in cases_of(dev):
             r = kc.run_case(case, axes)
             print(kc.line(case, r), flush=True)
@@ -691,37 +723,29 @@ def small_inputs(cfg, seed, device):
                                    fs, x_T)]
 
 
-def check_reduced_model(dev, kernels=KERNELS_512) -> dict:
+def check_reduced_model(dev, kernels=KERNELS_512, keep=None) -> dict:
     """The same reduced model and inputs through the Pipeline on the card
     (bf16, CUDA kernels) and on the CPU (fp32, plain versions); every
     kernel of ``kernels`` must launch. Returns, per conv kernel, the shapes
-    it was launched at with a ragged tile."""
-    import copy
-    import dataclasses
-
+    it was launched at with a ragged tile; ``keep`` (a dict), when given,
+    receives the config, the card's model and the CPU's clip for 3h."""
     from tooncrafter_tpu_torch.config import ModelConfig
-    from tooncrafter_tpu_torch.models.diffusion import Pipeline, ToonCrafter
     from tooncrafter_tpu_torch.ops import _launch
     from tooncrafter_tpu_torch.ops import temporal_conv as tc
     from tooncrafter_tpu_torch.utils import kernel_check as kc
-    from tooncrafter_tpu_torch.utils.weights import init_random_
 
     cfg = reduced_config(ModelConfig())
-    cpu_model = ToonCrafter(cfg)
-    init_random_(cpu_model, torch.Generator().manual_seed(1))
-    gpu_model = copy.deepcopy(cpu_model).to(dev)
-    gpu_model.config = dataclasses.replace(cfg, compute_dtype=torch.bfloat16)
-    gpu_model.to_compute_dtype()
+    cpu_model, gpu_model = _reduced_models(dev, cfg)
     outs = {}
-    for name, model, device in (("cpu", cpu_model.eval(), "cpu"),
-                                ("gpu", gpu_model.eval(), dev)):
-        pipe = Pipeline(model, ddim_steps=3, eta=0.0, perframe_ae=True)
-        video, tokens, null, fs, x_T = small_inputs(cfg, 2, device)
+    for name, model, device in (("cpu", cpu_model, "cpu"),
+                                ("gpu", gpu_model, dev)):
         kc.reset_launch_counts()
         with record_pixels() as pixels:
-            outs[name] = pipe(video, tokens, null, fs, x_T=x_T).float().cpu()
+            outs[name] = _reduced_clip(model, cfg, device)
         if name == "gpu":
             hit = kc.launch_counts()
+    if keep is not None:
+        keep.update(cfg=cfg, gpu_model=gpu_model, cpu_clip=outs["cpu"])
     err = (outs["gpu"] - outs["cpu"]).abs()
     db = psnr(outs["gpu"], outs["cpu"])
     print(f"reduced model {cfg.latent_h * 8}x{cfg.latent_w * 8}x"
@@ -1710,6 +1734,322 @@ def check_graft_entry(dev) -> None:
           f"{time.perf_counter() - t0:.1f} s, spawn included", flush=True)
 
 
+# 3h: each conv switch alone, as the JAX package reads it at import
+CONV_SWITCHES = (("TC_WINOGRAD=0", dict(winograd=False)),
+                 ("TC_WINOGRAD24=0", dict(winograd24=False)),
+                 ("TC_PROLOGUE_DTYPE=f32", dict(prologue="f32")),
+                 ("TC_PROLOGUE_DTYPE=bf16", dict(prologue="bf16")),
+                 ("TC_STATS_SQ_BF16=1", dict(stats_sq_bf16=True)))
+CONV_NAMES = ("winograd_gn_silu_conv3x3", "winograd24_gn_silu_conv3x3",
+              "_pallas_fused_conv")
+
+
+def jax_conv_rule(h, w, cin, cout, winograd=True, winograd24=True,
+                  prologue="ref", pallas=False, **_):
+    """The kernel the JAX package's ``_impl`` takes at a conv shape under
+    the switches (tooncrafter_tpu/ops/spatial_conv.py:371-389), restated
+    here: the Winograd tables unless the "bf16" prologue declines them
+    (F(2x4) first, both gone under TC_WINOGRAD=0), then #15's rule under
+    TC_SPATIAL_CONV_PALLAS=1; None where it runs XLA."""
+    from tooncrafter_tpu_torch.ops import spatial_conv as sc
+
+    key = (h, w, cin, cout)
+    if prologue != "bf16" and winograd:
+        if winograd24 and h % 2 == 0 and w % 4 == 0 and key in sc._TABLE24:
+            return "winograd24_gn_silu_conv3x3"
+        if key in sc._TABLE:
+            return "winograd_gn_silu_conv3x3"
+    if pallas and sc._use_kernel(*key):
+        return "_pallas_fused_conv"
+    return None
+
+
+@contextlib.contextmanager
+def record_conv_sites():
+    """(site, (H, W, Cin, Cout)) of every fused conv a model calls: the
+    UNet's ``gn_silu_conv3x3`` ('unet': its kernel runs where the JAX
+    package runs XLA too, under F(2x2)'s name) and the VAE's
+    ``spatial_conv3x3`` ('vae': the JAX dispatch as it is)."""
+    from tooncrafter_tpu_torch.models import unet as unet_mod
+    from tooncrafter_tpu_torch.models import vae as vae_mod
+
+    seen = []
+    saved = (unet_mod.gn_silu_conv3x3, vae_mod.spatial_conv3x3)
+
+    def site(name, fn_):
+        def rec(x, affine, conv, *a, **k):
+            seen.append((name, tuple(x.shape[1:]) + (conv.weight.shape[0],)))
+            return fn_(x, affine, conv, *a, **k)
+        return rec
+    unet_mod.gn_silu_conv3x3 = site("unet", saved[0])
+    vae_mod.spatial_conv3x3 = site("vae", saved[1])
+    try:
+        yield seen
+    finally:
+        unet_mod.gn_silu_conv3x3, vae_mod.spatial_conv3x3 = saved
+
+
+def predicted_conv_launches(sites, setting) -> dict:
+    """Launches by conv kernel name that the JAX rule predicts for these
+    sites under ``setting``: the UNet's at its kernel (F(2x2)'s name where
+    the rule names none, but no launch under the "bf16" prologue, which no
+    kernel computes), the VAE's only where the rule names one."""
+    out = dict.fromkeys(CONV_NAMES, 0)
+    for site, key in sites:
+        name = jax_conv_rule(*key, **setting)
+        if (name is None and site == "unet"
+                and setting.get("prologue", "ref") != "bf16"):
+            name = "winograd_gn_silu_conv3x3"
+        if name is not None:
+            out[name] += 1
+    return out
+
+
+def _reduced_models(dev, cfg):
+    """The same randomly initialised model on the CPU (fp32) and on the
+    card (bf16), both in eval mode."""
+    import copy
+    import dataclasses
+
+    from tooncrafter_tpu_torch.models.diffusion import ToonCrafter
+    from tooncrafter_tpu_torch.utils.weights import init_random_
+
+    cpu_model = ToonCrafter(cfg)
+    init_random_(cpu_model, torch.Generator().manual_seed(1))
+    gpu_model = copy.deepcopy(cpu_model).to(dev)
+    gpu_model.config = dataclasses.replace(cfg, compute_dtype=torch.bfloat16)
+    gpu_model.to_compute_dtype()
+    return cpu_model.eval(), gpu_model.eval()
+
+
+def _reduced_clip(model, cfg, device):
+    from tooncrafter_tpu_torch.models.diffusion import Pipeline
+
+    pipe = Pipeline(model, ddim_steps=3, eta=0.0, perframe_ae=True)
+    video, tokens, null, fs, x_T = small_inputs(cfg, 2, device)
+    return pipe(video, tokens, null, fs, x_T=x_T).float().cpu()
+
+
+def check_conv_switches(dev, reduced) -> None:
+    """3h: 3a's reduced model on the card (``reduced``: what
+    ``check_reduced_model`` kept) against 3a's CPU clip (no switch moves an
+    fp32 result), under each conv switch alone: 3a's bound, and the conv
+    launches the JAX rule predicts at the sites the run called (the reduced
+    model's shapes are in no table); then every table shape at N = 2, one
+    conv each: the kernel the rule names launched (held to its plain
+    version at the setting's cast point, phase 2's bound) or, under the
+    "bf16" prologue, none (``gn_silu_conv3x3``'s plain route)."""
+    from tooncrafter_tpu_torch.ops import spatial_conv as sc
+    from tooncrafter_tpu_torch.utils import kernel_check as kc
+
+    cfg, gpu_model, ref = (reduced[k] for k in ("cfg", "gpu_model",
+                                                "cpu_clip"))
+    tables = sorted(set(sc._TABLE) | set(sc._TABLE24))
+    failed = []
+    for label, setting in CONV_SWITCHES:
+        with switches(pair=True, spatial_conv_pallas=False, fused_gn=False,
+                      **setting):
+            kc.reset_launch_counts()
+            with torch.no_grad(), record_conv_sites() as sites:
+                got = _reduced_clip(gpu_model, cfg, dev)
+            counts = kc.launch_counts()
+            want = predicted_conv_launches(sites, setting)
+            db = psnr(got, ref)
+            ok = db >= REDUCED_MIN_PSNR and all(
+                counts[k] == v for k, v in want.items())
+            ok = ok and all(counts[k] for k in KERNELS_512
+                            if k not in CONV_NAMES)
+            print(f"3h {label}: reduced model card vs CPU min PSNR {db:.2f} "
+                  f"dB (bound {REDUCED_MIN_PSNR}); conv launches "
+                  f"{ {k: counts[k] for k in CONV_NAMES} } predicted {want}"
+                  + ("" if ok else " FAIL"), flush=True)
+            if not ok:
+                failed.append(f"{label} reduced model")
+            gen = torch.Generator(device=dev).manual_seed(5)
+            for key in tables:
+                name = jax_conv_rule(*key, **setting)
+                if name is None and setting.get("prologue") != "bf16":
+                    name = "winograd_gn_silu_conv3x3"
+                routed = sc.conv_kernel_name(*key)
+                if routed != name:
+                    failed.append(f"{label} {key}: routed {routed}, rule "
+                                  f"{name}")
+                    continue
+                if name is None:  # the plain route: no kernel launches
+                    x = torch.randn(2, *key[:3], device=dev).bfloat16()
+                    conv = torch.nn.Conv2d(key[2], key[3], 3, padding=1).to(
+                        dev, torch.bfloat16)
+                    aff = (torch.ones(2, key[2], device=dev),
+                           torch.zeros(2, key[2], device=dev))
+                    kc.reset_launch_counts()
+                    with torch.no_grad():
+                        y = sc.gn_silu_conv3x3(x, aff, conv)
+                    moved = [k for k, v in kc.launch_counts().items() if v]
+                    print(f"3h {label} {key}: the plain route, launches "
+                          f"{moved}", flush=True)
+                    if moved or not torch.isfinite(y).all():
+                        failed.append(f"{label} {key} plain route")
+                    continue
+                (case, axes), = [
+                    (c, (1, 2)) for c in kc.conv_cases(
+                        dev, gen, ((f"3h {label}", (2,) + key),))]
+                r = kc.run_case(case, axes, timed=False)
+                print(kc.line(case, r), flush=True)
+                if not r["ok"]:
+                    failed.append(f"{label} {key}")
+    if failed:
+        raise SystemExit(f"3h: {failed}")
+
+
+def check_relative_position(dev) -> None:
+    """3i: the reduced UNet with ``use_relative_position`` (its temporal
+    attention on the plain route, as the JAX package runs it; the rest on
+    the kernels), card (bf16) against CPU (fp32): one denoise call as the
+    sampler makes it (a CFG pair, ``cfg_groups=2``) at 3a's latent, the
+    UNet's output held to 3a's bound."""
+    import copy
+    import dataclasses
+
+    from tooncrafter_tpu_torch.config import ModelConfig
+    from tooncrafter_tpu_torch.models.diffusion import ToonCrafter
+    from tooncrafter_tpu_torch.utils.weights import (init_random_,
+                                                     to_compute_dtype)
+
+    cfg = dataclasses.replace(reduced_config(ModelConfig()),
+                              use_relative_position=True)
+    with torch.device("meta"):  # the UNet alone, off the meta model
+        unet = ToonCrafter(cfg).unet
+    unet = unet.to_empty(device="cpu").eval()
+    init_random_(unet, torch.Generator().manual_seed(1))
+    gpu_unet = to_compute_dtype(copy.deepcopy(unet).to(dev),
+                                torch.bfloat16).eval()
+    tables = [n for n, _ in unet.named_parameters()
+              if n.endswith("relative_position_k.embeddings_table")]
+    g = torch.Generator().manual_seed(2)
+    t, h, w = cfg.video_length, cfg.latent_h, cfg.latent_w
+    args = (torch.randn(1, t, h, w, cfg.unet_in_channels,
+                        generator=g).repeat(2, 1, 1, 1, 1),
+            torch.full((2,), 500.0),
+            torch.randn(2, 77 + t * cfg.resampler_queries, cfg.context_dim,
+                        generator=g), torch.full((2,), 24.0))
+    with torch.no_grad():
+        ref = unet(*args, cfg_groups=2)
+        got = gpu_unet(*(a.to(dev) for a in args), cfg_groups=2).float().cpu()
+    db = psnr(got, ref)
+    print(f"3i relative position: {len(tables)} attention layers with tables"
+          f" {tuple(unet.get_parameter(tables[0]).shape)}; reduced UNet at "
+          f"{h}x{w}x{t} card vs CPU min PSNR {db:.2f} dB (bound "
+          f"{REDUCED_MIN_PSNR}), output range [{ref.min().item():.3f}, "
+          f"{ref.max().item():.3f}]", flush=True)
+    if not (tables and db >= REDUCED_MIN_PSNR):
+        raise SystemExit("3i: the relative-position model disagrees")
+
+
+def check_native_preprocessing() -> None:
+    """3j: the native host preprocessing built on this machine, one
+    16-frame clip of uint8 720x1280 frames drawn from a seed to 320x512,
+    against its numpy plain version (1e-5), timed."""
+    from tooncrafter_tpu_torch import native
+
+    t0 = time.perf_counter()
+    native.library()
+    built = time.perf_counter() - t0
+    frames = np.random.default_rng(SEED).integers(
+        0, 256, (16, 720, 1280, 3), dtype=np.uint8)
+    native.preprocess_clip(frames, 320, 512)  # warm
+    times = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        out = native.preprocess_clip(frames, 320, 512)
+        times.append((time.perf_counter() - t0) * 1e3)
+    t0 = time.perf_counter()
+    ref = native._plain_preprocess(frames, 320, 512)
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    err = float(np.abs(out - ref).max())
+    print(f"3j native preprocessing: built in {built:.2f} s "
+          f"({native.lib_path().name}, {os.cpu_count()} cores); 16x720x1280"
+          f" uint8 -> {out.shape} fp32 in "
+          + ", ".join(f"{t:.2f}" for t in times)
+          + f" ms; numpy plain version {plain_ms:.1f} ms; max_abs_err "
+          f"{err:.3e} (bound 1e-5)", flush=True)
+    if not err <= 1e-5:
+        raise SystemExit("3j: the native preprocessing disagrees")
+
+
+def norm_reads(model, dev) -> None:
+    """For one UNet call of the full-width model as the sampler makes it (a
+    CFG pair over one clip, ``cfg_groups=2``) and one dual-ref decode: how
+    many norms took their statistics from their input, counted as
+    tests/test_torch_stats_chain.py counts them, beside the count on the
+    parent's route (chained sums only inside a block: every ResBlock's
+    in_norm, every transformer's norm and the output norm read; in the
+    decoder every ResnetBlock's norm1, every TimeStack's in_norm, the mid
+    and fusion attentions' norms and norm_out), from the model's modules."""
+    from tooncrafter_tpu_torch.models import unet as unet_mod
+    from tooncrafter_tpu_torch.models import vae_dualref as dr
+    from tooncrafter_tpu_torch.ops import fused_norms as fn
+    from tooncrafter_tpu_torch.ops import norms
+
+    cfg = model.config
+    g = torch.Generator(dev).manual_seed(SEED)
+    t, h, w = cfg.video_length, cfg.latent_h, cfg.latent_w
+    x = torch.randn(1, t, h, w, cfg.unet_in_channels, generator=g,
+                    device=dev).repeat(2, 1, 1, 1, 1)
+    ctx = torch.randn(2, 77 + t * cfg.resampler_queries, cfg.context_dim,
+                      generator=g, device=dev)
+    z, refs = decoder_inputs(cfg, torch.Generator(dev).manual_seed(3), dev,
+                             model.dtype)
+    box = [0]
+    saved = [(mod, attr, getattr(mod, attr)) for mod, attr in (
+        (norms, "gn_affine"), (norms, "group_norm"), (fn, "group_norm"),
+        (fn, "_pallas_gn"))]
+
+    def counted(real):
+        def call(*a, **k):
+            box[0] += 1
+            return real(*a, **k)
+        return call
+    now = []
+    try:
+        for mod, attr, real in saved:
+            setattr(mod, attr, counted(real))
+        with torch.no_grad():
+            for run in (lambda: model.unet(
+                    x, torch.full((2,), 500.0, device=dev), ctx,
+                    torch.full((2,), 24.0, device=dev), cfg_groups=2),
+                        lambda: model.first_stage_model.decoder(z, refs)):
+                box[0] = 0
+                run()
+                now.append(box[0])
+    finally:
+        for mod, attr, real in saved:
+            setattr(mod, attr, real)
+    count = lambda mod, cls: sum(isinstance(m, cls) for m in mod.modules())
+    unet, dec = model.unet, model.first_stage_model.decoder
+    before = (count(unet, unet_mod.ResBlock)
+              + count(unet, unet_mod.SpatialTransformer)
+              + count(unet, unet_mod.TemporalTransformer) + 1,
+              count(dec, dr.VideoResBlock) + count(dec, dr.TimeStack) + 1
+              + count(dec, dr.FusionCrossAttention) + 1)
+    print(f"norms reading their input for statistics: a UNet call "
+          f"{now[0]} (parent's route {before[0]}), a dual-ref decode "
+          f"{now[1]} (parent's route {before[1]})", flush=True)
+
+
+def kind_breakdown(model, dev, label: str) -> None:
+    """``utils/profiling.inference_breakdown`` of the model: the UNet
+    step's and the decode's norm and elementwise device ms."""
+    from tooncrafter_tpu_torch.utils import profiling
+
+    kinds = profiling.inference_breakdown(model, dev)
+    for part, rows in kinds.items():
+        print(f"{label} {part}: norm / softmax / reduce "
+              f"{rows.get('norm / softmax / reduce', 0.0):.2f} ms, "
+              f"elementwise / copy {rows.get('elementwise / copy', 0.0):.2f}"
+              f" ms, busy {rows['busy_ms']:.2f} ms, wall {rows['wall_ms']:.2f}"
+              f" ms", flush=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--ddim_steps", type=int, default=50)
@@ -1752,17 +2092,29 @@ def main(argv=None) -> int:
     phase("2' the op functions of the kernels no model reaches")
     counts_ops = drive_op_functions(dev)
     phase("3a reduced model: card against CPU")
-    if not all(check_reduced_model(dev).values()):
+    reduced = {}
+    if not all(check_reduced_model(dev, keep=reduced).values()):
         raise SystemExit("reduced model: no conv launched at a ragged tile")
     phase("3a'' per-item noise: a batch of two against each clip alone")
     check_per_item_noise(dev)
     phase("3a' reduced model with the three switches on: card against CPU")
     with switches():
         check_reduced_model(dev, KERNELS_SWITCHED)
+    phase("3h the conv switches one at a time: the reduced model card "
+          "against CPU, the table shapes")
+    check_conv_switches(dev, reduced)
+    del reduced
+    phase("3i relative-position temporal attention: a reduced model card "
+          "against CPU")
+    check_relative_position(dev)
+    phase("3j the native host preprocessing")
+    check_native_preprocessing()
     phase(f"3b two full-width requests, DDIM-{args.ddim_steps}")
     counts, pipe, requests, clips = answer_requests(
         dev, args.ddim_steps, "inference_512_v1.0.yaml", 2, KERNELS_512)
     seconds_3b = sum(pipe.timings.values())  # the last request's phases
+    norm_reads(pipe.model, dev)
+    kind_breakdown(pipe.model, dev, "3b 320x512")
     phase(f"3d one full-width request with the three switches on, "
           f"DDIM-{args.ddim_steps}")
     with switches():
@@ -1789,9 +2141,10 @@ def main(argv=None) -> int:
     print(f"3g cli/smoke.py on the card: {time.perf_counter() - t0:.2f} s",
           flush=True)
     phase(f"3c one full-width 576x1024 request, DDIM-{args.ddim_steps}")
-    counts_1024 = answer_requests(dev, args.ddim_steps,
-                                  "inference_1024_v1.0.yaml", 1,
-                                  KERNELS_1024)[0]
+    counts_1024, pipe_1024, _, _ = answer_requests(
+        dev, args.ddim_steps, "inference_1024_v1.0.yaml", 1, KERNELS_1024)
+    kind_breakdown(pipe_1024.model, dev, "3c 576x1024")
+    del pipe_1024
     phase("4a reduced training model: card gradients against CPU")
     check_reduced_training(dev)
     print("4a, second run: the reduced model at the 512 model's ds2 and ds4 "

@@ -106,6 +106,9 @@ def test_group_norm_silu_routes_by_the_rule(monkeypatch):
         gn.weight.copy_(wt)
         gn.bias.copy_(bt)
         assert torch.equal(gn(xt), got)
-        assert torch.equal(gn(xt, chained=True), plain)
+        # with producer sums: their folded affine, no statistics of x
+        chained = gn(xt, stats=norms.channel_sums(xt))
+        assert (chained.float() - plain.float()).abs().max() <= (
+            2.0 ** -7 * plain.float().abs().max())
         gn.one_pass = False
         assert torch.equal(gn(xt), plain)

@@ -56,7 +56,7 @@ for want in ("cli.inference", "cli.train", "training.trainer",
              "cli.serve",
              "cli.smoke", "sampling.ddpm", "models.lpips",
              "utils.metrics", "parallel.mesh", "parallel.serving",
-             "utils.synth", "graft_entry"):
+             "utils.synth", "graft_entry", "native"):
     assert "tooncrafter_tpu_torch." + want in names, names
 for name in names:
     importlib.import_module(name)

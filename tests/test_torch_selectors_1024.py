@@ -313,9 +313,10 @@ def test_conv_names_f24_exactly_where_jax_takes_it(sites, on_tpu):
             assert port == "winograd_gn_silu_conv3x3", key
 
 
-# #12's epilogues: (residual, out_scale, sums)
-SUMS, RESIDUAL, MERGE = (False, False, True), (True, False, False), (
-    True, True, False)
+# #12's epilogues: (residual, out_scale, sums); the block residual and the
+# alpha merge carry the sums of the block's output (the stats chain)
+SUMS, RESIDUAL, MERGE = (False, False, True), (True, False, True), (
+    True, True, True)
 
 
 def tconv_table(unet, vae):

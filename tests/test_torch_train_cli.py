@@ -2,9 +2,10 @@
 tooncrafter_tpu_torch.cli.train) on the CPU.
 
 The dataset reads tiny mp4s written with OpenCV: its samples against the
-JAX package's ``WebVidDataset`` on the same table and seed, with the JAX
-side on its OpenCV resize (its C++ resizer switched off): the same stride,
-start frame, fps, caption and pixels (exact). Then stride shrink-to-fit,
+JAX package's ``WebVidDataset`` on the same table and seed, both sides on
+their default path, the native C++ resizer (the port's own build of the
+same source): the same stride, start frame, fps, caption and pixels
+(exact). Then stride shrink-to-fit,
 skip-and-retry, and the loader's per-epoch reshuffle and disjoint host
 shards. The CLI's dry run, then ``--train --max_steps 2 --device cpu`` on
 configs/tiny_smoke.yaml with that data (validation with the EMA every
@@ -53,11 +54,10 @@ def video_dir(tmp_path_factory):
     return str(meta), str(data_dir)
 
 
-def test_samples_match_the_jax_dataset(video_dir, monkeypatch):
+def test_samples_match_the_jax_dataset(video_dir):
     from tooncrafter_tpu import native
 
-    monkeypatch.setattr(native, "_lib", None)
-    monkeypatch.setattr(native, "_tried", True)
+    assert native.available()  # the JAX dataset's default, native path
     meta, data_dir = video_dir
     kw = dict(video_length=4, frame_stride=3, resolution=(32, 32), seed=1,
               fps_max=5.0)

@@ -6,8 +6,9 @@
   * a random frame stride in [1, frame_stride] with ``random_fs``, shrunk
     until the clip fits the video;
   * skip-and-retry over the table on unreadable or short videos;
-  * resize to cover, center crop, normalize to [-1, 1] (OpenCV, imported
-    only when a video is decoded);
+  * resize to cover, center crop, normalize to [-1, 1] by the native host
+    preprocessing (``tooncrafter_tpu_torch.native``: bilinear, threaded
+    over frames, the JAX dataset's default path; built at first use);
   * a sample is {'video': (T,H,W,3) float32, 'caption', 'path', 'fps',
     'frame_stride'}.
 
@@ -27,24 +28,8 @@ from typing import Dict, Iterator, List, Optional
 
 import numpy as np
 
+from tooncrafter_tpu_torch import native
 from tooncrafter_tpu_torch.utils import video_io
-
-
-def preprocess_clip(frames: np.ndarray, out_h: int, out_w: int) -> np.ndarray:
-    """(T,H,W,3) uint8 -> (T,out_h,out_w,3) float32 in [-1,1]: bilinear
-    resize to cover, center crop, normalize."""
-    import cv2
-
-    t, h, w, _ = frames.shape
-    scale = max(out_h / h, out_w / w)
-    nh, nw = int(round(h * scale)), int(round(w * scale))
-    res = np.empty((t, nh, nw, 3), np.uint8)
-    for i in range(t):
-        res[i] = cv2.resize(frames[i], (nw, nh),
-                            interpolation=cv2.INTER_LINEAR)
-    top, left = (nh - out_h) // 2, (nw - out_w) // 2
-    res = res[:, top:top + out_h, left:left + out_w]
-    return res.astype(np.float32) / 127.5 - 1.0
 
 
 class WebVidDataset:
@@ -82,6 +67,8 @@ class WebVidDataset:
                             f"{row['videoid']}.mp4")
 
     def __getitem__(self, index: int) -> Dict:
+        # built (or refused) here, not inside the retries of a bad sample
+        native.library()
         for _ in range(20):  # advance through the table on bad samples
             row = self.meta[index % len(self.meta)]
             path = self._path(row)
@@ -99,7 +86,7 @@ class WebVidDataset:
                 start = self.rng.randint(0, n - required)
                 frames = video_io.read_video_frames(
                     path, list(range(start, start + required, fs)))
-                video = preprocess_clip(frames, *self.resolution)
+                video = native.preprocess_clip(frames, *self.resolution)
                 fps = (meta["fps"] / fs if self.fixed_fps is None
                        else self.fixed_fps)
                 if self.fps_max:

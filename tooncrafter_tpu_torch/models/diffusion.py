@@ -20,6 +20,7 @@ lists either model's tensors).
 
 from __future__ import annotations
 
+import functools
 import time
 from typing import Dict, Optional
 
@@ -174,7 +175,12 @@ class ToonCrafter(nn.Module):
                 spacing: str = "uniform_trailing", generator=None,
                 temperature: float = 1.0):
         ddim = S.build_ddim_schedule(self.schedule, ddim_steps, eta, spacing)
-        return ddim_sample(self.unet, self.schedule, ddim, x_T, contexts,
+        # the sampler stacks the CFG branches over the same x, t and fs: the
+        # UNet runs its context-free stem once per clip (as
+        # tooncrafter_tpu/models/diffusion.py:321-328 declares it)
+        denoiser = functools.partial(self.unet,
+                                     cfg_groups=guidance.num_branches)
+        return ddim_sample(denoiser, self.schedule, ddim, x_T, contexts,
                            concat, fs, guidance, generator, temperature)
 
     def decode_first_stage(self, z, refs, chunk_size: Optional[int] = None):

@@ -25,6 +25,17 @@ training branch does: each ResBlock conv by its ``_impl`` dispatch
 every shape, as in inference), both under autograd through their
 Functions.
 
+In the fused branch per-channel sums (s1, s2) also travel across blocks, as
+the JAX package chains them (tooncrafter_tpu/models/unet.py:844-970): each
+ResBlock returns the per-frame sums of its output (from its TemporalConvBlock's
+last conv), each transformer the sums of its output, the skip stack keeps
+(h, sums) and a channel concat concatenates them, a Downsample or Upsample
+resets them, and the next norm folds them instead of reading its input.
+``cfg_groups`` runs the stem on one CFG branch's rows and tiles it back
+(unet.py:777-807). ``use_relative_position`` adds learned relative-position
+tables to the temporal attentions, which then take the plain route (the JAX
+package's XLA layout).
+
 The temporal blocks take their kernel by the JAX package's coverage rules
 (tooncrafter_tpu/models/unet.py:547-567, 688-700): the pair where
 ``use_pair_kernel`` holds (and, under the default TC_TATTN_PAIR=1, also
@@ -62,7 +73,8 @@ from tooncrafter_tpu_torch.ops.fused_ff import fused_geglu_ff
 from tooncrafter_tpu_torch.ops.attention import (attention,
                                                  temporal_attention_inplace)
 from tooncrafter_tpu_torch.ops.norms import (GroupNorm, LayerNorm,
-                                             layer_norm_ex2)
+                                             concat_sums, layer_norm_ex2,
+                                             output_sums, sums_over_frames)
 from tooncrafter_tpu_torch.ops.schedule import timestep_embedding
 from tooncrafter_tpu_torch.ops.spatial_conv import (Conv1d1, Conv1x1, Conv2d,
                                                     Downsample, Upsample,
@@ -85,9 +97,11 @@ class TemporalConvBlock(nn.Module):
                 GroupNorm(c, 1e-5, act=True), nn.SiLU(), nn.Dropout(0.1),
                 TemporalConv3(c, c)))
 
-    def forward(self, x, stats=None):
+    def forward(self, x, stats=None, return_stats: bool = False):
         """x: (B, T, H, W, C); ``stats`` (s1, s2), each (B, C): sums of x
-        over (T, H, W) from the producer, for conv1's norm."""
+        over (T, H, W) from the producer, for conv1's norm. With
+        ``return_stats`` also the per-frame sums of the output, each (B, T,
+        C), from conv4's epilogue (None on the training branch)."""
         if self.training and self.conv2[2].p > 0:
             # each conv through the kernel without a prologue (the JAX
             # package's TemporalConv3 with no prologue); dropout between the
@@ -99,17 +113,18 @@ class TemporalConvBlock(nn.Module):
                 if i > 1:
                     h = seq[2](h)
                 h = seq[-1].fused(h, None)
-            return x + h
+            return (x + h, None) if return_stats else x + h
         # each conv's stats epilogue feeds the next norm; the closing
-        # residual rides conv4's epilogue
+        # residual (and the sums of the block's output) ride conv4's
         h = x
         for i in (1, 2, 3):
             seq = getattr(self, f"conv{i}")
             h, s1, s2 = seq[-1].fused(h, seq[0].folded(h, stats=stats),
                                       return_stats=True)
             stats = (s1.sum(1), s2.sum(1))  # per-frame -> over (T, H, W)
-        return self.conv4[-1].fused(h, self.conv4[0].folded(h, stats=stats),
-                                    residual=x)
+        out = self.conv4[-1].fused(h, self.conv4[0].folded(h, stats=stats),
+                                   residual=x, return_stats=return_stats)
+        return (out[0], out[1:]) if return_stats else out
 
 
 class ResBlock(nn.Module):
@@ -135,7 +150,11 @@ class ResBlock(nn.Module):
         (and its UNet's stats ``chain``) is false."""
         return self.training and self.out_layers[2].p > 0
 
-    def forward(self, x, emb, num_frames: int):
+    def forward(self, x, emb, num_frames: int, stats=None,
+                return_stats: bool = False):
+        """x: (B*T, H, W, C); ``stats``: the producer's per-frame sums of x,
+        each (B*T, C), for in_norm. With ``return_stats`` also the
+        per-frame sums of the output (None on the training branch)."""
         e = self.emb_layers[1](F.silu(emb))
         skip = self.skip_connection(x)
         if self.unfused:
@@ -147,13 +166,14 @@ class ResBlock(nn.Module):
             h = skip + spatial_conv3x3(h, None, self.out_layers[3],
                                        silu=False)
             h5 = h.reshape((-1, num_frames) + h.shape[1:])
-            return self.temopral_conv(h5).reshape(h.shape)
+            h = self.temopral_conv(h5).reshape(h.shape)
+            return (h, None) if return_stats else h
         # in_conv's sums feed out_norm, whose affine folds the time
         # embedding; out_conv adds the skip and its sums, over (T, H, W),
         # seed the temporal block's first norm
         in_norm, out_norm = self.in_layers[0], self.out_layers[0]
-        h, s1, s2 = gn_silu_conv3x3(x, in_norm.folded(x), self.in_layers[2],
-                                    return_stats=True)
+        h, s1, s2 = gn_silu_conv3x3(x, in_norm.folded(x, stats=stats),
+                                    self.in_layers[2], return_stats=True)
         aff = out_norm.folded(h, shift=e, stats=(s1, s2))
         h, s1, s2 = gn_silu_conv3x3(h, aff, self.out_layers[3], residual=skip,
                                     return_stats=True)
@@ -161,19 +181,48 @@ class ResBlock(nn.Module):
         tstats = (s1.reshape(b, num_frames, -1).sum(1),
                   s2.reshape(b, num_frames, -1).sum(1))
         h5 = h.reshape((b, num_frames) + h.shape[1:])
-        return self.temopral_conv(h5, stats=tstats).reshape(h.shape)
+        out = self.temopral_conv(h5, stats=tstats, return_stats=return_stats)
+        if not return_stats:
+            return out.reshape(h.shape)
+        # per-frame (B, T, C) -> (B*T, C): the next spatial norm spans (H, W)
+        return out[0].reshape(h.shape), tuple(s.reshape(h.shape[0], -1)
+                                              for s in out[1])
+
+
+class RelativePosition(nn.Module):
+    """A learned (2L + 1, d) table of relative-position embeddings, read at
+    clip(k - q, -L, L) + L for each (query, key) frame pair (upstream
+    ``attention.RelativePosition``)."""
+
+    def __init__(self, num_units: int, max_relative_position: int):
+        super().__init__()
+        self.max_relative_position = max_relative_position
+        self.embeddings_table = nn.Parameter(torch.empty(
+            2 * max_relative_position + 1, num_units))
+        nn.init.xavier_uniform_(self.embeddings_table)
+
+    def forward(self, length_q: int, length_k: int):
+        """(length_q, length_k, d): the embedding of each pair's offset."""
+        dev = self.embeddings_table.device
+        lim = self.max_relative_position
+        dist = (torch.arange(length_k, device=dev)[None, :]
+                - torch.arange(length_q, device=dev)[:, None])
+        return self.embeddings_table[dist.clamp(-lim, lim) + lim]
 
 
 class CrossAttention(nn.Module):
     """Multi-head attention; as self-attention on (B, S, C) it runs the
-    packed flash path, on (B, T, H, W, C) it attends over T, and with a
+    packed flash path, on (B, T, H, W, C) it attends over T (with learned
+    relative-position tables when ``relative_position``), and with a
     context and ``image_branch`` it adds the image-token attention, scaled
     by tanh(alpha)+1 when that scale is learnable."""
 
     def __init__(self, query_dim: int, heads: int, dim_head: int,
                  context_dim: Optional[int] = None,
                  image_branch: bool = False,
-                 ip_scale_learnable: bool = False, text_len: int = 77):
+                 ip_scale_learnable: bool = False, text_len: int = 77,
+                 relative_position: bool = False,
+                 temporal_length: int = 16):
         super().__init__()
         inner = heads * dim_head
         ctx_dim = context_dim or query_dim
@@ -185,6 +234,11 @@ class CrossAttention(nn.Module):
         self.to_v = nn.Linear(ctx_dim, inner, bias=False)
         self.to_out = nn.Sequential(nn.Linear(inner, query_dim),
                                     nn.Dropout(0.0))
+        if relative_position:
+            self.relative_position_k = RelativePosition(dim_head,
+                                                        temporal_length)
+            self.relative_position_v = RelativePosition(dim_head,
+                                                        temporal_length)
         if image_branch:
             self.to_k_ip = nn.Linear(ctx_dim, inner, bias=False)
             self.to_v_ip = nn.Linear(ctx_dim, inner, bias=False)
@@ -204,9 +258,14 @@ class CrossAttention(nn.Module):
             return self.to_out(out)
         if x.ndim == 5:
             assert context is None
+            rel_k = rel_v = None
+            if hasattr(self, "relative_position_k"):
+                t = x.shape[1]
+                rel_k = self.relative_position_k(t, t).to(x.dtype)
+                rel_v = self.relative_position_v(t, t).to(x.dtype)
             out = temporal_attention_inplace(
                 self.to_q(x), self.to_k(x), self.to_v(x), heads=self.heads,
-                mask=mask)
+                mask=mask, rel_k=rel_k, rel_v=rel_v)
             return self.to_out(out)
         q = self.to_q(x)
         if self.image_branch and context is not None:
@@ -259,13 +318,17 @@ class FeedForward(nn.Module):
 class BasicTransformerBlock(nn.Module):
     def __init__(self, dim: int, heads: int, dim_head: int,
                  context_dim: Optional[int], image_branch: bool = False,
-                 ip_scale_learnable: bool = False, cross: bool = True):
+                 ip_scale_learnable: bool = False, cross: bool = True,
+                 relative_position: bool = False, temporal_length: int = 16):
         super().__init__()
         self.cross = cross
-        self.attn1 = CrossAttention(dim, heads, dim_head)
+        rel = dict(relative_position=relative_position,
+                   temporal_length=temporal_length)
+        self.attn1 = CrossAttention(dim, heads, dim_head, **rel)
         self.attn2 = CrossAttention(
             dim, heads, dim_head, context_dim if cross else None,
-            image_branch=image_branch, ip_scale_learnable=ip_scale_learnable)
+            image_branch=image_branch, ip_scale_learnable=ip_scale_learnable,
+            **rel)
         self.norm1 = LayerNorm(dim)
         self.norm2 = LayerNorm(dim)
         self.norm3 = LayerNorm(dim)
@@ -346,13 +409,17 @@ class SpatialTransformer(nn.Module):
             for _ in range(depth))
         self.proj_out = nn.Linear(inner, c)
 
-    def forward(self, x, context, chained: bool = False):
+    def forward(self, x, context, stats=None, return_stats: bool = False):
+        """x: (B*T, H, W, C); ``stats``: the producer's per-frame sums of x,
+        each (B*T, C), for the norm. With ``return_stats`` also the sums of
+        the output over (H, W), taken once, as the JAX package takes them
+        (unet.py:646-653)."""
         bt, hh, ww, c = x.shape
-        h = self.proj_in(self.norm(x, chained=chained).reshape(bt, hh * ww,
-                                                               c))
+        h = self.proj_in(self.norm(x, stats=stats).reshape(bt, hh * ww, c))
         for blk in self.transformer_blocks:
             h = blk(h, context)
-        return x + self.proj_out(h).reshape(bt, hh, ww, c)
+        out = x + self.proj_out(h).reshape(bt, hh, ww, c)
+        return (out, output_sums(out, (1, 2))) if return_stats else out
 
 
 class TemporalTransformer(nn.Module):
@@ -360,21 +427,28 @@ class TemporalTransformer(nn.Module):
     False gives the init attention's kernel-size-1 Conv1d projections."""
 
     def __init__(self, c: int, heads: int, dim_head: int, depth: int,
-                 causal: bool = False, linear: bool = True):
+                 causal: bool = False, linear: bool = True,
+                 relative_position: bool = False, temporal_length: int = 16):
         super().__init__()
         inner = heads * dim_head
         self.causal = causal
+        self.relative_position = relative_position
         self.norm = GroupNorm(c, 1e-6)
         proj = nn.Linear if linear else Conv1d1
         self.proj_in = proj(c, inner)
         self.transformer_blocks = nn.ModuleList(
-            BasicTransformerBlock(inner, heads, dim_head, None, cross=False)
+            BasicTransformerBlock(inner, heads, dim_head, None, cross=False,
+                                  relative_position=relative_position,
+                                  temporal_length=temporal_length)
             for _ in range(depth))
         self.proj_out = proj(inner, c)
 
     def route(self, t: int, p: int) -> str:
         """The kernels of this transformer's blocks at T frames of P
         pixels, by the JAX package's rules (see the module docstring)."""
+        if self.relative_position:
+            # the JAX package's 5-D XLA layout (unet.py:537, 691)
+            return "plain"
         blk = self.transformer_blocks[0]
         d, inner = blk.attn1.dim_head, blk.attn1.heads * blk.attn1.dim_head
         fused_ok = ta.use_fused_kernel(t, p, d, inner, inner)
@@ -393,17 +467,21 @@ class TemporalTransformer(nn.Module):
             return "single" if fused_ok else "ptc"
         return "plain"
 
-    def forward(self, x, chained: bool = False):
+    def forward(self, x, stats=None, return_stats: bool = False):
+        """x: (B, T, H, W, C); ``stats``: the producer's sums of x over (T,
+        H, W), each (B, C), for the norm. With ``return_stats`` also the
+        per-frame sums of the output, each (B, T, C) (unet.py:715-720)."""
         t = x.shape[1]
         mask = None
         if self.causal:
             mask = torch.ones(t, t, dtype=torch.bool,
                               device=x.device).tril()
         route = self.route(t, x.shape[2] * x.shape[3])
-        h = self.proj_in(self.norm(x, chained=chained))
+        h = self.proj_in(self.norm(x, stats=stats))
         for blk in self.transformer_blocks:
             h = blk(h, None, mask, route)
-        return x + self.proj_out(h)
+        out = x + self.proj_out(h)
+        return (out, output_sums(out, (2, 3))) if return_stats else out
 
 
 # remat_policy -> the aten products whose outputs a checkpointed block keeps
@@ -438,9 +516,6 @@ class UNetModel(nn.Module):
                  use_relative_position: bool = False,
                  use_checkpoint: bool = False, remat_policy=None):
         super().__init__()
-        if use_relative_position:
-            raise NotImplementedError(
-                "temporal relative-position attention is not ported")
         self.use_checkpoint = use_checkpoint
         self._context_fn = (checkpoint_context(remat_policy)
                             if use_checkpoint else None)
@@ -462,9 +537,13 @@ class UNetModel(nn.Module):
                 ch, ch // nhc, nhc, transformer_depth, context_dim,
                 image_cross_attention_scale_learnable)
 
+        rel = dict(causal=use_causal_attention,
+                   relative_position=use_relative_position,
+                   temporal_length=temporal_length)
+
         def temporal(ch):
             return TemporalTransformer(ch, ch // nhc, nhc, transformer_depth,
-                                       causal=use_causal_attention)
+                                       **rel)
 
         self.time_embed = nn.Sequential(nn.Linear(mc, ted), nn.SiLU(),
                                         nn.Linear(ted, ted))
@@ -474,8 +553,7 @@ class UNetModel(nn.Module):
         self.input_blocks = nn.ModuleList(
             [nn.ModuleList([Conv2d(in_channels, mc, 3, padding=1)])])
         self.init_attn = nn.ModuleList([TemporalTransformer(
-            mc, 8, nhc, transformer_depth, causal=use_causal_attention,
-            linear=False)])
+            mc, 8, nhc, transformer_depth, linear=False, **rel)])
         chans = [mc]
         ch, ds = mc, 1
         for level, mult in enumerate(channel_mult):
@@ -517,26 +595,22 @@ class UNetModel(nn.Module):
             "context_fn": self._context_fn}
         return ckpt.checkpoint(layer, *args, use_reentrant=False, **kw)
 
-    def _run(self, blk, h, emb, ctx, t, chain: bool):
-        """``chain``: the JAX package folds the producer's sums into the
-        transformers' norms here (its eval-mode stats chain)."""
-        for layer in blk:
-            if isinstance(layer, ResBlock):
-                h = self._block(layer, h, emb, t)
-            elif isinstance(layer, SpatialTransformer):
-                h = self._block(layer, h, ctx, chain)
-            elif isinstance(layer, TemporalTransformer):
-                h = self._block(layer, h.reshape((-1, t) + h.shape[1:]),
-                                chain).reshape(h.shape)
-            else:
-                h = layer(h)
-        return h
-
-    def forward(self, x, timesteps, context, fs=None):
+    def forward(self, x, timesteps, context, fs=None, cfg_groups: int = 1):
         """x: (B, T, H, W, C_in); timesteps, fs: (B,); context:
         (B, text_len + T*img_tokens, context_dim) -> (B, T, H, W, C_out)
-        fp32."""
+        fp32.
+
+        ``cfg_groups`` n declares the batch to be n CFG branches stacked over
+        B/n clips with the same x, timesteps and fs (only the context
+        differs, as the DDIM sampler batches them): the stem before the
+        first cross-attending SpatialTransformer (the input conv, the init
+        attention, the blocks before it) then runs on B/n rows and is tiled
+        back to B, as the JAX package does (unet.py:777-807)."""
         b, t, hh, ww, _ = x.shape
+        g = cfg_groups
+        if b % g:
+            raise ValueError(f"cfg_groups={g} does not divide the batch {b}")
+        bs = b // g  # the stem's clips
         dt = self.input_blocks[0][0].weight.dtype
         emb = self.time_embed(
             timestep_embedding(timesteps, self.model_channels).to(dt))
@@ -558,19 +632,65 @@ class UNetModel(nn.Module):
             ctx = context.repeat_interleave(t, dim=0)
         ctx = ctx.to(dt)
 
-        # the JAX package's stats chain: on unless the ResBlocks train with
-        # dropout; the init attention follows the input conv (no sums)
+        # the JAX package's stats chain: per-frame sums (s1, s2) travel with
+        # h from block to block, on unless the ResBlocks train with dropout;
+        # a Downsample or Upsample resets them
         chain = not self.middle_block[0].unfused
+        shared = g > 1
+
+        def widen(h, st):
+            """Tile the stem's rows (and their sums) back to the batch."""
+            nonlocal shared
+            if shared:
+                h = h.repeat((g,) + (1,) * (h.ndim - 1))
+                st = None if st is None else tuple(s.repeat(g, 1) for s in st)
+                shared = False
+            return h, st
+
+        def push(h, st):
+            """A skip-stack entry, (h, sums), stem-tiled to the batch."""
+            if shared:
+                h = h.repeat(g, 1, 1, 1)
+                st = None if st is None else tuple(s.repeat(g, 1) for s in st)
+            hs.append((h, st))
+
+        def run(blk, h, st):
+            for layer in blk:
+                if isinstance(layer, ResBlock):
+                    e = emb[:bs * t] if shared else emb
+                    out = self._block(layer, h, e, t, st, chain)
+                elif isinstance(layer, SpatialTransformer):
+                    h, st = widen(h, st)
+                    out = self._block(layer, h, ctx, st, chain)
+                elif isinstance(layer, TemporalTransformer):
+                    nb = h.shape[0] // t
+                    st5 = None if st is None else sums_over_frames(st, nb, t)
+                    out = self._block(layer, h.reshape((nb, t) + h.shape[1:]),
+                                      st5, chain)
+                    if chain:
+                        out = (out[0].reshape(h.shape),
+                               tuple(s.reshape(nb * t, -1) for s in out[1]))
+                    else:
+                        out = out.reshape(h.shape)
+                else:  # Downsample, Upsample
+                    out = (layer(h), None)
+                h, st = out if isinstance(out, tuple) else (out, None)
+            return h, st
+
         h = x.reshape(b * t, hh, ww, x.shape[-1]).to(dt)
-        h = self.input_blocks[0][0](h)
-        h = self._run(self.init_attn, h, emb, ctx, t, False)
-        hs = [h]
+        if shared:
+            h = h[:bs * t]  # branch 0's clips: every branch's rows are equal
+        hs = []
+        h, st = run(self.init_attn, self.input_blocks[0][0](h), None)
+        push(h, st)
         for blk in self.input_blocks[1:]:
-            h = self._run(blk, h, emb, ctx, t, chain)
-            hs.append(h)
-        h = self._run(self.middle_block, h, emb, ctx, t, chain)
+            h, st = run(blk, h, st)
+            push(h, st)
+        h, st = widen(h, st)  # a no-op unless no level has attention
+        h, st = run(self.middle_block, h, st)
         for blk in self.output_blocks:
-            h = self._run(blk, torch.cat([h, hs.pop()], dim=-1), emb, ctx, t,
-                          chain)
-        h = self.out[2](self.out[0](h, chained=chain))
+            skip, skip_st = hs.pop()
+            h, st = run(blk, torch.cat([h, skip], dim=-1),
+                        concat_sums(st, skip_st))
+        h = self.out[2](self.out[0](h, stats=st))
         return h.reshape(b, t, hh, ww, self.out_channels).float()

@@ -39,12 +39,17 @@ class ResnetBlock(nn.Module):
         if cin != cout:
             self.nin_shortcut = Conv1x1(cin, cout)
 
-    def forward(self, x):
+    def forward(self, x, stats=None, return_stats: bool = False):
+        """``stats``: the producer's sums of x, each (N, C), for norm1 (it
+        then reads x for no statistics); with ``return_stats`` also conv2's
+        sums of the output, (y, s1, s2) (tooncrafter_tpu/models/vae.py:
+        42-69)."""
         skip = self.nin_shortcut(x) if hasattr(self, "nin_shortcut") else x
-        h, s1, s2 = spatial_conv3x3(x, self.norm1.folded(x), self.conv1,
-                                    return_stats=True)
+        h, s1, s2 = spatial_conv3x3(x, self.norm1.folded(x, stats=stats),
+                                    self.conv1, return_stats=True)
         return spatial_conv3x3(h, self.norm2.folded(h, stats=(s1, s2)),
-                               self.conv2, residual=skip)
+                               self.conv2, residual=skip,
+                               return_stats=return_stats)
 
 
 class AttnBlock(nn.Module):

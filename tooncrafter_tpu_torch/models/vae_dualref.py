@@ -31,7 +31,8 @@ import torch
 from torch import nn
 
 from tooncrafter_tpu_torch.ops.attention import attention
-from tooncrafter_tpu_torch.ops.norms import GroupNorm, LayerNorm
+from tooncrafter_tpu_torch.ops.norms import (GroupNorm, LayerNorm,
+                                             apply_affine, replace_end_frames)
 from tooncrafter_tpu_torch.ops.schedule import timestep_embedding
 from tooncrafter_tpu_torch.ops.spatial_conv import Conv1x1, Conv2d
 from tooncrafter_tpu_torch.ops.temporal_conv import TemporalConv3
@@ -52,7 +53,8 @@ class TimeStack(nn.Module):
     conv] as upstream. Its dropout is 0, so it always runs fused, as the
     JAX package does: each GN+SiLU is a folded affine applied in the next
     temporal conv's prologue, in_conv's per-frame sums feed out_norm, and
-    the alpha merge rides out_conv's epilogue as scale + residual."""
+    the alpha merge rides out_conv's epilogue as scale + residual, with the
+    per-frame sums of the merged output that the next block's norm folds."""
 
     def __init__(self, c: int):
         super().__init__()
@@ -62,13 +64,18 @@ class TimeStack(nn.Module):
                                         nn.SiLU(), nn.Dropout(0.0),
                                         TemporalConv3(c, c))
 
-    def forward(self, x, merge_scale):
-        """x + merge_scale * stack(x)."""
-        h, s1, s2 = self.in_layers[2].fused(x, self.in_layers[0].folded(x),
-                                            return_stats=True)
+    def forward(self, x, merge_scale, stats=None,
+                return_stats: bool = False):
+        """x + merge_scale * stack(x); ``stats``: the producer's per-frame
+        sums of x, each (B, T, C), folded over T for in_norm; with
+        ``return_stats`` (y, s1, s2), the per-frame sums of y."""
+        st = None if stats is None else tuple(s.sum(1) for s in stats)
+        h, s1, s2 = self.in_layers[2].fused(
+            x, self.in_layers[0].folded(x, stats=st), return_stats=True)
         aff = self.out_layers[0].folded(h, stats=(s1.sum(1), s2.sum(1)))
         return self.out_layers[3].fused(h, aff, residual=x,
-                                        out_scale=merge_scale)
+                                        out_scale=merge_scale,
+                                        return_stats=return_stats)
 
 
 class VideoResBlock(ResnetBlock):
@@ -81,14 +88,20 @@ class VideoResBlock(ResnetBlock):
             self.time_stack = TimeStack(cout)
             self.mix_factor = nn.Parameter(torch.zeros(1))
 
-    def forward(self, x):
+    def forward(self, x, stats=None, return_stats: bool = False):
+        """``stats`` in and out: per-frame sums, each (B, T, C), chained
+        through every conv epilogue (vae_dualref.py:124-150)."""
         b, t = x.shape[:2]
-        x = super().forward(_fold(x))
+        st = None if stats is None else tuple(s.reshape(b * t, -1)
+                                              for s in stats)
+        x, s1, s2 = super().forward(_fold(x), stats=st, return_stats=True)
         x = x.reshape((b, t) + x.shape[1:])
+        rb = (s1.reshape(b, t, -1), s2.reshape(b, t, -1))
         if not hasattr(self, "time_stack"):
-            return x
+            return (x, *rb) if return_stats else x
         # a*(x + stack(x)) + (1-a)*x == x + a*stack(x), a in fp32
-        return self.time_stack(x, torch.sigmoid(self.mix_factor.float())[0])
+        return self.time_stack(x, torch.sigmoid(self.mix_factor.float())[0],
+                               stats=rb, return_stats=return_stats)
 
 
 class AE3DConv(Conv2d):
@@ -196,10 +209,15 @@ class Combiner(nn.Module):
         super().__init__()
         self.conv = Conv1x1(c, c)
 
-    def forward(self, x, context):
+    def forward(self, x, context, stats=None):
+        """With ``stats`` (per-frame sums of x, each (B, T, C)) also the
+        sums of the output: frames 0 and -1 summed afresh, the rest kept."""
         ctx = self.conv(context)
-        return torch.cat([x[:, :1] + ctx[:, :1], x[:, 1:-1],
-                          x[:, -1:] + ctx[:, 1:2]], dim=1)
+        first, last = x[:, :1] + ctx[:, :1], x[:, -1:] + ctx[:, 1:2]
+        out = torch.cat([first, x[:, 1:-1], last], dim=1)
+        if stats is None:
+            return out
+        return (out, *replace_end_frames(stats, first, last))
 
 
 class DualRefVideoDecoder(nn.Module):
@@ -242,32 +260,46 @@ class DualRefVideoDecoder(nn.Module):
         self.up = nn.ModuleList(reversed(ups))
         self.attn_refinement = nn.ModuleList(
             list(reversed(refine)) + [Combiner(c)])
-        # the JAX package folds it from the chained sums (no one-pass kernel)
+        # folded from the chained sums (no one-pass kernel)
         self.norm_out = GroupNorm(c, 1e-6, one_pass=False)
         self.conv_out = AE3DConv(c, out_ch, temporal=time_res)
 
     def forward(self, z, refs: List[torch.Tensor]):
         """z: (B, T, h, w, z_ch) raw latents; refs: the encoder taps, each
-        (B, 2, H_l, W_l, C_l), ordered [level 0..3, conv_in]."""
+        (B, 2, H_l, W_l, C_l), ordered [level 0..3, conv_in].
+
+        Per-frame (B, T, C) sums of h chain from block to block through the
+        conv epilogues, as the JAX decoder chains them (vae_dualref.py:
+        384-446): no VideoResBlock after the mid block reads its input for
+        statistics; a Combiner sums its two touched frames afresh, a fusion
+        cross-attention resets the chain and the upsample conv re-seeds
+        it; norm_out folds the last sums."""
         b, t = z.shape[:2]
         h = self.conv_in(_fold(z))
         h = h.reshape((b, t) + h.shape[1:])
-        h = self.mid.block_1(h)
+        h, *st = self.mid.block_1(h, return_stats=True)
         if self.time_attn:
             h = self.mid.attn_1(h)
         else:
             h = self.mid.attn_1(_fold(h)).reshape(h.shape)
-        h = self.mid.block_2(h)
+        h, *st = self.mid.block_2(h, return_stats=True)
         for level in reversed(range(len(self.up))):
             up = self.up[level]
             for blk in up.block:
-                h = blk(h)
-            h = self.attn_refinement[level](h, refs[level])
+                h, *st = blk(h, stats=st or None, return_stats=True)
+            inject = self.attn_refinement[level]
+            if isinstance(inject, Combiner):
+                h, *st = inject(h, refs[level], stats=tuple(st))
+            else:
+                h, st = inject(h, refs[level]), []
             if hasattr(up, "upsample"):
-                f = up.upsample(_fold(h))
+                f, s1, s2 = up.upsample(_fold(h), return_stats=True)
                 h = f.reshape((b, t) + f.shape[1:])
-        # per-frame norm_out with the SiLU taken in fp32
-        f = self.norm_out(_fold(h).float())
-        h = (f * torch.sigmoid(f)).to(h.dtype).reshape(h.shape)
+                st = [s.reshape(b, t, -1) for s in (s1, s2)]
+        # per-frame norm_out from the chained sums, the SiLU in fp32
+        f = _fold(h)
+        a, c = self.norm_out.folded(f, stats=tuple(
+            s.reshape(b * t, -1) for s in st) if st else None)
+        h = apply_affine(f, a, c, act=True).reshape(h.shape)
         h = self.attn_refinement[-1](h, refs[-1])
         return self.conv_out(h)

@@ -47,9 +47,13 @@ def attention(q, k, v, *, heads: int, mask=None, scale=None):
 
 
 def temporal_attention_inplace(q, k, v, *, heads: int, mask=None,
-                               scale: Optional[float] = None):
+                               scale: Optional[float] = None,
+                               rel_k=None, rel_v=None):
     """Self-attention over the T axis of (B, T, H, W, heads*D) tensors;
-    ``mask`` is an optional (T, T) bool (True = keep)."""
+    ``mask`` is an optional (T, T) bool (True = keep). ``rel_k``, ``rel_v``:
+    optional (T, T, D) relative-position embeddings, added to the logits
+    (q . rel_k, scaled) and to the output (probs @ rel_v), as
+    tooncrafter_tpu/ops/attention.py:95-124 adds them."""
     b, t, hh, ww, inner = q.shape
     d = inner // heads
     scale = d ** -0.5 if scale is None else scale
@@ -57,10 +61,18 @@ def temporal_attention_inplace(q, k, v, *, heads: int, mask=None,
     def split(x):  # -> (B, H*W, heads, T, D)
         return x.reshape(b, t, hh * ww, heads, d).permute(0, 2, 3, 1, 4)
 
-    logits = torch.matmul(split(q).float(),
-                          split(k).float().transpose(-1, -2)).float() * scale
+    qs = split(q).float()
+    # fp32 logits also where autocast runs the products in bf16
+    logits = torch.matmul(qs, split(k).float().transpose(-1, -2)).float() \
+        * scale
+    if rel_k is not None:
+        logits = logits + torch.einsum("bpntd,tsd->bpnts", qs,
+                                       rel_k.float()).float() * scale
     if mask is not None:
         logits = logits.masked_fill(~mask, torch.finfo(torch.float32).min)
     probs = torch.softmax(logits, dim=-1).to(v.dtype)
     out = torch.matmul(probs, split(v))
+    if rel_v is not None:
+        out = out + torch.einsum("bpnts,tsd->bpntd", probs.float(),
+                                 rel_v.float()).float().to(v.dtype)
     return out.permute(0, 3, 1, 2, 4).reshape(b, t, hh, ww, inner)

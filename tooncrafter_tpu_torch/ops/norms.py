@@ -52,13 +52,13 @@ def gn_affine_from_stats(s1, s2, spatial: int, weight, bias,
         e = shift.float()
         s2 = s2 + 2.0 * e * s1 + spatial * e.square()
         s1 = s1 + spatial * e
-    mean = s1.reshape(n, num_groups, -1).sum(-1) / count
-    var = (s2.reshape(n, num_groups, -1).sum(-1) / count
+    mean = s1.reshape(n, num_groups, -1).sum(-1, keepdim=True) / count
+    var = (s2.reshape(n, num_groups, -1).sum(-1, keepdim=True) / count
            - mean.square()).clamp_min(0.0)
-    inv = torch.rsqrt(var + eps)
-    mean_c = mean.repeat_interleave(c // num_groups, dim=1)
-    a = inv.repeat_interleave(c // num_groups, dim=1) * weight.float()
-    b = bias.float() - mean_c * a
+    # the group statistics broadcast over each group's channels
+    a = torch.rsqrt(var + eps) * weight.float().reshape(num_groups, -1)
+    b = (bias.float().reshape(num_groups, -1) - mean * a).reshape(n, c)
+    a = a.reshape(n, c)
     if shift is not None:
         b = b + e * a
     return a, b
@@ -69,6 +69,54 @@ def gn_affine_from_stats(s1, s2, spatial: int, weight, bias,
 # ops/stats.py, beside its kernel; the models keep it (the JAX package's
 # models take their sums inline, not through its parked kernel).
 channel_sums = _stats._plain_sums
+
+
+# ---------------------------------------------------------------------------
+# the cross-block stats chain (tooncrafter_tpu/models/unet.py:844-970,
+# vae_dualref.py:392-446): per-channel fp32 sums (s1, s2) travel with the
+# activation from the block that produced it to the next norm
+# ---------------------------------------------------------------------------
+
+def output_sums(y, axes):
+    """fp32 sums of y and y^2 over ``axes``: the sums a block takes of its
+    own output, as the JAX transformers and Combiner take them inline
+    (y cast to fp32 before the square)."""
+    yf = y.float()
+    return yf.sum(axes), yf.square().sum(axes)
+
+
+def sums_over_frames(stats, b: int, t: int):
+    """Per-frame sums (B*T, C) -> sums over (T, H, W), each (B, C): what a
+    5-D GroupNorm spans (unet.py:893-897)."""
+    return tuple(s.reshape(b, t, -1).sum(1) for s in stats)
+
+
+def concat_sums(a, b):
+    """The sums of a channel concat [x_a, x_b]: the concat of their sums;
+    None unless both are known (unet.py:954-960)."""
+    if a is None or b is None:
+        return None
+    return tuple(torch.cat([p, q], dim=-1) for p, q in zip(a, b))
+
+
+def replace_end_frames(stats, first, last):
+    """Per-frame (B, T, C) sums of a clip whose frames 0 and -1 became
+    ``first`` and ``last`` (each (B, 1, H, W, C)): their sums taken afresh,
+    the T - 2 frames between kept (the Combiner, vae_dualref.py:209-235)."""
+    f, l = output_sums(first, (2, 3)), output_sums(last, (2, 3))
+    return tuple(torch.cat([fs, s[:, 1:-1], ls], dim=1)
+                 for s, fs, ls in zip(stats, f, l))
+
+
+def apply_affine(x, a, b, act: bool):
+    """x * A + B in fp32 (A, B: (N, C)), SiLU in fp32 when ``act``, one
+    rounding to x's dtype: a GroupNorm applied from chained sums (the JAX
+    ``GroupNormAct`` with ``stats``, norms.py:153-171)."""
+    bshape = (x.shape[0],) + (1,) * (x.ndim - 2) + (x.shape[-1],)
+    out = torch.addcmul(b.reshape(bshape), x, a.reshape(bshape))
+    if act:
+        out = out.mul_(torch.sigmoid(out))
+    return out.to(x.dtype)
 
 
 def gn_affine(x, weight, bias, num_groups: int = 32, eps: float = 1e-6,
@@ -102,10 +150,11 @@ class GroupNorm(nn.GroupNorm):
     """torch.nn.GroupNorm's parameters (``weight``, ``bias``) applied to a
     channels-last tensor with fp32 statistics; ``act`` adds SiLU.
 
-    ``one_pass`` marks the JAX package's ``GroupNormAct`` sites (False where
-    it runs its plain ``GroupNorm``): there, called with ``chained`` False
-    (the JAX package has no producer sums to fold at this site), the norm
-    goes through ``fused_norms.group_norm_silu``, as ``GroupNormAct`` does
+    Given ``stats`` (the producer's sums of x), the norm folds them and
+    applies x * A + B without reading x for statistics (``apply_affine``).
+    Without them, ``one_pass`` marks the JAX package's ``GroupNormAct``
+    sites (False where it runs its plain ``GroupNorm``): there the norm goes
+    through ``fused_norms.group_norm_silu``, as ``GroupNormAct`` does
     (tooncrafter_tpu/ops/norms.py:170-175): the one-pass kernel under
     TOONCRAFTER_FUSED_GN=1 where a sample fits its budget, else this
     module's own formula."""
@@ -116,10 +165,13 @@ class GroupNorm(nn.GroupNorm):
         self.act = act
         self.one_pass = one_pass
 
-    def forward(self, x, shift=None, chained: bool = False):
+    def forward(self, x, shift=None, stats=None):
         from tooncrafter_tpu_torch.ops import fused_norms
 
-        if chained or not self.one_pass:
+        if stats is not None:
+            return apply_affine(x, *self._from_stats(x, shift, stats),
+                                self.act)
+        if not self.one_pass:
             return group_norm(x, self.weight, self.bias, self.num_groups,
                               self.eps, self.act, shift)
         return fused_norms.group_norm_silu(x, self.weight, self.bias,
@@ -133,6 +185,9 @@ class GroupNorm(nn.GroupNorm):
         if stats is None:
             return gn_affine(x, self.weight, self.bias, self.num_groups,
                              self.eps, shift)
+        return self._from_stats(x, shift, stats)
+
+    def _from_stats(self, x, shift, stats):
         spatial = 1
         for d in x.shape[1:-1]:
             spatial *= d

@@ -27,6 +27,21 @@ launch under the F(2x4) wrapper's name exactly where the TPU package takes
 F(2x4) (``table_entry24``: the 576x1024 model's 36x64 640->640 convs), and
 under the F(2x2) name everywhere else.
 
+Four more of the JAX package's switches are read once, at import, into
+module globals (tests set the globals): ``TC_WINOGRAD=0`` (``_WINOGRAD``)
+empties both Winograd tables and ``TC_WINOGRAD24=0`` (``_WINOGRAD24``) the
+F(2x4) one, so those shapes fall through to the rule below, as in the JAX
+``_impl``; ``TC_PROLOGUE_DTYPE`` (``_PROLOGUE_DTYPE``: "ref", the default,
+"f32" or "bf16") picks the prologue's cast point (ops/spatial_conv.py:
+312-336): under "f32" every launch takes the kernel's fp32 cast point (the
+SiLU in fp32, one rounding, as #15 always does), under "bf16" the JAX
+package declines both Winograd kernels, so the tables name nothing and a
+conv no kernel takes runs the plain route with (A, B) folded to bf16 and
+the prologue in bf16; ``TC_STATS_SQ_BF16`` (``_STATS_SQ_BF16``, any
+non-empty value) squares in bf16 in the plain route's sums. The backward
+(``_xla_conv3x3``) follows the same prologue, as the JAX ``_fused_bwd``
+differentiates ``_xla_impl`` under the same globals.
+
 ``TC_SPATIAL_CONV_PALLAS`` (read once, at import, as the JAX package reads
 it: any non-empty value) adds the TPU package's im2col kernel
 (spatial_conv.py::_pallas_fused_conv, #15) to that dispatch: where neither
@@ -74,6 +89,11 @@ _TABLE = frozenset({
     (36, 64, 640, 640), (18, 32, 1280, 1280), (18, 32, 1920, 1280),
     (18, 32, 2560, 1280)})
 _SPATIAL_CONV_PALLAS = bool(os.environ.get("TC_SPATIAL_CONV_PALLAS"))
+# tooncrafter_tpu/ops/winograd.py:51, 371 and spatial_conv.py:312, 318
+_WINOGRAD = os.environ.get("TC_WINOGRAD", "1") != "0"
+_WINOGRAD24 = os.environ.get("TC_WINOGRAD24", "1") != "0"
+_PROLOGUE_DTYPE = os.environ.get("TC_PROLOGUE_DTYPE", "ref")
+_STATS_SQ_BF16 = bool(os.environ.get("TC_STATS_SQ_BF16"))
 _VMEM_BUDGET = 12 * 1024 * 1024
 
 
@@ -134,15 +154,21 @@ class Downsample(nn.Module):
 
 
 class Upsample(nn.Module):
-    """Nearest 2x upsample followed by a 3x3 SAME conv (``conv``)."""
+    """Nearest 2x upsample followed by a 3x3 SAME conv (``conv``); with
+    ``return_stats`` also the per-image sums of its output, each (N, C),
+    which re-seed the decoder's stats chain (the JAX package takes them
+    inline, ops/resize.py:117-122)."""
 
     def __init__(self, channels: int):
         super().__init__()
         self.conv = Conv2d(channels, channels, 3, padding=1)
 
-    def forward(self, x):
-        x = x.repeat_interleave(2, dim=1).repeat_interleave(2, dim=2)
-        return self.conv(x)
+    def forward(self, x, return_stats: bool = False):
+        from tooncrafter_tpu_torch.ops.norms import output_sums
+
+        y = self.conv(x.repeat_interleave(2, dim=1).repeat_interleave(2,
+                                                                     dim=2))
+        return (y, *output_sums(y, (1, 2))) if return_stats else y
 
 
 # ---------------------------------------------------------------------------
@@ -157,12 +183,13 @@ def reset_launch_counts() -> None:
 def table_entry24(h: int, w: int, cin: int, cout: int) -> bool:
     """Would the TPU package take its F(2x4) kernel here? Its allowlist and
     the tiling's geometry gates (2-row, 4-column output tiles)."""
-    return h % 2 == 0 and w % 4 == 0 and (h, w, cin, cout) in _TABLE24
+    return (_WINOGRAD24 and _WINOGRAD and h % 2 == 0 and w % 4 == 0
+            and (h, w, cin, cout) in _TABLE24)
 
 
 def table_entry(h: int, w: int, cin: int, cout: int) -> bool:
     """Would the TPU package take its F(2x2) kernel here?"""
-    return (h, w, cin, cout) in _TABLE
+    return _WINOGRAD and (h, w, cin, cout) in _TABLE
 
 
 # the TPU package's rule for its im2col kernel (spatial_conv.py:43-114):
@@ -210,21 +237,35 @@ def _use_kernel(h: int, w: int, cin: int, cout: int) -> bool:
 
 def tpu_kernel(h: int, w: int, cin: int, cout: int) -> Optional[str]:
     """The TPU kernel the JAX package's ``_impl`` (spatial_conv.py:371-395)
-    takes at this shape, by name, or None where it runs XLA."""
-    if table_entry24(h, w, cin, cout):
-        return "winograd24_gn_silu_conv3x3"
-    if table_entry(h, w, cin, cout):
-        return "winograd_gn_silu_conv3x3"
+    takes at this shape, by name, or None where it runs XLA. The "bf16"
+    prologue declines both Winograd kernels."""
+    if _PROLOGUE_DTYPE != "bf16":
+        if table_entry24(h, w, cin, cout):
+            return "winograd24_gn_silu_conv3x3"
+        if table_entry(h, w, cin, cout):
+            return "winograd_gn_silu_conv3x3"
     if _use_kernel(h, w, cin, cout):
         return "_pallas_fused_conv"
     return None
 
 
-def conv_kernel_name(h: int, w: int, cin: int, cout: int) -> str:
+def conv_kernel_name(h: int, w: int, cin: int, cout: int) -> Optional[str]:
     """The TPU kernel a launch at this shape is counted under: the one the
     JAX package takes, and F(2x2)'s where it runs XLA (the port's kernel
-    runs at every UNet conv)."""
-    return tpu_kernel(h, w, cin, cout) or "winograd_gn_silu_conv3x3"
+    runs at every UNet conv), except under the "bf16" prologue, which no
+    kernel computes: None there (the plain route)."""
+    name = tpu_kernel(h, w, cin, cout)
+    if name is None and _PROLOGUE_DTYPE != "bf16":
+        return "winograd_gn_silu_conv3x3"
+    return name
+
+
+def round_first(name: str) -> bool:
+    """The cast point a launch under ``name`` takes: the "ref" point (the
+    affine rounds before the SiLU) where the JAX kernel of that name takes
+    it, else the fp32 point (one rounding after the SiLU): #15 always,
+    every kernel under TC_PROLOGUE_DTYPE=f32."""
+    return name != "_pallas_fused_conv" and _PROLOGUE_DTYPE == "ref"
 
 
 def _prologue(x, a, b, silu: bool, cdt, round_first: bool = True):
@@ -349,16 +390,16 @@ class _ConvFunction(torch.autograd.Function):
 def _dispatch(name: str, x, a, b, weight, bias, res, silu: bool,
               stats: bool):
     """The plain version for CPU tensors, the kernel for CUDA tensors, its
-    launch counted under ``name``; #15's name takes its fp32 cast point."""
-    round_first = name != "_pallas_fused_conv"
+    launch counted under ``name``, at ``round_first(name)``'s cast point."""
+    rf = round_first(name)
     if _launch.on_cpu("GN+SiLU+3x3 conv", x, a, b, weight, bias, res):
         return _plain_conv3x3(x, a, b, weight, bias, res, silu, stats,
-                              round_first=round_first)
+                              round_first=rf)
     if a is None:
         a = torch.ones(x.shape[0], x.shape[-1], device=x.device)
         b = torch.zeros_like(a)
     out = _launch_conv(x, a, b, kernel_weight(weight), bias, res, silu, stats,
-                       **({} if round_first else {"round_first": False}))
+                       **({} if rf else {"round_first": False}))
     LAUNCHES[name] += 1
     return out
 
@@ -397,9 +438,12 @@ def gn_silu_conv3x3(x, affine, conv: nn.Conv2d, residual=None,
     parameters; with return_stats also per-channel sums (s1, s2), each
     (N, Cout), of the output over (H, W)."""
     n, h, w, cin = x.shape
-    return _conv(conv_kernel_name(h, w, cin, conv.weight.shape[0]), x,
-                 affine[0], affine[1], conv.weight, conv.bias, residual, True,
-                 return_stats)
+    name = conv_kernel_name(h, w, cin, conv.weight.shape[0])
+    if name is None:
+        return _xla_conv3x3(x, affine[0], affine[1], conv.weight, conv.bias,
+                            residual, True, return_stats)
+    return _conv(name, x, affine[0], affine[1], conv.weight, conv.bias,
+                 residual, True, return_stats)
 
 
 def _pallas_fused_conv(x, a, b, weight, bias, res=None, silu: bool = True,
@@ -411,18 +455,34 @@ def _pallas_fused_conv(x, a, b, weight, bias, res=None, silu: bool = True,
                  stats)
 
 
+def _apply_prologue(x, a, b, silu: bool, cdt):
+    """The JAX ``_apply_prologue`` (spatial_conv.py:322-336) at
+    TC_PROLOGUE_DTYPE's cast point, in ``cdt``: "ref" and "f32" as
+    ``_prologue`` rounds them; "bf16" (for a ``cdt`` other than fp32) folds
+    (A, B) to ``cdt`` and runs the affine and the SiLU there, each step
+    rounded, the sigmoid as 1 / (1 + exp(-z)) (as XLA lowers a bf16
+    logistic)."""
+    if _PROLOGUE_DTYPE == "bf16" and cdt != torch.float32 and a is not None:
+        z = (x.to(cdt) * a.to(cdt)[:, None, None]
+             + b.to(cdt)[:, None, None])
+        return z * (1.0 / (1.0 + torch.exp(-z))) if silu else z
+    return _prologue(x, a, b, silu, cdt, _PROLOGUE_DTYPE == "ref")
+
+
 def _xla_conv3x3(x, a, b, weight, bias, res, silu: bool, stats: bool):
-    """The JAX package's XLA form (``_xla_impl``, "ref" cast point) in the
-    compute dtype: the prologue rounds, F.conv2d with its bias, + res;
-    ``a`` None: the identity affine."""
+    """The JAX package's XLA form (``_xla_impl``) in the compute dtype: the
+    prologue at TC_PROLOGUE_DTYPE's cast point, F.conv2d with its bias, +
+    res; the sums with y squared in fp32, or in y's dtype under
+    TC_STATS_SQ_BF16; ``a`` None: the identity affine."""
     cdt = _launch.compute_dtype(x)
-    z = _prologue(x, a, b, silu, cdt)
+    z = _apply_prologue(x, a, b, silu, cdt)
     y = conv2d_nhwc(z, weight.to(cdt), bias.to(cdt), padding=1)
     if res is not None:
         y = y + res.to(cdt)
     if stats:
         yf = y.float()
-        return y, yf.sum((1, 2)), yf.square().sum((1, 2))
+        sq = y.square().float() if _STATS_SQ_BF16 else yf.square()
+        return y, yf.sum((1, 2)), sq.sum((1, 2))
     return y
 
 

@@ -11,7 +11,9 @@ kernel on CUDA tensors inside the JAX package's envelope (``_use_kernel``,
 with "on a TPU" read as "on CUDA"), as the JAX function does on a TPU;
 elsewhere the plain version. No model calls it: the JAX package parks the
 kernel (its A/B lost to XLA's inline sums) and the port's models keep
-``ops.norms.channel_sums``, which is this module's plain version.
+``ops.norms.channel_sums``, which is this module's plain version, and take
+the sums the stats chain needs of a block's output inline
+(``ops.norms.output_sums``), as the JAX models do.
 
 Under autograd ``_SumsFunction`` runs the same dispatch forward and the JAX
 custom_vjp's backward, gx = g1 + 2 x g2 in x's dtype

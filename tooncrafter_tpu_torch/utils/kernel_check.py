@@ -357,8 +357,9 @@ def ff_cases(dev, gen, shapes=FF_512) -> List[Case]:
 # are in tests/test_torch_selectors_switched.py and _1024.py, which
 # tests/test_torch_temporal_conv.py holds these rows to). The UNet's
 # TemporalConvBlocks (2 CFG branches): conv1-3 with the next norm's sums,
-# conv4 with the block residual; the decoder's TimeStacks: in_layers with
-# sums, out_layers with the alpha merge as out_scale + residual
+# conv4 with the block residual and the sums of the block's output (the
+# stats chain); the decoder's TimeStacks: in_layers with sums, out_layers
+# with the alpha merge as out_scale + residual and the merged output's sums
 def _tconv_rows(prefix, unet, decoder):
     """The rows of one model: ``unet`` (level, P, C, a note on its stats
     row), ``decoder`` (P, C) from level 0 up."""
@@ -366,13 +367,13 @@ def _tconv_rows(prefix, unet, decoder):
     for level, p, c, note in unet:
         rows += [(f"{prefix}UNet {level} affine+SiLU+stats{note}",
                   (2, 16, p, c), False, False, True),
-                 (f"{prefix}UNet {level} affine+SiLU+residual",
-                  (2, 16, p, c), True, False, False)]
+                 (f"{prefix}UNet {level} affine+SiLU+residual+stats",
+                  (2, 16, p, c), True, False, True)]
     for level, (p, c) in enumerate(decoder):
         rows += [(f"{prefix}decoder level {level} affine+SiLU+stats",
                   (1, 16, p, c), False, False, True),
-                 (f"{prefix}decoder level {level} out_scale+residual",
-                  (1, 16, p, c), True, True, False)]
+                 (f"{prefix}decoder level {level} out_scale+residual+stats",
+                  (1, 16, p, c), True, True, True)]
     return tuple(rows)
 
 
@@ -456,13 +457,37 @@ CONV_1024 = (("1024 ds2", (32, 36, 64, 640, 640)),
              ("1024 ds1", (32, 72, 128, 320, 320)))
 
 
-def conv_cases(dev, gen, shapes=CONV_512, name=None) -> List[Case]:
+@contextlib.contextmanager
+def prologue_dtype(value: str):
+    """``spatial_conv._PROLOGUE_DTYPE`` (TC_PROLOGUE_DTYPE) set to
+    ``value`` for the calls inside."""
+    saved, sc._PROLOGUE_DTYPE = sc._PROLOGUE_DTYPE, value
+    try:
+        yield
+    finally:
+        sc._PROLOGUE_DTYPE = saved
+
+
+def _under(prologue, fn_):
+    """fn_ with TC_PROLOGUE_DTYPE at ``prologue`` (None: as it is)."""
+    if prologue is None:
+        return fn_
+
+    def call(*a, **k):
+        with prologue_dtype(prologue):
+            return fn_(*a, **k)
+    return call
+
+
+def conv_cases(dev, gen, shapes=CONV_512, name=None,
+               prologue: Optional[str] = None) -> List[Case]:
     """(N, H, W, Cin -> Cout): the UNet ResBlocks' out_conv form (folded GN
     affine + SiLU prologue, bias, the skip as residual, sums for the next
     norm) at the input level, an output level's skip concat and the widest
     concat at 10x16 (a ragged pixel tile). Each case's wrapper is the one
     ``gn_silu_conv3x3`` takes at its shape, or ``name``'s (#15, with its
-    prologue's cast point)."""
+    prologue's cast point); ``prologue`` sets TC_PROLOGUE_DTYPE for the
+    case (its name and cast point as the route takes them there)."""
     fixed = name
     cases = []
     for label, (n, h, w, cin, cout) in shapes:
@@ -481,12 +506,15 @@ def conv_cases(dev, gen, shapes=CONV_512, name=None) -> List[Case]:
             # the conv alone on the activated input, channels-last (cuDNN)
             return F.conv2d(o[0].permute(0, 3, 1, 2), o[3], o[4], padding=1)
 
-        name = fixed or sc.conv_kernel_name(h, w, cin, cout)
-        rf = name != "_pallas_fused_conv"
+        with prologue_dtype(prologue or sc._PROLOGUE_DTYPE):
+            name = fixed or sc.conv_kernel_name(h, w, cin, cout)
+            rf = sc.round_first(name)
+        cast = "" if prologue is None else f", TC_PROLOGUE_DTYPE={prologue}"
         cases.append(Case(
-            name, f"{label} N={n} {h}x{w} C={cin}->{cout} stats+residual",
-            kernel=lambda o=ops, f=getattr(sc, name): f(
-                *o, silu=True, stats=True),
+            name, f"{label} N={n} {h}x{w} C={cin}->{cout} stats+residual"
+            f"{cast}",
+            kernel=_under(prologue, lambda o=ops, f=getattr(sc, name): f(
+                *o, silu=True, stats=True)),
             reference=lambda o=ops, rf=rf: sc._plain_conv3x3(
                 o[0].float(), o[1], o[2], o[3].float(), o[4].float(),
                 o[5].float(), True, False, cdt=torch.bfloat16,
@@ -524,13 +552,15 @@ def tpair_bytes(n: int, c: int, stages: int = 2) -> float:
     return 2.0 * 2 * n * c + stages * (8.0 * c * c + 2.0 * c + 8.0 * c)
 
 
-def tpair_cases(dev, gen, shapes=TPAIR_512, t: int = 16) -> List[Case]:
+def tpair_cases(dev, gen, shapes=TPAIR_512, t: int = 16,
+                bsz: int = 2) -> List[Case]:
     """(B, T, P, C): the temporal transformer blocks' attention pair at each
     UNet level, the init attention's 512-wide blocks, and the mid block (T
-    frames: the UNet's 16 unless given)."""
+    frames: the UNet's 16 unless given; B clips: a CFG pair's two unless
+    given)."""
     cases = []
     for label, p, c in shapes:
-        bsz, heads = 2, c // ta.HEAD_DIM
+        heads = c // ta.HEAD_DIM
         x = _rnd(gen, dev, bsz, t, p, c)
         stages = tuple(
             (_rnd(gen, dev, c, scale=0.1, offset=1.0, dtype=torch.float32),
@@ -738,6 +768,47 @@ def fused_cases(dev, seed: int = 0, ff=FF_512, tconv=TCONV_512,
             for c in tconv_cases(dev, gen, tconv)]
     out += [(c, (1, 2)) for c in conv_cases(dev, gen, conv)]
     out += [(c, None) for c in tpair_cases(dev, gen, tpair)]
+    return out
+
+
+# The stem under CFG stem sharing (``ToonCrafter.denoise`` passes
+# cfg_groups=2): the init attention and the first ResBlock run on one clip's
+# 16 frames (tests/test_torch_selectors_stem.py holds these rows to the
+# launches of both models): the init attention's pair and FF, the ResBlock's
+# two convs and its TemporalConvBlock's four temporal convs
+STEM_512 = dict(ff=(("stem init_attn", 40960, 512),),
+                tconv=(("stem UNet ds1 affine+SiLU+stats", (1, 16, 2560, 320),
+                        False, False, True),
+                       ("stem UNet ds1 affine+SiLU+residual+stats",
+                        (1, 16, 2560, 320), True, False, True)),
+                conv=(("stem ds1", (16, 40, 64, 320, 320)),),
+                tpair=(("stem init_attn", 2560, 512),))
+STEM_1024 = dict(ff=(("1024 stem init_attn", 147456, 512),),
+                 tconv=(("1024 stem UNet ds1 affine+SiLU+stats",
+                         (1, 16, 9216, 320), False, False, True),
+                        ("1024 stem UNet ds1 affine+SiLU+residual+stats",
+                         (1, 16, 9216, 320), True, False, True)),
+                 conv=(("1024 stem ds1", (16, 72, 128, 320, 320)),),
+                 tpair=(("1024 stem init_attn", 9216, 512),))
+# TC_PROLOGUE_DTYPE=f32: #13's and #14's names at the fp32 cast point
+F32_CONV = CONV_512 + CONV_1024[:1]
+
+
+def chain_cases(dev, seed: int = 0) -> List[Tuple[Case, Optional[tuple]]]:
+    """The launches the stats chain, the stem sharing and the conv switches
+    add: the stem's B/n-row shapes of both models, and #13 and #14 at the
+    fp32 cast point (TC_PROLOGUE_DTYPE=f32); the temporal convs' residual
+    and merge epilogues with sums are rows of TCONV_512 and TCONV_1024."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    out: List[Tuple[Case, Optional[tuple]]] = []
+    for stem in (STEM_512, STEM_1024):
+        out += [(c, None) for c in ff_cases(dev, gen, stem["ff"])]
+        out += [(c, (2,)) for c in tconv_cases(dev, gen, stem["tconv"])]
+        out += [(c, (1, 2)) for c in conv_cases(dev, gen, stem["conv"])]
+        out += [(c, None) for c in tpair_cases(dev, gen, stem["tpair"],
+                                                bsz=1)]
+    out += [(c, (1, 2)) for c in conv_cases(dev, gen, F32_CONV,
+                                             prologue="f32")]
     return out
 
 

@@ -1,5 +1,6 @@
 """Where the card's time goes: a torch.profiler breakdown of one denoise
-step (one CFG-batched UNet call) and one dual-ref decode of a 16-frame
+step (one CFG-batched UNet call, the stem shared as the sampler shares it)
+and one dual-ref decode of a 16-frame
 interpolation model (``--config``, by default the 320x512 model's
 configs/inference_512_v1.0.yaml; configs/inference_1024_v1.0.yaml for the
 576x1024 model), by kernel and by kind; with ``--train``, of one training
@@ -228,10 +229,23 @@ def main() -> None:
         model = ToonCrafter(cfg)
     init_random_(model, torch.Generator(dev).manual_seed(SEED))
     model.to_compute_dtype().eval()
+    torch.cuda.reset_peak_memory_stats(dev)
+    inference_breakdown(model, dev)
+    print(f"peak memory allocated "
+          f"{torch.cuda.max_memory_allocated(dev) / 2 ** 30:.2f} GiB")
+
+
+def inference_breakdown(model, dev) -> Dict[str, Dict[str, float]]:
+    """Profile one denoise step as the DDIM sampler calls the UNet (a CFG
+    pair over one clip: the same x, t and fs in both rows, two contexts,
+    ``cfg_groups=2``) and one dual-ref decode of ``model`` (bf16, on
+    ``dev``); print each report and return its device ms by kind (with
+    ``wall_ms`` and ``busy_ms``)."""
+    cfg = model.config
     g = torch.Generator(dev).manual_seed(SEED)
     t, h, w = cfg.video_length, cfg.latent_h, cfg.latent_w
-    x = torch.randn(2, t, h, w, cfg.unet_in_channels, generator=g,
-                    device=dev)
+    x = torch.randn(1, t, h, w, cfg.unet_in_channels, generator=g,
+                    device=dev).repeat(2, 1, 1, 1, 1)
     ts = torch.full((2,), 500.0, device=dev)
     ctx = torch.randn(2, 77 + t * cfg.resampler_queries, cfg.context_dim,
                       generator=g, device=dev)
@@ -243,14 +257,14 @@ def main() -> None:
     refs.append(torch.randn(1, 2, h * 8, w * 8, cfg.vae_ch, generator=g,
                             device=dev, dtype=torch.bfloat16))
     geometry = f"{h * 8}x{w * 8}"
-    torch.cuda.reset_peak_memory_stats(dev)
     with torch.no_grad():
-        report(f"denoise step (UNet, 2 CFG branches x 16 frames, {geometry})",
-               *profile(lambda: model.unet(x, ts, ctx, fs)))
-        report(f"dual-ref decode (16 frames, {geometry})",
-               *profile(lambda: model.decode_first_stage(z, refs)))
-    print(f"peak memory allocated "
-          f"{torch.cuda.max_memory_allocated(dev) / 2 ** 30:.2f} GiB")
+        unet = report(
+            f"denoise step (UNet, 2 CFG branches x 16 frames, stem shared, "
+            f"{geometry})",
+            *profile(lambda: model.unet(x, ts, ctx, fs, cfg_groups=2)))
+        decode = report(f"dual-ref decode (16 frames, {geometry})",
+                        *profile(lambda: model.decode_first_stage(z, refs)))
+    return {"UNet step": unet, "decode": decode}
 
 
 if __name__ == "__main__":
