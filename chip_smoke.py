@@ -96,8 +96,9 @@ Phases, each printed on its own lines; any failure exits non-zero:
      memory, then two steps each with the 'adamw_lowmem' and 'adafactor'
      profiles (their state bytes and peaks); 4d on that model
      ``make_val_step`` with the EMA weights and one ``VideoSampleLogger``
-     clip (DDIM-2), finite and written; 4a' and 4b' the same under
-     TOONCRAFTER_FUSED_GN=1 and TC_SPATIAL_CONV_PALLAS=1 (#16 and #15); 4c
+     clip (DDIM-2), finite and written; 4a' (on ``shallow_config``) and
+     4b' the same under TOONCRAFTER_FUSED_GN=1 and TC_SPATIAL_CONV_PALLAS=1
+     (#16 and #15); 4c
      the 576x1024 training model (configs/training_1024_v1.0.yaml, one
      clip) takes three AdamW steps with EMA, #14 launched in each;
   5. multi-device (``parallel/`` over torch.distributed): 5a a process
@@ -112,18 +113,33 @@ Phases, each printed on its own lines; any failure exits non-zero:
      ranks' trainables equal bit for bit after each, every rank launching
      REDUCED_TRAIN_KERNELS; 5c two ranks sharing cuda:0 over gloo serve
      three 512 clips through ``BatchedPipeline`` (ragged: two and one,
-     DDIM-10, per-item generators), held against one process running the
+     DDIM-4, per-item generators), held against one process running the
      same micro-batches, every rank launching KERNELS_512; 5d
      ``graft_entry.entry("cuda")``'s UNet forward, finite, of the latent
      shape, and ``graft_entry.dryrun_multidevice(2, "cuda")`` (a train
      step, validation and DDIM-2 serving at the tiny config on two ranks
-     sharing the card, its values finite). A rank that raises, exits non-zero or outlives RANK_TIMEOUT_S
-     fails the run.
+     sharing the card, its values finite). Tensor parallelism over the
+     mesh's model axis (``parallel/tensor.py``: the UNet's transformer
+     blocks hold a model rank's heads and FF width; phase 2 holds the FF
+     (#7/#8) and the single temporal stage (#10) with their partial fp32
+     out-GEMM and #1 at a rank's local shapes): 5e one CFG-batched UNet
+     call of the full-width 512 inference model at (1 data, 2 model) on
+     two ranks sharing the card, against the same call at world one (PSNR
+     >= TP_MIN_PSNR), each rank's launches the layout's prediction (the
+     pair's launches as twice as many single stages); 5f two AdamW steps of
+     the reduced training model at (1, 2) against world one (the gathered
+     gradients' cosine >= TP_GRAD_MIN_COSINE, the updates' cosine >=
+     TP_UPDATE_MIN_COSINE), its checkpoint restored at (1, 1); 5g four
+     ranks at (2, 2): ``BatchedPipeline(shard_params=True)`` serves three
+     reduced-model clips at DDIM-2 (ragged: two and one) against one
+     process (>= TP_SERVE_MIN_PSNR), then the graft dry run at (2, 2). A
+     rank that raises, exits non-zero or outlives RANK_TIMEOUT_S fails the
+     run.
 No model phase launches #5, #17 or #18. The last two lines are the
 kernels' JSON summary (``launches`` from the first path that runs the
 kernel: 3b, else 3c, else 4b, else 3d, else 4b', else 4c, else the paths
 of 3e, 3f and 5, else 2'; and each path's count, 3e's, 3f's, 5a's and
-each rank's of 5b and 5c too) and the device JSON.
+each rank's of 5b, 5c, 5e, 5f and 5g too) and the device JSON.
 """
 
 from __future__ import annotations
@@ -226,10 +242,27 @@ FLASH_CHECKED = set()
 WORLD1_MIN_COSINE = 0.9999
 WORLD1_STEPS = 2
 RANK_PROFILES = (("adamw", 2), ("adafactor", 1))
-SERVE_DDIM_STEPS = 10
+SERVE_DDIM_STEPS = 4
 SERVE_MIN_PSNR = 40.0
 # a spawned rank that runs longer than this fails its phase
 RANK_TIMEOUT_S = 300.0
+# tensor parallelism: 5e's UNet call at (1, 2) against world one, both bf16
+# on the card (the sharded sub-blocks sum their heads in fp32 in another
+# order, and their partial products reach bf16 once, after the sum); 5f's
+# gathered gradients and the updates of two AdamW steps against world one
+# (AdamW's first steps move each weight by about the learning rate times
+# the sign of its gradient, so a gradient within bf16 noise of zero may
+# flip its update); 5g's served clips against one process
+TP_MIN_PSNR = 40.0
+TP_GRAD_MIN_COSINE = 0.999
+TP_UPDATE_MIN_COSINE = 0.9
+# 5g: the reduced random-weight model at CFG 7.5 amplifies bf16 summation
+# order into the clips: 3a'' measures 36.7-38.3 dB for a mere batch-size
+# change on it (DDIM-3), and the sharded path's fp32 partial sums perturb
+# every attention and FF (34.49-35.06 dB measured in two runs, under the
+# 35 dB first set); tests/test_torch_tensor_parallel.py holds the sharded
+# path as close to fp32 as one process is, in bf16 on the CPU
+TP_SERVE_MIN_PSNR = 33.0
 # a batch of two clips with per-item generators against each clip alone,
 # reduced model in bf16 on the card, against the same comparison with
 # nothing drawn (3a'' prints both): batched and single runs sum in other
@@ -336,6 +369,18 @@ def check_kernels(dev) -> dict:
             lambda qkv, h=heads: packed_plain(qkv, h),
             lambda qkv, h=heads: packed_sdpa(qkv, h), None, (20, 3),
             (32 * heads, s, s, 64)))
+    # tensor parallelism: a model rank's 3 or 2 of ds1's 5 heads, packed,
+    # routed by the whole call (parallel/tensor.py)
+    for heads in (3, 2):
+        c = 64 * heads
+        cases.append((
+            "_flash_mh_packed", f"TP ds1 {heads} of 5 heads B=32 S=2560 "
+            f"C={c}", (rnd(32, 2560, 3 * c),),
+            lambda qkv, h=heads: fa.flash_attention_packed(qkv, h, 0.125,
+                                                           whole_c=320),
+            lambda qkv, h=heads: packed_plain(qkv, h),
+            lambda qkv, h=heads: packed_sdpa(qkv, h), None, (20, 3),
+            (32 * heads, 2560, 2560, 64)))
     qkv = rnd(32, 160, 3 * 1280)  # ds4: slices of the packed projection
     cases.append(("_flash_mh", "ds4 B=32 S=160 C=1280",
                   (qkv[..., :1280], qkv[..., 1280:2560], qkv[..., 2560:]),
@@ -471,7 +516,7 @@ def check_kernels(dev) -> dict:
         row["max_abs_err"] = max(row["max_abs_err"], mx)
     del cases, args, got, ref, ref_args, qkv
     for cases_of in (kc.fused_cases, kc.fused_cases_1024, kc.chain_cases,
-                     kc.switched_cases, kc.op_cases):
+                     kc.switched_cases, kc.op_cases, kc.tp_cases):
         for case, axes in cases_of(dev):
             r = kc.run_case(case, axes)
             print(kc.line(case, r), flush=True)
@@ -681,6 +726,18 @@ def reduced_config(base):
         latent_h=32, latent_w=48, model_channels=320, num_res_blocks=1,
         channel_mult=(1, 2, 4), attention_resolutions=(1, 2),
         num_head_channels=64, vae_ch=32, vae_ch_mult=(1, 2, 4, 16))
+
+
+def shallow_config(base):
+    """``reduced_config`` without its 1280-wide level: the model of 4a' and
+    the multi-rank training phases (5b, 5f), cut in depth for the run's time
+    limit.
+    It still reaches every kernel of REDUCED_TRAIN_KERNELS: ds1 (5 heads)
+    packed, ds2 (10 heads, S = 384) token-major, the init attention's FF
+    streamed at C = 512, the pair, #6 and #12."""
+    import dataclasses
+
+    return dataclasses.replace(reduced_config(base), channel_mult=(1, 2))
 
 
 @contextlib.contextmanager
@@ -1132,14 +1189,16 @@ def check_ddpm_decode_plain(dev) -> None:
 
 
 def table_config(base):
-    """The reduced training model at the 512 model's ds2 and ds4 shapes:
-    20x32 latents at 640 channels and 10x16 at 1280, where the JAX
+    """The reduced training model at the 512 model's ds2 and ds4 shapes
+    (over two frames): 20x32 latents at 640 channels and 10x16 at 1280,
+    where the JAX
     package's F(2x2) table takes the ResBlock convs (#13) but for the 640
     -> 1280 in_conv."""
     return base.tiny(
         latent_h=20, latent_w=32, model_channels=640, num_res_blocks=1,
         channel_mult=(1, 2), attention_resolutions=(1, 2),
-        num_head_channels=64, vae_ch=32, vae_ch_mult=(1, 2, 4, 16))
+        num_head_channels=64, vae_ch=32, vae_ch_mult=(1, 2, 4, 16),
+        video_length=2)  # two frames: cut in depth for the time limit
 
 
 def check_reduced_training(dev, kernels=REDUCED_TRAIN_KERNELS,
@@ -1567,7 +1626,7 @@ def check_two_rank_training(dev) -> list:
     from tooncrafter_tpu_torch.utils.weights import init_random_
 
     _card_shared()
-    cfg = dataclasses.replace(reduced_config(ModelConfig()),
+    cfg = dataclasses.replace(shallow_config(ModelConfig()),
                               use_checkpoint=True, remat_policy="dots")
     with torch.device(dev):
         model = ToonCrafter(cfg)
@@ -1734,6 +1793,268 @@ def check_graft_entry(dev) -> None:
           f"{time.perf_counter() - t0:.1f} s, spawn included", flush=True)
 
 
+def latent_psnr(a, b) -> float:
+    """PSNR (dB) of ``a`` against ``b`` at b's peak |value|."""
+    mse = (a.float() - b.float()).square().mean()
+    return (10 * torch.log10(b.float().abs().max() ** 2
+                             / mse.clamp_min(1e-30))).item()
+
+
+def check_tp_denoise(dev) -> list:
+    """5e: one CFG-batched UNet call (two branches of one 16-frame 320x512
+    clip, ``cfg_groups`` 2 as the DDIM sampler calls it) of the full-width
+    512 inference model (random weights from SEED, bf16) at world one on
+    the card, then on two ranks sharing the card at (1 data, 2 model), the
+    transformer blocks sharded. Each rank's output equals the other's bit
+    for bit and is held to TP_MIN_PSNR against world one; each rank
+    launches what world one launches with every pair launch replaced by
+    two single stages (the layout's prediction). Returns each rank's
+    launch counts."""
+    import dataclasses
+
+    from tooncrafter_tpu_torch.config import model_config_from_yaml
+    from tooncrafter_tpu_torch.models.diffusion import ToonCrafter
+    from tooncrafter_tpu_torch.parallel import rank_runs
+    from tooncrafter_tpu_torch.parallel.spawn import run_ranks
+    from tooncrafter_tpu_torch.utils import kernel_check as kc
+    from tooncrafter_tpu_torch.utils.weights import init_random_
+
+    _card_shared()
+    cfg = dataclasses.replace(
+        model_config_from_yaml(os.path.join(REPO, "configs",
+                                            "inference_512_v1.0.yaml")),
+        compute_dtype=torch.bfloat16)
+    g = torch.Generator().manual_seed(SEED)
+    t = cfg.video_length
+    x = torch.randn(1, t, cfg.latent_h, cfg.latent_w, cfg.unet_in_channels,
+                    generator=g).repeat(2, 1, 1, 1, 1)
+    ctx = torch.randn(2, 77 + t * cfg.resampler_queries, cfg.context_dim,
+                      generator=g)
+    ts, fs = torch.full((2,), 501.0), torch.full((2,), 24.0)
+    inputs = (x.bfloat16(), ts, ctx.bfloat16(), fs)
+    gc.collect()
+    torch.cuda.empty_cache()
+    with torch.device(dev):
+        model = ToonCrafter(cfg)
+    init_random_(model, torch.Generator(dev).manual_seed(SEED))
+    model.to_compute_dtype().eval()
+    torch.cuda.synchronize()
+    kc.reset_launch_counts()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        ref = model.unet(*(a.to(dev) for a in inputs), cfg_groups=2)
+    torch.cuda.synchronize()
+    one_s = time.perf_counter() - t0
+    one = kc.launch_counts()
+    ref = ref.float().cpu()
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    want = dict(one, _fused_tpair_call=0,
+                _fused_tattn_call=one["_fused_tattn_call"]
+                + 2 * one["_fused_tpair_call"])
+    spec = {"config": cfg, "init_device_seed": SEED, "n_model": 2,
+            "inputs": inputs, "cfg_groups": 2}
+    t0 = time.perf_counter()
+    res = run_ranks(rank_runs.unet_forward, 2, "cuda", args=(spec,),
+                    timeout=RANK_TIMEOUT_S)
+    db = latent_psnr(res[0]["out"], ref)
+    same = res[0]["digest"] == res[1]["digest"]
+    secs = ", ".join(f"{r['seconds']:.3f}" for r in res)
+    print(f"5e (1, 2) on {dev} over gloo (mesh {res[0]['mesh']}): "
+          f"{time.perf_counter() - t0:.1f} s with the spawn; the UNet call "
+          f"{secs} s a rank against {one_s:.3f} s at world one (gloo "
+          f"reductions through the host); PSNR against world one "
+          f"{db:.2f} dB (bound >= {TP_MIN_PSNR}); the ranks' outputs equal "
+          f"{same}; gathered state dicts whole "
+          f"{[r['gather_equal'] for r in res]}", flush=True)
+    bad = [(r["rank"], {k: (v, want[k]) for k, v in r["launches"].items()
+                        if v != want[k]}) for r in res]
+    nz = {k: v for k, v in res[0]["launches"].items() if v}
+    print(f"5e launches a rank {nz} (world one "
+          f"{ {k: v for k, v in one.items() if v} }); differences from the "
+          f"layout's prediction {bad}", flush=True)
+    if (db < TP_MIN_PSNR or not same or any(b for _, b in bad)
+            or not all(r["gather_equal"] for r in res)
+            or not all(res[0]["launches"][k] for k in (
+                "_flash_mh_packed", "_flash_mh", "_pallas_ff",
+                "_pallas_ff_streamed", "_fused_tattn_call"))):
+        raise SystemExit("5e: the (1, 2) UNet call disagrees with world one "
+                         "or launches other than the layout predicts")
+    return [r["launches"] for r in res]
+
+
+def check_tp_training(dev) -> list:
+    """5f: the reduced training model (5b's configuration, weights and
+    batch, pass-through dropout) at (1 data, 2 model) on two ranks sharing
+    the card: the first reduced gradients and two AdamW steps (each on the
+    same draws) against world one in this process, gathered whole; the
+    checkpoint the ranks write restores at (1, 1) to their trainables bit
+    for bit. Returns each rank's launch counts."""
+    import dataclasses
+    import tempfile
+
+    from tooncrafter_tpu_torch.config import ModelConfig
+    from tooncrafter_tpu_torch.models.diffusion import ToonCrafter
+    from tooncrafter_tpu_torch.parallel import rank_runs
+    from tooncrafter_tpu_torch.parallel.spawn import run_ranks
+    from tooncrafter_tpu_torch.training import checkpoints as CKPT
+    from tooncrafter_tpu_torch.training import trainer as T
+    from tooncrafter_tpu_torch.utils.profiling import random_batch
+    from tooncrafter_tpu_torch.utils.weights import init_random_
+
+    _card_shared()
+    cfg = dataclasses.replace(shallow_config(ModelConfig()),
+                              use_checkpoint=True, remat_policy="dots")
+    tc = {"learning_rate": 2e-5}
+
+    def build():
+        with torch.device(dev):
+            model = ToonCrafter(cfg)
+        init_random_(model, torch.Generator(dev).manual_seed(1))
+        rank_runs.pass_dropout_(model)
+        model.config = dataclasses.replace(cfg, compute_dtype=torch.bfloat16)
+        return model
+
+    model = build()
+    batch = random_batch(cfg, 2, 4, "cpu")
+    draws = T.sample_draws(model, batch["video"],
+                           torch.Generator().manual_seed(5))
+    draws["rand"] = torch.tensor([0.5, 0.07])
+    init = {k: p.detach().float().cpu().clone()
+            for k, p in T.split_trainable(model)[0].items()}
+    tcfg = T.TrainConfig(**tc)
+    state, opt = T.make_train_state(model, tcfg, use_ema=True)
+    gb = {k: v.to(dev) for k, v in batch.items()}
+    gd = {k: v.to(dev) for k, v in draws.items()}
+    _, grads = T.loss_and_grads(model, tcfg, state, gb, draws=gd)
+    one_g = {n: g.float().cpu() for n, g in zip(state.train_params, grads)}
+    del grads
+    step = T.make_train_step(model, opt, tcfg)
+    for _ in range(2):
+        step(state, gb, None, gd)
+    one_p = {k: p.detach().float().cpu() for k, p in
+             state.train_params.items()}
+    del model, state, opt, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    ck = tempfile.mkdtemp(prefix="chip_smoke_5f_")
+    spec = {"config": cfg, "init_device_seed": 1, "batch": batch,
+            "first_draws": draws, "profile_draws": draws,
+            "pass_dropout": True, "train_config": tc,
+            "profiles": (("adamw", 2),), "return_params": True,
+            "n_model": 2, "save_dir": ck}
+    t0 = time.perf_counter()
+    res = run_ranks(rank_runs.train, 2, "cuda", args=(spec,),
+                    timeout=RANK_TIMEOUT_S)
+    cos, worst = _grad_agreement(res[0]["grads"], one_g)
+    got = {k: v.float() for k, v in res[0]["profiles"]["adamw"]["params"]
+           .items()}
+    upd, _ = _grad_agreement({k: got[k] - init[k] for k in init},
+                             {k: one_p[k] - init[k] for k in init})
+    print(f"5f (1, 2) on {dev} over gloo (mesh {res[0]['mesh']}): "
+          f"{time.perf_counter() - t0:.1f} s with the spawn; rank 0's seconds "
+          f"by part { {k: round(v, 2) for k, v in res[0]['clock'].items()} }; "
+          f"losses "
+          f"{res[0]['profiles']['adamw']['losses']}; gathered gradients' "
+          f"cosine against world one {cos:.6f} (bound >= "
+          f"{TP_GRAD_MIN_COSINE}), worst relative L2 {worst[:3]}; the two "
+          f"AdamW updates' cosine {upd:.6f} (bound >= "
+          f"{TP_UPDATE_MIN_COSINE})", flush=True)
+    if cos < TP_GRAD_MIN_COSINE or upd < TP_UPDATE_MIN_COSINE:
+        raise SystemExit("5f: the (1, 2) training disagrees with world one")
+    model = build()
+    state, _ = T.make_train_state(model, T.TrainConfig(**tc), use_ema=True)
+    _, stepn = CKPT.restore_train_state(ck, state)
+    same = all(torch.equal(p.detach().float().cpu(), got[k])
+               for k, p in state.train_params.items())
+    ema = all(torch.equal(e.float().cpu(), res[0]["saved"]["ema"][k].float())
+              for k, e in state.ema_params.items())
+    print(f"5f: the (1, 2) checkpoint restored at (1, 1): step {stepn}, "
+          f"trainables equal {same}, EMA equal {ema}", flush=True)
+    del model, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    if stepn != 2 or not same or not ema:
+        raise SystemExit("5f: the (1, 2) checkpoint does not restore at "
+                         "(1, 1)")
+    return _rank_report("5f", res, tuple(
+        "_fused_tattn_call" if k == "_fused_tpair_call" else k
+        for k in REDUCED_TRAIN_KERNELS))
+
+
+def check_tp_four_ranks(dev) -> list:
+    """5g: four ranks sharing the card at (2 data, 2 model):
+    ``BatchedPipeline(shard_params=True)`` serves three clips of the
+    reduced inference model (random weights from SEED on the card;
+    ragged: data rank 0 clips 0-1, data rank 1 clip 2; DDIM-2, CFG 7.5
+    with rescale 0.7, per-item generators), held against one process on the
+    same micro-batches at TP_SERVE_MIN_PSNR; then the graft dry run on four
+    ranks, (2, 2). Returns each serving rank's launch counts."""
+    from tooncrafter_tpu_torch import graft_entry
+    from tooncrafter_tpu_torch.config import ModelConfig
+    from tooncrafter_tpu_torch.models.diffusion import Pipeline, ToonCrafter
+    from tooncrafter_tpu_torch.parallel import rank_runs
+    from tooncrafter_tpu_torch.parallel.spawn import run_ranks
+    from tooncrafter_tpu_torch.sampling.ddim import GuidanceConfig
+    from tooncrafter_tpu_torch.utils import rngs as R
+    from tooncrafter_tpu_torch.utils.weights import init_random_
+
+    _card_shared()
+    import dataclasses
+    cfg = dataclasses.replace(reduced_config(ModelConfig()),
+                              compute_dtype=torch.bfloat16)
+    parts = [small_inputs(cfg, 20 + r, "cpu")[:4] for r in range(3)]
+    inputs = [torch.cat(p) for p in zip(*parts)]
+    pipe_kw = dict(ddim_steps=2, eta=1.0, spacing="uniform_trailing",
+                   guidance=dict(cfg_scale=7.5, guidance_rescale=0.7),
+                   perframe_ae=cfg.perframe_ae)
+    with torch.device(dev):
+        model = ToonCrafter(cfg)
+    init_random_(model, torch.Generator(dev).manual_seed(SEED))
+    model.to_compute_dtype().eval()
+    pipe = Pipeline(model, **dict(pipe_kw, guidance=GuidanceConfig(
+        **pipe_kw["guidance"])))
+    ref = []
+    for rows in (slice(0, 2), slice(2, 3)):
+        gens = R.per_item_generators(SEED, range(3)[rows], dev)
+        ref.append(pipe(*(x[rows].to(dev) for x in inputs),
+                        generator=gens).float().cpu())
+    ref = torch.cat(ref)
+    del model, pipe
+    gc.collect()
+    torch.cuda.empty_cache()
+    spec = {"config": cfg, "init_device_seed": SEED, "inputs": inputs,
+            "seed": SEED, "pipeline": pipe_kw, "n_model": 2}
+    t0 = time.perf_counter()
+    res = run_ranks(rank_runs.serve, 4, "cuda", args=(spec,),
+                    timeout=RANK_TIMEOUT_S)
+    out = torch.from_numpy(res[0]["clips"])
+    db = [psnr(out[i:i + 1], ref[i:i + 1]) for i in range(3)]
+    digests = {r["digest"] for r in res}
+    print(f"5g (2, 2) on {dev} over gloo (mesh {res[0]['mesh']}): "
+          f"{time.perf_counter() - t0:.1f} s with the spawn; clips a rank "
+          f"{[r['clips_here'] for r in res]}; per-clip PSNR against one "
+          f"process {[round(x, 2) for x in db]} dB (bound >= "
+          f"{TP_SERVE_MIN_PSNR}); the ranks' gathered clips equal "
+          f"{len(digests) == 1}", flush=True)
+    if (tuple(out.shape) != tuple(ref.shape) or len(digests) != 1
+            or [r["clips_here"] for r in res] != [2, 2, 1, 1]
+            or min(db) < TP_SERVE_MIN_PSNR):
+        raise SystemExit("5g: the (2, 2) served clips disagree with one "
+                         "process or between the ranks")
+    counts = _rank_report("5g", res, ("_flash_mh_packed", "_flash_mh",
+                                      "_pallas_ff", "_pallas_ff_streamed",
+                                      "_fused_tattn_call"))
+    t0 = time.perf_counter()
+    vals = graft_entry.dryrun_multidevice(4, "cuda", timeout=RANK_TIMEOUT_S)
+    print(f"5g dryrun_multidevice(4, 'cuda'): mesh {vals['mesh']}, "
+          f"{time.perf_counter() - t0:.1f} s, spawn included", flush=True)
+    if vals["mesh"] != {"data": 2, "model": 2}:
+        raise SystemExit("5g: the dry run's mesh is not (2, 2)")
+    return counts
+
+
 # 3h: each conv switch alone, as the JAX package reads it at import
 CONV_SWITCHES = (("TC_WINOGRAD=0", dict(winograd=False)),
                  ("TC_WINOGRAD24=0", dict(winograd24=False)),
@@ -1825,7 +2146,8 @@ def _reduced_models(dev, cfg):
 def _reduced_clip(model, cfg, device):
     from tooncrafter_tpu_torch.models.diffusion import Pipeline
 
-    pipe = Pipeline(model, ddim_steps=3, eta=0.0, perframe_ae=True)
+    # two DDIM steps (three before PR 19): cut in depth for the time limit
+    pipe = Pipeline(model, ddim_steps=2, eta=0.0, perframe_ae=True)
     video, tokens, null, fs, x_T = small_inputs(cfg, 2, device)
     return pipe(video, tokens, null, fs, x_T=x_T).float().cpu()
 
@@ -2159,8 +2481,9 @@ def main(argv=None) -> int:
     del kept
     phase("4a' reduced training model with TOONCRAFTER_FUSED_GN=1 and "
           "TC_SPATIAL_CONV_PALLAS=1: card gradients against CPU")
-    with switches(pair=True):
-        check_reduced_training(dev, REDUCED_TRAIN_KERNELS_SWITCHED)
+    with switches(pair=True):  # the shallow model: cut for the time limit
+        check_reduced_training(dev, REDUCED_TRAIN_KERNELS_SWITCHED,
+                               shallow_config)
     phase(f"4b' full-width training with TOONCRAFTER_FUSED_GN=1 and "
           f"TC_SPATIAL_CONV_PALLAS=1, {TRAIN_STEPS_SWITCHED} steps")
     with switches(pair=True):
@@ -2190,10 +2513,19 @@ def main(argv=None) -> int:
     counts_5c = check_two_rank_serving(dev, seconds_3b)
     phase("5d the graft entry's UNet forward and its two-rank dry run")
     check_graft_entry(dev)
+    phase("5e tensor parallelism at (1, 2): one full-width 512 UNet call "
+          "against world one")
+    counts_5e = check_tp_denoise(dev)
+    phase("5f tensor parallelism at (1, 2): reduced training, two AdamW "
+          "steps, the checkpoint at (1, 1)")
+    counts_5f = check_tp_training(dev)
+    phase("5g four ranks at (2, 2): BatchedPipeline(shard_params=True) and "
+          "the graft dry run")
+    counts_5g = check_tp_four_ranks(dev)
     summary = []
     paths = (counts, counts_1024, train_counts, counts_sw, train_sw,
              train_1024, counts_serve, counts_modes, counts_5a, *counts_5b,
-             *counts_5c, counts_ops)
+             *counts_5c, *counts_5e, *counts_5f, *counts_5g, counts_ops)
     in_models = {k: [c[k] for c in paths[:-1]]
                  for k in ("_dual_kernel_call", "_pallas_sums",
                            "_flash_mh_ones")}
@@ -2221,6 +2553,10 @@ def main(argv=None) -> int:
             row[f"launches_5b_rank{r}"] = c[name]
         for r, c in enumerate(counts_5c):
             row[f"launches_5c_rank{r}"] = c[name]
+        for label, ranks in (("5e", counts_5e), ("5f", counts_5f),
+                             ("5g", counts_5g)):
+            for r, c in enumerate(ranks):
+                row[f"launches_{label}_rank{r}"] = c[name]
         summary.append(row)
     missed = [r["name"] for r in summary if not r["launches"]]
     if missed or len(summary) != len(kc.REPLACES):

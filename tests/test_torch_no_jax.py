@@ -56,6 +56,7 @@ for want in ("cli.inference", "cli.train", "training.trainer",
              "cli.serve",
              "cli.smoke", "sampling.ddpm", "models.lpips",
              "utils.metrics", "parallel.mesh", "parallel.serving",
+             "parallel.tensor",
              "utils.synth", "graft_entry", "native"):
     assert "tooncrafter_tpu_torch." + want in names, names
 for name in names:

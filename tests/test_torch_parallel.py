@@ -2,9 +2,11 @@
 trainer and the checkpoints under a process group) on the CPU, in ranks
 spawned over gloo with a ``file://`` store in the test's tmp dir.
 
-  * ``batch_slice`` is the JAX CLI's ``host_shard``; ``make_mesh``
-    refuses a model axis; a process group of one trains bit for bit as one
-    process without a group.
+  * ``batch_slice`` is the JAX CLI's ``host_shard``; ``make_mesh`` lays
+    ranks out as ``arange(world).reshape(n_data, n_model)`` (a model group
+    is consecutive ranks, as the JAX package's device mesh) and refuses a
+    shape that does not factor the world; a process group of one trains
+    bit for bit as one process without a group.
   * Two ranks, the tiny model, a global batch of two (one clip a rank),
     ``grad_clip`` on, the dropout modules passing their input through on
     every side (ranks seed their dropout apart). The first step's reduced
@@ -74,9 +76,33 @@ def test_batch_slice_is_host_shard(n_items):
         assert sum(s.stop - s.start for s in got) == n_items
 
 
-def test_make_mesh_refuses_a_model_axis():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        M.make_mesh(n_data=1, n_model=2)
+@pytest.mark.parametrize("n_data,n_model", [(1, 2), (2, 2)])
+def test_make_mesh_builds_the_data_and_model_axes(n_data, n_model, tmp_path):
+    world = n_data * n_model
+    got = run_ranks(rank_runs.mesh_layout, world, "cpu",
+                    args=(n_data, n_model), timeout=60, threads=1,
+                    store_dir=str(tmp_path))
+    grid = np.arange(world).reshape(n_data, n_model)
+    for r, g in enumerate(got):
+        assert g["shape"] == {"data": n_data, "model": n_model}
+        assert g["data"] == list(grid[:, r % n_model])
+        assert g["model"] == list(grid[r // n_model])
+
+
+def test_make_mesh_refuses_a_shape_that_does_not_factor_the_world(
+        tmp_path):
+    import torch.distributed as dist
+
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/store",
+                            rank=0, world_size=1)
+    try:
+        for n_data, n_model in ((1, 2), (2, 1), (None, 2), (1, 0)):
+            with pytest.raises(ValueError, match="mesh of"):
+                M.make_mesh(n_data=n_data, n_model=n_model)
+        mesh = M.make_mesh(n_data=1, n_model=1)
+        assert M.model_group(mesh) is None
+    finally:
+        dist.destroy_process_group()
 
 
 @pytest.fixture(scope="module")

@@ -8,7 +8,13 @@ graft entry (tooncrafter_tpu_torch.graft_entry) on the CPU.
   * ``entry("meta")`` evaluates one UNet forward at the JAX entry's config
     on fake tensors: the (2, 16, 40, 64, 4) latent, as the JAX entry's
     ``jax.eval_shape`` gives.
+  * ``dryrun_multidevice(4, "cpu")`` runs on the JAX dry run's (2, 2) mesh
+    (a model axis of 2 at four ranks): the UNet's transformer blocks
+    sharded, its line printed with finite values.
 """
+
+import math
+import re
 
 import jax
 import torch
@@ -52,3 +58,13 @@ def test_entry_on_fake_tensors_gives_the_latent():
     out = fn(*args)
     assert tuple(out.shape) == (2, 16, 40, 64, 4)
     assert args[0].dtype == torch.bfloat16
+
+
+def test_dryrun_multidevice_on_four_ranks_shards_the_model(capsys):
+    vals = graft_entry.dryrun_multidevice(4, "cpu")
+    line = capsys.readouterr().out
+    assert re.search(r"dryrun_multidevice OK on 4 ranks \(mesh \{'data': 2, "
+                     r"'model': 2\}", line), line
+    assert vals["mesh"] == {"data": 2, "model": 2}
+    for k in ("loss", "val", "val_ema", "decode_checksum"):
+        assert f"{k}=" in line and math.isfinite(vals[k]), (k, line)

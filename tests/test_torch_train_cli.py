@@ -9,8 +9,10 @@ same source): the same stride, start frame, fps, caption and pixels
 skip-and-retry, and the loader's per-epoch reshuffle and disjoint host
 shards. The CLI's dry run, then ``--train --max_steps 2 --device cpu`` on
 configs/tiny_smoke.yaml with that data (validation with the EMA every
-step), then a resumed run to step 3; the sampled-video callback at DDIM-2
-with the EMA weights swapped in and back.
+step), then a resumed run to step 3; ``--n_model_shards 2`` on two gloo
+ranks (tensor parallelism: the checkpoint holds whole tensors), and on one
+process refused; the sampled-video callback at DDIM-2 with the EMA weights
+swapped in and back.
 """
 
 import json
@@ -144,6 +146,33 @@ def test_cli_dry_run_train_and_resume(video_dir, tmp_path, capsys):
     assert "resumed at step 2" in out and "done at step 3" in out
     with pytest.raises(SystemExit, match="n_model_shards"):
         cli.main(base + ["--n_model_shards", "2"])
+
+
+def test_cli_trains_with_two_model_shards(video_dir, tmp_path):
+    from tooncrafter_tpu_torch.config import model_config_from_yaml
+    from tooncrafter_tpu_torch.models.diffusion import ToonCrafter
+    from tooncrafter_tpu_torch.parallel import rank_runs
+    from tooncrafter_tpu_torch.parallel.spawn import run_ranks
+
+    cfg = _config(tmp_path, *video_dir)
+    argv = ["--config", cfg, "--logdir", str(tmp_path / "runs"), "--name",
+            "tp", "--device", "cpu", "--seed", "1", "--n_model_shards", "2",
+            "--train", "--max_steps", "2"]
+    run_ranks(rank_runs.cli_train, 2, "cpu", args=(argv,), timeout=240,
+              threads=1, store_dir=str(tmp_path))
+    work = tmp_path / "runs" / "tp"
+    rows = [json.loads(line) for line in open(work / "metrics.jsonl")]
+    steps = [r for r in rows if "loss" in r]
+    assert [r["step"] for r in steps] == [1, 2]
+    assert all(np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"])
+               for r in steps)
+    assert os.listdir(work / "checkpoints") == ["step_00000002.pt"]
+    saved = torch.load(work / "checkpoints" / "step_00000002.pt",
+                       weights_only=True)["train_params"]
+    with torch.device("meta"):
+        whole = ToonCrafter(model_config_from_yaml(cfg)).state_dict()
+    assert {k: tuple(v.shape) for k, v in saved.items()} == {
+        k: tuple(whole[k].shape) for k in saved}
 
 
 def test_video_sample_logger_uses_the_ema(tmp_path):

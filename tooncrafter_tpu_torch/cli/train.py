@@ -16,8 +16,13 @@ learning rate ``base_learning_rate x batch_size x world``, the
 reference's rule), with the gradients all-reduced and the optimizer state
 split by owner (``training/trainer.py``); rank 0 logs, prints, samples and
 writes the checkpoints, and SIGUSR1 on any rank checkpoints every rank at
-the next step. ``--n_model_shards`` above 1 is refused (tensor
-parallelism is not ported). The optimizer is read from the YAML's
+the next step. ``--n_model_shards k`` builds the (world / k, k) mesh, as
+the JAX CLI does: the UNet's transformer blocks are sharded over each group
+of k consecutive ranks (tensor parallelism, ``parallel/tensor.py``), which
+share their data shard, batch rows and dropout seed; the global batch is
+then ``batch_size`` times world / k, and the learning rate keeps the
+reference's ``x world`` (the JAX CLI's ``n_chips`` counts every device).
+The optimizer is read from the YAML's
 ``model.params.optimizer`` when present: 'adamw' (the default),
 'adamw_lowmem' or 'adafactor', the JAX package's memory profiles (its CLI
 ignores the key and trains AdamW).
@@ -92,14 +97,16 @@ def main(argv=None):
 
     from tooncrafter_tpu_torch.parallel import mesh as M
 
-    if args.n_model_shards > 1:
-        raise SystemExit(f"--n_model_shards > 1: {M.MODEL_AXIS}")
     from tooncrafter_tpu_torch.cli import resolve_device
+    joined = torch.distributed.is_initialized()  # a group the caller owns
     d = M.init_distributed(resolve_device(args.device))
     try:
+        if args.n_model_shards < 1 or d.world % args.n_model_shards:
+            raise SystemExit(f"--n_model_shards {args.n_model_shards} does "
+                             f"not divide the {d.world} ranks of this run")
         _train(args, d)
     finally:
-        if d.group is not None:
+        if d.group is not None and not joined:
             torch.distributed.destroy_process_group()
 
 
@@ -110,8 +117,11 @@ def _train(args, d):
 
     device = d.device
     lead = d.rank == 0
-    mesh = (M.make_mesh(device_type=device.type) if d.group is not None
-            else None)
+    k = args.n_model_shards
+    mesh = (M.make_mesh(n_model=k, device_type=device.type)
+            if d.group is not None else None)
+    # the ranks of a model group share their data and their dropout draws
+    drank, n_data = d.rank // k, d.world // k
 
     from tooncrafter_tpu_torch.config import load_yaml, model_config_from_dict
     from tooncrafter_tpu_torch.data.webvid import PrefetchLoader, WebVidDataset
@@ -126,7 +136,7 @@ def _train(args, d):
     cfg = model_config_from_dict(raw)
     if device.type == "cuda":
         cfg = dataclasses.replace(cfg, compute_dtype=torch.bfloat16)
-    torch.manual_seed(args.seed + d.rank)  # dropout's stream, per rank
+    torch.manual_seed(args.seed + drank)  # dropout's stream, per data rank
     with torch.device(device):
         model = ToonCrafter(cfg)
 
@@ -161,7 +171,7 @@ def _train(args, d):
 
     # each rank loads a disjoint shard of every epoch (the reference's
     # DistributedSampler)
-    shard = (d.rank, d.world)
+    shard = (drank, n_data)
     loader = PrefetchLoader(dataset(train_d), bs, tokenizer=tokenizer,
                             num_workers=dcfg.get("num_workers", 4),
                             seed=args.seed, shard=shard)
@@ -203,11 +213,13 @@ def _train(args, d):
     step_fn = T.make_train_step(model, opt, tcfg)
     val_fn = T.make_val_step(model, tcfg)
     sampler_log = CB.VideoSampleLogger(model, workdir,
-                                       every_steps=args.sample_every)
-    tracker = CB.ThroughputTracker(bs * d.world)
+                                       every_steps=args.sample_every,
+                                       write=lead)
+    tracker = CB.ThroughputTracker(bs * n_data)
     gen = torch.Generator(device).manual_seed(args.seed)
-    # rank 0 alone samples clips: with more than one rank they draw from
-    # a generator of their own, so every rank's training draws stay equal
+    # data rank 0 alone samples clips (its model group together, rank 0
+    # writes them): with more than one rank they draw from a generator of
+    # their own, so every rank's training draws stay equal
     sample_gen = (gen if d.world == 1 else
                   torch.Generator(device).manual_seed(args.seed + 1))
 
@@ -220,7 +232,7 @@ def _train(args, d):
         if d.group is None:
             return want_ckpt["now"]
         flag = torch.tensor([float(want_ckpt["now"])], device=device)
-        torch.distributed.all_reduce(flag, group=state.group)
+        torch.distributed.all_reduce(flag)  # every rank of the mesh
         return bool(flag.item() > 0)
 
     if not args.train:
@@ -256,8 +268,9 @@ def _train(args, d):
                     print(f"step {step}: loss={metrics['loss']:.4f} "
                           f"({metrics.get('samples_per_sec', 0):.2f} "
                           "samples/s)")
+            if drank == 0:
                 out = sampler_log.maybe_log(step, state, probe, sample_gen)
-                if out:
+                if out and lead:
                     print(f"sampled video -> {out}")
             if val_loader is not None and step % args.val_every == 0:
                 try:

@@ -4,6 +4,8 @@
 //   (a) z = LN(x)                                ln_kernel    (N x C)
 //   (b) m = (z W1h^T + b1h) gelu(z W1g^T + b1g)  proj_kernel  (N x D)
 //   (c) y = m W2^T + b2 [+ x]                    out_kernel   (N x Cout)
+//       or, partial (a rank's share of D under tensor parallelism), the
+//       fp32 accumulator m W2^T alone: no b2, no x, no rounding
 //
 // Replaces the two TPU kernels of tooncrafter_tpu/ops/fused_ff.py:
 //   * _pallas_ff           weights resident in VMEM (C <= 640)
@@ -207,17 +209,20 @@ int launch_proj(GateParams p, const void* a, const void* w1, int c, int grid,
 // projection's rows per warpgroup tile bm1 (64 or 128) on grid1 blocks, the
 // out-GEMM's bm2 x bn2 (bn2 128 or 160) on grid2 (each at most its tiles).
 // c % 32 == 0, d % 64 == 0, cout % 8 == 0; the residual needs cout == c and
-// the LayerNorm. Returns a cudaError_t code (0 on success).
+// the LayerNorm. partial: out is (n, cout) fp32, the out-GEMM's accumulator
+// (b2 unused, no residual); w1 then holds a rank's value rows and its gate
+// rows (2 d of them, d the rank's share of D) and w2 its d columns. Returns
+// a cudaError_t code (0 on success).
 extern "C" int tc_fused_ff(const void* x, const void* w1, const void* b1,
                            const void* w2, const void* b2, const float* lnw,
                            const float* lnb, void* z, void* m, void* out,
                            int n, int c, int d, int cout, float eps,
-                           int residual, int bm1, int grid1, int bm2, int bn2,
-                           int grid2, void* stream) {
+                           int residual, int partial, int bm1, int grid1,
+                           int bm2, int bn2, int grid2, void* stream) {
   using namespace fused_ff;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (n <= 0 || c <= 0 || d <= 0 || cout <= 0 || c % 32 || d % 64 ||
-      cout % 8 || (residual && (cout != c || lnw == nullptr)) ||
+      cout % 8 || (residual && (cout != c || lnw == nullptr || partial)) ||
       (lnw != nullptr && (lnb == nullptr || z == nullptr)))
     return (int)cudaErrorInvalidValue;
   const void* a1 = x;
@@ -239,6 +244,9 @@ extern "C" int tc_fused_ff(const void* x, const void* w1, const void* b1,
   else
     err = (int)cudaErrorInvalidValue;
   if (err) return err;
+  if (partial)
+    return lnout::launch_out_partial<Tag>(m, w2, static_cast<float*>(out), n,
+                                          d, cout, bm2, bn2, grid2, s);
   return lnout::launch_out<Tag>(m, w2, b2, residual ? x : nullptr, out, n, d,
                                 cout, bm2, bn2, grid2, s);
 }

@@ -5,6 +5,8 @@
 //   z = LN(x)                              launch_ln   (ln_kernel)
 //   y = bf16(bf16(a W^T) + b) [+ res]      launch_out  (out_kernel: OutOp on
 //                                          the persistent_gemm.cuh mainloop)
+//   y = a W^T, fp32                        launch_out with partial: OutOp's
+//                                          kPartial epilogue
 //
 // The LayerNorm rounds as the TPU kernels' (fused_ff.py _ln_tile,
 // temporal_attention.py _attn_stage): fp32 statistics, the variance E[x^2]
@@ -29,6 +31,15 @@
 // reads its residual before it stores the same tile, and no other tile
 // touches it. One thread stores the tile by TMA, which leaves rows past n
 // and columns past Cout out; rows past n arrive as zeros.
+//
+// kPartial (tensor parallelism: a rank holds part of K, the heads or the
+// hidden width): the epilogue writes the fp32 accumulator itself, with no
+// bias, no residual and no rounding, so that the sum over the ranks is the
+// whole accumulator and the bias, the residual and the roundings are applied
+// once after it. Each thread stores its two adjacent columns of a row as
+// one 8-byte store straight to device memory (a warp's stores of a row span
+// 32 bytes, one whole sector), masked at n and Cout; the staging area goes
+// unused.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -171,6 +182,7 @@ struct OutParams {
   const bf16* bias;  // (cols)
   const bf16* res;   // (n, cols), or null: no residual; may be `out`
   bf16* out;         // (n, cols)
+  float* acc;        // (n, cols), fp32: the kPartial epilogue's output
   int n;             // token rows
   int cols;          // output columns
   int kblocks;       // ceil(K / 64)
@@ -178,10 +190,10 @@ struct OutParams {
   int tiles;         // row tiles x column tiles
 };
 
-template <int BM, int BN>
+template <int BM, int BN, bool kPartial = false>
 struct OutOp {
   static constexpr int kBM = BM, kBN = BN;
-  static constexpr int kStaging = BM * BN * 2;
+  static constexpr int kStaging = kPartial ? 0 : BM * BN * 2;
   static constexpr int kExtra = 0;
   OutParams p;
   const CUtensorMap* tm_a;
@@ -213,7 +225,7 @@ struct OutOp {
   __device__ __forceinline__ void before(const Tile& c, unsigned char* stage,
                                          unsigned char*,
                                          uint64_t* xbar) const {
-    if (p.res == nullptr) return;
+    if (kPartial || p.res == nullptr) return;
     sm90::bulk_wait_read<0>();
     sm90::mbar_expect_tx(xbar, kStaging);
     for (int b = 0; b < BN / 32; ++b)
@@ -234,6 +246,24 @@ struct OutOp {
     const int lane = threadIdx.x & 31;
     const int warp = (threadIdx.x >> 5) & 3;  // within the warpgroup
     const int g = lane >> 2, t4 = lane & 3;
+    if constexpr (kPartial) {
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        const int col = n0 + 8 * j + 2 * t4;  // cols % 8 == 0: both or none
+        if (col >= p.cols) continue;
+#pragma unroll
+        for (int mi = 0; mi < kMT; ++mi)
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const long long row = m0 + 64 * mi + 16 * warp + g + 8 * r;
+            if (row < p.n)
+              *reinterpret_cast<float2*>(p.acc + row * p.cols + col) =
+                  make_float2(acc[mi][4 * j + 2 * r],
+                              acc[mi][4 * j + 2 * r + 1]);
+          }
+      }
+      return;
+    }
     const bool res = p.res != nullptr;
     if (res)
       sm90::mbar_wait(xbar, parity);
@@ -273,14 +303,14 @@ struct OutOp {
   }
 };
 
-template <class Tag, int BM, int BN>
+template <class Tag, int BM, int BN, bool kPartial>
 __global__ void __launch_bounds__(pgemm::kThreads, 1)
 out_kernel(const OutParams p, const __grid_constant__ CUtensorMap tm_a,
            const __grid_constant__ CUtensorMap tm_b,
            const __grid_constant__ CUtensorMap tm_c,
            const __grid_constant__ CUtensorMap tm_x) {
   extern __shared__ unsigned char smem_raw[];
-  const OutOp<BM, BN> op{p, &tm_a, &tm_b, &tm_c, &tm_x};
+  const OutOp<BM, BN, kPartial> op{p, &tm_a, &tm_b, &tm_c, &tm_x};
   pgemm::run(op, smem_raw);
 }
 
@@ -296,10 +326,10 @@ inline int make_map(CUtensorMap* map, const void* base, int k, int rows,
                                              : CU_TENSOR_MAP_SWIZZLE_64B);
 }
 
-template <class Tag, int BM, int BN>
+template <class Tag, int BM, int BN, bool kPartial>
 int launch_out_tiles(OutParams p, const void* a, const void* w, int k,
                      int grid, cudaStream_t stream) {
-  using R = pgemm::RingOf<OutOp<BM, BN>>;
+  using R = pgemm::RingOf<OutOp<BM, BN, kPartial>>;
   p.kblocks = (k + kBK - 1) / kBK;
   p.ntiles = (p.cols + BN - 1) / BN;
   p.tiles = ((p.n + BM - 1) / BM) * p.ntiles;
@@ -307,20 +337,35 @@ int launch_out_tiles(OutParams p, const void* a, const void* w, int k,
   CUtensorMap ta, tb, tc, tx;  // A, B, the output, the residual
   int err = make_map(&ta, a, k, p.n, BM);
   if (!err) err = make_map(&tb, w, k, p.cols, BN / 2);
-  if (!err) err = make_map(&tc, p.out, p.cols, p.n, BM, 32);
   if (err) return err;
-  if (p.res != nullptr)
-    err = make_map(&tx, p.res, p.cols, p.n, BM, 32);
-  else
-    tx = tc;
-  if (err) return err;
+  if (!kPartial) {  // the partial epilogue stores without a tensor map
+    err = make_map(&tc, p.out, p.cols, p.n, BM, 32);
+    if (!err && p.res != nullptr)
+      err = make_map(&tx, p.res, p.cols, p.n, BM, 32);
+    else
+      tx = tc;
+    if (err) return err;
+  }
+  auto kernel = out_kernel<Tag, BM, BN, kPartial>;
   cudaError_t e = cudaFuncSetAttribute(
-      out_kernel<Tag, BM, BN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      R::kBytes);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, R::kBytes);
   if (e != cudaSuccess) return (int)e;
-  out_kernel<Tag, BM, BN><<<grid, pgemm::kThreads, R::kBytes, stream>>>(
-      p, ta, tb, tc, tx);
+  kernel<<<grid, pgemm::kThreads, R::kBytes, stream>>>(p, ta, tb, tc, tx);
   return (int)cudaGetLastError();
+}
+
+template <class Tag, bool kPartial>
+int launch_out_as(const OutParams& p, const void* a, const void* w, int k,
+                  int bm, int bn, int grid, cudaStream_t s) {
+  if (bm == 128 && bn == 160)
+    return launch_out_tiles<Tag, 128, 160, kPartial>(p, a, w, k, grid, s);
+  if (bm == 128 && bn == 128)
+    return launch_out_tiles<Tag, 128, 128, kPartial>(p, a, w, k, grid, s);
+  if (bm == 64 && bn == 160)
+    return launch_out_tiles<Tag, 64, 160, kPartial>(p, a, w, k, grid, s);
+  if (bm == 64 && bn == 128)
+    return launch_out_tiles<Tag, 64, 128, kPartial>(p, a, w, k, grid, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 // y (n, cols) from a (n, k), w (cols, k), bias (cols) and res (n, cols) or
@@ -336,15 +381,20 @@ int launch_out(const void* a, const void* w, const void* bias,
   p.out = static_cast<bf16*>(out);
   p.n = n;
   p.cols = cols;
-  if (bm == 128 && bn == 160)
-    return launch_out_tiles<Tag, 128, 160>(p, a, w, k, grid, s);
-  if (bm == 128 && bn == 128)
-    return launch_out_tiles<Tag, 128, 128>(p, a, w, k, grid, s);
-  if (bm == 64 && bn == 160)
-    return launch_out_tiles<Tag, 64, 160>(p, a, w, k, grid, s);
-  if (bm == 64 && bn == 128)
-    return launch_out_tiles<Tag, 64, 128>(p, a, w, k, grid, s);
-  return (int)cudaErrorInvalidValue;
+  return launch_out_as<Tag, false>(p, a, w, k, bm, bn, grid, s);
+}
+
+// The partial out-GEMM: acc (n, cols) fp32 = a (n, k) w (cols, k)^T, no
+// bias, no residual, no rounding; tiles as launch_out's.
+template <class Tag>
+int launch_out_partial(const void* a, const void* w, float* acc, int n,
+                       int k, int cols, int bm, int bn, int grid,
+                       cudaStream_t s) {
+  OutParams p{};
+  p.acc = acc;
+  p.n = n;
+  p.cols = cols;
+  return launch_out_as<Tag, true>(p, a, w, k, bm, bn, grid, s);
 }
 
 }  // namespace lnout

@@ -16,9 +16,14 @@
 //   (b) o = attn_T(q, k, v)       qkv_kernel: the q|k|v GEMM with the
 //                                 attention in its epilogue
 //   (c) y = bf16(bf16(o Wo^T) + bo) + x   ln_and_out.cuh's out_kernel
-// x, z, o and y are (B, T, P, C), the UNet's own layout (frames outer,
-// pixels inner). Stage 2's out-GEMM writes over stage 1's output in place
-// (ln_and_out.cuh: each tile reads its residual before it stores it).
+// x, z and y are (B, T, P, C), the UNet's own layout (frames outer, pixels
+// inner), o (B, T, P, inner) with inner = heads * 64: C for the whole
+// block; under tensor parallelism a rank's share of the heads, whose
+// q|k|v GEMM has N = 3 inner, whose out-GEMM has K = inner and takes
+// ln_and_out.cuh's partial epilogue (the fp32 accumulator, no bias, no
+// residual, no rounding: the sum over the ranks is finished by the caller).
+// Stage 2's out-GEMM writes over stage 1's output in place (ln_and_out.cuh:
+// each tile reads its residual before it stores it).
 //
 // (b) on the persistent mainloop of persistent_gemm.cuh (a TMA ring fed by a
 // producer thread) in its cooperative mode: a tile is 128 tokens by one
@@ -82,7 +87,7 @@ __device__ __forceinline__ uint32_t movmatrix_trans(uint32_t x) {
 
 struct QkvParams {
   int t;        // frames
-  int heads;    // C / 64
+  int heads;    // inner / 64
   int ppt;      // pixels a tile: 128 / T
   int ptiles;   // pixel tiles a sample: ceil(P / ppt)
   int kblocks;  // C / 64
@@ -103,7 +108,8 @@ struct QkvOp {
   const CUtensorMap* tm_wq;
   const CUtensorMap* tm_wk;
   const CUtensorMap* tm_wv;
-  const CUtensorMap* tm_o;  // o as (C, T, P, B), boxes {64, T, ppt / 2, 1}
+  const CUtensorMap* tm_o;  // o as (inner, T, P, B), boxes {64, T, ppt / 2,
+                            // 1}
 
   // the tile's sample, first pixel and head
   struct Tile {
@@ -243,13 +249,14 @@ int make_map_tokens(CUtensorMap* map, const void* base, int b, int t, int p,
   return sm90_host::make_map(map, base, 4, dims, strides, box);
 }
 
+// z (b, t, p, c); wq, wk, wv (inner, c); o (b, t, p, inner)
 int launch_qkv(const void* z, const void* wq, const void* wk, const void* wv,
-               void* o, int b, int t, int p, int c, float scale, int grid,
-               cudaStream_t stream) {
+               void* o, int b, int t, int p, int c, int inner, float scale,
+               int grid, cudaStream_t stream) {
   using R = pgemm::RingOf<QkvOp>;
   QkvParams q{};
   q.t = t;
-  q.heads = c / kD;
+  q.heads = inner / kD;
   q.ppt = QkvOp::kBM / t;
   q.ptiles = (p + q.ppt - 1) / q.ppt;
   q.kblocks = c / kBK;
@@ -258,10 +265,10 @@ int launch_qkv(const void* z, const void* wq, const void* wk, const void* wv,
   if (grid < 1 || grid > q.tiles) return (int)cudaErrorInvalidValue;
   CUtensorMap tz, tq, tk, tv, to;
   int err = make_map_tokens(&tz, z, b, t, p, c, QkvOp::kBM);
-  if (!err) err = lnout::make_map(&tq, wq, c, c, kD);
-  if (!err) err = lnout::make_map(&tk, wk, c, c, kD);
-  if (!err) err = lnout::make_map(&tv, wv, c, c, kD);
-  if (!err) err = make_map_tokens(&to, o, b, t, p, c, 64);
+  if (!err) err = lnout::make_map(&tq, wq, c, inner, kD);
+  if (!err) err = lnout::make_map(&tk, wk, c, inner, kD);
+  if (!err) err = lnout::make_map(&tv, wv, c, inner, kD);
+  if (!err) err = make_map_tokens(&to, o, b, t, p, inner, 64);
   if (err) return err;
   cudaError_t e = cudaFuncSetAttribute(
       qkv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, R::kBytes);
@@ -277,25 +284,30 @@ struct Tiles {
   int out_bm, out_bn, out_grid;  // (c)'s tile and blocks
 };
 
-// one stage: x -> out through the scratch z and o; w = {wq, wk, wv, wo, bo}
+// one stage: x -> out through the scratch z and o; w = {wq, wk, wv, wo, bo};
+// partial: out is the fp32 accumulator (bo unused)
 int run_stage(const void* x, const float* lnw, const float* lnb,
               const void* const (&w)[5], void* z, void* o, void* out, int b,
-              int t, int p, int c, float scale, float eps, const Tiles& tl,
-              cudaStream_t s) {
+              int t, int p, int c, int inner, bool partial, float scale,
+              float eps, const Tiles& tl, cudaStream_t s) {
   const int n = b * t * p;
   int err = lnout::launch_ln<Tag>(x, lnw, lnb, z, n, c, eps, s);
   if (!err)
-    err = launch_qkv(z, w[0], w[1], w[2], o, b, t, p, c, scale, tl.qkv_grid,
-                     s);
-  if (!err)
-    err = lnout::launch_out<Tag>(o, w[3], w[4], x, out, n, c, c, tl.out_bm,
-                                 tl.out_bn, tl.out_grid, s);
-  return err;
+    err = launch_qkv(z, w[0], w[1], w[2], o, b, t, p, c, inner, scale,
+                     tl.qkv_grid, s);
+  if (err) return err;
+  if (partial)
+    return lnout::launch_out_partial<Tag>(o, w[3], static_cast<float*>(out),
+                                          n, inner, c, tl.out_bm, tl.out_bn,
+                                          tl.out_grid, s);
+  return lnout::launch_out<Tag>(o, w[3], w[4], x, out, n, inner, c,
+                                tl.out_bm, tl.out_bn, tl.out_grid, s);
 }
 
-bool valid(int b, int t, int p, int c) {
+bool valid(int b, int t, int p, int c, int inner) {
   return b > 0 && p > 0 && t > 0 && 16 % t == 0 && c > 0 && c % kD == 0 &&
-         b <= 65535 && (long long)b * t * p < (1ll << 31);
+         inner > 0 && inner % kD == 0 && b <= 65535 &&
+         (long long)b * t * p < (1ll << 31);
 }
 
 }  // namespace tattn
@@ -316,29 +328,33 @@ extern "C" int tc_temporal_attn_pair(
     void* out, int b, int t, int p, int c, float scale, float eps,
     int qkv_grid, int out_bm, int out_bn, int out_grid, void* stream) {
   using namespace tattn;
-  if (!valid(b, t, p, c)) return (int)cudaErrorInvalidValue;
+  if (!valid(b, t, p, c, c)) return (int)cudaErrorInvalidValue;
   const Tiles tl{qkv_grid, out_bm, out_bn, out_grid};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const void* const w1[5] = {wq1, wk1, wv1, wo1, bo1};
   const void* const w2[5] = {wq2, wk2, wv2, wo2, bo2};
-  const int err = run_stage(x, ln1w, ln1b, w1, z, o, out, b, t, p, c, scale,
-                            eps, tl, s);
+  const int err = run_stage(x, ln1w, ln1b, w1, z, o, out, b, t, p, c, c,
+                            false, scale, eps, tl, s);
   if (err) return err;
-  return run_stage(out, ln2w, ln2b, w2, z, o, out, b, t, p, c, scale, eps,
-                   tl, s);
+  return run_stage(out, ln2w, ln2b, w2, z, o, out, b, t, p, c, c, false,
+                   scale, eps, tl, s);
 }
 
 // One sub-block, y = x + to_out(attn_T(qkv(LN(x)))), with the pair's
-// limits, layouts and tiles.
+// limits, layouts and tiles, at inner = heads * 64 (wq, wk, wv (inner, c),
+// wo (c, inner), o (b, t, p, inner)). partial: out (b, t, p, c) is the
+// out-GEMM's fp32 accumulator, bo unused.
 extern "C" int tc_temporal_attn_single(
     const void* x, const float* lnw, const float* lnb, const void* wq,
     const void* wk, const void* wv, const void* wo, const void* bo, void* z,
-    void* o, void* out, int b, int t, int p, int c, float scale, float eps,
-    int qkv_grid, int out_bm, int out_bn, int out_grid, void* stream) {
+    void* o, void* out, int b, int t, int p, int c, int inner, int partial,
+    float scale, float eps, int qkv_grid, int out_bm, int out_bn,
+    int out_grid, void* stream) {
   using namespace tattn;
-  if (!valid(b, t, p, c)) return (int)cudaErrorInvalidValue;
+  if (!valid(b, t, p, c, inner)) return (int)cudaErrorInvalidValue;
   const Tiles tl{qkv_grid, out_bm, out_bn, out_grid};
   const void* const w[5] = {wq, wk, wv, wo, bo};
-  return run_stage(x, lnw, lnb, w, z, o, out, b, t, p, c, scale, eps, tl,
+  return run_stage(x, lnw, lnb, w, z, o, out, b, t, p, c, inner,
+                   partial != 0, scale, eps, tl,
                    static_cast<cudaStream_t>(stream));
 }

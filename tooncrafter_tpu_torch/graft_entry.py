@@ -16,12 +16,12 @@ evaluates the output's shape and dtype and computes nothing, as
 ``jax.eval_shape`` does for the JAX entry.
 
 ``dryrun_multidevice(n)`` spawns n ranks over gloo (sharing the card, or
-on the CPU when asked with ``device="cpu"``) on a (n, 1) mesh at the tiny config: one
-training step with EMA, the validation step with and without EMA, and
-``BatchedPipeline`` DDIM-2 with CFG 7.5 and rescale 0.7 over the batch. The
-JAX dry run puts a model axis of 2 on four or more devices; tensor
-parallelism is not ported (``parallel/mesh.MODEL_AXIS``), so the mesh here
-is always (n, 1).
+on the CPU when asked with ``device="cpu"``) at the tiny config on the JAX
+dry run's mesh: (n / 2, 2) where n is even and at least 4 (a model axis of
+2: the UNet's transformer blocks sharded, ``parallel/tensor.py``), else
+(n, 1). One training step with EMA, the validation step with and without
+EMA, and ``BatchedPipeline(shard_params=True)`` DDIM-2 with CFG 7.5 and
+rescale 0.7 over a batch of one clip a data rank.
 """
 
 from __future__ import annotations
@@ -69,9 +69,9 @@ def entry(device="cuda"):
     return fn, (x, ts, ctx, fs)
 
 
-def _dryrun_rank(d) -> dict:
-    """One rank of ``dryrun_multidevice``: this rank's clip of a zero
-    batch of world-size clips."""
+def _dryrun_rank(d, n_model: int = 1) -> dict:
+    """One rank of ``dryrun_multidevice``: its data rank's clip of a zero
+    batch of one clip a data rank, the UNet sharded over ``n_model``."""
     from tooncrafter_tpu_torch.config import ModelConfig
     from tooncrafter_tpu_torch.models.diffusion import Pipeline, ToonCrafter
     from tooncrafter_tpu_torch.parallel import mesh as M
@@ -81,17 +81,18 @@ def _dryrun_rank(d) -> dict:
     from tooncrafter_tpu_torch.utils.weights import init_random_
 
     dev = d.device
-    mesh = M.make_mesh(device_type=dev.type)
+    mesh = M.make_mesh(n_model=n_model, device_type=dev.type)
+    drank, n_data = M.rank_world(M.data_group(mesh))
     cfg = ModelConfig().tiny()
     if dev.type == "cuda":
         cfg = dataclasses.replace(cfg, compute_dtype=torch.bfloat16)
-    torch.manual_seed(d.rank)  # dropout's stream: seed + rank
+    torch.manual_seed(drank)  # dropout's stream: seed + data rank
     with torch.device(dev):
         model = ToonCrafter(cfg)
     init_random_(model, torch.Generator(dev).manual_seed(0))
     tcfg = T.TrainConfig(learning_rate=1e-4)
     state, opt = T.make_train_state(model, tcfg, use_ema=True, group=mesh)
-    b, t = d.world, cfg.video_length
+    b, t = n_data, cfg.video_length
     h_px, w_px = cfg.latent_h * 8, cfg.latent_w * 8
     full = {"video": torch.zeros((b, t, h_px, w_px, 3), device=dev),
             "tokens": torch.zeros((b, 77), dtype=torch.long, device=dev),
@@ -99,7 +100,7 @@ def _dryrun_rank(d) -> dict:
                                        device=dev),
             "fs": torch.full((b,), 10, device=dev),
             "fps": torch.full((b,), 8.0, device=dev)}
-    mine = slice(d.rank, d.rank + 1)
+    mine = slice(drank, drank + 1)
     batch = {k: v[mine] for k, v in full.items()}
     _, metrics = T.make_train_step(model, opt, tcfg)(
         state, batch, torch.Generator(dev).manual_seed(1))
@@ -116,7 +117,7 @@ def _dryrun_rank(d) -> dict:
     if dev.type == "cuda":
         model.to_compute_dtype()
     srv = BatchedPipeline(Pipeline(model, ddim_steps=2, guidance=GuidanceConfig(
-        cfg_scale=7.5, guidance_rescale=0.7)), mesh)
+        cfg_scale=7.5, guidance_rescale=0.7)), mesh, shard_params=True)
     srv.place_params()
     out = srv(full["video"], full["tokens"], full["null_tokens"],
               full["fs"].float(), seed=3)
@@ -143,14 +144,15 @@ def dryrun_multidevice(n: int, device: str = "cuda",
         raise RuntimeError("dryrun_multidevice: no CUDA device; pass "
                            "device='cpu' to run the ranks on the CPU")
 
-    res = run_ranks(_dryrun_rank, n, device, timeout=timeout,
-                    threads=1 if device == "cpu" else None)
+    n_model = 2 if n % 2 == 0 and n >= 4 else 1  # the JAX dry run's rule
+    res = run_ranks(_dryrun_rank, n, device, args=(n_model,),
+                    timeout=timeout, threads=1 if device == "cpu" else None)
     r0 = res[0]
     vals = [r0[k] for k in ("loss", "val", "val_ema", "decode_checksum")]
     if not all(math.isfinite(v) for v in vals):
         raise RuntimeError(f"dryrun_multidevice: a value is not finite: {r0}")
-    print(f"dryrun_multidevice OK on {n} ranks (mesh {r0['mesh']}; the JAX "
-          f"dry run's model axis is not ported), loss={r0['loss']:.4f}, "
+    print(f"dryrun_multidevice OK on {n} ranks (mesh {r0['mesh']}), "
+          f"loss={r0['loss']:.4f}, "
           f"val={r0['val']:.4f}, val_ema={r0['val_ema']:.4f}, "
           f"decode_checksum={r0['decode_checksum']:.5f}", flush=True)
     return r0

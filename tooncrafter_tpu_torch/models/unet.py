@@ -48,6 +48,17 @@ applies without producer sums (every norm of the training branch, the init
 attention's) goes through ``fused_norms.group_norm_silu``: the one-pass
 kernel (#16) under TOONCRAFTER_FUSED_GN=1.
 
+Under tensor parallelism (``parallel/tensor.py``: ``shard_`` gives each
+transformer block, its attentions and its feed-forward the attribute ``tp``)
+a block holds its rank's heads and its share of the feed-forward width:
+each sub-block reads its input through ``copy_to_model`` and sums its
+partial output over the model group before its out bias and residual; the
+fused feed-forward and the temporal single stage take their kernels'
+partial mode, attn1 the flash kernels at the local heads (named by the
+whole call's route), and a temporal block whose route is the pair takes
+the single stage instead (the pair's stage 2 reads stage 1's whole
+output).
+
 Training with ``use_checkpoint`` recomputes each ResBlock, SpatialTransformer
 and TemporalTransformer in the backward (the JAX package's ``rematted``,
 tooncrafter_tpu/models/unet.py:851-866): ``remat_policy`` None saves
@@ -69,7 +80,8 @@ from torch.utils import checkpoint as ckpt
 
 from tooncrafter_tpu_torch.ops import flash_attention as fa
 from tooncrafter_tpu_torch.ops import temporal_attention as ta
-from tooncrafter_tpu_torch.ops.fused_ff import fused_geglu_ff
+from tooncrafter_tpu_torch.ops.fused_ff import finish, fused_geglu_ff
+from tooncrafter_tpu_torch.parallel import tensor as TP
 from tooncrafter_tpu_torch.ops.attention import (attention,
                                                  temporal_attention_inplace)
 from tooncrafter_tpu_torch.ops.norms import (GroupNorm, LayerNorm,
@@ -215,7 +227,10 @@ class CrossAttention(nn.Module):
     packed flash path, on (B, T, H, W, C) it attends over T (with learned
     relative-position tables when ``relative_position``), and with a
     context and ``image_branch`` it adds the image-token attention, scaled
-    by tanh(alpha)+1 when that scale is learnable."""
+    by tanh(alpha)+1 when that scale is learnable. Under tensor parallelism
+    (``tp``) ``heads`` is this rank's share and ``to_out`` row-parallel."""
+
+    tp = None  # a parallel.tensor.Shard, set by parallel.tensor.shard_
 
     def __init__(self, query_dim: int, heads: int, dim_head: int,
                  context_dim: Optional[int] = None,
@@ -245,17 +260,30 @@ class CrossAttention(nn.Module):
             if ip_scale_learnable:
                 self.alpha = nn.Parameter(torch.zeros(()))
 
+    def out(self, o):
+        """to_out; under tensor parallelism its row-parallel form (this
+        rank's heads' columns, the sum over the model group, the bias once)."""
+        if self.tp is None:
+            return self.to_out(o)
+        return self.to_out[1](TP.row_parallel(o, self.to_out[0],
+                                              self.tp.group))
+
     def forward(self, x, context=None, mask=None):
+        if self.tp is not None and context is not None:
+            context = TP.copy_to_model(context, self.tp.group)
         if context is None and x.ndim == 3 and mask is None:
             s, inner = x.shape[1], self.heads * self.dim_head
-            if fa.use_packed_kernel(s, inner, self.heads):
+            whole = (inner if self.tp is None
+                     else self.tp.heads * self.dim_head)
+            if fa.use_packed_kernel(s, whole, whole // self.dim_head):
                 w = torch.cat([self.to_q.weight, self.to_k.weight,
                                self.to_v.weight])
-                out = fa.flash_attention_packed(F.linear(x, w), self.heads)
+                out = fa.flash_attention_packed(F.linear(x, w), self.heads,
+                                                whole_c=whole)
             else:
                 out = attention(self.to_q(x), self.to_k(x), self.to_v(x),
                                 heads=self.heads)
-            return self.to_out(out)
+            return self.out(out)
         if x.ndim == 5:
             assert context is None
             rel_k = rel_v = None
@@ -266,7 +294,7 @@ class CrossAttention(nn.Module):
             out = temporal_attention_inplace(
                 self.to_q(x), self.to_k(x), self.to_v(x), heads=self.heads,
                 mask=mask, rel_k=rel_k, rel_v=rel_v)
-            return self.to_out(out)
+            return self.out(out)
         q = self.to_q(x)
         if self.image_branch and context is not None:
             ctx_text = context[:, :self.text_len]
@@ -282,7 +310,7 @@ class CrossAttention(nn.Module):
             ctx = x if context is None else context[:, :self.text_len]
             out = attention(q, self.to_k(ctx), self.to_v(ctx),
                             heads=self.heads, mask=mask)
-        return self.to_out(out)
+        return self.out(out)
 
 
 class GEGLU(nn.Module):
@@ -296,7 +324,11 @@ class GEGLU(nn.Module):
 
 
 class FeedForward(nn.Module):
-    """GEGLU feed-forward, ``net`` = [GEGLU, Dropout, Linear]."""
+    """GEGLU feed-forward, ``net`` = [GEGLU, Dropout, Linear]; under tensor
+    parallelism (``tp``) a rank's share of the hidden width, ``net[2]``
+    row-parallel."""
+
+    tp = None  # a parallel.tensor.Shard, set by parallel.tensor.shard_
 
     def __init__(self, dim: int, mult: int = 4):
         super().__init__()
@@ -304,18 +336,32 @@ class FeedForward(nn.Module):
                                  nn.Linear(dim * mult, dim))
 
     def forward(self, x):
-        return self.net[2](self.net[1](self.net[0](x)))
+        h = self.net[1](self.net[0](x))
+        if self.tp is None:
+            return self.net[2](h)
+        return TP.row_parallel(h, self.net[2], self.tp.group)
 
     def fused(self, x, norm: nn.LayerNorm):
         """ff(norm(x)) + x in one call of the fused feed-forward (the
-        LayerNorm prologue, the residual in the epilogue)."""
+        LayerNorm prologue, the residual in the epilogue); under tensor
+        parallelism its partial call on this rank's share of D, the fp32
+        accumulators summed over the model group, then the bias and the
+        residual (``fused_ff.finish``)."""
         proj, out = self.net[0].proj, self.net[2]
-        return fused_geglu_ff(x, proj.weight, proj.bias, out.weight,
-                              out.bias, norm.weight, norm.bias, norm.eps,
-                              residual=True)
+        if self.tp is None:
+            return fused_geglu_ff(x, proj.weight, proj.bias, out.weight,
+                                  out.bias, norm.weight, norm.bias, norm.eps,
+                                  residual=True)
+        g = self.tp.group
+        part = fused_geglu_ff(TP.copy_to_model(x, g), proj.weight, proj.bias,
+                              out.weight, None, norm.weight, norm.bias,
+                              norm.eps, partial=True, name_d=self.tp.d_ff)
+        return finish(TP.reduce_from_model(part, g), out.bias, x)
 
 
 class BasicTransformerBlock(nn.Module):
+    tp = None  # a parallel.tensor.Shard, set by parallel.tensor.shard_
+
     def __init__(self, dim: int, heads: int, dim_head: int,
                  context_dim: Optional[int], image_branch: bool = False,
                  ip_scale_learnable: bool = False, cross: bool = True,
@@ -343,12 +389,17 @@ class BasicTransformerBlock(nn.Module):
             x = {"pair": self.temporal_pair, "single": self.temporal_single,
                  "ptc": self.temporal_ptc}[route](x)
         else:
-            x = self.attn1(self.norm1(x), None, mask) + x
-            x = self.attn2(self.norm2(x), context if self.cross else None,
-                           mask) + x
+            x = self.attn1(self.norm1(self._in(x)), None, mask) + x
+            x = self.attn2(self.norm2(self._in(x)),
+                           context if self.cross else None, mask) + x
         if not fused:
-            return self.ff(self.norm3(x)) + x
+            return self.ff(self.norm3(self._in(x))) + x
         return self.ff.fused(x, self.norm3)
+
+    def _in(self, x):
+        """A sub-block's input: under tensor parallelism through
+        ``copy_to_model`` (its gradient summed over the model group)."""
+        return x if self.tp is None else TP.copy_to_model(x, self.tp.group)
 
     def temporal_pair(self, x):
         """Both sub-blocks of a temporal block, x + attn1(norm1(x)), then
@@ -366,14 +417,22 @@ class BasicTransformerBlock(nn.Module):
 
     def temporal_single(self, x):
         """The two sub-blocks as two calls of the single-stage kernel (the
-        JAX package's ``ln=`` path under TC_TATTN_PAIR=0)."""
+        JAX package's ``ln=`` path under TC_TATTN_PAIR=0; under tensor
+        parallelism each a partial call on this rank's heads, summed over
+        the model group and finished with the bias and the residual)."""
         y = x.reshape(x.shape[:2] + (-1, x.shape[-1]))
         for norm, attn in ((self.norm1, self.attn1), (self.norm2, self.attn2)):
-            y = ta._fused_tattn_call(
-                y, (norm.weight, norm.bias, attn.to_q.weight,
-                    attn.to_k.weight, attn.to_v.weight,
-                    attn.to_out[0].weight, attn.to_out[0].bias),
-                attn.heads, attn.dim_head ** -0.5, norm.eps)
+            stage = (norm.weight, norm.bias, attn.to_q.weight,
+                     attn.to_k.weight, attn.to_v.weight,
+                     attn.to_out[0].weight, attn.to_out[0].bias)
+            args = (attn.heads, attn.dim_head ** -0.5, norm.eps)
+            if self.tp is None:
+                y = ta._fused_tattn_call(y, stage, *args)
+                continue
+            part = ta._fused_tattn_call(self._in(y), stage, *args,
+                                        partial=True)
+            y = finish(TP.reduce_from_model(part, self.tp.group),
+                       attn.to_out[0].bias, y)
         return y.reshape(x.shape)
 
     def temporal_ptc(self, x):
@@ -385,11 +444,12 @@ class BasicTransformerBlock(nn.Module):
         for norm, attn in ((self.norm1, self.attn1), (self.norm2, self.attn2)):
             w = torch.cat([attn.to_q.weight, attn.to_k.weight,
                            attn.to_v.weight])
-            z = layer_norm_ex2(y, norm.weight, norm.bias, norm.eps, y.dtype)
+            z = layer_norm_ex2(self._in(y), norm.weight, norm.bias, norm.eps,
+                               y.dtype)
             q, k, v = F.linear(z, w).chunk(3, dim=-1)
             o = ta.temporal_attention_ptc(q, k, v, heads=attn.heads,
                                           scale=attn.dim_head ** -0.5)
-            y = y + attn.to_out(o)
+            y = y + attn.out(o)
         return y.reshape(x.shape)
 
 
@@ -450,19 +510,23 @@ class TemporalTransformer(nn.Module):
             # the JAX package's 5-D XLA layout (unet.py:537, 691)
             return "plain"
         blk = self.transformer_blocks[0]
-        d, inner = blk.attn1.dim_head, blk.attn1.heads * blk.attn1.dim_head
+        d = blk.attn1.dim_head
+        inner = (blk.attn1.heads if blk.tp is None else blk.tp.heads) * d
         fused_ok = ta.use_fused_kernel(t, p, d, inner, inner)
         fast = not self.causal and (
             ta.use_kernel(t, p, d, inner=inner) or fused_ok)
+        # under tensor parallelism the pair's two stages run as two single
+        # stages, each reduced over the model group before the next reads it
+        pair = "pair" if blk.tp is None else "single"
         if ta.use_pair_kernel(t, p, d, inner, inner):
             # the JAX package's Pallas pair kernel: the CUDA pair, which
             # raises on the card at a shape it does not take
-            return "pair"
+            return pair
         if ta._PAIR and not fast:
             # the JAX package's XLA chain: the same function through the
             # CUDA pair where it takes the shape, else the plain chain
             # (heads other than 64 wide, T not dividing 16, C > 1280)
-            return "pair" if ta.covers(t, d, inner) else "plain"
+            return pair if ta.covers(t, d, inner) else "plain"
         if fast:
             return "single" if fused_ok else "ptc"
         return "plain"

@@ -801,14 +801,19 @@ def flash_attention(q, k, v, scale: Optional[float] = None):
     return out
 
 
-def flash_attention_packed(qkv, heads: int, scale: Optional[float] = None):
+def flash_attention_packed(qkv, heads: int, scale: Optional[float] = None,
+                           whole_c: Optional[int] = None):
     """Self-attention over a packed (B, S, 3*H*D) projection, for shapes
     inside ``use_packed_kernel``'s envelope (callers route the rest through
-    ``ops.attention.attention``)."""
+    ``ops.attention.attention``). ``whole_c``: under tensor parallelism
+    the whole block's H*D, of which ``qkv`` holds a rank's heads; the whole
+    call's route (``_flash_mh_packed`` or ``_flash_mh``, one kernel under
+    two names) names the launch."""
     b, s, c3 = qkv.shape
     c = c3 // 3
     sc = (c // heads) ** -0.5 if scale is None else scale
-    if _packed_direct_blk(s, c, heads):
+    rc = c if whole_c is None else whole_c
+    if _packed_direct_blk(s, rc, rc // (c // heads)):
         return _flash_mh_packed(qkv, heads, sc)
     if not _mh_blk(s, s, c, heads):
         raise ValueError(f"packed attention outside the kernel envelope: "

@@ -33,6 +33,18 @@ decides which name counts a launch: "streamed" where the TPU would stream,
 the resident name everywhere else. One call counts one launch, whatever
 number of CUDA kernels it runs.
 
+Tensor parallelism (``parallel/tensor.py``) calls it with ``partial=True``
+on a rank's share of D: w1 holds its value rows and its gate rows, w2 its
+columns. The out-GEMM then writes its fp32 accumulator as it is, with no
+bias, no residual and no rounding (the kernels' partial epilogue), and
+``finish`` applies the bias and the residual once, after the partials are
+summed over the model group:
+
+    y = bf16(bf16(sum_r acc_r) + b2) + x
+
+which rounds where the whole call rounds, so a sharded call differs from
+it only in the order of the fp32 sums.
+
 On the card a call runs three kernels (``csrc/fused_ff.cu``): the LayerNorm
 into z, the projection with the gate into m, the out-GEMM with the bias and
 residual into y; z and m are the tensors the TPU kernel rounds to bf16, so
@@ -130,30 +142,49 @@ def kernel_name(n: int, c: int, d: int, cout: int) -> str:
 # ---------------------------------------------------------------------------
 
 def _plain_ff(x2, w1, b1, w2, b2, ln_w, ln_b, eps: float,
-              residual: bool, cdt: Optional[torch.dtype] = None):
+              residual: bool, cdt: Optional[torch.dtype] = None,
+              partial: bool = False):
     """x2: (N, C) -> (N, Cout), with the kernel's rounding points: the LN
     output and the gated product m round to ``cdt`` (x2's dtype unless
     given), the out-GEMM and the adds of b2 and x to x2's dtype. Given
     fp32 operands and cdt=bf16 it is the kernel with its intermediate
-    roundings and an fp32 output, the reference of the card's check."""
+    roundings and an fp32 output, the reference of the card's check.
+    ``partial``: the out-GEMM's fp32 accumulator, nothing added or
+    rounded (b2 and ``residual`` unused)."""
     cdt = x2.dtype if cdt is None else cdt
     z = (layer_norm_ex2(x2, ln_w, ln_b, eps, cdt) if ln_w is not None
          else x2)
     a = torch.matmul(z.float(), w1.float().t()) + b1.float()
     h, g = a.chunk(2, dim=-1)
     m = (h * torch.nn.functional.gelu(g)).to(cdt)
-    y = torch.matmul(m.float(), w2.float().t()).to(x2.dtype) + b2
+    acc = torch.matmul(m.float(), w2.float().t())
+    if partial:
+        return acc
+    y = acc.to(x2.dtype) + b2
     return y + x2 if residual else y
 
 
-def _unfused_ff(x2, w1, b1, w2, b2, ln_w, ln_b, eps: float, residual: bool):
+def finish(acc, bias, x):
+    """y = bf16(bf16(acc) + bias) + x in x's compute dtype, each add
+    rounded: the whole out-GEMM epilogue applied to ``acc``, the partial
+    accumulators summed over the model group (fp32, (..., C)), as the
+    unsharded kernel applies it to its own accumulator."""
+    cdt = _launch.compute_dtype(x)
+    return (acc.to(cdt) + bias.to(cdt)) + x.to(cdt)
+
+
+def _unfused_ff(x2, w1, b1, w2, b2, ln_w, ln_b, eps: float, residual: bool,
+                partial: bool = False):
     """The unfused formula in x2's dtype (the compute dtype): products in
     that dtype, LayerNorm statistics, bias-free gate and GELU in fp32, the
-    gated product rounded. The backward differentiates it."""
+    gated product rounded. The backward differentiates it; ``partial``:
+    the out-GEMM alone, without b2 and the residual."""
     z = (layer_norm_ex2(x2, ln_w, ln_b, eps, x2.dtype) if ln_w is not None
          else x2)
     h, g = torch.nn.functional.linear(z, w1, b1).chunk(2, dim=-1)
     m = (h.float() * torch.nn.functional.gelu(g.float())).to(x2.dtype)
+    if partial:
+        return torch.nn.functional.linear(m, w2)
     y = torch.nn.functional.linear(m, w2, b2)
     return y + x2 if residual else y
 
@@ -162,23 +193,16 @@ class _FusedFFFunction(torch.autograd.Function):
     """The kernel forward with the unfused formula's gradient."""
 
     @staticmethod
-    def forward(ctx, eps, residual, x2, w1, b1, w2, b2, ln_w, ln_b):
+    def forward(ctx, eps, residual, partial, name_d, x2, w1, b1, w2, b2,
+                ln_w, ln_b):
         ops = (x2, w1, b1, w2, b2, ln_w, ln_b)
         ctx.save_for_backward(*ops)
-        ctx.eps, ctx.residual = eps, residual
-        return _dispatch(*ops, eps, residual)
+        ctx.flags = (eps, residual, partial)
+        return _dispatch(*ops, eps, residual, partial, name_d)
 
     @staticmethod
     def backward(ctx, gy):
-        ops = ctx.saved_tensors
-        want = ctx.needs_input_grad[2:]
-        with torch.enable_grad(), torch.autocast("cuda", enabled=False):
-            leaves = [None if t is None else t.detach().requires_grad_(w)
-                      for t, w in zip(ops, want)]
-            y = _unfused_ff(*leaves, ctx.eps, ctx.residual)
-            wrt = [t for t, w in zip(leaves, want) if w]
-            got = iter(torch.autograd.grad(y, wrt, gy.to(y.dtype)))
-        return (None, None, *(next(got) if w else None for w in want))
+        return _launch.recompute_grads(ctx, (gy,), _unfused_ff, 4)
 
 
 # ---------------------------------------------------------------------------
@@ -247,7 +271,7 @@ def scratch(p: Plan, device) -> Tuple[Optional[torch.Tensor], torch.Tensor]:
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     vp, i = ctypes.c_void_p, ctypes.c_int
     lib.tc_fused_ff.argtypes = ([vp] * 10 + [i] * 4 + [ctypes.c_float]
-                                + [i] * 6 + [vp])
+                                + [i] * 7 + [vp])
     lib.tc_fused_ff.restype = ctypes.c_int
     return lib
 
@@ -259,7 +283,8 @@ def _library() -> ctypes.CDLL:
     return _LIB
 
 
-def _launch_ff(x2, w1, b1, w2, b2, ln_w, ln_b, eps: float, residual: bool):
+def _launch_ff(x2, w1, b1, w2, b2, ln_w, ln_b, eps: float, residual: bool,
+               partial: bool = False):
     n, c = x2.shape
     d = w1.shape[0] // 2
     cout = w2.shape[0]
@@ -269,7 +294,10 @@ def _launch_ff(x2, w1, b1, w2, b2, ln_w, ln_b, eps: float, residual: bool):
     _launch.check("w1", w1, (2 * d, c), bf, dev)
     _launch.check("b1", b1, (2 * d,), bf, dev)
     _launch.check("w2", w2, (cout, d), bf, dev)
-    _launch.check("b2", b2, (cout,), bf, dev)
+    if not partial:
+        _launch.check("b2", b2, (cout,), bf, dev)
+    elif residual:
+        raise ValueError("fused FF: a partial call adds no residual")
     if ln_w is not None:
         _launch.check("ln_w", ln_w, (c,), torch.float32, dev)
         _launch.check("ln_b", ln_b, (c,), torch.float32, dev)
@@ -277,43 +305,53 @@ def _launch_ff(x2, w1, b1, w2, b2, ln_w, ln_b, eps: float, residual: bool):
         raise ValueError("fused FF: the residual needs Cout == C")
     p = plan(n, c, d, cout, ln_w is not None,
              _launch.sm_count(dev))
-    out = torch.empty((n, cout), dtype=bf, device=dev)
+    out = torch.empty((n, cout), dtype=torch.float32 if partial else bf,
+                      device=dev)
     if n:
         z, m = scratch(p, dev)
         err = _library().tc_fused_ff(
             x2.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
-            b2.data_ptr(), _launch.ptr(ln_w), _launch.ptr(ln_b),
-            _launch.ptr(z), m.data_ptr(), out.data_ptr(), n, c, d, cout,
-            float(eps), int(residual), p.proj.rows, p.proj.grid,
-            p.out.rows, p.out.width, p.out.grid, _launch.stream(x2))
+            _launch.ptr(None if partial else b2), _launch.ptr(ln_w),
+            _launch.ptr(ln_b), _launch.ptr(z), m.data_ptr(), out.data_ptr(),
+            n, c, d, cout, float(eps), int(residual), int(partial),
+            p.proj.rows, p.proj.grid, p.out.rows, p.out.width, p.out.grid,
+            _launch.stream(x2))
         _launch.raise_on_error(err, f"fused FF (N={n}, C={c}, D={d})")
     return out
 
 
 def fused_geglu_ff(x, w1, b1, w2, b2, ln_w=None, ln_b=None,
-                   ln_eps: float = 1e-5, residual: bool = False):
+                   ln_eps: float = 1e-5, residual: bool = False,
+                   partial: bool = False, name_d: Optional[int] = None):
     """x: (..., C) -> (..., Cout). CPU tensors take the plain version; CUDA
-    tensors launch the kernels, counted under the TPU kernel's name."""
-    if residual and ln_w is None:
-        raise ValueError("residual=True needs the LayerNorm prologue")
+    tensors launch the kernels, counted under the TPU kernel's name.
+    ``partial``: the out-GEMM's fp32 accumulator (..., Cout), without b2
+    (which may be None) and the residual, for ``finish`` after the sum over
+    the model group; ``name_d``: the whole call's D, which names the
+    launch (a rank's share of D runs the kernels the whole call runs)."""
+    if residual and (ln_w is None or partial):
+        raise ValueError("residual=True needs the LayerNorm prologue and a "
+                         "whole call")
     c = x.shape[-1]
     cout = w2.shape[0]
     cdt = _launch.compute_dtype(x)
-    x2, w1, b1, w2, b2 = (t.to(cdt) for t in (x.reshape(-1, c), w1, b1, w2,
-                                                b2))
+    x2, w1, b1, w2 = (t.to(cdt) for t in (x.reshape(-1, c), w1, b1, w2))
+    b2 = None if partial else b2.to(cdt)
     ops = (x2, w1, b1, w2, b2, ln_w, ln_b)
     if _launch.needs_grad(*ops):
-        y = _FusedFFFunction.apply(ln_eps, residual, *ops)
+        y = _FusedFFFunction.apply(ln_eps, residual, partial, name_d, *ops)
     else:
-        y = _dispatch(*ops, ln_eps, residual)
+        y = _dispatch(*ops, ln_eps, residual, partial, name_d)
     return y.reshape(x.shape[:-1] + (cout,))
 
 
-def _dispatch(x2, w1, b1, w2, b2, ln_w, ln_b, eps: float, residual: bool):
+def _dispatch(x2, w1, b1, w2, b2, ln_w, ln_b, eps: float, residual: bool,
+              partial: bool = False, name_d: Optional[int] = None):
     """The plain version for CPU tensors, the kernels for CUDA tensors."""
     if _launch.on_cpu("fused FF", x2, w1, b1, w2, b2, ln_w, ln_b):
-        return _plain_ff(x2, w1, b1, w2, b2, ln_w, ln_b, eps, residual)
-    y = _launch_ff(x2, w1, b1, w2, b2, ln_w, ln_b, eps, residual)
-    LAUNCHES[kernel_name(x2.shape[0], x2.shape[1], w2.shape[1],
+        return _plain_ff(x2, w1, b1, w2, b2, ln_w, ln_b, eps, residual,
+                         partial=partial)
+    y = _launch_ff(x2, w1, b1, w2, b2, ln_w, ln_b, eps, residual, partial)
+    LAUNCHES[kernel_name(x2.shape[0], x2.shape[1], name_d or w2.shape[1],
                          w2.shape[0])] += 1
     return y

@@ -17,6 +17,15 @@ and paid a transpose on each side. Each stage is (ln_w, ln_b, wq, wk, wv,
 wo, bo) with torch's Linear layout: wq, wk, wv, wo (C, C), bo (C,); ln_w,
 ln_b fp32.
 
+Under tensor parallelism (``parallel/tensor.py``) a temporal block takes
+the single stage at a rank's share of the heads, ``partial=True``: wq, wk,
+wv (inner, C) hold its heads' rows and wo (C, inner) their columns, the
+q|k|v GEMM runs at N = 3 inner and the out-GEMM at K = inner, which writes
+its fp32 accumulator with no bias, residual or rounding; the caller sums it
+over the model group and finishes it as the whole stage's epilogue does
+(``fused_ff.finish``). The pair cannot run so: its stage 2 reads stage 1's
+finished output.
+
 Under autograd (grad enabled and an input requiring grad) the wrapper runs
 ``_TPairFunction``: its forward is the kernel (the plain version on the
 CPU), its backward differentiates the unfused formula ``_unfused_tpair`` in
@@ -142,8 +151,11 @@ def use_pair_kernel(t: int, p: int, d: int, c: int, inner: int) -> bool:
 # plain version
 # ---------------------------------------------------------------------------
 
-def _plain_stage(x, stage, heads: int, scale: float, eps: float, cdt):
-    """x + to_out(attn_T(qkv(LN(x)))) on (B, T, P, C)."""
+def _plain_stage(x, stage, heads: int, scale: float, eps: float, cdt,
+                 partial: bool = False):
+    """x + to_out(attn_T(qkv(LN(x)))) on (B, T, P, C); ``partial``: the
+    out-projection's fp32 accumulator alone (bo unused), at wq, wk, wv
+    (inner, C) and wo (C, inner) of ``heads`` heads."""
     ln_w, ln_b, wq, wk, wv, wo, bo = stage
     bsz, t, p, c = x.shape
     z = layer_norm_ex2(x, ln_w, ln_b, eps, cdt).float()
@@ -155,9 +167,11 @@ def _plain_stage(x, stage, heads: int, scale: float, eps: float, cdt):
     q, k, v = heads_of(wq), heads_of(wk), heads_of(wv)
     probs = torch.softmax(torch.matmul(q, k.transpose(-1, -2)) * scale, -1)
     o = torch.matmul(probs.to(cdt).float(), v).to(cdt).float()
-    o = o.permute(0, 3, 1, 2, 4).reshape(bsz, t, p, c)
-    y = torch.matmul(o, wo.float().t()).to(x.dtype) + bo.to(x.dtype)
-    return x + y
+    o = o.permute(0, 3, 1, 2, 4).reshape(bsz, t, p, -1)
+    acc = torch.matmul(o, wo.float().t())
+    if partial:
+        return acc
+    return x + (acc.to(x.dtype) + bo.to(x.dtype))
 
 
 def _plain_tpair(x, stage1, stage2, heads: int, scale: float, eps: float,
@@ -172,10 +186,12 @@ def _plain_tpair(x, stage1, stage2, heads: int, scale: float, eps: float,
     return _plain_stage(y, stage2, heads, scale, eps, cdt)
 
 
-def _unfused_stage(x, stage, heads: int, scale: float, eps: float):
+def _unfused_stage(x, stage, heads: int, scale: float, eps: float,
+                   partial: bool = False):
     """x + to_out(attn_T(qkv(LN(x)))) on (B, T, P, C) in x's dtype (the
     compute dtype): products in that dtype, LayerNorm statistics, logits
-    and softmax in fp32, the probabilities rounded."""
+    and softmax in fp32, the probabilities rounded; ``partial``: the
+    out-projection alone, without bo and x."""
     ln_w, ln_b, wq, wk, wv, wo, bo = stage
     bsz, t, p, c = x.shape
     z = layer_norm_ex2(x, ln_w, ln_b, eps, x.dtype)
@@ -187,7 +203,9 @@ def _unfused_stage(x, stage, heads: int, scale: float, eps: float):
     q, k, v = heads_of(wq), heads_of(wk), heads_of(wv)
     logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
     probs = torch.softmax(logits, -1).to(x.dtype)
-    o = torch.matmul(probs, v).permute(0, 3, 1, 2, 4).reshape(bsz, t, p, c)
+    o = torch.matmul(probs, v).permute(0, 3, 1, 2, 4).reshape(bsz, t, p, -1)
+    if partial:
+        return torch.nn.functional.linear(o, wo)
     return x + torch.nn.functional.linear(o, wo, bo)
 
 
@@ -236,32 +254,38 @@ class Plan:
     columns), head tiles fastest, walked by ``qkv.grid`` persistent blocks;
     the out-GEMM with the bias and residual, tiled as the FF's
     (``fused_ff.plan``) for N = B T P and Cout = C. ``scratch`` is the
-    shape of z and of o, each bf16, reused by stage 2."""
+    shape of z and ``o`` that of o (inner = heads * 64 columns), each bf16,
+    reused by stage 2."""
     scratch: Tuple[int, int, int, int]
+    o: Tuple[int, int, int, int]
     pixels: int
     qkv: ff.GemmPlan
     out: ff.GemmPlan
 
 
 @functools.lru_cache(maxsize=None)
-def plan(bsz: int, t: int, p: int, c: int,
+def plan(bsz: int, t: int, p: int, c: int, inner: Optional[int] = None,
          sms: int = _launch.H100_SMS) -> Plan:
-    """The kernels' tiles, grids and scratch for x (B, T, P, C). Raises
-    ValueError outside their envelope: T dividing 16, C a positive multiple
-    of 64, B T P < 2^31; TMA zero-fills the pixels past P of a sample's last
-    tile, and its stores leave them out. Cached: a request calls it
-    thousands of times at a few shapes."""
-    if (min(bsz, t, p, c) <= 0 or 16 % t or c % HEAD_DIM
-            or bsz * t * p >= 2 ** 31):
+    """The kernels' tiles, grids and scratch for x (B, T, P, C) and heads
+    of ``inner`` columns in all (C unless given: the whole block; a rank's
+    share under tensor parallelism). Raises ValueError outside their
+    envelope: T dividing 16, C and inner positive multiples of 64, B T P <
+    2^31; TMA zero-fills the pixels past P of a sample's last tile, and its
+    stores leave them out. Cached: a request calls it thousands of times at
+    a few shapes."""
+    inner = c if inner is None else inner
+    if (min(bsz, t, p, c, inner) <= 0 or 16 % t or c % HEAD_DIM
+            or inner % HEAD_DIM or bsz * t * p >= 2 ** 31):
         raise ValueError(f"temporal attention kernels: need T dividing 16, "
-                         f"C a multiple of {HEAD_DIM} and B T P < 2^31; got "
-                         f"B={bsz}, T={t}, P={p}, C={c}")
+                         f"C and inner multiples of {HEAD_DIM} and B T P < "
+                         f"2^31; got B={bsz}, T={t}, P={p}, C={c}, "
+                         f"inner={inner}")
     pixels = _TILE // t
-    tiles = bsz * -(-p // pixels) * (c // HEAD_DIM)
+    tiles = bsz * -(-p // pixels) * (inner // HEAD_DIM)
     n = bsz * t * p
-    return Plan(scratch=(bsz, t, p, c), pixels=pixels,
+    return Plan(scratch=(bsz, t, p, c), o=(bsz, t, p, inner), pixels=pixels,
                 qkv=ff.GemmPlan(_TILE, 3 * HEAD_DIM, tiles, min(tiles, sms)),
-                out=ff.plan(n, c, c, c, False, sms).out)
+                out=ff.plan(n, c, inner, c, False, sms).out)
 
 
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
@@ -269,7 +293,7 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.tc_temporal_attn_pair.argtypes = ([vp] * 18 + [i] * 4 + [f, f]
                                           + [i] * 4 + [vp])
     lib.tc_temporal_attn_pair.restype = ctypes.c_int
-    lib.tc_temporal_attn_single.argtypes = ([vp] * 11 + [i] * 4 + [f, f]
+    lib.tc_temporal_attn_single.argtypes = ([vp] * 11 + [i] * 6 + [f, f]
                                             + [i] * 4 + [vp])
     lib.tc_temporal_attn_single.restype = ctypes.c_int
     return lib
@@ -282,40 +306,58 @@ def _library() -> ctypes.CDLL:
     return _LIB
 
 
-def covers(t: int, d: int, c: int) -> bool:
+def covers(t: int, d: int, c: int, inner: Optional[int] = None) -> bool:
     """Shapes the CUDA kernels take: T frames dividing 16, 64-wide heads,
-    C = heads * 64 <= 1280."""
+    C a multiple of 64 up to 1280, and ``inner`` (heads * 64; C unless
+    given) up to 1280."""
+    inner = c if inner is None else inner
     return (t >= 1 and 16 % t == 0 and d == HEAD_DIM and c % HEAD_DIM == 0
-            and c <= _MAX_C)
+            and inner % HEAD_DIM == 0 and 0 < c <= _MAX_C
+            and 0 < inner <= _MAX_C)
 
 
-def _launch_stages(x, stages, heads: int, scale: float, eps: float):
-    """Both stages (the pair) or one on the card, into a new tensor."""
+def _launch_stages(x, stages, heads: int, scale: float, eps: float,
+                   partial: bool = False):
+    """Both stages (the pair) or one on the card, into a new tensor (one
+    stage with ``partial``: the fp32 accumulator, bo unused)."""
     bsz, t, p, c = x.shape
     dev, bf, f32 = x.device, torch.bfloat16, torch.float32
-    if not covers(t, c // heads, c) or c % heads:
+    inner = stages[0][2].shape[0]
+    if (not covers(t, inner // heads, c, inner) or inner % heads
+            or (partial and len(stages) != 1)
+            or (len(stages) == 2 and inner != c)):
         raise ValueError(f"temporal attention kernels: need T dividing 16, "
-                         f"heads of {HEAD_DIM} and C <= {_MAX_C}; got T={t},"
-                         f" C={c}, heads={heads}")
+                         f"heads of {HEAD_DIM} and C, inner <= {_MAX_C} "
+                         f"(the pair at inner = C); got T={t}, C={c}, "
+                         f"inner={inner}, heads={heads}")
     _launch.check("x", x, (bsz, t, p, c), bf, dev)
     ptrs = []
     for i, stage in enumerate(stages, 1):
         for name, ten, shape, dt in zip(
                 ("ln_w", "ln_b", "wq", "wk", "wv", "wo", "bo"), stage,
-                ((c,), (c,), (c, c), (c, c), (c, c), (c, c), (c,)),
+                ((c,), (c,), (inner, c), (inner, c), (inner, c), (c, inner),
+                 (c,)),
                 (f32, f32, bf, bf, bf, bf, bf)):
+            if name == "bo" and partial:
+                ptrs.append(None)
+                continue
             _launch.check(f"stage {i} {name}", ten, shape, dt, dev)
             ptrs.append(ten.data_ptr())
-    out = torch.empty_like(x)
+    out = torch.empty((bsz, t, p, c), dtype=f32 if partial else bf,
+                      device=dev)
     if x.numel():
-        pl = plan(bsz, t, p, c, _launch.sm_count(dev))
-        z, o = (torch.empty(pl.scratch, dtype=bf, device=dev)
-                for _ in range(2))
+        pl = plan(bsz, t, p, c, inner, _launch.sm_count(dev))
+        z = torch.empty(pl.scratch, dtype=bf, device=dev)
+        o = torch.empty(pl.o, dtype=bf, device=dev)
         lib = _library()
-        call = (lib.tc_temporal_attn_pair if len(stages) == 2
-                else lib.tc_temporal_attn_single)
+        shape = (bsz, t, p, c)
+        if len(stages) == 2:
+            call = lib.tc_temporal_attn_pair
+        else:
+            call = lib.tc_temporal_attn_single
+            shape += (inner, int(partial))
         err = call(x.data_ptr(), *ptrs, z.data_ptr(), o.data_ptr(),
-                   out.data_ptr(), bsz, t, p, c, float(scale), float(eps),
+                   out.data_ptr(), *shape, float(scale), float(eps),
                    pl.qkv.grid, pl.out.rows, pl.out.width, pl.out.grid,
                    _launch.stream(x))
         _launch.raise_on_error(err, f"temporal attention, {len(stages)} "
@@ -360,45 +402,48 @@ class _TAttnFunction(torch.autograd.Function):
     (``_fused_tattn_bwd``, temporal_attention.py:486-495)."""
 
     @staticmethod
-    def forward(ctx, heads, scale, eps, x, *weights):
+    def forward(ctx, heads, scale, eps, partial, x, *weights):
         ctx.save_for_backward(x, *weights)
-        ctx.cfg = (heads, scale, eps)
-        return _dispatch_single(x, weights, heads, scale, eps)
+        ctx.flags = (heads, scale, eps, partial)
+        return _dispatch_single(x, weights, heads, scale, eps, partial)
 
     @staticmethod
     def backward(ctx, gy):
-        ops = ctx.saved_tensors
-        want = ctx.needs_input_grad[3:]
-        with torch.enable_grad(), torch.autocast("cuda", enabled=False):
-            leaves = [t.detach().requires_grad_(w) for t, w in zip(ops, want)]
-            y = _unfused_stage(leaves[0], leaves[1:], *ctx.cfg)
-            wrt = [t for t, w in zip(leaves, want) if w]
-            got = iter(torch.autograd.grad(y, wrt, gy.to(y.dtype)))
-        return (None, None, None, *(next(got) if w else None for w in want))
+        return _launch.recompute_grads(
+            ctx, (gy,), lambda x, *w_and_flags: _unfused_stage(
+                x, w_and_flags[:7], *w_and_flags[7:]), 4)
 
 
-def _launch_single(x, stage, heads: int, scale: float, eps: float):
-    return _launch_stages(x, (stage,), heads, scale, eps)
+def _launch_single(x, stage, heads: int, scale: float, eps: float,
+                   partial: bool = False):
+    return _launch_stages(x, (stage,), heads, scale, eps, partial)
 
 
 def _fused_tattn_call(x, stage: Sequence[torch.Tensor], heads: int,
-                      scale: float, eps: float = 1e-5):
+                      scale: float, eps: float = 1e-5,
+                      partial: bool = False):
     """x + to_out(attn_T(qkv(LN(x)))) on x (B, T, P, C); ``stage`` is
-    (ln_w, ln_b, wq, wk, wv, wo, bo) as a stage of the pair. The wrapper
-    named after the TPU kernel; CPU tensors take the plain version, CUDA
-    tensors the kernels."""
+    (ln_w, ln_b, wq, wk, wv, wo, bo) as a stage of the pair, wq, wk, wv
+    (inner, C) and wo (C, inner) for ``heads`` heads of inner / heads.
+    ``partial``: the out-projection's fp32 accumulator (B, T, P, C) alone,
+    bo unused (it may be None). The wrapper named after the TPU kernel; CPU
+    tensors take the plain version, CUDA tensors the kernels."""
     cdt = _launch.compute_dtype(x)
     x = x.to(cdt)
-    stage = (stage[0], stage[1], *(w.to(cdt) for w in stage[2:]))
+    stage = (stage[0], stage[1], *(None if w is None else w.to(cdt)
+                                   for w in stage[2:]))
+    if partial:
+        stage = stage[:6] + (None,)
     if _launch.needs_grad(x, *stage):
-        return _TAttnFunction.apply(heads, scale, eps, x, *stage)
-    return _dispatch_single(x, stage, heads, scale, eps)
+        return _TAttnFunction.apply(heads, scale, eps, partial, x, *stage)
+    return _dispatch_single(x, stage, heads, scale, eps, partial)
 
 
-def _dispatch_single(x, stage, heads: int, scale: float, eps: float):
+def _dispatch_single(x, stage, heads: int, scale: float, eps: float,
+                     partial: bool = False):
     if _launch.on_cpu("temporal attention", x, *stage):
-        return _plain_stage(x, stage, heads, scale, eps, x.dtype)
-    out = _launch_single(x, stage, heads, scale, eps)
+        return _plain_stage(x, stage, heads, scale, eps, x.dtype, partial)
+    out = _launch_single(x, stage, heads, scale, eps, partial)
     LAUNCHES["_fused_tattn_call"] += 1
     return out
 

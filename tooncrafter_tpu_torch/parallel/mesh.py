@@ -12,8 +12,14 @@ the parameters. The port runs one process per rank over torch.distributed:
     slice would not be those of the tensor, so here each trainable is owned
     whole by one rank, which keeps 'adamw', 'adamw_lowmem' and 'adafactor'
     exact.
-  * ``model``: tensor parallelism of the projection kernels is not ported
-    (``MODEL_AXIS``); ``make_mesh`` refuses ``n_model > 1``.
+  * ``model``: tensor parallelism (``parallel/tensor.py``): the UNet's
+    transformer blocks hold their share of the attention heads and of the
+    feed-forward's hidden width, Megatron-style, with one fp32 reduction
+    over the model group after each attention and each feed-forward. The
+    ranks of one model group are consecutive (the mesh is
+    ``arange(world).reshape(n_data, n_model)``, as the JAX package lays
+    out its devices), see the same batch rows and hold the same activations
+    between the sharded sub-blocks.
 
 Collectives are ``all_reduce``, ``broadcast`` and ``all_gather`` only
 (gloo has all three for CUDA tensors too: two ranks sharing one card run
@@ -30,8 +36,6 @@ from typing import Iterable, List, Optional
 import torch
 import torch.distributed as dist
 
-MODEL_AXIS = ("tensor parallelism over the 'model' axis is not ported "
-              "(ROADMAP Queue 1 item 11); run with n_model = 1")
 BUCKET_BYTES = 64 << 20
 
 
@@ -54,12 +58,18 @@ def init_distributed(device, backend: Optional[str] = None,
     tests and spawned phases) ``rank`` and ``world_size`` are given;
     without it torchrun's ``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``,
     ``MASTER_ADDR`` and ``MASTER_PORT`` are read, and where torchrun set
-    none the process runs alone (no group). The backend is NCCL on CUDA
+    none the process runs alone (no group); a process that has joined a
+    group already keeps it. The backend is NCCL on CUDA
     and gloo on the CPU unless ``backend`` says otherwise (gloo on CUDA:
     ranks sharing a card). On CUDA the rank takes ``cuda:{local_rank}``
     (``LOCAL_RANK``, else the rank); a local rank past the card count is
     an error, and nothing moves to the CPU."""
     device = torch.device(device)
+    if dist.is_initialized():  # joined already (by a spawned rank)
+        if device.type == "cuda":
+            device = torch.device("cuda", torch.cuda.current_device())
+        return Dist(dist.get_rank(), dist.get_world_size(), device,
+                    dist.group.WORLD)
     launched = init_method is not None or "WORLD_SIZE" in os.environ
     if rank is None:
         rank = int(os.environ.get("RANK", 0))
@@ -89,12 +99,14 @@ def init_distributed(device, backend: Optional[str] = None,
 def make_mesh(n_data: Optional[int] = None, n_model: int = 1,
               device_type: str = "cpu"):
     """A ``DeviceMesh`` over the process group with dims ("data",
-    "model"); ``n_data`` defaults to the world size over ``n_model``."""
+    "model"), rank r at (r // n_model, r % n_model); ``n_data`` defaults
+    to the world size over ``n_model``. A shape that does not factor the
+    world is refused."""
     from torch.distributed.device_mesh import DeviceMesh
 
-    if n_model > 1:
-        raise NotImplementedError(MODEL_AXIS)
     world = dist.get_world_size()
+    if n_model < 1 or (n_data is not None and n_data < 1):
+        raise ValueError(f"a mesh of {n_data} x {n_model}")
     if n_data is None:
         n_data = world // n_model
     if n_data * n_model != world:
@@ -109,6 +121,16 @@ def data_group(mesh_or_group):
     if hasattr(mesh_or_group, "get_group"):
         return mesh_or_group.get_group("data")
     return mesh_or_group
+
+
+def model_group(mesh_or_group):
+    """The process group of the ``model`` axis of a ``DeviceMesh``, or None
+    where that axis has one rank (and for a bare process group or None:
+    data parallel only)."""
+    if hasattr(mesh_or_group, "get_group") and \
+            mesh_or_group.shape[mesh_or_group.mesh_dim_names.index("model")] > 1:
+        return mesh_or_group.get_group("model")
+    return None
 
 
 def rank_world(group) -> tuple:

@@ -10,6 +10,10 @@ with a generator seeded ``init_device_seed`` on the rank's device (the
 model built there): the same on every rank and in a caller that draws
 them so. ``pass_dropout_`` makes a model's dropout pass its input through,
 for the checks that hold runs with different dropout streams together.
+``n_model`` (default 1) in a spec makes the mesh (world / n_model,
+n_model): the UNet's transformer blocks are then sharded over the model
+axis (``parallel/tensor.py``), and what a rank returns of the weights,
+gradients and optimizer state is gathered whole.
 """
 
 from __future__ import annotations
@@ -94,13 +98,42 @@ def _cpu(d: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
 
 def owned_state(state) -> Dict[str, Dict[str, torch.Tensor]]:
     """This rank's optimizer state by trainable name, on the CPU (under a
-    group, that of the ``ZeroRedundancyOptimizer``'s local optimizer)."""
-    params = {id(p): n for n, p in state.train_params.items()}
+    group, that of the ``ZeroRedundancyOptimizer``'s local optimizer);
+    under a model group of a data group of one, every tensor whole."""
     local = getattr(state.optimizer, "optim", state.optimizer)
-    return {params[id(p)]: {k: (v.detach().cpu().clone()
-                                if torch.is_tensor(v) else v)
-                            for k, v in st.items()}
-            for p, st in local.state.items()}
+    # in trainables order: the local optimizer's follows the owner split's
+    # sort by size, which differs between model ranks of unequal shards
+    out = {n: {k: (v.detach().cpu().clone() if torch.is_tensor(v) else v)
+               for k, v in local.state[p].items()}
+           for n, p in state.train_params.items() if p in local.state}
+    if state.model_group is None:
+        return out
+    from tooncrafter_tpu_torch.parallel import mesh as M
+    from tooncrafter_tpu_torch.parallel import tensor as TP
+    if M.rank_world(state.group)[1] != 1:
+        raise ValueError("owned_state gathers over the model group only "
+                         "where one data rank owns every tensor")
+    lays = TP.layouts(state.model)
+    flat = {(n, k): v for n, st in out.items() for k, v in st.items()
+            if torch.is_tensor(v) and v.ndim}
+    whole = TP.gather_tensors(flat, {k: lays[k[0]] for k in flat
+                                     if k[0] in lays}, state.model_group)
+    for (n, k), v in whole.items():
+        out[n][k] = v
+    return out
+
+
+def whole_params(state, tensors: Dict[str, torch.Tensor]
+                 ) -> Dict[str, torch.Tensor]:
+    """Trainables (or their EMA, or gradients) by name, on the CPU, whole:
+    gathered over the state's model group where there is one (every rank
+    of it calls this)."""
+    from tooncrafter_tpu_torch.parallel import tensor as TP
+
+    if state.model_group is not None:
+        tensors = TP.gather_tensors(tensors, TP.layouts(state.model),
+                                    state.model_group)
+    return _cpu(tensors)
 
 
 def train(d, spec) -> dict:
@@ -112,9 +145,10 @@ def train(d, spec) -> dict:
       * for each (label, steps[, TrainConfig overrides]) of ``profiles``
         (the optimizer profile is the label unless overridden): from the
         initial weights, ``steps`` steps with EMA on draws from one
-        generator seeded ``gen_seed`` (the same on every rank), a digest of
-        the trainables after each step and, on rank 0 with
-        ``return_params``, the trainables after the last;
+        generator seeded ``gen_seed`` (the same on every rank; or every step
+        on ``profile_draws``, the global batch's), a digest of the
+        trainables after each step and, on rank 0 with ``return_params``,
+        the trainables after the last;
       * ``save_dir``: after the first profile, a checkpoint written by
         every rank, and this rank's owned optimizer state and the EMA;
       * ``owned``: the names of the trainables this rank's optimizer owns;
@@ -129,16 +163,19 @@ def train(d, spec) -> dict:
     from tooncrafter_tpu_torch.training import trainer as T
     from tooncrafter_tpu_torch.utils import kernel_check as kc
 
+    from tooncrafter_tpu_torch.parallel import tensor as TP
+
     dev = d.device
     clock = _Clock(dev)
-    mesh = M.make_mesh(device_type=dev.type)
+    mesh = M.make_mesh(n_model=spec.get("n_model", 1), device_type=dev.type)
     model = _model(spec, dev)
     if spec.get("pass_dropout"):
         pass_dropout_(model)
     init = {k: v.detach().clone() for k, v in model.state_dict().items()}
     clock("build")
-    b = spec["batch"]["video"].shape[0] // d.world
-    rows = slice(d.rank * b, (d.rank + 1) * b)
+    drank, dworld = M.rank_world(M.data_group(mesh))
+    b = spec["batch"]["video"].shape[0] // dworld
+    rows = slice(drank * b, (drank + 1) * b)
     batch = {k: v[rows].to(dev) for k, v in spec["batch"].items()}
     tcfg = T.TrainConfig(**spec.get("train_config", {}))
     out = {"rank": d.rank, "world": d.world, "mesh": dict(zip(
@@ -153,7 +190,7 @@ def train(d, spec) -> dict:
         return dataclasses.replace(tcfg, **over)
 
     def fresh(pcfg):
-        model.load_state_dict(init)
+        TP.unshard_(model, init)
         return T.make_train_state(model, pcfg, use_ema=True, group=mesh)[0]
 
     if "first_draws" in spec:
@@ -163,12 +200,13 @@ def train(d, spec) -> dict:
         metrics, grads = T.loss_and_grads(model, tcfg, state, batch,
                                           draws=draws)
         clock("first loss and backward")
-        M.all_reduce_mean_(grads, state.group)
+        T.reduce_grads_(state, grads)
         clock("first all-reduce")
         out["first_loss"] = float(T.mean_metrics(metrics, state.group)["loss"])
+        whole = whole_params(state, {n: g.detach().float() for n, g in
+                                     zip(state.train_params, grads)})
         if d.rank == 0:
-            out["grads"] = {n: g.detach().float().cpu() for n, g in
-                            zip(state.train_params, grads)}
+            out["grads"] = whole
         out["grads_digest"] = param_digest(grads)
         clock("digest")
         del grads
@@ -178,13 +216,16 @@ def train(d, spec) -> dict:
         state = fresh(pcfg)
         clock("state")
         step_fn = T.make_train_step(model, state.optimizer, pcfg)
-        gen = torch.Generator(dev).manual_seed(spec["gen_seed"])
+        gen = torch.Generator(dev).manual_seed(spec.get("gen_seed", 0))
+        pdraws = spec.get("profile_draws")
+        if pdraws is not None:
+            pdraws = {k: v.to(dev) for k, v in pdraws.items()}
         digests, seconds, losses = [], [], []
         for _ in range(steps):
             if dev.type == "cuda":
                 torch.cuda.synchronize()
             t0 = time.perf_counter()
-            _, metrics = step_fn(state, batch, gen)
+            _, metrics = step_fn(state, batch, gen, pdraws)
             if dev.type == "cuda":
                 torch.cuda.synchronize()
             seconds.append(time.perf_counter() - t0)
@@ -193,8 +234,10 @@ def train(d, spec) -> dict:
             digests.append(param_digest(list(state.train_params.values())))
             clock("digest")
         rec = {"digests": digests, "seconds": seconds, "losses": losses}
-        if d.rank == 0 and spec.get("return_params"):
-            rec["params"] = _cpu(state.train_params)
+        if spec.get("return_params"):
+            params = whole_params(state, state.train_params)
+            if d.rank == 0:
+                rec["params"] = params
         out["profiles"][name] = rec
         local = getattr(state.optimizer, "optim", state.optimizer)
         mine = {id(p) for g in local.param_groups for p in g["params"]}
@@ -202,16 +245,18 @@ def train(d, spec) -> dict:
                         if id(p) in mine]
         if i == 0 and spec.get("save_dir"):
             CKPT.save_train_state(spec["save_dir"], state.step, state)
-            out["saved"] = {"opt": owned_state(state),
-                            "ema": _cpu(state.ema_params)}
+            out["saved"] = {"ema": whole_params(state, state.ema_params)}
+            if state.model_group is None or dworld == 1:
+                out["saved"]["opt"] = owned_state(state)
             clock("checkpoint")
     if spec.get("restore_dir"):
         state = fresh(config(spec["profiles"][0]) if spec.get("profiles")
                       else tcfg)
         _, step = CKPT.restore_train_state(spec["restore_dir"], state)
-        out["restored"] = {"step": step, "params": _cpu(state.train_params),
+        out["restored"] = {"step": step,
+                           "params": whole_params(state, state.train_params),
                            "opt": owned_state(state),
-                           "ema": _cpu(state.ema_params)}
+                           "ema": whole_params(state, state.ema_params)}
     out["launches"] = kc.launch_counts()
     out["clock"] = clock.spent
     if dev.type == "cuda":
@@ -234,14 +279,15 @@ def serve(d, spec) -> dict:
     from tooncrafter_tpu_torch.utils import kernel_check as kc
 
     dev = d.device
-    mesh = M.make_mesh(device_type=dev.type)
+    mesh = M.make_mesh(n_model=spec.get("n_model", 1), device_type=dev.type)
     model = _model(spec, dev)
     if dev.type == "cuda":
         model.to_compute_dtype()
     model.eval()
     kw = dict(spec.get("pipeline", {}))
     guidance = GuidanceConfig(**kw.pop("guidance", {}))
-    srv = BatchedPipeline(Pipeline(model, guidance=guidance, **kw), mesh)
+    srv = BatchedPipeline(Pipeline(model, guidance=guidance, **kw), mesh,
+                          shard_params=spec.get("n_model", 1) > 1)
     srv.place_params()
     video, tokens, null, fs = (t.to(dev) for t in spec["inputs"])
     x_T = spec.get("x_T")
@@ -255,7 +301,8 @@ def serve(d, spec) -> dict:
     if dev.type == "cuda":
         torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    mine = M.batch_slice(video.shape[0], d.rank, d.world)
+    mine = M.batch_slice(video.shape[0],
+                         *M.rank_world(M.data_group(mesh)))
     out = {"rank": d.rank, "clips_here": mine.stop - mine.start,
            "seconds": seconds, "launches": kc.launch_counts(),
            "digest": param_digest([clips]),
@@ -273,4 +320,75 @@ def relative_l2(a: Dict[str, torch.Tensor], b: Dict[str, torch.Tensor]
     fa = torch.cat([a[k].double().flatten() for k in b])
     fb = torch.cat([b[k].double().flatten() for k in b])
     return float((fa - fb).norm() / fb.norm().clamp_min(1e-300))
+
+
+
+def unet_forward(d, spec) -> dict:
+    """One UNet call with the UNet's transformer blocks sharded over the
+    model axis of a (world / ``n_model``, ``n_model``) mesh: every rank
+    builds the model (``spec``'s weights, the same on every rank) in its
+    config's compute dtype (bf16 on CUDA), keeps its shard, checks that the state dict gathered from every
+    rank's shards is its own whole one bit for bit, and runs
+    ``spec['inputs']`` (x, timesteps,
+    context, fs: CPU tensors) with ``cfg_groups``. Returns the output (rank
+    0, CPU fp32), its digest (every rank), whether the gather matched, a
+    few local weight shapes, the seconds and the kernel launches of the
+    call."""
+    from tooncrafter_tpu_torch.parallel import mesh as M
+    from tooncrafter_tpu_torch.parallel import tensor as TP
+    from tooncrafter_tpu_torch.utils import kernel_check as kc
+
+    dev = d.device
+    mesh = M.make_mesh(n_model=spec["n_model"], device_type=dev.type)
+    model = _model(spec, dev).to_compute_dtype().eval()
+    whole = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    TP.shard_(model, mesh)
+    gathered = TP.gather_state_dict(model)
+    same = (list(gathered) == list(whole)
+            and all(torch.equal(gathered[k], whole[k]) for k in whole))
+    del gathered, whole
+    x, ts, ctx, fs = (t.to(dev) for t in spec["inputs"])
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    kc.reset_launch_counts()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        out = model.unet(x, ts, ctx, fs, cfg_groups=spec.get("cfg_groups", 1))
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = kc.launch_counts()
+    shapes = {k: tuple(p.shape) for k, p in model.named_parameters()
+              if k in spec.get("report_shapes", ())}
+    res = {"rank": d.rank, "gather_equal": same, "seconds": seconds,
+           "launches": launches, "digest": param_digest([out]),
+           "shapes": shapes,
+           "mesh": dict(zip(mesh.mesh_dim_names, mesh.shape))}
+    if d.rank == 0:
+        res["out"] = out.float().cpu()
+    return res
+
+
+def cli_train(d, argv) -> dict:
+    """``cli/train.py`` with ``argv`` on this rank, in the group the rank
+    has joined (as under torchrun). Returns the rank."""
+    from tooncrafter_tpu_torch.cli import train as cli
+
+    cli.main(list(argv))
+    return {"rank": d.rank}
+
+
+def mesh_layout(d, n_data, n_model) -> dict:
+    """``make_mesh(n_data, n_model)`` on this rank: the mesh's shape and
+    the global ranks of this rank's data and model groups (None: no model
+    group)."""
+    import torch.distributed as dist
+
+    from tooncrafter_tpu_torch.parallel import mesh as M
+
+    mesh = M.make_mesh(n_data, n_model, device_type=d.device.type)
+    mg = M.model_group(mesh)
+    return {"shape": dict(zip(mesh.mesh_dim_names, mesh.shape)),
+            "data": dist.get_process_group_ranks(M.data_group(mesh)),
+            "model": None if mg is None else dist.get_process_group_ranks(mg)}
 

@@ -8,6 +8,14 @@ and the clips are all-gathered, so every rank returns the whole batch in
 order and a clip does not depend on the world size. Ragged batches are
 served: a rank's slice may be shorter (or empty), and the gather pads
 every slice to the longest and trims it.
+
+With ``shard_params`` (the JAX ``BatchedPipeline(shard_params=True)``) and
+a mesh whose model axis has more than one rank, ``place_params`` gives
+every rank global rank 0's weights and then shards the UNet's transformer
+blocks over the model group (``parallel/tensor.py``). The ranks of one
+model group serve the same clips with the same per-clip generators, so
+their outputs are equal; the clips are split and gathered over the data
+group only.
 """
 
 from __future__ import annotations
@@ -15,22 +23,35 @@ from __future__ import annotations
 from typing import Optional, Sequence
 
 import torch
+import torch.distributed as dist
 
 from tooncrafter_tpu_torch.parallel import mesh as M
+from tooncrafter_tpu_torch.parallel import tensor as TP
 from tooncrafter_tpu_torch.utils import rngs as R
 
 
 class BatchedPipeline:
     """Wraps ``models.diffusion.Pipeline`` over a process group (or a
-    ``DeviceMesh``'s ``data`` axis); without one, the pipeline alone."""
+    ``DeviceMesh``'s ``data`` axis, and with ``shard_params`` its ``model``
+    axis); without one, the pipeline alone."""
 
-    def __init__(self, pipeline, group=None):
+    def __init__(self, pipeline, group=None, shard_params: bool = False):
         self.pipe = pipeline
+        self.mesh = group
         self.group = M.data_group(group)
+        self.model_group = M.model_group(group) if shard_params else None
 
     def place_params(self, src: int = 0) -> None:
-        """Every rank takes rank ``src``'s weights and buffers."""
-        M.replicate_(self.pipe.model, src, self.group)
+        """Every rank takes rank ``src``'s weights and buffers (``src``
+        counted in the data group; under ``shard_params`` the global rank),
+        then, under ``shard_params``, keeps its share of the UNet's
+        transformer blocks."""
+        model = self.pipe.model
+        if self.model_group is not None and TP.model_group_of(model) is None:
+            M.replicate_(model, src, dist.group.WORLD)
+            TP.shard_(model, self.mesh)
+        else:  # a sharded model (a trained state) keeps its shards
+            M.replicate_(model, src, self.group)
 
     @torch.no_grad()
     def __call__(self, video, tokens, null_tokens, fs, seed: int = 0,

@@ -74,13 +74,17 @@ def device_memory_stats(device=None) -> Dict[str, float]:
 class VideoSampleLogger:
     """Every ``every_steps``: the full sampling pipeline (DDIM, 2-branch
     CFG, the middle-frame splice) on the probe batch's first clip, with the
-    EMA weights, written as mp4."""
+    EMA weights, written as mp4 (``write``: False samples without writing,
+    for the other ranks of a tensor-parallel model group)."""
 
     def __init__(self, model, logdir: str, every_steps: int = 500,
-                 ddim_steps: int = 25, cfg_scale: float = 7.5):
+                 ddim_steps: int = 25, cfg_scale: float = 7.5,
+                 write: bool = True):
         self.model = model
         self.dir = os.path.join(logdir, "samples")
-        os.makedirs(self.dir, exist_ok=True)
+        self.write = write
+        if write:
+            os.makedirs(self.dir, exist_ok=True)
         self.every = every_steps
         self.ddim_steps = ddim_steps
         self.cfg_scale = cfg_scale
@@ -105,5 +109,7 @@ class VideoSampleLogger:
         with ema_scope(state), autocast(self.model, b["video"].device):
             out = pipe(b["video"], b["tokens"], b["null_tokens"],
                        b["fs"].float(), generator=generator)
+        if not self.write:
+            return None
         path = os.path.join(self.dir, f"step_{step:08d}.mp4")
         return write_video(path, out[0].float().cpu().numpy())

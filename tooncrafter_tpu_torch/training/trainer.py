@@ -32,6 +32,21 @@ whose local optimizer alone holds its state and steps it, then broadcasts
 it. The EMA, the schedule and the step count move on every rank; the
 metrics are the ranks' mean. Without a group nothing of this runs.
 
+Tensor parallel (a ``DeviceMesh`` with a ``model`` axis of more than one
+rank; ``parallel/tensor.py``): every rank takes global rank 0's weights,
+then keeps its share of the UNet's transformer blocks (``shard_``). The
+ranks of one model group take the same batch rows and draws (the data
+axis's), and seed their dropout alike, so the activations they share stay
+equal. After the backward the parameters whose gradient on a model rank is
+that rank's part (the sharded blocks' norms, ``alpha``, the relative
+position tables) are summed over the model group, then every gradient is
+averaged over the data group as above; the clip's global norm counts each
+sharded tensor's pieces once. The optimizer, over the data group, steps a
+rank's shards; AdamW and its low-memory profile are elementwise, so that is
+the whole tensor's update. The factored Adafactor is not: its row and
+column moments would need the model group's sums, and under a model axis
+it is refused. The EMA runs on the shards.
+
 Precision: fp32 master weights; on the card the loss runs under CUDA
 autocast in the model's ``compute_dtype`` (bf16), with fp32 norm
 statistics, as the JAX CLI computes in bf16 on an accelerator. The
@@ -45,9 +60,11 @@ import dataclasses
 from typing import Dict, List, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from tooncrafter_tpu_torch.parallel import mesh as M
+from tooncrafter_tpu_torch.parallel import tensor as TP
 from tooncrafter_tpu_torch.training import lr_schedule as LR
 from tooncrafter_tpu_torch.training import optim
 
@@ -306,6 +323,8 @@ class TrainState:
     # data parallel: the process group (the optimizer is then a
     # ZeroRedundancyOptimizer over it)
     group: Optional[object] = None
+    # tensor parallel: the model group the UNet's blocks are sharded over
+    model_group: Optional[object] = None
 
 
 def make_train_state(model, cfg: TrainConfig, use_ema: bool = False,
@@ -314,9 +333,18 @@ def make_train_state(model, cfg: TrainConfig, use_ema: bool = False,
     joins the trainables as 'logvar' (the reference promotes its buffer to
     a parameter). With ``group`` (a process group or a ``DeviceMesh``)
     every rank takes rank 0's weights and buffers, and its optimizer holds
-    the state of the trainables it owns alone."""
-    group = M.data_group(group)
-    if group is not None:
+    the state of the trainables it owns alone; a mesh with a model axis of
+    more than one rank then shards the UNet's transformer blocks over it."""
+    mgroup = M.model_group(group)
+    mesh, group = group, M.data_group(group)
+    if mgroup is not None:
+        if cfg.optimizer == "adafactor":
+            raise NotImplementedError(
+                "the 'adafactor' profile factors each whole tensor's second "
+                "moment; under a model axis use 'adamw' or 'adamw_lowmem'")
+        M.replicate_(model, 0, dist.group.WORLD)
+        TP.shard_(model, mesh)
+    elif group is not None:
         M.replicate_(model, 0, group)
     train, frozen = split_trainable(model)
     if model.config.learn_logvar and "logvar" not in train:
@@ -329,7 +357,7 @@ def make_train_state(model, cfg: TrainConfig, use_ema: bool = False,
            else None)
     state = TrainState(step=0, model=model, train_params=train,
                        frozen_params=frozen, optimizer=opt, scheduler=sched,
-                       ema_params=ema, group=group)
+                       ema_params=ema, group=group, model_group=mgroup)
     return state, opt
 
 
@@ -398,12 +426,14 @@ def make_val_step(model, cfg: TrainConfig):
 
 def _apply_update(state: TrainState, cfg: TrainConfig,
                   grads: List[torch.Tensor]) -> torch.Tensor:
-    """Reduce (under a group), clip, step the optimizer (under a group each
-    owner steps its tensors and broadcasts them) and the schedule. Returns
-    the global norm of the (reduced) gradients before the clip."""
-    if state.group is not None:
-        M.all_reduce_mean_(grads, state.group)
-    norm = global_norm(grads)
+    """Reduce (under a group; under a model group first the replicated
+    parameters' partial gradients summed over it), clip, step the optimizer
+    (under a group each owner steps its tensors and broadcasts them) and
+    the schedule. Returns the global norm of the (reduced) gradients before
+    the clip."""
+    sharded = reduce_grads_(state, grads)
+    norm = (global_norm(grads) if sharded is None else
+            TP.global_norm(grads, sharded, state.model_group))
     if cfg.grad_clip > 0:
         # optax.clip_by_global_norm: g * max / |g| where |g| >= max
         scale = torch.where(norm < cfg.grad_clip, torch.ones_like(norm),
@@ -417,6 +447,23 @@ def _apply_update(state: TrainState, cfg: TrainConfig,
     for p in params:
         p.grad = None
     return norm
+
+
+def reduce_grads_(state: TrainState,
+                  grads: List[torch.Tensor]) -> Optional[List[bool]]:
+    """In place, the gradients (``train_params`` order) of every rank as
+    one process's: under a model group the replicated parameters' partial
+    gradients summed over it; under a data group the mean over it. Returns,
+    under a model group, which of them are sharded (else None)."""
+    sharded = None
+    if state.model_group is not None:
+        names, partial = TP.grad_roles(state.model)
+        TP.sum_over_model_([g for n, g in zip(state.train_params, grads)
+                            if n in partial], state.model_group)
+        sharded = [n in names for n in state.train_params]
+    if state.group is not None:
+        M.all_reduce_mean_(grads, state.group)
+    return sharded
 
 
 def loss_and_grads(model, cfg: TrainConfig, state: TrainState, batch,

@@ -824,6 +824,84 @@ def fused_cases_1024(dev, seed: int = 0
 
 
 # ---------------------------------------------------------------------------
+# tensor parallelism (parallel/tensor.py): a rank's share of the heads or of
+# the FF width, with the partial out-GEMM (the fp32 accumulator, no bias,
+# no residual, no rounding)
+# ---------------------------------------------------------------------------
+
+# (label, N tokens, C, local D, whole D): the FF at a model rank's half of D
+TP_FF = (("TP ds1", 81920, 320, 640, 1280),
+         ("TP ds4", 5120, 1280, 2560, 5120))
+# (label, P, C, local heads, whole heads): #10 at a rank's heads of the 512
+# model's ds1 (5 heads: 3 + 2 at n_model = 2)
+TP_TATTN = (("TP ds1 3 of 5 heads", 2560, 320, 3, 5),
+            ("TP ds1 2 of 5 heads", 2560, 320, 2, 5))
+
+
+def tp_cases(dev, seed: int = 0) -> List[Tuple[Case, Optional[tuple]]]:
+    """The partial calls of the FF (#7/#8, named by the whole call's D) and
+    of the single temporal stage (#10) at a model rank's local shapes;
+    their plain versions return the same fp32 accumulator."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    out: List[Tuple[Case, Optional[tuple]]] = []
+    for label, n, c, d, whole in TP_FF:
+        x = _rnd(gen, dev, n, c)
+        w1 = _rnd(gen, dev, 2 * d, c, scale=c ** -0.5)
+        b1 = _rnd(gen, dev, 2 * d, scale=0.1)
+        w2 = _rnd(gen, dev, c, d, scale=whole ** -0.5)
+        lw = _rnd(gen, dev, c, scale=0.1, offset=1.0, dtype=torch.float32)
+        lb = _rnd(gen, dev, c, scale=0.1, dtype=torch.float32)
+        ops = (x, w1, b1, w2, None, lw, lb)
+        out.append((Case(
+            ff.kernel_name(n, c, whole, c),
+            f"{label} N={n} C={c} D={d} of {whole} LN, partial (fp32 out)",
+            kernel=lambda o=ops, w=whole: (ff.fused_geglu_ff(
+                *o, 1e-5, partial=True, name_d=w),),
+            reference=lambda o=ops: ff._plain_ff(
+                *(t.float() for t in o[:4]), None, o[5], o[6], 1e-5, False,
+                cdt=torch.bfloat16, partial=True),
+            plain=lambda o=ops: ff._plain_ff(*o, 1e-5, False, partial=True),
+            chain=lambda o=ops: F.linear(
+                (lambda h, g: h * F.gelu(g))(*F.linear(norms.layer_norm(
+                    o[0], o[5], o[6], 1e-5), o[1], o[2]).chunk(2, -1)),
+                o[3]).float(),
+            library=None,
+            flops=2.0 * n * c * 2 * d + 2.0 * n * d * c,
+            nbytes=2.0 * (n * c + 3 * d * c + 2 * d) + 4.0 * n * c + 8.0 * c,
+            reps=(10, 3)), None))
+    for label, p, c, heads, whole in TP_TATTN:
+        bsz, t, inner = 2, 16, heads * ta.HEAD_DIM
+        x = _rnd(gen, dev, bsz, t, p, c)
+        stage = (_rnd(gen, dev, c, scale=0.1, offset=1.0, dtype=torch.float32),
+                 _rnd(gen, dev, c, scale=0.1, dtype=torch.float32),
+                 *(_rnd(gen, dev, inner, c, scale=c ** -0.5)
+                   for _ in range(3)),
+                 _rnd(gen, dev, c, inner, scale=c ** -0.5), None)
+        ref_stage = tuple(None if w is None else w.float() for w in stage)
+        n = bsz * t * p
+        out.append((Case(
+            "_fused_tattn_call",
+            f"{label} B={bsz} T={t} P={p} C={c} inner={inner}, partial "
+            f"(fp32 out)",
+            kernel=lambda x=x, s=stage, h=heads: (ta._fused_tattn_call(
+                x, s, h, 0.125, partial=True),),
+            reference=lambda x=x, s=ref_stage, h=heads: ta._plain_stage(
+                x.float(), s, h, 0.125, 1e-5, torch.bfloat16, partial=True),
+            plain=lambda x=x, s=stage, h=heads: ta._plain_stage(
+                x, s, h, 0.125, 1e-5, x.dtype, partial=True),
+            chain=lambda x=x, s=stage, h=heads: F.linear(
+                attn.temporal_attention_inplace(
+                    *(F.linear(norms.layer_norm(x, s[0], s[1], 1e-5
+                                                ).unsqueeze(3), w)
+                      for w in s[2:5]), heads=h).squeeze(3), s[5]).float(),
+            library=None,
+            flops=8.0 * n * c * inner + 4.0 * n * t * inner,
+            nbytes=2.0 * n * c + 4.0 * n * c + 8.0 * inner * c + 8.0 * c,
+            reps=(10, 3)), None))
+    return out
+
+
+# ---------------------------------------------------------------------------
 # the kernels no model reaches, through their op functions: dual
 # cross-attention (#17), per-channel sums (#18), the ones-column flash (#5)
 # ---------------------------------------------------------------------------
